@@ -1,0 +1,114 @@
+"""Checkpoint conversion for the PyTorch port.
+
+`clip_state_dict_from_jax` turns the JAX package's CLIP parameters (a numpy
+pytree) into the port's OpenAI-CLIP-named state dict. It inverts
+`spn4cir_tpu.models.convert.convert_clip_state_dict`:
+  - per-layer block weights are unstacked from the nn.scan axis
+    (`.../blocks/block/...`, leading axis = layer);
+  - Dense kernels (in, out) become Linear weights (out, in), the fused qkv
+    kernel (d, 3d) becoming `in_proj_weight` (3d, d);
+  - the patch-embedding kernel goes from HWIO to OIHW.
+
+`load_clip_checkpoint` reads an OpenAI / clip4cir `.pt` file; since the port
+keeps OpenAI's names, the state dict loads without conversion.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from spn4cir_tpu_torch.models.clip import CLIPConfig
+
+# keys of an OpenAI jit archive that describe the model rather than hold
+# weights (the OpenAI loader deletes them too)
+_METADATA_KEYS = ("input_resolution", "context_length", "vocab_size")
+
+
+def _tensor(x) -> torch.Tensor:
+    # np.array copies: the state dict must not alias the caller's buffers
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def transformer_state_dict(tree: Mapping, prefix: str = "resblocks"
+                           ) -> Dict[str, torch.Tensor]:
+    """A JAX `Transformer` params tree (scan-stacked under blocks/block) ->
+    the port's `Transformer` entries `{prefix}.{i}.*`."""
+    sd: Dict[str, torch.Tensor] = {}
+    block = tree["blocks"]["block"]
+    n = np.shape(block["ln_1"]["ln"]["scale"])[0]
+
+    def put(name, leaf, transpose=False):
+        arr = np.asarray(leaf)
+        for i in range(n):
+            sd[f"{prefix}.{i}.{name}"] = _tensor(arr[i].T if transpose
+                                                 else arr[i])
+
+    for ln in ("ln_1", "ln_2"):
+        put(f"{ln}.weight", block[ln]["ln"]["scale"])
+        put(f"{ln}.bias", block[ln]["ln"]["bias"])
+    put("attn.in_proj_weight", block["attn"]["qkv"]["kernel"], True)
+    put("attn.in_proj_bias", block["attn"]["qkv"]["bias"])
+    put("attn.out_proj.weight", block["attn"]["out"]["kernel"], True)
+    put("attn.out_proj.bias", block["attn"]["out"]["bias"])
+    put("mlp.c_fc.weight", block["mlp"]["fc"]["kernel"], True)
+    put("mlp.c_fc.bias", block["mlp"]["fc"]["bias"])
+    put("mlp.c_proj.weight", block["mlp"]["proj"]["kernel"], True)
+    put("mlp.c_proj.bias", block["mlp"]["proj"]["bias"])
+    return sd
+
+
+def clip_state_dict_from_jax(params_np: Mapping[str, Any], cfg: CLIPConfig
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX CLIP params ({'params': ...} or the inner tree, numpy leaves) ->
+    the port's state dict (float32 CPU tensors)."""
+    p = params_np.get("params", params_np)
+    if not cfg.is_vit:
+        raise NotImplementedError("ResNet CLIP towers are not ported yet")
+    sd: Dict[str, torch.Tensor] = {}
+    vis, txt = p["visual"], p["text"]
+    sd["visual.conv1.weight"] = _tensor(
+        np.asarray(vis["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
+    sd["visual.class_embedding"] = _tensor(vis["class_embedding"])
+    sd["visual.positional_embedding"] = _tensor(vis["positional_embedding"])
+    sd["visual.ln_pre.weight"] = _tensor(vis["ln_pre"]["ln"]["scale"])
+    sd["visual.ln_pre.bias"] = _tensor(vis["ln_pre"]["ln"]["bias"])
+    sd.update(transformer_state_dict(vis["transformer"],
+                                     "visual.transformer.resblocks"))
+    sd["visual.ln_post.weight"] = _tensor(vis["ln_post"]["ln"]["scale"])
+    sd["visual.ln_post.bias"] = _tensor(vis["ln_post"]["ln"]["bias"])
+    sd["visual.proj"] = _tensor(vis["proj"])
+
+    sd["token_embedding.weight"] = _tensor(txt["token_embedding"])
+    sd["positional_embedding"] = _tensor(txt["positional_embedding"])
+    sd.update(transformer_state_dict(txt["transformer"],
+                                     "transformer.resblocks"))
+    sd["ln_final.weight"] = _tensor(txt["ln_final"]["ln"]["scale"])
+    sd["ln_final.bias"] = _tensor(txt["ln_final"]["ln"]["bias"])
+    sd["text_projection"] = _tensor(txt["text_projection"])
+    sd["logit_scale"] = _tensor(p["logit_scale"])
+    return sd
+
+
+def load_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read an OpenAI CLIP / clip4cir checkpoint into a float32 state dict.
+
+    Accepts a jit archive, a raw state dict, or the {'CLIP': sd} /
+    {'state_dict': sd} wrappers, with or without a 'clip.' key prefix."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except RuntimeError:  # OpenAI's releases are TorchScript archives
+        obj = torch.jit.load(path, map_location="cpu")
+    if hasattr(obj, "state_dict"):
+        sd = obj.state_dict()
+    elif isinstance(obj, dict) and "state_dict" in obj:
+        sd = obj["state_dict"]
+    elif isinstance(obj, dict) and "CLIP" in obj:
+        sd = obj["CLIP"]
+    else:
+        sd = obj
+    return {(k[len("clip."):] if k.startswith("clip.") else k):
+            v.detach().to(torch.float32)
+            for k, v in sd.items() if k not in _METADATA_KEYS}
