@@ -7,21 +7,40 @@ Phases (one line or more each; any failure is an uncaught exception and a
 non-zero exit):
   1. device: CUDA must be present; prints the card and its power limit and
      turns TF32 off for the comparisons;
-  2. build: compiles the port's CUDA kernels from csrc/ with nvcc;
+  2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
+     per source, started together;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the serving path's shapes, in bfloat16 and float32, with times;
-  4. slice: `spn4cir_tpu_torch.cli.serve.serve_main` indexes a 2048-image
-     synthetic CIRR gallery with ViT-B/32 in bf16 (random weights from seed
-     0) and serves it over HTTP; 64 concurrent /retrieve requests (two
-     rounds) and 32 sequential ones must return valid, reference-excluded,
+     the shapes of the serving and training paths, in bfloat16 and float32,
+     with the kernel's time, the plain version's, the time of the PyTorch
+     library call that computes the same function (a yardstick only) and
+     the bound (the larger of bytes / 3.35 TB/s and operations / peak);
+  4. serving slice: `spn4cir_tpu_torch.cli.serve.serve_main` indexes a
+     2048-image synthetic CIRR gallery with ViT-B/32 in bf16 (random weights
+     from seed 0) and serves it over HTTP; concurrent and sequential
+     /retrieve requests must return valid, reference-excluded,
      score-ordered results; the launch counter must show the kernel ran in
      every attention layer of both towers; 8 queries re-scored with the
-     plain attention must keep their top-1.
+     plain attention must keep their top-1;
+  5. training slice, entry point: `spn4cir_tpu_torch.cli.train.train_main`
+     on the same fixture (ViT-B/32 bf16, batch 256): bank extraction on the
+     card, one epoch of optimizer steps, a validation, the best checkpoint
+     written and read back. The loss of the first batch must fall, the
+     image tower and logit_scale must come out bit-identical, the text side
+     must move, and the launch counters must equal 12 attention forwards +
+     12 backwards + 1 bank forward + 1 bank backward per step (plus the
+     forwards of extraction and validation);
+  6. training slice, recipe scale: `train_epoch` over a synthetic bank of
+     65,536 unit rows (float32, then bfloat16) at batch 256: ms/step, then a
+     profiler window over further steps for each bank type (device busy,
+     idle share, device operations per step, and the device time of the
+     bank and attention kernels cut from the step's own trace);
+  7. one loss and gradient computed twice in float32, through the kernels
+     and through the plain versions, must agree.
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
-shared CLIP tokenizer built from a synthetic merges table
+port's CLIP tokenizer built from a synthetic merges table
 (tests/torch_fixtures.py), written to a temporary file that
 SPN4CIR_BPE_VOCAB points at.
 """
@@ -29,10 +48,13 @@ SPN4CIR_BPE_VOCAB points at.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -46,18 +68,43 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # tolerances of the kernel-vs-plain comparisons (phase 3)
-F32_TOL = 1e-5   # float32: only the summation order differs
+F32_TOL = 1e-5   # attention forward, float32: only the summation order differs
 BF16_TOL = 2e-2  # bf16: P is rounded to bf16 before P·V in both versions
+# attention backward: float32 sums of up to 77 products in another order;
+# bf16: P, dS (and, under autograd through the plain forward, dP) are
+# rounded to bf16 at slightly different places and the outputs are bf16
+BWD_F32_TOL = 1e-4
+BWD_BF16_TOL = 5e-2
+# bank InfoNCE: float32 sums over up to 65,536 bank rows in another order
+BANK_RTOL = 1e-4
+BANK_DQ_ATOL = 1e-6
+# one training loss through the kernels vs through the plain versions,
+# float32, twelve layers deep
+STEP_TOL = 2e-4
+
+# the card's published peaks (H100 SXM): HBM bytes/s, dense FLOP/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 VISION = dict(name="vision", bh=256 * 12, s=50, d=64, causal=False)
 TEXT = dict(name="text", bh=32 * 8, s=77, d=64, causal=True)
+TRAIN_TEXT = dict(name="train-text", bh=256 * 8, s=77, d=64, causal=True)
 
 N_GALLERY = 2048
+N_TRAIN = 1280
+N_VAL = 64
 ENCODE_BATCH = 256
 SERVE_BATCH = 32
 N_CONCURRENT = 64
 N_SEQUENTIAL = 32
 K = 10
+TRAIN_BATCH = 256
+BANK_DIM = 512
+BANK_SIZES = (2049, 65536)
+RECIPE_BANK = 65536
+RECIPE_STEPS = 10
+PROFILE_STEPS = 4
+TAU = 0.02
 CAPTIONS = ("make it like number 7 but red", "is darker and has longer sleeves",
             "the dress is shorter with a floral print",
             "change the dog to a cat sitting on the grass")
@@ -100,12 +147,61 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def check_kernels(ak, device, card):
-    """Phase 3: short_attention against its plain version, per shape and
+def bound_ms(n_bytes: float, n_flops: float, dtype) -> tuple:
+    """(least ms the card could take, 'bytes' or 'operations')."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def attention_bound(shape, dtype, n_tensors: int, n_products: int) -> tuple:
+    """q, k, v, (dO) read once and the outputs written once; each product
+    is 2·pairs·D operations per slice, pairs = S² or, causal, S(S+1)/2."""
+    bh, s, d = shape["bh"], shape["s"], shape["d"]
+    pairs = s * (s + 1) // 2 if shape["causal"] else s * s
+    n_bytes = n_tensors * bh * s * d * torch.empty((), dtype=dtype).element_size()
+    return bound_ms(n_bytes, n_products * 2 * pairs * d * bh, dtype)
+
+
+def build_kernels(cuda_build) -> None:
+    """Phase 2: one nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    names = ("short_attention", "bank_infonce")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futs = [pool.submit(cuda_build.build_library, n, [f"{n}.cu"], True)
+                for n in names]
+        libs = [f.result() for f in futs]
+    phase(f"built {', '.join(os.path.relpath(l, REPO) for l in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    for lib in libs:
+        entry = ""
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                # drop the anonymous namespace's prefix of the mangled name
+                entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+",
+                               "", line.split("'")[1])[:60]
+            elif "registers" in line or ("spill" in line and
+                                         "0 bytes spill stores" not in line):
+                phase(f"ptxas {lib.name.split('-')[0]}: {line.strip()} "
+                      f"[{entry}]")
+
+
+def sdpa(q, k, v, causal):
+    """The PyTorch library call for the same function (yardstick only)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[None], k[None], v[None], is_causal=causal, scale=1.0)[0]
+
+
+def check_attention_fwd(ak, device, card):
+    """Phase 3a: short_attention against its plain version, per shape and
     dtype; returns one record per comparison."""
     g = torch.Generator(device=device).manual_seed(0)
     records = []
-    for shape in (VISION, TEXT):
+    for shape in (VISION, TEXT, TRAIN_TEXT):
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
             q, k, v = (torch.randn(bh, s, d, generator=g, device=device,
@@ -121,15 +217,155 @@ def check_kernels(ak, device, card):
                 ms = median_ms(lambda: ak.short_attention(q, k, v, causal))
                 plain_ms = median_ms(
                     lambda: ak.short_attention_reference(q, k, v, causal))
+                library_ms = median_ms(lambda: sdpa(q, k, v, causal))
+            b_ms, b_by = attention_bound(shape, dtype, 4, 2)
             rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
-                       causal=causal, dtype=str(dtype).replace("torch.", ""),
-                       tol=tol, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                       causal=causal, dtype=dtype_name(dtype), tol=tol,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
             records.append(rec)
             phase(f"kernel short_attention {rec['tower']} {rec['shape']} "
                   f"causal={causal} {rec['dtype']}: max_abs_err={err:.3e} "
                   f"(atol=rtol={tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms [{card}]")
+                  f"ms, library (SDPA) {library_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms by {b_by} [{card}]")
     return records
+
+
+def check_attention_bwd(ak, device, card):
+    """Phase 3b: short_attention_bwd against the plain backward and against
+    autograd through the plain forward."""
+    g = torch.Generator(device=device).manual_seed(1)
+    records = []
+    for shape in (TRAIN_TEXT, VISION):
+        for dtype, tol in ((torch.bfloat16, BWD_BF16_TOL),
+                           (torch.float32, BWD_F32_TOL)):
+            bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
+            q, k, v, do = (torch.randn(bh, s, d, generator=g, device=device,
+                                       dtype=dtype) for _ in range(4))
+            q = q * d ** -0.5
+            got = ak.short_attention_bwd(q, k, v, do, causal)
+            torch.cuda.synchronize()
+            want = ak.short_attention_bwd_reference(q, k, v, do, causal)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(
+                ak.short_attention_reference(*leaves, causal), leaves, do)
+            err = 0.0
+            for a, b, c in zip(got, want, auto):
+                torch.testing.assert_close(a.float(), b.float(), atol=tol,
+                                           rtol=tol)
+                torch.testing.assert_close(a.float(), c.float(), atol=tol,
+                                           rtol=tol)
+                err = max(err, (a.float() - b.float()).abs().max().item())
+            ms = median_ms(lambda: ak.short_attention_bwd(q, k, v, do, causal))
+            plain_ms = median_ms(
+                lambda: ak.short_attention_bwd_reference(q, k, v, do, causal))
+            lib_out = sdpa(*leaves, causal)
+            library_ms = median_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True))
+            b_ms, b_by = attention_bound(shape, dtype, 7, 5)
+            rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
+                       causal=causal, dtype=dtype_name(dtype), tol=tol,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+            records.append(rec)
+            phase(f"kernel short_attention_bwd {rec['tower']} {rec['shape']} "
+                  f"causal={causal} {rec['dtype']}: max_abs_err={err:.3e} vs "
+                  f"plain backward, also within atol=rtol={tol} of autograd "
+                  f"through the plain forward; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (SDPA backward) "
+                  f"{library_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} [{card}]")
+    return records
+
+
+def unit_rows(n, d, generator, device):
+    return torch.nn.functional.normalize(
+        torch.randn(n, d, generator=generator, device=device), dim=-1)
+
+
+def check_bank_case(bk, q, bank, labels, card, time_it=True):
+    """bank_infonce_fwd / _bwd against their plain versions on one case:
+    the four statistics, the loss, dtau and dQ; returns (fwd, bwd) records."""
+    b, d = q.shape
+    m = bank.shape[0]
+    gout = torch.tensor(1.0, device=q.device)
+    loss, stats, dtau = bk.bank_infonce_fwd(q, bank, labels, TAU)
+    dq = bk.bank_infonce_bwd(q, bank, labels, TAU, stats[0], stats[1], gout)
+    torch.cuda.synchronize()
+    want = bk.bank_infonce_stats_reference(q, bank, labels, TAU)
+    want_loss = bk.bank_infonce_reference(q, bank, labels, TAU)
+    want_dq = bk.bank_infonce_bwd_reference(q, bank, labels, TAU, want[0],
+                                            want[1], gout)
+    for got_s, want_s in zip(stats, want):
+        torch.testing.assert_close(got_s, want_s, atol=BANK_RTOL,
+                                   rtol=BANK_RTOL)
+    torch.testing.assert_close(loss, want_loss, atol=BANK_RTOL, rtol=BANK_RTOL)
+    torch.testing.assert_close(dtau, bk.dtau_from_stats(want, TAU),
+                               atol=10 * BANK_RTOL, rtol=BANK_RTOL)
+    torch.testing.assert_close(dq, want_dq, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
+    # every sum has a fixed order: a second launch gives the same bits
+    loss2, _, _ = bk.bank_infonce_fwd(q, bank, labels, TAU)
+    dq2 = bk.bank_infonce_bwd(q, bank, labels, TAU, stats[0], stats[1], gout)
+    assert torch.equal(loss, loss2) and torch.equal(dq, dq2), "not repeatable"
+    fwd_err = max((a - b_).abs().max().item() for a, b_ in zip(stats, want))
+    fwd_err = max(fwd_err, (loss - want_loss).abs().item())
+    bwd_err = (dq - want_dq).abs().max().item()
+    item = bank.element_size()
+    common = dict(shape=f"B={b}, M={m}, D={d}", dtype=dtype_name(bank.dtype))
+    # float32 products (the bank is widened), so the float32 peak applies
+    f_ms, f_by = bound_ms(b * d * 4 + m * d * item + b * 4 + 4 * b * 4 + 8,
+                          2 * b * m * d, torch.float32)
+    b_ms, b_by = bound_ms(2 * b * d * 4 + m * d * item + b * 4 + 2 * b * 4 + 4,
+                          4 * b * m * d, torch.float32)
+    fwd = dict(common, tol=BANK_RTOL, max_abs_err=fwd_err, bound_ms=f_ms,
+               bound_by=f_by)
+    bwd = dict(common, tol=BANK_RTOL, max_abs_err=bwd_err, bound_ms=b_ms,
+               bound_by=b_by)
+    if time_it:
+        ce = torch.nn.functional.cross_entropy
+        fwd["ms"] = median_ms(lambda: bk.bank_infonce_fwd(q, bank, labels, TAU))
+        fwd["plain_ms"] = median_ms(
+            lambda: bk.bank_infonce_stats_reference(q, bank, labels, TAU))
+        fwd["library_ms"] = median_ms(
+            lambda: ce(q @ bank.float().T / TAU, labels))
+        bwd["ms"] = median_ms(lambda: bk.bank_infonce_bwd(
+            q, bank, labels, TAU, stats[0], stats[1], gout))
+        bwd["plain_ms"] = median_ms(lambda: bk.bank_infonce_bwd_reference(
+            q, bank, labels, TAU, want[0], want[1], gout))
+        leaf = q.clone().requires_grad_()
+        lib_loss = ce(leaf @ bank.float().T / TAU, labels)
+        bwd["library_ms"] = median_ms(lambda: torch.autograd.grad(
+            lib_loss, leaf, retain_graph=True))
+    for name, rec in (("bank_infonce_fwd", fwd), ("bank_infonce_bwd", bwd)):
+        times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                 f"library (matmul + cross_entropy"
+                 f"{' backward' if name.endswith('bwd') else ''}) "
+                 f"{rec['library_ms']:.4f} ms, " if time_it else "")
+        phase(f"kernel {name} {rec['shape']} bank {rec['dtype']}: "
+              f"max_abs_err={rec['max_abs_err']:.3e} (rtol={BANK_RTOL}), "
+              f"repeatable; {times}bound {rec['bound_ms']:.5f} ms by "
+              f"{rec['bound_by']} [{card}]")
+    return fwd, bwd
+
+
+def check_bank(bk, device, card):
+    """Phase 3c: the bank kernels at (B=256, D=512) x M x bank dtype."""
+    g = torch.Generator(device=device).manual_seed(2)
+    fwd_records, bwd_records = [], []
+    for m in BANK_SIZES:
+        q = unit_rows(TRAIN_BATCH, BANK_DIM, g, device)
+        bank32 = unit_rows(m, BANK_DIM, g, device)
+        labels = torch.randint(0, m, (TRAIN_BATCH,), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            fwd, bwd = check_bank_case(bk, q, bank32.to(dtype), labels, card)
+            fwd_records.append(fwd)
+            bwd_records.append(bwd)
+    # a row count that is no multiple of the row tile
+    q = unit_rows(5, BANK_DIM, g, device)
+    labels = torch.randint(0, 2049, (5,), generator=g, device=device)
+    check_bank_case(bk, q, unit_rows(2049, BANK_DIM, g, device), labels, card,
+                    time_it=False)
+    return fwd_records, bwd_records
 
 
 def post(port: int, payload: dict):
@@ -157,17 +393,14 @@ def pct(values, q: float) -> float:
     return vals[min(len(vals) - 1, int(math.ceil(q * len(vals))) - 1)]
 
 
-def drive_slice(ak, layers, tmp, card):
+def drive_serving(ak, layers, root, card):
     """Phase 4: the serving CLI end to end, then the checks."""
     import numpy as np
 
-    from spn4cir_tpu.data.datasets import CIRDataset
     from spn4cir_tpu_torch.cli.serve import serve_main
+    from spn4cir_tpu_torch.data.datasets import CIRDataset
     from spn4cir_tpu_torch.eval.retrieval import extract_index_features
-    make_cirr = load_test_module("fixtures").make_cirr
 
-    root = make_cirr(os.path.join(tmp, "cirr"), n_images=N_GALLERY,
-                     extended=False)
     argv = ["--dataset", "cirr", "--data_path", root,
             "--clip-model-name", "ViT-B/32", "--bf16", "--seed", "0",
             "--batch-size", str(ENCODE_BATCH), "--serve_batch",
@@ -218,8 +451,8 @@ def drive_slice(ak, layers, tmp, card):
     encode_batches = math.ceil(N_GALLERY / ENCODE_BATCH)
     want = (cfg.vision_layers * encode_batches
             + cfg.transformer_layers * dispatches)
-    phase(f"slice: {len(names)} images indexed in {encode_batches} encode "
-          f"batches, {2 * N_CONCURRENT + N_SEQUENTIAL} queries in "
+    phase(f"serving slice: {len(names)} images indexed in {encode_batches} "
+          f"encode batches, {2 * N_CONCURRENT + N_SEQUENTIAL} queries in "
           f"{dispatches} fuse dispatches; short_attention launches "
           f"{launches} (want {cfg.vision_layers}*{encode_batches} + "
           f"{cfg.transformer_layers}*{dispatches} = {want})")
@@ -315,8 +548,381 @@ def drive_slice(ak, layers, tmp, card):
           f"{stats['sequential_p50_ms']:.2f} ms, p99 "
           f"{stats['sequential_p99_ms']:.2f} ms; fuse of {SERVE_BATCH} "
           f"queries {fuse_ms:.3f} ms on the device [{card}]")
-    phase("slice stats " + json.dumps(stats))
+    phase("serving slice stats " + json.dumps(stats))
     return launches
+
+
+class Tee(io.TextIOBase):
+    """Writes go to the terminal and into a buffer that is parsed after."""
+
+    def __init__(self, stream):
+        self.stream, self.buffer_ = stream, io.StringIO()
+
+    def write(self, text):
+        self.stream.write(text)
+        return self.buffer_.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def counters(ak, bk):
+    return dict(short_attention=ak.short_attention,
+                short_attention_bwd=ak.short_attention_bwd,
+                bank_infonce_fwd=bk.bank_infonce_fwd,
+                bank_infonce_bwd=bk.bank_infonce_bwd)
+
+
+def drive_training_cli(ak, bk, root, tmp, card):
+    """Phase 5: `train_main` through its argv, then the checks. Returns the
+    launch counts of the run."""
+    from spn4cir_tpu_torch.bank.bank import Bank
+    from spn4cir_tpu_torch.cli import common, train
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_bank
+    from spn4cir_tpu_torch.utils.checkpoint import load_model
+    from spn4cir_tpu_torch.utils.seeding import seed_everything
+
+    out = os.path.join(tmp, "train_run")
+    argv = ["--dataset", "cirr", "--data_path", root, "--clip-model-name",
+            "ViT-B/32", "--bf16", "--seed", "0", "--batch-size",
+            str(TRAIN_BATCH), "--num-epochs", "1", "--output_path", out]
+
+    # ---- the main path, counted (no --device: cuda:0 is the default) ----
+    count = counters(ak, bk)
+    for fn in count.values():
+        fn.launches = 0
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        best = train.train_main("clip", argv, log_every=1,
+                                **train.CLIP4CIR_DEFAULTS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in count.items()}
+
+    losses = [json.loads(line)["loss"]
+              for line in tee.buffer_.getvalue().splitlines()
+              if line.startswith('{"step"')]
+    steps = N_TRAIN // TRAIN_BATCH
+    assert len(losses) == steps >= 4, (len(losses), steps)
+    assert all(math.isfinite(x) for x in losses), losses
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        args = common.base_parser(**train.CLIP4CIR_DEFAULTS).parse_args(argv)
+        common.finalize_args(args)
+    fresh = common.make_backbone("clip", args)
+    common.load_or_init_params(fresh, args, seed_everything(args.seed))
+    trained = common.make_backbone("clip", args)
+    _, meta = load_model(os.path.join(out, "best.pt"), trained.model)
+    assert meta["epoch"] == 0 and meta["score"] == best > 0.0, (meta, best)
+    cfg = trained.cfg
+
+    preprocess = common.make_transform(trained, args)
+    ds = CIRDataset("cirr", "train", "relative", preprocess, root,
+                    args.dress_types, extend_suffix=trained.extend_suffix,
+                    seed=args.seed, replace_extended=trained.replace_extended)
+    m = ds.num_unique_images
+    extract_batches = math.ceil(m / TRAIN_BATCH)
+    val_gallery_batches = math.ceil(N_GALLERY / 32)
+    val_query_batches = math.ceil(N_VAL / 32)
+    want = dict(
+        short_attention=(cfg.transformer_layers * steps
+                         + cfg.vision_layers * extract_batches
+                         + cfg.vision_layers * val_gallery_batches
+                         + cfg.transformer_layers * val_query_batches),
+        short_attention_bwd=cfg.transformer_layers * steps,
+        bank_infonce_fwd=steps, bank_infonce_bwd=steps)
+    phase(f"training slice (train_main, ViT-B/32 bf16, batch {TRAIN_BATCH}): "
+          f"bank of {m} images in {extract_batches} encode batches, {steps} "
+          f"steps, validation over {N_GALLERY} images and {N_VAL} queries, "
+          f"{train_s:.1f} s in all; launches {launches} (want "
+          f"{cfg.transformer_layers} attention forwards + "
+          f"{cfg.transformer_layers} backwards + 1 bank forward + 1 bank "
+          f"backward per step, and {cfg.vision_layers}*({extract_batches}+"
+          f"{val_gallery_batches}) + {cfg.transformer_layers}*"
+          f"{val_query_batches} forwards of extraction and validation: {want})")
+    assert launches == want, (launches, want)
+
+    # the frozen tensors are bit-identical, the text side moved
+    moved = 0
+    for (name, before), after in zip(fresh.model.state_dict().items(),
+                                     trained.model.state_dict().values()):
+        if name.startswith("visual.") or name == "logit_scale":
+            assert torch.equal(before, after), f"frozen {name} changed"
+        elif not torch.equal(before, after):
+            moved += 1
+    n_text = sum(1 for n in fresh.model.state_dict()
+                 if not (n.startswith("visual.") or n == "logit_scale"))
+    assert moved == n_text, (moved, n_text)
+
+    # the first batch again, with the trained weights, against its loss at
+    # step 0 (which was computed before any update)
+    bank = Bank.load(os.path.join(out, "cirr_bank.npz"), device=trained.device)
+    assert bank.target.shape == (m, cfg.embed_dim) and bank.refer.shape == (
+        m, cfg.embed_dim)
+    assert torch.isfinite(bank.target).all()
+    raw = next(iter_train_bank(ds, TRAIN_BATCH, epoch_seed=args.seed))
+    dev = trained.device
+    batch = (torch.from_numpy(bank.gather_refer(raw)).to(dev),
+             torch.from_numpy(trained.tokenize(raw["captions"])).to(dev),
+             bank.target, torch.from_numpy(raw["target_image_id"]).to(dev))
+    with torch.no_grad():
+        before = fresh.stage2_loss(*batch).item()
+        after = trained.stage2_loss(*batch).item()
+    phase(f"training slice: per-step losses {[round(x, 4) for x in losses]}; "
+          f"first batch before training {before:.4f} (logged {losses[0]:.4f})"
+          f", after {steps} steps {after:.4f}; best score {best:.2f}; "
+          f"{moved} text tensors moved, image tower and logit_scale "
+          f"bit-identical; best.pt read back [{card}]")
+    assert abs(before - losses[0]) < 1e-3 * abs(before), (before, losses[0])
+    assert after < before, (after, before)
+
+    # the kernels at the shape this path gave them: the extracted bank
+    q = unit_rows(TRAIN_BATCH, cfg.embed_dim,
+                  torch.Generator(device=dev).manual_seed(3), dev)
+    check_bank_case(bk, q, bank.target, batch[3], card, time_it=False)
+    return launches
+
+
+def synthetic_batches(n_steps, batch, num_images, seed):
+    """`iter_train_bank`-shaped batches over a synthetic bank."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    for _ in range(n_steps):
+        yield {"captions": [CAPTIONS[int(i)] for i in
+                            rng.randint(0, len(CAPTIONS), batch)],
+               "refer_image_id": rng.randint(0, num_images, batch),
+               "target_image_id": rng.randint(0, num_images, batch),
+               "triplet_idx": np.arange(batch)}
+
+
+def device_busy(trace_path: str):
+    """(busy ms, number of device operations, ms by kernel group) from a
+    chrome trace: the union of the kernel / memcpy / memset intervals."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans, groups = [], {}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+        name = ev.get("name", "")
+        low = name.lower()
+        if "bank_infonce" in name:
+            key = "bank kernels"
+        elif "short_attention" in name:
+            key = "attention kernels"
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
+            key = "GEMMs"
+        elif "layer_norm" in low or "layernorm" in low:
+            key = "LayerNorm"
+        elif "adam" in low or "multi_tensor" in low:
+            key = "optimizer"
+        elif ev["cat"] != "kernel":
+            key = "copies"
+        else:
+            key = "elementwise and other"
+        groups[key] = groups.get(key, 0.0) + ev["dur"] / 1e3
+    spans.sort()
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, len(spans), groups
+
+
+def drive_training_recipe(ak, bk, tmp, card):
+    """Phase 6: `train_epoch` at the recipe's bank size: ms/step, then a
+    profiler window whose trace gives the device time of each kernel group
+    within the step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spn4cir_tpu_torch.bank.bank import Bank
+    from spn4cir_tpu_torch.models.clip4cir import ClipCIR
+    from spn4cir_tpu_torch.train.stage2 import create_train_state, train_epoch
+
+    device = torch.device("cuda:0")
+    backbone = ClipCIR("ViT-B/32", tau=TAU, dtype=torch.bfloat16, device=device)
+    backbone.init_params(torch.Generator().manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(4)
+    target32 = unit_rows(RECIPE_BANK, BANK_DIM, g, device)
+    refer = np.random.RandomState(5).randn(RECIPE_BANK, BANK_DIM).astype(
+        np.float32)
+    state = create_train_state(backbone, 2e-5)
+    count = counters(ak, bk)
+    layers_n = backbone.cfg.transformer_layers
+
+    def profiled(bank, n_steps, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train_epoch(backbone, state, bank,
+                        synthetic_batches(n_steps, TRAIN_BATCH, RECIPE_BANK,
+                                          seed), log_every=0)
+            torch.cuda.synchronize()
+        return prof, (time.perf_counter() - t0) * 1e3
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bank = Bank(refer=refer, target=target32.to(dtype))
+        backbone.train()
+        train_epoch(backbone, state, bank,
+                    synthetic_batches(3, TRAIN_BATCH, RECIPE_BANK, 6),
+                    log_every=0)                                # warm-up
+        for fn in count.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        _, mean_loss = train_epoch(
+            backbone, state, bank,
+            synthetic_batches(RECIPE_STEPS, TRAIN_BATCH, RECIPE_BANK, 7),
+            log_every=0)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / RECIPE_STEPS
+        event_ms = start.elapsed_time(end) / RECIPE_STEPS
+        launches = {name: fn.launches for name, fn in count.items()}
+        assert launches == dict(
+            short_attention=layers_n * RECIPE_STEPS,
+            short_attention_bwd=layers_n * RECIPE_STEPS,
+            bank_infonce_fwd=RECIPE_STEPS, bank_infonce_bwd=RECIPE_STEPS), launches
+        assert math.isfinite(mean_loss), mean_loss
+        name = dtype_name(dtype)
+        phase(f"recipe scale, M={RECIPE_BANK} {name} bank, batch "
+              f"{TRAIN_BATCH}, ViT-B/32 bf16, {RECIPE_STEPS} steps: "
+              f"{event_ms:.3f} ms/step (CUDA events; host clock "
+              f"{wall_ms:.3f}); mean loss {mean_loss:.4f} [{card}]")
+
+        # a profiler window over further steady steps; a first one-step
+        # window takes the profiler's start-up cost and is dropped
+        profiled(bank, 1, 8)
+        prof, window_ms = profiled(bank, PROFILE_STEPS, 9)
+        trace = os.path.join(tmp, f"train_trace_{name}.json")
+        prof.export_chrome_trace(trace)
+        busy_ms, n_ops, groups = device_busy(trace)
+        assert n_ops > 0, "the profiler's trace holds no device interval"
+        per = {k: v / PROFILE_STEPS for k, v in
+               sorted(groups.items(), key=lambda kv: -kv[1])}
+        bank_ms, attn_ms = per["bank kernels"], per["attention kernels"]
+        assert bank_ms > 0 and attn_ms > 0, per
+        busy_step = busy_ms / PROFILE_STEPS
+        results[name] = dict(
+            ms_per_step=event_ms, wall_ms_per_step=wall_ms,
+            mean_loss=mean_loss, profile_steps=PROFILE_STEPS,
+            window_ms_per_step=window_ms / PROFILE_STEPS,
+            busy_ms_per_step=busy_step,
+            idle_share_in_window=1 - busy_ms / window_ms,
+            idle_share_of_unprofiled_step=1 - busy_step / event_ms,
+            device_ops_per_step=n_ops / PROFILE_STEPS,
+            ms_per_step_by_group=per)
+        phase(f"profile, {PROFILE_STEPS} steps at M={RECIPE_BANK} {name} "
+              f"bank: device busy {busy_step:.3f} ms/step in "
+              f"{n_ops / PROFILE_STEPS:.0f} device operations per step; idle "
+              f"share {100 * (1 - busy_step / event_ms):.1f}% of the "
+              f"{event_ms:.3f} ms step timed without the profiler "
+              f"({100 * (1 - busy_ms / window_ms):.1f}% of the "
+              f"{window_ms / PROFILE_STEPS:.3f} ms/step window under the "
+              f"profiler, whose host cost widens it); in the step's own "
+              f"trace the two bank kernels take {bank_ms:.3f} ms/step "
+              f"({100 * bank_ms / busy_step:.1f}% of device busy, "
+              f"{100 * bank_ms / event_ms:.1f}% of the step) and the "
+              f"{2 * layers_n} attention launches {attn_ms:.3f} ms/step "
+              f"({100 * attn_ms / busy_step:.1f}%, "
+              f"{100 * attn_ms / event_ms:.1f}%); device ms per step by "
+              f"group: { {k: round(v, 3) for k, v in per.items()} } [{card}]")
+    phase("recipe scale stats " + json.dumps(results))
+    return backbone
+
+
+def check_plain_step(layers, bk, card):
+    """Phase 7: one float32 loss and its gradients through the kernels and
+    through the plain versions, same weights and batch."""
+    import numpy as np
+
+    from spn4cir_tpu_torch.models.clip4cir import ClipCIR
+    from spn4cir_tpu_torch.train.stage2 import create_train_state
+
+    device = torch.device("cuda:0")
+    backbone = ClipCIR("ViT-B/32", tau=TAU, dtype=torch.float32, device=device)
+    backbone.init_params(torch.Generator().manual_seed(0))
+    create_train_state(backbone, 2e-5)      # freezes what stage 2 freezes
+    g = torch.Generator(device=device).manual_seed(9)
+    m, b = 4099, 64
+    bank = unit_rows(m, BANK_DIM, g, device)
+    refer = torch.randn(b, BANK_DIM, generator=g, device=device)
+    labels = torch.randint(0, m, (b,), generator=g, device=device)
+    raw = next(synthetic_batches(1, b, m, 10))
+    text_ids = torch.from_numpy(backbone.tokenize(raw["captions"])).to(device)
+    probe = ("text_projection", "transformer.resblocks.0.attn.in_proj_weight",
+             "transformer.resblocks.11.mlp.c_fc.weight", "token_embedding.weight")
+
+    def run(plain: bool):
+        backbone.zero_grad(set_to_none=True)
+        layers.set_attention_impl(backbone, "plain" if plain else "auto")
+        if plain:
+            loss = bk.bank_infonce_reference(backbone.fuse(refer, text_ids),
+                                             bank, labels, TAU)
+        else:
+            loss = backbone.stage2_loss(refer, text_ids, bank, labels)
+        loss.backward()
+        return loss.item(), [backbone.model.get_parameter(n).grad.clone()
+                             for n in probe]
+
+    kern_loss, kern_grads = run(plain=False)
+    plain_loss, plain_grads = run(plain=True)
+    layers.set_attention_impl(backbone, "auto")
+    rel = [((a - b_).norm() / b_.norm()).item()
+           for a, b_ in zip(kern_grads, plain_grads)]
+    phase(f"one float32 ViT-B/32 stage-2 loss (B={b}, M={m}): kernels "
+          f"{kern_loss:.6f}, plain versions {plain_loss:.6f} (rtol "
+          f"{STEP_TOL}); relative gradient difference of {probe}: "
+          f"{[f'{r:.2e}' for r in rel]} (each under {10 * STEP_TOL}) [{card}]")
+    assert abs(kern_loss - plain_loss) <= STEP_TOL * abs(plain_loss)
+    assert all(r < 10 * STEP_TOL for r in rel), rel
+    assert np.isfinite(kern_loss)
+
+
+def pick(records, **want):
+    return next(r for r in records
+                if all(r[k] == v for k, v in want.items()))
+
+
+def timing(at):
+    return {"ms_at": f"{at.get('tower', '')} {at['shape']} {at['dtype']}".strip(),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"]}
+
+
+def kernel_entry(name, replaces, source, launches_by_path, records, at,
+                 also=()):
+    """One entry of the kernels line: `launches` is the sum over the main
+    paths that were driven, each counted from zero and listed under
+    `launches_by_path`; the times and the bound are those of the record
+    `at` (a main-path shape), with the other main-path shapes under
+    `also_at`; max_abs_err is the largest over every comparison of this
+    kernel."""
+    assert all(n > 0 for n in launches_by_path.values()), (name, launches_by_path)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in records),
+        "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"],
+        "ms_at": timing(at)["ms_at"],
+        "also_at": [timing(r) for r in also],
+        "checks": records,
+    }
 
 
 def main() -> int:
@@ -324,18 +930,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke runs "
                          "only on an NVIDIA GPU")
-    # spn4cir_tpu/__init__.py imports jax when JAX_PLATFORMS is set; the
-    # port and this script run without JAX
-    os.environ.pop("JAX_PLATFORMS", None)
     sys.path.insert(0, REPO)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        # the tokenizer module reads SPN4CIR_BPE_VOCAB when it is imported
+        # the tokenizer reads SPN4CIR_BPE_VOCAB when it first loads
         merges = os.path.join(tmp, "bpe_synthetic.txt.gz")
         os.environ["SPN4CIR_BPE_VOCAB"] = merges
         load_test_module("torch_fixtures").write_merges_file(merges)
         from spn4cir_tpu_torch.models import layers
         from spn4cir_tpu_torch.ops import attention_kernels as ak
+        from spn4cir_tpu_torch.ops import bank_kernels as bk
         from spn4cir_tpu_torch.ops import cuda_build
 
         device = torch.device("cuda:0")
@@ -347,38 +951,64 @@ def main() -> int:
         phase("TF32 off for matmul and cuDNN (float32 comparisons)")
 
         # phase 2: build
-        t0 = time.perf_counter()
-        lib = cuda_build.build_library("short_attention",
-                                       ["short_attention.cu"], force=True)
-        phase(f"built {os.path.relpath(lib, REPO)} in "
-              f"{time.perf_counter() - t0:.2f} s")
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                phase("ptxas: " + line.strip())
+        build_kernels(cuda_build)
 
         # phase 3: kernels against their plain versions
-        records = check_kernels(ak, device, card)
+        fwd_records = check_attention_fwd(ak, device, card)
+        bwd_records = check_attention_bwd(ak, device, card)
+        bank_fwd_records, bank_bwd_records = check_bank(bk, device, card)
 
-        # phase 4: the slice
-        launches = drive_slice(ak, layers, tmp, card)
+        # one synthetic CIRR tree for both slices
+        make_cirr = load_test_module("fixtures").make_cirr
+        root = make_cirr(os.path.join(tmp, "cirr"), n_images=N_GALLERY,
+                         n_train=N_TRAIN, n_val=N_VAL, extended=False)
 
-        assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax")
-                       for m in sys.modules), "JAX was imported"
-        vis_bf16 = next(r for r in records
-                        if r["tower"] == "vision" and r["dtype"] == "bfloat16")
-        print(json.dumps({"kernels": [{
-            "name": "short_attention",
-            "route": "cuda",
-            "source": "spn4cir_tpu_torch/csrc/short_attention.cu",
-            "replaces": "spn4cir_tpu/ops/attention_kernels.py:257",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in records
-                               if r["dtype"] == "bfloat16"),
-            "ms": vis_bf16["ms"],
-            "plain_ms": vis_bf16["plain_ms"],
-            "ms_at": "vision (3072, 50, 64) bfloat16",
-            "checks": records,
-        }]}), flush=True)
+        # phase 4: the serving slice
+        serve_launches = drive_serving(ak, layers, root, card)
+
+        # phase 5: the training slice through its entry point
+        train_launches = drive_training_cli(ak, bk, root, tmp, card)
+
+        # phase 6: the training loop at the recipe's bank size
+        drive_training_recipe(ak, bk, tmp, card)
+
+        # phase 7: kernels vs plain versions through one whole loss
+        check_plain_step(layers, bk, card)
+
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "optax", "spn4cir_tpu"))
+        assert not bad, f"JAX or the JAX package was imported: {bad}"
+
+        at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
+        csrc = "spn4cir_tpu_torch/csrc/"
+        jax_ops = "spn4cir_tpu/ops/"
+        print(json.dumps({"kernels": [
+            kernel_entry(
+                "short_attention", jax_ops + "attention_kernels.py:257",
+                csrc + "short_attention.cu",
+                {"serve": serve_launches,
+                 "train": train_launches["short_attention"]},
+                fwd_records, pick(fwd_records, tower="vision", dtype="bfloat16"),
+                also=[pick(fwd_records, tower="text", dtype="bfloat16"),
+                      pick(fwd_records, tower="train-text", dtype="bfloat16")]),
+            kernel_entry(
+                "short_attention_bwd", jax_ops + "attention_kernels.py:279",
+                csrc + "short_attention.cu",
+                {"train": train_launches["short_attention_bwd"]}, bwd_records,
+                pick(bwd_records, tower="train-text", dtype="bfloat16")),
+            kernel_entry(
+                "bank_infonce_fwd", jax_ops + "bank_kernels.py:53",
+                csrc + "bank_infonce.cu",
+                {"train": train_launches["bank_infonce_fwd"]}, bank_fwd_records,
+                pick(bank_fwd_records, shape=at_bank, dtype="float32"),
+                also=[pick(bank_fwd_records, shape=at_bank, dtype="bfloat16")]),
+            kernel_entry(
+                "bank_infonce_bwd", jax_ops + "bank_kernels.py:148",
+                csrc + "bank_infonce.cu",
+                {"train": train_launches["bank_infonce_bwd"]}, bank_bwd_records,
+                pick(bank_bwd_records, shape=at_bank, dtype="float32"),
+                also=[pick(bank_bwd_records, shape=at_bank, dtype="bfloat16")]),
+        ]}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

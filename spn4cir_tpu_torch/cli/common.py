@@ -1,6 +1,8 @@
-"""Shared CLI plumbing for the PyTorch port: the same argparse surface as
-`spn4cir_tpu/cli/common.py` (whose module imports JAX, so it is mirrored
-here), plus the device choice, backbone construction and weight loading."""
+"""Shared CLI plumbing for the PyTorch port: the argparse surface of
+`spn4cir_tpu/cli/common.py` (less `--use_bank`, which no code of either
+package reads), plus the device choice, backbone construction, weight
+loading and the output directory. A flag whose path is not ported is parsed
+and then refused (`refuse_unported`), never ignored."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import os
 
 import torch
 
-from spn4cir_tpu.data.transforms import ImageTransform
+from spn4cir_tpu_torch.data.transforms import ImageTransform
 from spn4cir_tpu_torch.models.api import CIRBackbone, build_backbone
 
 
@@ -33,7 +35,6 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
     p.add_argument("--debug", action="store_true")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--data_path", default="")
-    p.add_argument("--use_bank", action="store_true")
     p.add_argument("--model_path", type=str, default="")
     p.add_argument("--reload_bank", action="store_true")
     p.add_argument("--device", default="0",
@@ -52,8 +53,8 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
                    help="val relative mode returns (ref, cap, tgt) image "
                         "triplets for retrieval-on-train analysis (ref "
                         "data_utils.py:276-285)")
-    # extensions beyond the reference's flags; the training and multi-device
-    # ones are parsed for parity and not ported yet
+    # extensions beyond the reference's flags; the ones whose path is not
+    # ported are parsed for parity and refused by the entry points
     p.add_argument("--bf16", action="store_true", help="bfloat16 activations")
     p.add_argument("--text_max_len", type=int, default=0,
                    help="BLIP text token budget (0 = backbone default 35; "
@@ -113,8 +114,6 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
 
 
 def finalize_args(args) -> None:
-    if getattr(args, "loader_procs", 0):
-        os.environ["SPN4CIR_MP_PROCS"] = str(args.loader_procs)
     if args.data_path == "":
         args.data_path = ("fashionIQ_dataset" if args.dataset == "fiq"
                           else "cirr_dataset")
@@ -154,9 +153,12 @@ def make_backbone(name: str, args, tokenizer=None) -> CIRBackbone:
     if name not in ("clip", "zs"):
         raise NotImplementedError(f"the {name} backbone is not ported to "
                                   "PyTorch yet")
-    if args.grad_ckpt or args.dropout:
-        raise NotImplementedError("--grad_ckpt / --dropout belong to the "
-                                  "training path, not ported yet")
+    refuse_unported(args, [
+        ("--grad_ckpt (activation rematerialisation)", args.grad_ckpt),
+        ("--dropout (the BLIP/BLIP-2 text side)", args.dropout),
+        ("--text_max_len (the BLIP text side)", args.text_max_len),
+        ("--val_ret_train (retrieval-on-train analysis)", args.val_ret_train),
+    ])
     return build_backbone(
         name, clip_model_name=args.clip_model_name, tau=args.tau,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
@@ -165,9 +167,10 @@ def make_backbone(name: str, args, tokenizer=None) -> CIRBackbone:
 
 def make_transform(backbone: CIRBackbone, args) -> ImageTransform:
     """The host preprocess; --device_preprocess is not ported yet."""
-    if args.device_preprocess:
-        raise NotImplementedError("--device_preprocess is not ported to "
-                                  "PyTorch yet")
+    refuse_unported(args, [
+        ("--device_preprocess", args.device_preprocess),
+        ("--device_canvas (goes with --device_preprocess)",
+         args.device_canvas)])
     return ImageTransform(args.transform, backbone.input_dim, args.target_ratio)
 
 
@@ -188,3 +191,26 @@ def load_or_init_params(backbone: CIRBackbone, args,
 
     backbone.model.load_state_dict(load_clip_checkpoint(args.model_path))
     return backbone
+
+
+def refuse_unported(args, flags) -> None:
+    """Raise for the first flag of `flags` (pairs of flag text and whether
+    it is set) whose path the port does not have yet: nothing that was
+    asked for is silently ignored."""
+    for flag, is_set in flags:
+        if is_set:
+            raise NotImplementedError(f"{flag}: not yet ported to PyTorch")
+
+
+def resolve_output_path(args, backbone_name: str) -> str:
+    if args.debug:
+        out = os.path.join("models", "debug")
+    elif args.output_path:
+        out = args.output_path
+    else:
+        import datetime
+
+        stamp = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+        out = os.path.join("models", f"{args.dataset}_{backbone_name}_{stamp}")
+    os.makedirs(out, exist_ok=True)
+    return out

@@ -26,6 +26,7 @@ from spn4cir_tpu_torch.cli.common import (
     load_or_init_params,
     make_backbone,
     make_transform,
+    refuse_unported,
 )
 from spn4cir_tpu_torch.utils.seeding import seed_everything
 
@@ -64,6 +65,8 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
     if args.mesh_data > 1 or args.mesh_model > 1 or args.mesh_bank > 1:
         raise NotImplementedError("--mesh_data/--mesh_model/--mesh_bank > 1: "
                                   "multi-device serving is not yet ported")
+    refuse_unported(args, [
+        ("--loader_procs (multi-process image loader)", args.loader_procs)])
     generator = seed_everything(args.seed)
 
     backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
@@ -79,7 +82,7 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
         index = GalleryIndex.load(cache, device=backbone.device)
         print(f"gallery index loaded from cache: {len(index.names)} images")
     else:
-        from spn4cir_tpu.data.datasets import CIRDataset
+        from spn4cir_tpu_torch.data.datasets import CIRDataset
 
         classic = CIRDataset(args.dataset, args.serve_split, "classic",
                              preprocess, args.data_path,

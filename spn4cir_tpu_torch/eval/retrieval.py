@@ -1,38 +1,39 @@
-"""Gallery indexing for the PyTorch port.
+"""Gallery indexing, query prediction and the validation loops.
 
-Counterpart of `GalleryIndex` and `extract_index_features` in
-`spn4cir_tpu/eval/retrieval.py`: the gallery is encoded in fixed-size
+Counterpart of `spn4cir_tpu/eval/retrieval.py` (`GalleryIndex`,
+`extract_index_features`, `generate_val_predictions`, `query_scores`,
+`fiq_val_retrieval`, `cirr_val_retrieval`): the gallery is encoded in fixed-size
 batches on one device; 'target' (score-ready) stays on the device and
 'refer' (the fusion-side lookup) is kept in host memory as numpy. A
 bfloat16 refer is kept as float32 on the host (numpy has no bfloat16); the
-widening is exact, and the fusion upcasts it to float32 anyway.
+widening is exact, and the fusion upcasts it to float32 anyway. Query
+reference features are gathered from the index by integer id (eval reuses
+gallery features for references, never a fresh encode); ranking runs on the
+device through `eval/metrics.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from spn4cir_tpu.data.datasets import CIRDataset, iter_gallery
-from spn4cir_tpu.data.prefetch import prefetch
+from spn4cir_tpu_torch.data.datasets import (CIRDataset, iter_gallery,
+                                             iter_relative_eval)
+from spn4cir_tpu_torch.data.prefetch import prefetch
+from spn4cir_tpu_torch.eval import metrics as M
 from spn4cir_tpu_torch.models.api import CIRBackbone
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank
+from spn4cir_tpu_torch.utils.tensors import to_host
 
 
 def cache_file(path: str) -> str:
     """np.savez_compressed appends '.npz' to an extensionless path; the
     exists-check and the load must use the same resolved name."""
     return path if path.endswith(".npz") else path + ".npz"
-
-
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """Tensor -> numpy on the host; bfloat16 widens (exactly) to float32."""
-    t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 @dataclasses.dataclass
@@ -103,3 +104,85 @@ def extract_index_features(backbone: CIRBackbone, dataset: CIRDataset,
         raise ValueError("empty gallery")
     return GalleryIndex(target=torch.from_numpy(bufs["target"]).to(device),
                         refer=bufs["refer"], names=list(names))
+
+
+@torch.inference_mode()
+def generate_val_predictions(backbone: CIRBackbone, dataset: CIRDataset,
+                             index: GalleryIndex, batch_size: int = 32
+                             ) -> Dict[str, np.ndarray]:
+    """Queries -> fused features + id arrays. Reference features come from
+    the gallery index. Returns query_feats, refer_gid, target_gid
+    (+ member_gids, pairid for CIRR)."""
+    device = index.device
+    chunks, refer, target, members, pairids = [], [], [], [], []
+    for batch in iter_relative_eval(dataset, batch_size,
+                                    gallery_names=index.names):
+        text_ids = torch.from_numpy(
+            backbone.tokenize(batch["captions"])).to(device)
+        out = backbone.fuse(index.refer_rows(batch["refer_gid"]), text_ids)
+        chunks.append(to_host(out))
+        refer.append(batch["refer_gid"])
+        target.append(batch["target_gid"])
+        if "member_gids" in batch:
+            members.append(batch["member_gids"])
+            pairids.append(batch["pairid"])
+    out = {
+        "query_feats": np.concatenate(chunks),
+        "refer_gid": np.concatenate(refer),
+        "target_gid": np.concatenate(target),
+    }
+    if members:
+        out["member_gids"] = np.concatenate(members)
+        out["pairid"] = np.concatenate(pairids)
+    return out
+
+
+def query_scores(backbone: CIRBackbone, preds: Dict[str, np.ndarray],
+                 index: GalleryIndex) -> torch.Tensor:
+    if isinstance(index.target, QuantBank):
+        raise NotImplementedError("validation over an int8 gallery is not "
+                                  "yet ported")
+    feats = torch.from_numpy(preds["query_feats"]).to(index.device)
+    return backbone.score_queries(feats, index.target)
+
+
+def _ids(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(arr)).to(device)
+
+
+@torch.inference_mode()
+def fiq_val_retrieval(backbone: CIRBackbone, data_path: str, dress_type: str,
+                      preprocess, batch_size: int = 32,
+                      index: Optional[GalleryIndex] = None,
+                      fiq_val_type: int = 0) -> Dict[str, float]:
+    # fiq_val_type selects the gallery image list (0=image_splits, 1=VAL-set
+    # only); the relative query set is unaffected.
+    classic = CIRDataset("fiq", "val", "classic", preprocess, data_path,
+                         [dress_type], fiq_val_type=fiq_val_type)
+    relative = CIRDataset("fiq", "val", "relative", preprocess, data_path,
+                          [dress_type])
+    if index is None:
+        index = extract_index_features(backbone, classic, batch_size)
+    preds = generate_val_predictions(backbone, relative, index, batch_size)
+    scores = query_scores(backbone, preds, index)
+    refer = (_ids(preds["refer_gid"], scores.device)
+             if backbone.fiq_exclude_reference else None)
+    return M.fiq_metrics(scores, _ids(preds["target_gid"], scores.device),
+                         refer)
+
+
+@torch.inference_mode()
+def cirr_val_retrieval(backbone: CIRBackbone, data_path: str, preprocess,
+                       batch_size: int = 32,
+                       index: Optional[GalleryIndex] = None
+                       ) -> Dict[str, float]:
+    classic = CIRDataset("cirr", "val", "classic", preprocess, data_path)
+    relative = CIRDataset("cirr", "val", "relative", preprocess, data_path)
+    if index is None:
+        index = extract_index_features(backbone, classic, batch_size)
+    preds = generate_val_predictions(backbone, relative, index, batch_size)
+    scores = query_scores(backbone, preds, index)
+    dev = scores.device
+    return M.cirr_metrics(scores, _ids(preds["target_gid"], dev),
+                          _ids(preds["refer_gid"], dev),
+                          _ids(preds["member_gids"], dev))

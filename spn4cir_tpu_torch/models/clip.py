@@ -141,8 +141,9 @@ class CLIP(TextTransformer):
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
         if not cfg.is_vit:
             raise NotImplementedError(
-                "the ResNet CLIP towers (RN50x4) are not ported to PyTorch "
-                "yet; use a ViT model (ViT-B/32, ViT-B/16, ViT-L/14)")
+                "the ResNet CLIP towers (--clip-model-name RN50x4) are not "
+                "yet ported to PyTorch; use a ViT model (ViT-B/32, ViT-B/16, "
+                "ViT-L/14)")
         super().__init__(cfg, dtype)
         self.visual = VisionTransformer(cfg, dtype)
         self.logit_scale = nn.Parameter(torch.empty(()))

@@ -1,18 +1,23 @@
 """clip4cir backbone: CLIP dual encoder + element-wise-sum combiner.
 
-Counterpart of `spn4cir_tpu/models/clip4cir.py` for the serving path:
-encoders, the element-wise-sum fusion and tokenization. The stage-1/2
-losses belong to the training path and are not ported yet.
+Counterpart of `spn4cir_tpu/models/clip4cir.py`: encoders, the
+element-wise-sum fusion, tokenization and the stage-2 loss (full-bank
+InfoNCE through `ops/bank_kernels.py`, or sampled negatives). The stage-1
+loss is not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from spn4cir_tpu.tokenizer.bpe import ClipTokenizer, tokenize
 from spn4cir_tpu_torch.models.api import BankSpec, CIRBackbone, register_backbone
 from spn4cir_tpu_torch.models.clip import build_clip
+from spn4cir_tpu_torch.ops import infonce
+from spn4cir_tpu_torch.ops.bank_kernels import bank_infonce
 from spn4cir_tpu_torch.ops.infonce import l2_normalize
+from spn4cir_tpu_torch.tokenizer.bpe import ClipTokenizer, tokenize
 
 
 class ClipCIR(CIRBackbone):
@@ -47,6 +52,12 @@ class ClipCIR(CIRBackbone):
     def gallery_features(self, images: torch.Tensor) -> torch.Tensor:
         return l2_normalize(self.encode_image(images).float())
 
+    def bank_features(self, images: torch.Tensor):
+        """Single encode serving both bank forms: refer = raw feats, target
+        = normalized."""
+        feats = self.encode_image(images)
+        return feats, l2_normalize(feats.float())
+
     def index_features(self, images: torch.Tensor):
         """The scoring gallery is normalized; the fusion-side refer lookup
         keeps the raw encode_image output."""
@@ -66,14 +77,19 @@ class ClipCIR(CIRBackbone):
              ) -> torch.Tensor:
         return self.combine(refer_feats, self.encode_text(text_ids))
 
-    # ---- losses (training path, not ported yet) ----
-    def stage1_loss(self, *args, **kw):
-        raise NotImplementedError("clip4cir stage-1 training is not ported "
-                                  "to PyTorch yet")
+    # ---- losses ----
+    def stage2_loss(self, refer_feats: torch.Tensor, text_ids: torch.Tensor,
+                    target_bank, labels: torch.Tensor, *,
+                    neg_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        query = self.fuse(refer_feats, text_ids)
+        if neg_idx is not None:
+            return infonce.sampled_neg_infonce(query, target_bank, labels,
+                                               neg_idx, self.tau)
+        return bank_infonce(query, target_bank, labels, self.tau)
 
-    def stage2_loss(self, *args, **kw):
-        raise NotImplementedError("clip4cir stage-2 training is not ported "
-                                  "to PyTorch yet")
+    def stage1_loss(self, *args, **kw):
+        raise NotImplementedError("clip4cir stage-1 training is not yet "
+                                  "ported to PyTorch")
 
     # ---- host helpers ----
     def tokenize(self, texts):

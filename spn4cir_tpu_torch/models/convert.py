@@ -9,6 +9,11 @@ pytree) into the port's OpenAI-CLIP-named state dict. It inverts
     kernel (d, 3d) becoming `in_proj_weight` (3d, d);
   - the patch-embedding kernel goes from HWIO to OIHW.
 
+`clip_state_dict_from_train_state` carries training state across: the
+parameters of a JAX train state after some optimizer steps, under the
+port's names, every leaf copied (a zero-copy view of a live buffer would
+let one side's training mutate the other's tree).
+
 `load_clip_checkpoint` reads an OpenAI / clip4cir `.pt` file; since the port
 keeps OpenAI's names, the state dict loads without conversion.
 """
@@ -90,6 +95,14 @@ def clip_state_dict_from_jax(params_np: Mapping[str, Any], cfg: CLIPConfig
     sd["text_projection"] = _tensor(txt["text_projection"])
     sd["logit_scale"] = _tensor(p["logit_scale"])
     return sd
+
+
+def clip_state_dict_from_train_state(state: Any, cfg: CLIPConfig
+                                     ) -> Dict[str, torch.Tensor]:
+    """The parameters of a JAX train state (anything with `.params`, or the
+    params tree itself; device or numpy leaves) -> the port's state dict.
+    Leaves are read through `np.array`, so the result owns its memory."""
+    return clip_state_dict_from_jax(getattr(state, "params", state), cfg)
 
 
 def load_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spn4cir_tpu_torch.ops.attention_kernels import (MAX_HEAD_DIM, MAX_SEQ,
+from spn4cir_tpu_torch.ops.attention_kernels import (kernel_takes,
                                                       short_attention)
 
 ATTENTION_IMPLS = ("auto", "plain")
@@ -43,9 +43,10 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with the fused qkv projection of OpenAI CLIP
     (`nn.MultiheadAttention`'s `in_proj_weight` layout).
 
-    `fused="auto"` (the default): every maskless self-attention with
-    S <= 128 and head_dim <= 128 goes to `short_attention`, the causal text
-    attention included; on a CUDA tensor that is the hand-written kernel.
+    `fused="auto"` (the default): every maskless self-attention that the
+    kernels take (S <= 128 and head_dim <= 128) goes to `short_attention`,
+    the causal text attention included; on a CUDA tensor that is the
+    hand-written kernel, forward and backward.
     Longer sequences, explicit masks and `fused="plain"` (set by
     `set_attention_impl`) take the plain path, which computes exactly what
     the JAX einsum path does (models/layers.py:103-110): float32 logits and
@@ -70,8 +71,7 @@ class MultiHeadAttention(nn.Module):
                        self.in_proj_bias.to(x.dtype))
         q, k, v = qkv.view(b, s, 3, self.num_heads, hd).unbind(2)
         q = q * hd ** -0.5
-        if (self.fused == "auto" and mask is None and s <= MAX_SEQ
-                and hd <= MAX_HEAD_DIM):
+        if self.fused == "auto" and mask is None and kernel_takes(s, hd):
             def flat(t):  # (B, S, H, Dh) -> contiguous (B*H, S, Dh)
                 return t.transpose(1, 2).reshape(
                     b * self.num_heads, s, hd).contiguous()

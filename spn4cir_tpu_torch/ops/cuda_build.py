@@ -24,9 +24,6 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_BUILD_LOCK = threading.Lock()
-
-
 def find_nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -44,19 +41,19 @@ def build_library(name: str, sources: Sequence[str], force: bool = False
     for src in sources:
         digest.update((CSRC_DIR / src).read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    with _BUILD_LOCK:
-        if out.exists() and not force:
-            return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # per-process temp name + atomic rename: a concurrent process must
-        # never dlopen a half-written library
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC_DIR / s) for s in sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+    if out.exists() and not force:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a temp name of this process and thread, then an atomic rename: no
+    # lock, so libraries build in parallel when threads ask for them
+    # together, and nobody ever dlopens a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC_DIR / s) for s in sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
     return out

@@ -25,9 +25,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from spn4cir_tpu_torch.eval.retrieval import GalleryIndex, to_host
+from spn4cir_tpu_torch.eval.retrieval import GalleryIndex
 from spn4cir_tpu_torch.models.api import CIRBackbone
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank, quantize_bank
+from spn4cir_tpu_torch.utils.tensors import to_host
 
 
 def _mask_rows(scores: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:

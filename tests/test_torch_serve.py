@@ -7,6 +7,9 @@ and tokenize with the same synthetic-merges tokenizer (the JAX backbone's
 `tokenize` is replaced on the instance). Tolerances: top-k names identical,
 scores within 1e-5 (float32). The features are random, so the scores have no
 ties and the order of `jax.lax.top_k` and `torch.topk` cannot differ on ties.
+The port decodes images with PIL (its copy of the datasets module has no
+native loader), so the JAX index is extracted with `SPN4CIR_NATIVE=0` too:
+both sides then see the same pixels.
 """
 
 import base64
@@ -33,6 +36,7 @@ from spn4cir_tpu.ops.bank_kernels import quantize_bank as jax_quantize_bank
 from spn4cir_tpu.serve import RetrievalService as JaxRetrievalService
 from spn4cir_tpu.tokenizer.bpe import tokenize
 from spn4cir_tpu_torch.cli.serve import serve_main
+from spn4cir_tpu_torch.data.datasets import CIRDataset as TorchCIRDataset
 from spn4cir_tpu_torch.eval.retrieval import GalleryIndex, extract_index_features
 from spn4cir_tpu_torch.models.clip4cir import ClipCIR
 from spn4cir_tpu_torch.models.convert import clip_state_dict_from_jax
@@ -65,10 +69,19 @@ def world(tmp_path_factory):
     tb.model.load_state_dict(
         clip_state_dict_from_jax(jax.device_get(params), tb.cfg))
     tb.eval()
+    old = os.environ.get("SPN4CIR_NATIVE")
+    os.environ["SPN4CIR_NATIVE"] = "0"   # read once per dataset, at first decode
+    try:
+        jax_index = jax_extract(jb, params, classic, 4, num_workers=0)
+    finally:
+        if old is None:
+            del os.environ["SPN4CIR_NATIVE"]
+        else:
+            os.environ["SPN4CIR_NATIVE"] = old
+    tclassic = TorchCIRDataset("fiq", "val", "classic", TF, root, ["dress"])
     return dict(
-        tok=tok, root=root, jb=jb, params=params, tb=tb,
-        jax_index=jax_extract(jb, params, classic, 4, num_workers=0),
-        index=extract_index_features(tb, classic, 4, num_workers=0))
+        tok=tok, root=root, jb=jb, params=params, tb=tb, jax_index=jax_index,
+        index=extract_index_features(tb, tclassic, 4, num_workers=0))
 
 
 def _names(results):
@@ -280,7 +293,7 @@ def test_serve_main_end_to_end(world, tmp_path):
         server.server_close()
 
     # the loaded checkpoint holds the fixture weights: same gallery features
-    classic = CIRDataset("cirr", "val", "classic", TF, root)
+    classic = TorchCIRDataset("cirr", "val", "classic", TF, root)
     direct = extract_index_features(world["tb"], classic, 4, num_workers=0)
     np.testing.assert_array_equal(service.index.refer, direct.refer)
 
@@ -301,6 +314,12 @@ def test_serve_main_end_to_end(world, tmp_path):
      NotImplementedError),
     (("--clip-model-name", "test-tiny", "--device_preprocess"),
      NotImplementedError),
+    (("--clip-model-name", "test-tiny", "--device_canvas", "448"),
+     NotImplementedError),
+    (("--clip-model-name", "test-tiny", "--dropout", "0.1"),
+     NotImplementedError),
+    (("--clip-model-name", "test-tiny", "--val_ret_train"),
+     NotImplementedError),
 ])
 def test_serve_main_refuses_what_is_not_ported(extra, error, tmp_path):
     argv = ["--dataset", "cirr", "--data_path", str(tmp_path), "--device",
@@ -319,21 +338,23 @@ def test_cuda_device_without_cuda_raises():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax out of sys.modules.
-    JAX_PLATFORMS is dropped from the child's environment: with it set,
-    spn4cir_tpu/__init__.py imports jax to honour it, which the port's
-    shared-module imports would then trigger."""
+    """Importing every module of the port, with JAX_PLATFORMS=cpu set in the
+    child's environment, leaves neither jax nor the JAX package
+    `spn4cir_tpu` in sys.modules: the port keeps its own copies of the host
+    modules it needs."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import spn4cir_tpu_torch\n"
-        "for m in pkgutil.walk_packages(spn4cir_tpu_torch.__path__,\n"
-        "                               'spn4cir_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    spn4cir_tpu_torch.__path__, 'spn4cir_tpu_torch.')]\n"
+        "assert len(names) > 20, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'spn4cir_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -14,7 +14,7 @@ import re
 from collections import Counter
 from typing import List, Sequence, Tuple
 
-from spn4cir_tpu.tokenizer.bpe import ClipTokenizer, byte_unicode_table
+from spn4cir_tpu_torch.tokenizer.bpe import ClipTokenizer, byte_unicode_table
 
 CORPUS = (
     "make it like number 7 but red",
