@@ -9,11 +9,15 @@ non-zero exit):
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
      per source, started together;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the shapes of the serving and training paths, in bfloat16 and float32,
-     with the kernel's time, the plain version's, the time of the PyTorch
-     library call that computes the same function (a yardstick only) and
-     the bound (the larger of bytes / 3.35 TB/s and operations / peak);
+  3. kernels: each of the six kernels against its plain PyTorch version on
+     the card at the shapes of the serving, training and flagship paths
+     (attention in bfloat16 and float32 at the ViT-B/32 towers' slices and
+     at RN50x4's 10-head text tower; the bank InfoNCE over float32,
+     bfloat16 and int8 banks at D = 512, 640 and 768, with a ragged case
+     each), with the
+     kernel's time, the plain version's, the time of the PyTorch library
+     call that computes the same function (a yardstick only) and the bound
+     (the larger of bytes / 3.35 TB/s and operations / peak);
   4. serving slice: `spn4cir_tpu_torch.cli.serve.serve_main` indexes a
      2048-image synthetic CIRR gallery with ViT-B/32 in bf16 (random weights
      from seed 0) and serves it over HTTP; concurrent and sequential
@@ -29,13 +33,22 @@ non-zero exit):
      must move, and the launch counters must equal 12 attention forwards +
      12 backwards + 1 bank forward + 1 bank backward per step (plus the
      forwards of extraction and validation);
-  6. training slice, recipe scale: `train_epoch` over a synthetic bank of
-     65,536 unit rows (float32, then bfloat16) at batch 256: ms/step, then a
-     profiler window over further steps for each bank type (device busy,
-     idle share, device operations per step, and the device time of the
-     bank and attention kernels cut from the step's own trace);
-  7. one loss and gradient computed twice in float32, through the kernels
-     and through the plain versions, must agree.
+  6. flagship slice, entry points: `train_main` with RN50x4 (image 288,
+     embedding 640) in bf16 and `--bank_dtype int8` on a second, smaller
+     synthetic CIRR tree, checked as phase 5 is, with the counters showing
+     12 + 12 attention launches and 1 + 1 launches of the int8 bank kernels
+     per step and none of the dense bank kernels; then `validate_main` on
+     the best checkpoint and `submission_main` (both JSON files parse, 50
+     and 3 names per pair, no reference in its own list), and the RN50x4
+     bank-extraction rate on the device;
+  7. recipe scale: `train_epoch` over a synthetic bank of 65,536 unit rows
+     at batch 256, for ViT-B/32 (bfloat16 bank) and for RN50x4 (int8 bank,
+     then float32): ms/step, then a profiler window over further steps
+     (device busy, idle share, device operations per step, and the device
+     time of the bank and attention kernels cut from the step's own trace);
+  8. one loss and gradient computed twice in float32, through the kernels
+     and through the plain versions, over a dense and over an int8 bank,
+     must agree.
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -89,6 +102,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 VISION = dict(name="vision", bh=256 * 12, s=50, d=64, causal=False)
 TEXT = dict(name="text", bh=32 * 8, s=77, d=64, causal=True)
 TRAIN_TEXT = dict(name="train-text", bh=256 * 8, s=77, d=64, causal=True)
+# RN50x4's text tower has 10 heads: a training batch of 256 and the
+# evaluation CLIs' query batch of 32
+FLAGSHIP_TEXT = dict(name="flagship-text", bh=256 * 10, s=77, d=64, causal=True)
+FLAGSHIP_EVAL_TEXT = dict(name="flagship-eval-text", bh=32 * 10, s=77, d=64,
+                          causal=True)
 
 N_GALLERY = 2048
 N_TRAIN = 1280
@@ -101,6 +119,10 @@ K = 10
 TRAIN_BATCH = 256
 BANK_DIM = 512
 BANK_SIZES = (2049, 65536)
+FLAGSHIP = "RN50x4"
+FLAGSHIP_DIM = 640      # RN50x4's embedding; 768 is ViT-L/14's
+FLAGSHIP_IMAGES = 1024  # the flagship slice's own, smaller CIRR tree
+FLAGSHIP_TRAIN = 1024
 RECIPE_BANK = 65536
 RECIPE_STEPS = 10
 PROFILE_STEPS = 4
@@ -201,7 +223,8 @@ def check_attention_fwd(ak, device, card):
     dtype; returns one record per comparison."""
     g = torch.Generator(device=device).manual_seed(0)
     records = []
-    for shape in (VISION, TEXT, TRAIN_TEXT):
+    for shape in (VISION, TEXT, TRAIN_TEXT, FLAGSHIP_TEXT,
+                  FLAGSHIP_EVAL_TEXT):
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
             q, k, v = (torch.randn(bh, s, d, generator=g, device=device,
@@ -220,7 +243,8 @@ def check_attention_fwd(ak, device, card):
                 library_ms = median_ms(lambda: sdpa(q, k, v, causal))
             b_ms, b_by = attention_bound(shape, dtype, 4, 2)
             rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
-                       causal=causal, dtype=dtype_name(dtype), tol=tol,
+                       causal=causal, dtype=dtype_name(dtype), rtol=tol,
+                       atol=tol,
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
             records.append(rec)
@@ -234,10 +258,10 @@ def check_attention_fwd(ak, device, card):
 
 def check_attention_bwd(ak, device, card):
     """Phase 3b: short_attention_bwd against the plain backward and against
-    autograd through the plain forward."""
+    float32 autograd through the plain forward."""
     g = torch.Generator(device=device).manual_seed(1)
     records = []
-    for shape in (TRAIN_TEXT, VISION):
+    for shape in (TRAIN_TEXT, VISION, FLAGSHIP_TEXT):
         for dtype, tol in ((torch.bfloat16, BWD_BF16_TOL),
                            (torch.float32, BWD_F32_TOL)):
             bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
@@ -247,9 +271,16 @@ def check_attention_bwd(ak, device, card):
             got = ak.short_attention_bwd(q, k, v, do, causal)
             torch.cuda.synchronize()
             want = ak.short_attention_bwd_reference(q, k, v, do, causal)
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            # autograd through the plain forward, in float32 on the same
+            # values: in bf16 it would round dP = dO·vᵀ (values up to ~40)
+            # to bf16 on the way back, which alone moves 2 of 12.6 million
+            # elements of the 10-head shape by 0.067
+            exact = [t.to(torch.float32, copy=True).requires_grad_()
+                     for t in (q, k, v)]
             auto = torch.autograd.grad(
-                ak.short_attention_reference(*leaves, causal), leaves, do)
+                ak.short_attention_reference(*exact, causal), exact,
+                do.float())
+            del exact
             err = 0.0
             for a, b, c in zip(got, want, auto):
                 torch.testing.assert_close(a.float(), b.float(), atol=tol,
@@ -260,20 +291,22 @@ def check_attention_bwd(ak, device, card):
             ms = median_ms(lambda: ak.short_attention_bwd(q, k, v, do, causal))
             plain_ms = median_ms(
                 lambda: ak.short_attention_bwd_reference(q, k, v, do, causal))
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             lib_out = sdpa(*leaves, causal)
             library_ms = median_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, do, retain_graph=True))
             b_ms, b_by = attention_bound(shape, dtype, 7, 5)
             rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
-                       causal=causal, dtype=dtype_name(dtype), tol=tol,
+                       causal=causal, dtype=dtype_name(dtype), rtol=tol,
+                       atol=tol,
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
             records.append(rec)
             phase(f"kernel short_attention_bwd {rec['tower']} {rec['shape']} "
                   f"causal={causal} {rec['dtype']}: max_abs_err={err:.3e} vs "
-                  f"plain backward, also within atol=rtol={tol} of autograd "
-                  f"through the plain forward; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library (SDPA backward) "
+                  f"plain backward, also within atol=rtol={tol} of float32 "
+                  f"autograd through the plain forward; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library (SDPA backward) "
                   f"{library_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} [{card}]")
     return records
 
@@ -283,19 +316,42 @@ def unit_rows(n, d, generator, device):
         torch.randn(n, d, generator=generator, device=device), dim=-1)
 
 
+def bank_functions(bk, bank):
+    """The wrappers, plain versions and names of the kernel pair that takes
+    `bank` (a dense tensor or a QuantBank)."""
+    if isinstance(bank, bk.QuantBank):
+        return dict(fwd=bk.bank_infonce_q8_fwd, bwd=bk.bank_infonce_q8_bwd,
+                    stats_ref=bk.bank_infonce_q8_stats_reference,
+                    loss_ref=bk.bank_infonce_q8_reference,
+                    bwd_ref=bk.bank_infonce_q8_bwd_reference,
+                    names=("bank_infonce_q8_fwd", "bank_infonce_q8_bwd"),
+                    # values once (1 byte each) and the scales beside them
+                    bank_bytes=bank.values.numel() + 4 * bank.scales.numel(),
+                    library="dequantize + matmul + cross_entropy",
+                    dense=bank.dequantize)
+    return dict(fwd=bk.bank_infonce_fwd, bwd=bk.bank_infonce_bwd,
+                stats_ref=bk.bank_infonce_stats_reference,
+                loss_ref=bk.bank_infonce_reference,
+                bwd_ref=bk.bank_infonce_bwd_reference,
+                names=("bank_infonce_fwd", "bank_infonce_bwd"),
+                bank_bytes=bank.numel() * bank.element_size(),
+                library="matmul + cross_entropy", dense=bank.float)
+
+
 def check_bank_case(bk, q, bank, labels, card, time_it=True):
-    """bank_infonce_fwd / _bwd against their plain versions on one case:
-    the four statistics, the loss, dtau and dQ; returns (fwd, bwd) records."""
+    """The forward and backward bank kernels against their plain versions
+    on one case (dense or int8 bank): the four statistics, the loss, dtau
+    and dQ; returns (fwd, bwd) records."""
     b, d = q.shape
     m = bank.shape[0]
+    f = bank_functions(bk, bank)
     gout = torch.tensor(1.0, device=q.device)
-    loss, stats, dtau = bk.bank_infonce_fwd(q, bank, labels, TAU)
-    dq = bk.bank_infonce_bwd(q, bank, labels, TAU, stats[0], stats[1], gout)
+    loss, stats, dtau = f["fwd"](q, bank, labels, TAU)
+    dq = f["bwd"](q, bank, labels, TAU, stats[0], stats[1], gout)
     torch.cuda.synchronize()
-    want = bk.bank_infonce_stats_reference(q, bank, labels, TAU)
-    want_loss = bk.bank_infonce_reference(q, bank, labels, TAU)
-    want_dq = bk.bank_infonce_bwd_reference(q, bank, labels, TAU, want[0],
-                                            want[1], gout)
+    want = f["stats_ref"](q, bank, labels, TAU)
+    want_loss = f["loss_ref"](q, bank, labels, TAU)
+    want_dq = f["bwd_ref"](q, bank, labels, TAU, want[0], want[1], gout)
     for got_s, want_s in zip(stats, want):
         torch.testing.assert_close(got_s, want_s, atol=BANK_RTOL,
                                    rtol=BANK_RTOL)
@@ -304,68 +360,103 @@ def check_bank_case(bk, q, bank, labels, card, time_it=True):
                                atol=10 * BANK_RTOL, rtol=BANK_RTOL)
     torch.testing.assert_close(dq, want_dq, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
     # every sum has a fixed order: a second launch gives the same bits
-    loss2, _, _ = bk.bank_infonce_fwd(q, bank, labels, TAU)
-    dq2 = bk.bank_infonce_bwd(q, bank, labels, TAU, stats[0], stats[1], gout)
+    loss2, _, _ = f["fwd"](q, bank, labels, TAU)
+    dq2 = f["bwd"](q, bank, labels, TAU, stats[0], stats[1], gout)
     assert torch.equal(loss, loss2) and torch.equal(dq, dq2), "not repeatable"
     fwd_err = max((a - b_).abs().max().item() for a, b_ in zip(stats, want))
     fwd_err = max(fwd_err, (loss - want_loss).abs().item())
     bwd_err = (dq - want_dq).abs().max().item()
-    item = bank.element_size()
+
+    def over_tol(got_t, want_t, atol):
+        """Largest |got - want| as a share of what the comparison allows,
+        atol + rtol·|want|: at most 1 where the comparison passed."""
+        return ((got_t - want_t).abs()
+                / (atol + BANK_RTOL * want_t.abs())).max().item()
+
+    fwd_share = max(over_tol(a, b_, BANK_RTOL) for a, b_ in
+                    zip((*stats, loss), (*want, want_loss)))
+    bwd_share = over_tol(dq, want_dq, BANK_DQ_ATOL)
     common = dict(shape=f"B={b}, M={m}, D={d}", dtype=dtype_name(bank.dtype))
-    # float32 products (the bank is widened), so the float32 peak applies
-    f_ms, f_by = bound_ms(b * d * 4 + m * d * item + b * 4 + 4 * b * 4 + 8,
+    # float32 products (the bank is widened), so the float32 peak applies;
+    # bytes: the query, the bank, the labels and the statistics, each once
+    f_ms, f_by = bound_ms(b * d * 4 + f["bank_bytes"] + b * 4 + 4 * b * 4 + 8,
                           2 * b * m * d, torch.float32)
-    b_ms, b_by = bound_ms(2 * b * d * 4 + m * d * item + b * 4 + 2 * b * 4 + 4,
-                          4 * b * m * d, torch.float32)
-    fwd = dict(common, tol=BANK_RTOL, max_abs_err=fwd_err, bound_ms=f_ms,
-               bound_by=f_by)
-    bwd = dict(common, tol=BANK_RTOL, max_abs_err=bwd_err, bound_ms=b_ms,
-               bound_by=b_by)
+    b_ms, b_by = bound_ms(2 * b * d * 4 + f["bank_bytes"] + b * 4 + 2 * b * 4
+                          + 4, 4 * b * m * d, torch.float32)
+    fwd = dict(common, rtol=BANK_RTOL, atol=BANK_RTOL, max_abs_err=fwd_err,
+               max_err_over_tol=fwd_share, bound_ms=f_ms, bound_by=f_by)
+    bwd = dict(common, rtol=BANK_RTOL, atol=BANK_DQ_ATOL, max_abs_err=bwd_err,
+               max_err_over_tol=bwd_share, bound_ms=b_ms, bound_by=b_by)
     if time_it:
         ce = torch.nn.functional.cross_entropy
-        fwd["ms"] = median_ms(lambda: bk.bank_infonce_fwd(q, bank, labels, TAU))
+        fwd["ms"] = median_ms(lambda: f["fwd"](q, bank, labels, TAU))
         fwd["plain_ms"] = median_ms(
-            lambda: bk.bank_infonce_stats_reference(q, bank, labels, TAU))
+            lambda: f["stats_ref"](q, bank, labels, TAU))
         fwd["library_ms"] = median_ms(
-            lambda: ce(q @ bank.float().T / TAU, labels))
-        bwd["ms"] = median_ms(lambda: bk.bank_infonce_bwd(
+            lambda: ce(q @ f["dense"]().T / TAU, labels))
+        bwd["ms"] = median_ms(lambda: f["bwd"](
             q, bank, labels, TAU, stats[0], stats[1], gout))
-        bwd["plain_ms"] = median_ms(lambda: bk.bank_infonce_bwd_reference(
+        bwd["plain_ms"] = median_ms(lambda: f["bwd_ref"](
             q, bank, labels, TAU, want[0], want[1], gout))
         leaf = q.clone().requires_grad_()
-        lib_loss = ce(leaf @ bank.float().T / TAU, labels)
+        lib_loss = ce(leaf @ f["dense"]().T / TAU, labels)
         bwd["library_ms"] = median_ms(lambda: torch.autograd.grad(
             lib_loss, leaf, retain_graph=True))
-    for name, rec in (("bank_infonce_fwd", fwd), ("bank_infonce_bwd", bwd)):
+    for name, rec in zip(f["names"], (fwd, bwd)):
         times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-                 f"library (matmul + cross_entropy"
+                 f"library ({f['library']}"
                  f"{' backward' if name.endswith('bwd') else ''}) "
                  f"{rec['library_ms']:.4f} ms, " if time_it else "")
         phase(f"kernel {name} {rec['shape']} bank {rec['dtype']}: "
-              f"max_abs_err={rec['max_abs_err']:.3e} (rtol={BANK_RTOL}), "
+              f"max_abs_err={rec['max_abs_err']:.3e}, "
+              f"{rec['max_err_over_tol']:.3f} of the tolerance "
+              f"(atol={rec['atol']} + rtol={rec['rtol']}·|plain|), "
               f"repeatable; {times}bound {rec['bound_ms']:.5f} ms by "
               f"{rec['bound_by']} [{card}]")
     return fwd, bwd
 
 
 def check_bank(bk, device, card):
-    """Phase 3c: the bank kernels at (B=256, D=512) x M x bank dtype."""
+    """Phase 3c: the bank kernels at batch 256. Dense: D=512 x M x (float32,
+    bfloat16), then M=65,536 at D=640 (both types) and D=768 (float32).
+    int8: M=65,536 at D=640 and at D=512. Then ragged cases, untimed.
+    Returns the records of the four kernels."""
     g = torch.Generator(device=device).manual_seed(2)
-    fwd_records, bwd_records = [], []
-    for m in BANK_SIZES:
-        q = unit_rows(TRAIN_BATCH, BANK_DIM, g, device)
-        bank32 = unit_rows(m, BANK_DIM, g, device)
-        labels = torch.randint(0, m, (TRAIN_BATCH,), generator=g, device=device)
-        for dtype in (torch.float32, torch.bfloat16):
-            fwd, bwd = check_bank_case(bk, q, bank32.to(dtype), labels, card)
-            fwd_records.append(fwd)
-            bwd_records.append(bwd)
-    # a row count that is no multiple of the row tile
-    q = unit_rows(5, BANK_DIM, g, device)
-    labels = torch.randint(0, 2049, (5,), generator=g, device=device)
-    check_bank_case(bk, q, unit_rows(2049, BANK_DIM, g, device), labels, card,
-                    time_it=False)
-    return fwd_records, bwd_records
+    records = {name: [] for name in (
+        "bank_infonce_fwd", "bank_infonce_bwd", "bank_infonce_q8_fwd",
+        "bank_infonce_q8_bwd")}
+
+    def run(q, bank, labels, time_it=True):
+        names = bank_functions(bk, bank)["names"]
+        for name, rec in zip(names, check_bank_case(bk, q, bank, labels, card,
+                                                    time_it)):
+            records[name].append(rec)
+
+    for d, sizes in ((BANK_DIM, BANK_SIZES), (FLAGSHIP_DIM, (RECIPE_BANK,)),
+                     (768, (RECIPE_BANK,))):
+        for m in sizes:
+            q = unit_rows(TRAIN_BATCH, d, g, device)
+            bank32 = unit_rows(m, d, g, device)
+            labels = torch.randint(0, m, (TRAIN_BATCH,), generator=g,
+                                   device=device)
+            run(q, bank32, labels)
+            if d != 768:
+                run(q, bank32.to(torch.bfloat16), labels)
+            if m == RECIPE_BANK and d != 768:
+                run(q, bk.quantize_bank(bank32), labels)
+    # row and bank counts that are no multiple of a tile; the scales of the
+    # int8 bank are a view into a buffer whose tail is NaN
+    for b, m, d in ((5, 2049, BANK_DIM), (5, 2049, FLAGSHIP_DIM),
+                    (70, 4001, 768)):
+        q = unit_rows(b, d, g, device)
+        bank32 = unit_rows(m, d, g, device)
+        labels = torch.randint(0, m, (b,), generator=g, device=device)
+        run(q, bank32, labels, time_it=False)
+        qbank = bk.quantize_bank(bank32)
+        scales = torch.full((m + 300,), float("nan"), device=device)
+        scales[:m] = qbank.scales
+        run(q, bk.QuantBank(qbank.values, scales[:m]), labels, time_it=False)
+    return records
 
 
 def post(port: int, payload: dict):
@@ -570,22 +661,37 @@ def counters(ak, bk):
     return dict(short_attention=ak.short_attention,
                 short_attention_bwd=ak.short_attention_bwd,
                 bank_infonce_fwd=bk.bank_infonce_fwd,
-                bank_infonce_bwd=bk.bank_infonce_bwd)
+                bank_infonce_bwd=bk.bank_infonce_bwd,
+                bank_infonce_q8_fwd=bk.bank_infonce_q8_fwd,
+                bank_infonce_q8_bwd=bk.bank_infonce_q8_bwd)
 
 
-def drive_training_cli(ak, bk, root, tmp, card):
-    """Phase 5: `train_main` through its argv, then the checks. Returns the
-    launch counts of the run."""
+def bank_launches(quant: bool, steps: int) -> dict:
+    """The bank kernels' launches of `steps` optimizer steps: one forward
+    and one backward of the pair that takes the bank, none of the other."""
+    dense, q8 = (0, steps) if quant else (steps, 0)
+    return dict(bank_infonce_fwd=dense, bank_infonce_bwd=dense,
+                bank_infonce_q8_fwd=q8, bank_infonce_q8_bwd=q8)
+
+
+def drive_training_cli(ak, bk, root, tmp, card, model="ViT-B/32",
+                       bank_dtype="float32", n_gallery=N_GALLERY,
+                       n_train=N_TRAIN):
+    """Phases 5 and 6: `train_main` through its argv, then the checks.
+    Returns the launch counts of the run, the argv and the trained
+    backbone."""
     from spn4cir_tpu_torch.bank.bank import Bank
     from spn4cir_tpu_torch.cli import common, train
     from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_bank
     from spn4cir_tpu_torch.utils.checkpoint import load_model
     from spn4cir_tpu_torch.utils.seeding import seed_everything
 
-    out = os.path.join(tmp, "train_run")
+    quant = bank_dtype == "int8"
+    out = os.path.join(tmp, f"train_run_{bank_dtype}")
     argv = ["--dataset", "cirr", "--data_path", root, "--clip-model-name",
-            "ViT-B/32", "--bf16", "--seed", "0", "--batch-size",
-            str(TRAIN_BATCH), "--num-epochs", "1", "--output_path", out]
+            model, "--bf16", "--seed", "0", "--batch-size",
+            str(TRAIN_BATCH), "--num-epochs", "1", "--output_path", out,
+            "--bank_dtype", bank_dtype]
 
     # ---- the main path, counted (no --device: cuda:0 is the default) ----
     count = counters(ak, bk)
@@ -603,7 +709,7 @@ def drive_training_cli(ak, bk, root, tmp, card):
     losses = [json.loads(line)["loss"]
               for line in tee.buffer_.getvalue().splitlines()
               if line.startswith('{"step"')]
-    steps = N_TRAIN // TRAIN_BATCH
+    steps = n_train // TRAIN_BATCH
     assert len(losses) == steps >= 4, (len(losses), steps)
     assert all(math.isfinite(x) for x in losses), losses
 
@@ -623,22 +729,25 @@ def drive_training_cli(ak, bk, root, tmp, card):
                     seed=args.seed, replace_extended=trained.replace_extended)
     m = ds.num_unique_images
     extract_batches = math.ceil(m / TRAIN_BATCH)
-    val_gallery_batches = math.ceil(N_GALLERY / 32)
+    val_gallery_batches = math.ceil(n_gallery / 32)
     val_query_batches = math.ceil(N_VAL / 32)
+    # a ResNet tower has no attention layer: its pool is plain PyTorch
+    vision_layers = cfg.vision_layers if cfg.is_vit else 0
     want = dict(
         short_attention=(cfg.transformer_layers * steps
-                         + cfg.vision_layers * extract_batches
-                         + cfg.vision_layers * val_gallery_batches
+                         + vision_layers * extract_batches
+                         + vision_layers * val_gallery_batches
                          + cfg.transformer_layers * val_query_batches),
         short_attention_bwd=cfg.transformer_layers * steps,
-        bank_infonce_fwd=steps, bank_infonce_bwd=steps)
-    phase(f"training slice (train_main, ViT-B/32 bf16, batch {TRAIN_BATCH}): "
+        **bank_launches(quant, steps))
+    phase(f"training slice (train_main, {model} bf16, batch {TRAIN_BATCH}, "
+          f"{bank_dtype} bank): "
           f"bank of {m} images in {extract_batches} encode batches, {steps} "
-          f"steps, validation over {N_GALLERY} images and {N_VAL} queries, "
+          f"steps, validation over {n_gallery} images and {N_VAL} queries, "
           f"{train_s:.1f} s in all; launches {launches} (want "
           f"{cfg.transformer_layers} attention forwards + "
           f"{cfg.transformer_layers} backwards + 1 bank forward + 1 bank "
-          f"backward per step, and {cfg.vision_layers}*({extract_batches}+"
+          f"backward per step, and {vision_layers}*({extract_batches}+"
           f"{val_gallery_batches}) + {cfg.transformer_layers}*"
           f"{val_query_batches} forwards of extraction and validation: {want})")
     assert launches == want, (launches, want)
@@ -663,9 +772,10 @@ def drive_training_cli(ak, bk, root, tmp, card):
     assert torch.isfinite(bank.target).all()
     raw = next(iter_train_bank(ds, TRAIN_BATCH, epoch_seed=args.seed))
     dev = trained.device
+    target = bk.quantize_bank(bank.target) if quant else bank.target
     batch = (torch.from_numpy(bank.gather_refer(raw)).to(dev),
              torch.from_numpy(trained.tokenize(raw["captions"])).to(dev),
-             bank.target, torch.from_numpy(raw["target_image_id"]).to(dev))
+             target, torch.from_numpy(raw["target_image_id"]).to(dev))
     with torch.no_grad():
         before = fresh.stage2_loss(*batch).item()
         after = trained.stage2_loss(*batch).item()
@@ -680,7 +790,75 @@ def drive_training_cli(ak, bk, root, tmp, card):
     # the kernels at the shape this path gave them: the extracted bank
     q = unit_rows(TRAIN_BATCH, cfg.embed_dim,
                   torch.Generator(device=dev).manual_seed(3), dev)
-    check_bank_case(bk, q, bank.target, batch[3], card, time_it=False)
+    check_bank_case(bk, q, target, batch[3], card, time_it=False)
+    return launches, argv, trained
+
+
+def drive_flagship_eval(ak, bk, argv, backbone, tmp, card):
+    """Phase 6, after training: `validate_main` on the best checkpoint,
+    `submission_main`, and the bank-extraction rate of the image tower.
+    Returns the launch counts of the two entry points."""
+    from spn4cir_tpu_torch.cli import submission, train, validate
+
+    ckpt = os.path.join(argv[argv.index("--output_path") + 1], "best.pt")
+    argv = argv + ["--model_path", ckpt]
+    count = counters(ak, bk)
+    for fn in count.values():
+        fn.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = validate.validate_main("clip", argv,
+                                         **train.CLIP4CIR_DEFAULTS)
+    assert set(results) >= {"recall_at1", "recall_at5", "recall_at50",
+                            "group_recall_at1", "arithmetic_mean"}, results
+    assert all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in results.values()), results
+    assert results["recall_at50"] > 0.0, results
+
+    cwd = os.getcwd()
+    os.chdir(tmp)       # the files land under the working directory
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = submission.submission_main(
+                "clip", argv + ["--submission-name", "smoke"],
+                **train.CLIP4CIR_DEFAULTS)
+        docs = []
+        for path in paths:
+            with open(path) as fh:
+                docs.append(json.load(fh))
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in count.items()}
+    pred, group = docs
+    assert (pred.pop("version"), pred.pop("metric")) == ("rc2", "recall")
+    assert (group.pop("version"), group.pop("metric")) == (
+        "rc2", "recall_subset")
+    with open(os.path.join(argv[argv.index("--data_path") + 1], "cirr",
+                           "captions", "cap.rc2.test1.json")) as fh:
+        refer = {str(int(t["pairid"])): t["reference"] for t in json.load(fh)}
+    assert set(pred) == set(group) == set(refer) and len(refer) == N_VAL
+    for pid, name in refer.items():
+        assert len(pred[pid]) == len(set(pred[pid])) == 50, (pid, pred[pid])
+        assert len(group[pid]) == 3, (pid, group[pid])
+        assert name not in pred[pid] and name not in group[pid], pid
+    query_batches = 2 * math.ceil(N_VAL / 32)       # validation + submission
+    want = dict(short_attention=backbone.cfg.transformer_layers * query_batches,
+                short_attention_bwd=0, **bank_launches(True, 0))
+    phase(f"flagship slice: validate_main on best.pt {json.dumps(results)}; "
+          f"submission_main wrote {[os.path.basename(p) for p in paths]}: "
+          f"{len(pred)} pairs, 50 and 3 names each, no reference in its own "
+          f"list; launches {launches} (want {want})")
+    assert launches == want, (launches, want)
+
+    res = backbone.cfg.image_resolution
+    dev = backbone.device
+    batch = torch.randn(ENCODE_BATCH, res, res, 3, device=dev,
+                        generator=torch.Generator(dev).manual_seed(2))
+    with torch.inference_mode():
+        ms = median_ms(lambda: backbone.bank_features(batch), reps=5, warmup=2)
+    phase(f"{FLAGSHIP} bf16 bank extraction at {res}: "
+          f"{ENCODE_BATCH / (ms / 1e3):.1f} images/s on the device (batch "
+          f"{ENCODE_BATCH}, {ms:.3f} ms/batch) [{card}]")
     return launches
 
 
@@ -734,10 +912,10 @@ def device_busy(trace_path: str):
     return busy / 1e3, len(spans), groups
 
 
-def drive_training_recipe(ak, bk, tmp, card):
-    """Phase 6: `train_epoch` at the recipe's bank size: ms/step, then a
-    profiler window whose trace gives the device time of each kernel group
-    within the step."""
+def drive_training_recipe(ak, bk, tmp, card, model, bank_dtypes):
+    """Phase 7: `train_epoch` of `model` at the recipe's bank size, once per
+    bank type of `bank_dtypes`: ms/step, then a profiler window whose trace
+    gives the device time of each kernel group within the step."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -746,12 +924,12 @@ def drive_training_recipe(ak, bk, tmp, card):
     from spn4cir_tpu_torch.train.stage2 import create_train_state, train_epoch
 
     device = torch.device("cuda:0")
-    backbone = ClipCIR("ViT-B/32", tau=TAU, dtype=torch.bfloat16, device=device)
+    backbone = ClipCIR(model, tau=TAU, dtype=torch.bfloat16, device=device)
     backbone.init_params(torch.Generator().manual_seed(0))
+    dim = backbone.embed_dim
     g = torch.Generator(device=device).manual_seed(4)
-    target32 = unit_rows(RECIPE_BANK, BANK_DIM, g, device)
-    refer = np.random.RandomState(5).randn(RECIPE_BANK, BANK_DIM).astype(
-        np.float32)
+    target32 = unit_rows(RECIPE_BANK, dim, g, device)
+    refer = np.random.RandomState(5).randn(RECIPE_BANK, dim).astype(np.float32)
     state = create_train_state(backbone, 2e-5)
     count = counters(ak, bk)
     layers_n = backbone.cfg.transformer_layers
@@ -768,8 +946,10 @@ def drive_training_recipe(ak, bk, tmp, card):
         return prof, (time.perf_counter() - t0) * 1e3
 
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        bank = Bank(refer=refer, target=target32.to(dtype))
+    for name in bank_dtypes:
+        quant = name == "int8"
+        bank = Bank(refer=refer, target=bk.quantize_bank(target32) if quant
+                    else target32.to(getattr(torch, name)))
         backbone.train()
         train_epoch(backbone, state, bank,
                     synthetic_batches(3, TRAIN_BATCH, RECIPE_BANK, 6),
@@ -793,11 +973,10 @@ def drive_training_recipe(ak, bk, tmp, card):
         assert launches == dict(
             short_attention=layers_n * RECIPE_STEPS,
             short_attention_bwd=layers_n * RECIPE_STEPS,
-            bank_infonce_fwd=RECIPE_STEPS, bank_infonce_bwd=RECIPE_STEPS), launches
+            **bank_launches(quant, RECIPE_STEPS)), launches
         assert math.isfinite(mean_loss), mean_loss
-        name = dtype_name(dtype)
-        phase(f"recipe scale, M={RECIPE_BANK} {name} bank, batch "
-              f"{TRAIN_BATCH}, ViT-B/32 bf16, {RECIPE_STEPS} steps: "
+        phase(f"recipe scale, M={RECIPE_BANK} x {dim} {name} bank, batch "
+              f"{TRAIN_BATCH}, {model} bf16, {RECIPE_STEPS} steps: "
               f"{event_ms:.3f} ms/step (CUDA events; host clock "
               f"{wall_ms:.3f}); mean loss {mean_loss:.4f} [{card}]")
 
@@ -805,7 +984,7 @@ def drive_training_recipe(ak, bk, tmp, card):
         # window takes the profiler's start-up cost and is dropped
         profiled(bank, 1, 8)
         prof, window_ms = profiled(bank, PROFILE_STEPS, 9)
-        trace = os.path.join(tmp, f"train_trace_{name}.json")
+        trace = os.path.join(tmp, f"train_trace_{dim}_{name}.json")
         prof.export_chrome_trace(trace)
         busy_ms, n_ops, groups = device_busy(trace)
         assert n_ops > 0, "the profiler's trace holds no device interval"
@@ -823,8 +1002,8 @@ def drive_training_recipe(ak, bk, tmp, card):
             idle_share_of_unprofiled_step=1 - busy_step / event_ms,
             device_ops_per_step=n_ops / PROFILE_STEPS,
             ms_per_step_by_group=per)
-        phase(f"profile, {PROFILE_STEPS} steps at M={RECIPE_BANK} {name} "
-              f"bank: device busy {busy_step:.3f} ms/step in "
+        phase(f"profile, {model}, {PROFILE_STEPS} steps at M={RECIPE_BANK} "
+              f"{name} bank: device busy {busy_step:.3f} ms/step in "
               f"{n_ops / PROFILE_STEPS:.0f} device operations per step; idle "
               f"share {100 * (1 - busy_step / event_ms):.1f}% of the "
               f"{event_ms:.3f} ms step timed without the profiler "
@@ -838,13 +1017,13 @@ def drive_training_recipe(ak, bk, tmp, card):
               f"({100 * attn_ms / busy_step:.1f}%, "
               f"{100 * attn_ms / event_ms:.1f}%); device ms per step by "
               f"group: { {k: round(v, 3) for k, v in per.items()} } [{card}]")
-    phase("recipe scale stats " + json.dumps(results))
-    return backbone
+    phase(f"recipe scale stats {model} " + json.dumps(results))
 
 
 def check_plain_step(layers, bk, card):
-    """Phase 7: one float32 loss and its gradients through the kernels and
-    through the plain versions, same weights and batch."""
+    """Phase 8: one float32 loss and its gradients through the kernels and
+    through the plain versions, same weights and batch, over a dense bank
+    and over the same bank quantized to int8."""
     import numpy as np
 
     from spn4cir_tpu_torch.models.clip4cir import ClipCIR
@@ -864,30 +1043,35 @@ def check_plain_step(layers, bk, card):
     probe = ("text_projection", "transformer.resblocks.0.attn.in_proj_weight",
              "transformer.resblocks.11.mlp.c_fc.weight", "token_embedding.weight")
 
-    def run(plain: bool):
+    def run(plain: bool, target):
         backbone.zero_grad(set_to_none=True)
         layers.set_attention_impl(backbone, "plain" if plain else "auto")
         if plain:
-            loss = bk.bank_infonce_reference(backbone.fuse(refer, text_ids),
-                                             bank, labels, TAU)
+            reference = (bk.bank_infonce_q8_reference
+                         if isinstance(target, bk.QuantBank)
+                         else bk.bank_infonce_reference)
+            loss = reference(backbone.fuse(refer, text_ids), target, labels,
+                             TAU)
         else:
-            loss = backbone.stage2_loss(refer, text_ids, bank, labels)
+            loss = backbone.stage2_loss(refer, text_ids, target, labels)
         loss.backward()
         return loss.item(), [backbone.model.get_parameter(n).grad.clone()
                              for n in probe]
 
-    kern_loss, kern_grads = run(plain=False)
-    plain_loss, plain_grads = run(plain=True)
-    layers.set_attention_impl(backbone, "auto")
-    rel = [((a - b_).norm() / b_.norm()).item()
-           for a, b_ in zip(kern_grads, plain_grads)]
-    phase(f"one float32 ViT-B/32 stage-2 loss (B={b}, M={m}): kernels "
-          f"{kern_loss:.6f}, plain versions {plain_loss:.6f} (rtol "
-          f"{STEP_TOL}); relative gradient difference of {probe}: "
-          f"{[f'{r:.2e}' for r in rel]} (each under {10 * STEP_TOL}) [{card}]")
-    assert abs(kern_loss - plain_loss) <= STEP_TOL * abs(plain_loss)
-    assert all(r < 10 * STEP_TOL for r in rel), rel
-    assert np.isfinite(kern_loss)
+    for target in (bank, bk.quantize_bank(bank)):
+        kern_loss, kern_grads = run(False, target)
+        plain_loss, plain_grads = run(True, target)
+        layers.set_attention_impl(backbone, "auto")
+        rel = [((a - b_).norm() / b_.norm()).item()
+               for a, b_ in zip(kern_grads, plain_grads)]
+        phase(f"one float32 ViT-B/32 stage-2 loss (B={b}, M={m}, "
+              f"{dtype_name(target.dtype)} bank): kernels {kern_loss:.6f}, "
+              f"plain versions {plain_loss:.6f} (rtol {STEP_TOL}); relative "
+              f"gradient difference of {probe}: {[f'{r:.2e}' for r in rel]} "
+              f"(each under {10 * STEP_TOL}) [{card}]")
+        assert abs(kern_loss - plain_loss) <= STEP_TOL * abs(plain_loss)
+        assert all(r < 10 * STEP_TOL for r in rel), rel
+        assert np.isfinite(kern_loss)
 
 
 def pick(records, **want):
@@ -902,15 +1086,17 @@ def timing(at):
             "library_ms": at["library_ms"]}
 
 
-def kernel_entry(name, replaces, source, launches_by_path, records, at,
-                 also=()):
+def kernel_entry(name, replaces, source, launches_by_path, on_paths, records,
+                 at, also=()):
     """One entry of the kernels line: `launches` is the sum over the main
     paths that were driven, each counted from zero and listed under
-    `launches_by_path`; the times and the bound are those of the record
-    `at` (a main-path shape), with the other main-path shapes under
+    `launches_by_path`; the kernel must have run on every path of
+    `on_paths` and on no other. The times and the bound are those of the
+    record `at` (a main-path shape), with the other main-path shapes under
     `also_at`; max_abs_err is the largest over every comparison of this
     kernel."""
-    assert all(n > 0 for n in launches_by_path.values()), (name, launches_by_path)
+    for path, n in launches_by_path.items():
+        assert (n > 0) == (path in on_paths), (name, launches_by_path)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(launches_by_path.values()),
@@ -956,59 +1142,88 @@ def main() -> int:
         # phase 3: kernels against their plain versions
         fwd_records = check_attention_fwd(ak, device, card)
         bwd_records = check_attention_bwd(ak, device, card)
-        bank_fwd_records, bank_bwd_records = check_bank(bk, device, card)
+        bank_records = check_bank(bk, device, card)
 
-        # one synthetic CIRR tree for both slices
+        # one synthetic CIRR tree for the two ViT-B/32 slices, a smaller one
+        # for the flagship slice
         make_cirr = load_test_module("fixtures").make_cirr
         root = make_cirr(os.path.join(tmp, "cirr"), n_images=N_GALLERY,
                          n_train=N_TRAIN, n_val=N_VAL, extended=False)
+        flagship_root = make_cirr(
+            os.path.join(tmp, "cirr_flagship"), n_images=FLAGSHIP_IMAGES,
+            n_train=FLAGSHIP_TRAIN, n_val=N_VAL, extended=False)
 
         # phase 4: the serving slice
         serve_launches = drive_serving(ak, layers, root, card)
 
         # phase 5: the training slice through its entry point
-        train_launches = drive_training_cli(ak, bk, root, tmp, card)
+        train_launches, _, _ = drive_training_cli(ak, bk, root, tmp, card)
 
-        # phase 6: the training loop at the recipe's bank size
-        drive_training_recipe(ak, bk, tmp, card)
+        # phase 6: the flagship recipe through its three entry points
+        flagship_launches, argv, trained = drive_training_cli(
+            ak, bk, flagship_root, tmp, card, model=FLAGSHIP,
+            bank_dtype="int8", n_gallery=FLAGSHIP_IMAGES,
+            n_train=FLAGSHIP_TRAIN)
+        eval_launches = drive_flagship_eval(ak, bk, argv, trained, tmp, card)
+        del trained
+        torch.cuda.empty_cache()
 
-        # phase 7: kernels vs plain versions through one whole loss
+        # phase 7: the training loop at the recipe's bank size
+        drive_training_recipe(ak, bk, tmp, card, "ViT-B/32", ("bfloat16",))
+        drive_training_recipe(ak, bk, tmp, card, FLAGSHIP,
+                              ("int8", "float32"))
+
+        # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
 
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "spn4cir_tpu"))
         assert not bad, f"JAX or the JAX package was imported: {bad}"
 
+        def by_path(name):
+            return {"serve": serve_launches if name == "short_attention" else 0,
+                    "train": train_launches[name],
+                    "flagship": flagship_launches[name] + eval_launches[name]}
+
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
+        at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
         csrc = "spn4cir_tpu_torch/csrc/"
         jax_ops = "spn4cir_tpu/ops/"
-        print(json.dumps({"kernels": [
-            kernel_entry(
-                "short_attention", jax_ops + "attention_kernels.py:257",
-                csrc + "short_attention.cu",
-                {"serve": serve_launches,
-                 "train": train_launches["short_attention"]},
-                fwd_records, pick(fwd_records, tower="vision", dtype="bfloat16"),
-                also=[pick(fwd_records, tower="text", dtype="bfloat16"),
-                      pick(fwd_records, tower="train-text", dtype="bfloat16")]),
-            kernel_entry(
-                "short_attention_bwd", jax_ops + "attention_kernels.py:279",
-                csrc + "short_attention.cu",
-                {"train": train_launches["short_attention_bwd"]}, bwd_records,
-                pick(bwd_records, tower="train-text", dtype="bfloat16")),
-            kernel_entry(
-                "bank_infonce_fwd", jax_ops + "bank_kernels.py:53",
-                csrc + "bank_infonce.cu",
-                {"train": train_launches["bank_infonce_fwd"]}, bank_fwd_records,
-                pick(bank_fwd_records, shape=at_bank, dtype="float32"),
-                also=[pick(bank_fwd_records, shape=at_bank, dtype="bfloat16")]),
-            kernel_entry(
-                "bank_infonce_bwd", jax_ops + "bank_kernels.py:148",
-                csrc + "bank_infonce.cu",
-                {"train": train_launches["bank_infonce_bwd"]}, bank_bwd_records,
-                pick(bank_bwd_records, shape=at_bank, dtype="float32"),
-                also=[pick(bank_bwd_records, shape=at_bank, dtype="bfloat16")]),
-        ]}), flush=True)
+        entries = [kernel_entry(
+            "short_attention", jax_ops + "attention_kernels.py:257",
+            csrc + "short_attention.cu", by_path("short_attention"),
+            ("serve", "train", "flagship"), fwd_records,
+            pick(fwd_records, tower="vision", dtype="bfloat16"),
+            also=[pick(fwd_records, tower=t, dtype="bfloat16") for t in
+                  ("text", "train-text", "flagship-text",
+                   "flagship-eval-text")])]
+        entries.append(kernel_entry(
+            "short_attention_bwd", jax_ops + "attention_kernels.py:279",
+            csrc + "short_attention.cu", by_path("short_attention_bwd"),
+            ("train", "flagship"), bwd_records,
+            pick(bwd_records, tower="train-text", dtype="bfloat16"),
+            also=[pick(bwd_records, tower="flagship-text",
+                       dtype="bfloat16")]))
+        for name, line in (("bank_infonce_fwd", 53), ("bank_infonce_bwd", 148)):
+            recs = bank_records[name]
+            entries.append(kernel_entry(
+                name, f"{jax_ops}bank_kernels.py:{line}",
+                csrc + "bank_infonce.cu", by_path(name), ("train",), recs,
+                pick(recs, shape=at_bank, dtype="float32"),
+                also=[pick(recs, shape=at_bank, dtype="bfloat16"),
+                      pick(recs, shape=at_flag, dtype="float32"),
+                      pick(recs, shape=at_flag, dtype="bfloat16"),
+                      pick(recs, shape=f"B={TRAIN_BATCH}, M={RECIPE_BANK}, "
+                                       f"D=768", dtype="float32")]))
+        for name, line in (("bank_infonce_q8_fwd", 398),
+                           ("bank_infonce_q8_bwd", 444)):
+            recs = bank_records[name]
+            entries.append(kernel_entry(
+                name, f"{jax_ops}bank_kernels.py:{line}",
+                csrc + "bank_infonce.cu", by_path(name), ("flagship",), recs,
+                pick(recs, shape=at_flag, dtype="int8"),
+                also=[pick(recs, shape=at_bank, dtype="int8")]))
+        print(json.dumps({"kernels": entries}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

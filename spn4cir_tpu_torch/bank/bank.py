@@ -16,6 +16,11 @@ Counterpart of `Bank` / `extract_banks` in `spn4cir_tpu/bank/bank.py`
     by either package loads in the other. It is recomputed only if missing
     or on `reload`. A bfloat16 target is stored widened to float32.
 
+`extract_unlabeled_features` / `extend_target_bank` (`--unlabeled`) append
+the normalized features of an unlabeled image pool to the target bank as
+extra negatives; the pool's cache is an `.npz` with the key `unlabeled`, as
+the JAX package writes it.
+
 The JAX package also caches a "prepared" relayout of the target bank (rows
 padded to its kernel's block multiple) as a sidecar file. The Hopper
 bank-InfoNCE kernels mask the ragged tail themselves, so the port has no
@@ -120,3 +125,43 @@ def extract_banks(
     if cache_path:
         bank.save(cache_path)
     return bank
+
+
+@torch.no_grad()
+def extract_unlabeled_features(encode_fn: Callable,
+                               batches: Iterator[Tuple[np.ndarray, np.ndarray]],
+                               num_images: int,
+                               cache_path: Optional[str] = None,
+                               reload: bool = False,
+                               device="cpu") -> np.ndarray:
+    """Encode the unlabeled pool -> normalized (U, D) features on the host.
+    `encode_fn`: images tensor on `device` -> features; `batches` as in
+    `extract_banks`. Cached like the main banks, under the key
+    `unlabeled`."""
+    if cache_path and os.path.exists(Bank.cache_file(cache_path)) and not reload:
+        return np.load(Bank.cache_file(cache_path))["unlabeled"]
+    buf = None
+    for ids, images in batches:
+        feats = to_host(encode_fn(torch.from_numpy(images).to(device)))
+        if buf is None:
+            buf = np.zeros((num_images, *feats.shape[1:]), feats.dtype)
+        valid = ids >= 0
+        buf[ids[valid]] = feats[valid]
+    if buf is None:
+        raise ValueError("no unlabeled batches")
+    if cache_path:
+        os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
+        np.savez_compressed(cache_path, unlabeled=buf)
+    return buf
+
+
+def extend_target_bank(bank: Bank, unlabeled: np.ndarray,
+                       neg_num: int = 0) -> Bank:
+    """Append unlabeled negatives to the target bank; the positives keep
+    their ids in the first rows. `neg_num` > 0 keeps only the first
+    `neg_num` unlabeled rows, as the reference does."""
+    extra = unlabeled[:neg_num] if neg_num and neg_num > 0 else unlabeled
+    extra = torch.from_numpy(np.ascontiguousarray(extra)).to(
+        device=bank.target.device, dtype=bank.target.dtype)
+    return Bank(refer=bank.refer, target=torch.cat([bank.target, extra]),
+                refer_key=bank.refer_key)

@@ -9,13 +9,22 @@ full-bank InfoNCE and masked AdamW; validate every
 `--validation-frequency` epochs and keep the best checkpoint.
 
     python -m spn4cir_tpu_torch.cli.train --dataset cirr \\
-        --data_path cirr_dataset --clip-model-name ViT-B/32 --bf16
+        --data_path cirr_dataset --clip-model-name RN50x4 --bf16 \\
+        --bank_dtype int8
+
+`--bank_dtype int8` quantizes the target bank (per-row absmax) after it is
+extracted and extended, and the loss runs through the int8 kernels; it
+needs the full-bank loss, so with sampled negatives (`--neg_num` without
+`--unlabeled`) it exits. `--unlabeled` appends the features of the
+unlabeled image pool to the target bank as extra negatives (`--neg_num`
+then keeps only the first `neg_num` of them), cached beside the bank as
+`<bank>_unlabeled.npz`.
 
 Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
 Flags whose path is not ported raise "not yet ported": stage-1 training
-(--wo_bank, --neg_type), --unlabeled, --use_cc, --bank_dtype int8, meshes,
---distributed, --device_preprocess, --loader_procs, --resume /
---ckpt_every_steps, --grad_ckpt, --profile_dir and the ResNet towers.
+(--wo_bank, --neg_type), --use_cc, meshes, --distributed,
+--device_preprocess, --loader_procs, --resume / --ckpt_every_steps,
+--grad_ckpt and --profile_dir.
 """
 
 from __future__ import annotations
@@ -26,7 +35,9 @@ from typing import Optional
 
 import torch
 
-from spn4cir_tpu_torch.bank.bank import Bank, extract_banks
+from spn4cir_tpu_torch.bank.bank import (Bank, extend_target_bank,
+                                         extract_banks,
+                                         extract_unlabeled_features)
 from spn4cir_tpu_torch.cli.common import (
     base_parser,
     finalize_args,
@@ -40,10 +51,12 @@ from spn4cir_tpu_torch.data.datasets import (
     CIRDataset,
     iter_train_bank,
     iter_unique_images,
+    iter_unlabeled,
 )
 from spn4cir_tpu_torch.eval.metrics import fiq_average
 from spn4cir_tpu_torch.eval.retrieval import (cirr_val_retrieval,
                                               fiq_val_retrieval)
+from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
 from spn4cir_tpu_torch.train.stage2 import (create_train_state,
                                             make_lr_schedule, train_epoch)
 from spn4cir_tpu_torch.utils.checkpoint import save_model
@@ -83,9 +96,7 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
     refuse_unported(args, [
         ("--wo_bank (stage-1 training)", args.wo_bank),
         ("--neg_type (stage-1 ablation)", args.neg_type),
-        ("--unlabeled", args.unlabeled),
         ("--use_cc", args.use_cc),
-        ("--bank_dtype int8 (kernels 7-8)", args.bank_dtype == "int8"),
         ("--mesh_data/--mesh_bank/--mesh_model > 1",
          args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
         ("--distributed", args.distributed),
@@ -123,8 +134,31 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
         reload=args.reload_bank,
         device=device,
     )
+    if args.unlabeled:
+        unlabeled_ds = CIRDataset(args.dataset, "train", "unlabeled",
+                                  preprocess, args.data_path,
+                                  args.dress_types,
+                                  extend_suffix=backbone.extend_suffix)
+        # from the RESOLVED cache name: with an extensionless --bank_path
+        # the replace would do nothing and both caches would be one file
+        unlabeled_cache = Bank.cache_file(bank_path).replace(
+            ".npz", "_unlabeled.npz")
+        extra = extract_unlabeled_features(
+            backbone.gallery_features,
+            iter_unlabeled(unlabeled_ds, args.batch_size),
+            len(unlabeled_ds.unlabeled_imagepaths),
+            cache_path=unlabeled_cache, reload=args.reload_bank,
+            device=device)
+        bank = extend_target_bank(bank, extra,
+                                  args.neg_num if args.neg_num > 0 else 0)
     if args.bank_dtype == "bfloat16":
         bank = Bank(refer=bank.refer, target=bank.target.to(torch.bfloat16),
+                    refer_key=bank.refer_key)
+    elif args.bank_dtype == "int8":
+        if args.neg_num > 0 and not args.unlabeled:
+            raise SystemExit("--bank_dtype int8 needs the full-bank loss"
+                             " (no sampled negatives)")
+        bank = Bank(refer=bank.refer, target=quantize_bank(bank.target),
                     refer_key=bank.refer_key)
     print(f"bank: {bank.num_images} images, refer {bank.refer.shape}, "
           f"target {tuple(bank.target.shape)} {bank.target.dtype} -> "
@@ -138,7 +172,8 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
     else:
         lr = args.learning_rate
     best_score = 0.0
-    neg_num = args.neg_num if args.neg_num > 0 else None
+    neg_num = (args.neg_num if (args.neg_num > 0 and not args.unlabeled)
+               else None)
 
     state = create_train_state(backbone, lr)
 

@@ -6,9 +6,14 @@ rank-count formulation, on integer ids:
 
     rank(target) = #{ j : score[j] > score[target], j != reference }
 
-No sort and no `topk`: ties are broken in the target's favour exactly as in
-the JAX package, so ranks and recalls agree on tied scores too.
-Recall@K = mean(rank < K).
+The ranks use no sort and no `topk`: ties are broken in the target's
+favour exactly as in the JAX package, so ranks and recalls agree on tied
+scores too. Recall@K = mean(rank < K).
+
+`topk_names` / `subset_topk_names` (the CIRR test submission) do order the
+gallery: among equal scores the lowest index comes first, as
+`jax.lax.top_k` returns them. `torch.topk` promises no order among ties, so
+they take the head of a stable descending sort.
 """
 
 from __future__ import annotations
@@ -86,3 +91,27 @@ def fiq_average(per_type: Sequence[Dict[str, float]]) -> Dict[str, float]:
         "avg_recall_at50": avg50,
         "mean_recall": (avg10 + avg50) / 2,
     }
+
+
+def _topk_lowest_index_first(scores: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :k]
+
+
+def topk_names(scores: torch.Tensor, refer_ids: torch.Tensor, k: int
+               ) -> torch.Tensor:
+    """Top-k gallery ids per query with the reference excluded (its score
+    set to -inf); used by the CIRR test-submission path."""
+    cols = torch.arange(scores.shape[1], device=scores.device)
+    masked = scores.masked_fill(cols[None, :] == refer_ids.long()[:, None],
+                                float("-inf"))
+    return _topk_lowest_index_first(masked, min(k, scores.shape[1]))
+
+
+def subset_topk_names(scores: torch.Tensor, refer_ids: torch.Tensor,
+                      member_ids: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k among the subset members (reference excluded), returned as
+    gallery ids. member_ids: (Q, G)."""
+    member_ids = member_ids.long()
+    member_scores = scores.gather(1, member_ids).masked_fill(
+        member_ids == refer_ids.long()[:, None], float("-inf"))
+    return member_ids.gather(1, _topk_lowest_index_first(member_scores, k))

@@ -137,12 +137,18 @@ def generate_val_predictions(backbone: CIRBackbone, dataset: CIRDataset,
     return out
 
 
+def quantized_score_queries(queries: torch.Tensor, qbank: QuantBank
+                            ) -> torch.Tensor:
+    """Score against an int8 (M, D) `QuantBank` gallery, dequantizing after
+    the product (per-row scales factor out of the feature contraction)."""
+    return (queries.float() @ qbank.values.float().T) * qbank.scales[None, :]
+
+
 def query_scores(backbone: CIRBackbone, preds: Dict[str, np.ndarray],
                  index: GalleryIndex) -> torch.Tensor:
-    if isinstance(index.target, QuantBank):
-        raise NotImplementedError("validation over an int8 gallery is not "
-                                  "yet ported")
     feats = torch.from_numpy(preds["query_feats"]).to(index.device)
+    if isinstance(index.target, QuantBank):
+        return quantized_score_queries(feats, index.target)
     return backbone.score_queries(feats, index.target)
 
 

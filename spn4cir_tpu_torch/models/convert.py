@@ -7,7 +7,10 @@ pytree) into the port's OpenAI-CLIP-named state dict. It inverts
     (`.../blocks/block/...`, leading axis = layer);
   - Dense kernels (in, out) become Linear weights (out, in), the fused qkv
     kernel (d, 3d) becoming `in_proj_weight` (3d, d);
-  - the patch-embedding kernel goes from HWIO to OIHW.
+  - convolution kernels (the ViT patch embedding, every ResNet
+    convolution) go from HWIO to OIHW;
+  - a ResNet tower's BatchNorm running mean and variance come from the JAX
+    tree's `batch_stats` collection, not from `params`.
 
 `clip_state_dict_from_train_state` carries training state across: the
 parameters of a JAX train state after some optimizer steps, under the
@@ -20,7 +23,7 @@ keeps OpenAI's names, the state dict loads without conversion.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,26 +68,78 @@ def transformer_state_dict(tree: Mapping, prefix: str = "resblocks"
     return sd
 
 
-def clip_state_dict_from_jax(params_np: Mapping[str, Any], cfg: CLIPConfig
+def _oihw(kernel) -> torch.Tensor:
+    return _tensor(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def modified_resnet_state_dict(vis: Mapping, stats: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    """A JAX `ModifiedResNet` params tree and its `batch_stats` tree -> the
+    port's `visual.*` entries (the inverse of the JAX package's
+    `_convert_modified_resnet`)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(tree_key_conv, tree_key_bn, node, stat_node, conv_name,
+                bn_name):
+        sd[f"{conv_name}.weight"] = _oihw(node[tree_key_conv]["kernel"])
+        sd[f"{bn_name}.weight"] = _tensor(node[tree_key_bn]["bn"]["scale"])
+        sd[f"{bn_name}.bias"] = _tensor(node[tree_key_bn]["bn"]["bias"])
+        sd[f"{bn_name}.running_mean"] = _tensor(
+            stat_node[tree_key_bn]["bn"]["mean"])
+        sd[f"{bn_name}.running_var"] = _tensor(
+            stat_node[tree_key_bn]["bn"]["var"])
+
+    for i in (1, 2, 3):
+        conv_bn(f"conv{i}", f"bn{i}", vis, stats, f"visual.conv{i}",
+                f"visual.bn{i}")
+    for key in sorted(k for k in vis if k.startswith("layer")):
+        stage, blk = key[len("layer"):].split("_")
+        name = f"visual.layer{stage}.{blk}"
+        for j in (1, 2, 3):
+            conv_bn(f"conv{j}", f"bn{j}", vis[key], stats[key],
+                    f"{name}.conv{j}", f"{name}.bn{j}")
+        if "downsample_conv" in vis[key]:
+            conv_bn("downsample_conv", "downsample_bn", vis[key], stats[key],
+                    f"{name}.downsample.0", f"{name}.downsample.1")
+    pool = vis["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _tensor(
+        pool["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd[f"visual.attnpool.{proj}.weight"] = _tensor(
+            np.asarray(pool[proj]["kernel"]).T)
+        sd[f"visual.attnpool.{proj}.bias"] = _tensor(pool[proj]["bias"])
+    return sd
+
+
+def clip_state_dict_from_jax(params_np: Mapping[str, Any], cfg: CLIPConfig,
+                             batch_stats: Optional[Mapping[str, Any]] = None
                              ) -> Dict[str, torch.Tensor]:
     """JAX CLIP params ({'params': ...} or the inner tree, numpy leaves) ->
-    the port's state dict (float32 CPU tensors)."""
+    the port's state dict (float32 CPU tensors). A ResNet tower also needs
+    its running statistics: `batch_stats`, or the 'batch_stats' entry of
+    `params_np` when it is the whole variables dict."""
     p = params_np.get("params", params_np)
-    if not cfg.is_vit:
-        raise NotImplementedError("ResNet CLIP towers are not ported yet")
     sd: Dict[str, torch.Tensor] = {}
     vis, txt = p["visual"], p["text"]
-    sd["visual.conv1.weight"] = _tensor(
-        np.asarray(vis["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
-    sd["visual.class_embedding"] = _tensor(vis["class_embedding"])
-    sd["visual.positional_embedding"] = _tensor(vis["positional_embedding"])
-    sd["visual.ln_pre.weight"] = _tensor(vis["ln_pre"]["ln"]["scale"])
-    sd["visual.ln_pre.bias"] = _tensor(vis["ln_pre"]["ln"]["bias"])
-    sd.update(transformer_state_dict(vis["transformer"],
-                                     "visual.transformer.resblocks"))
-    sd["visual.ln_post.weight"] = _tensor(vis["ln_post"]["ln"]["scale"])
-    sd["visual.ln_post.bias"] = _tensor(vis["ln_post"]["ln"]["bias"])
-    sd["visual.proj"] = _tensor(vis["proj"])
+    if cfg.is_vit:
+        sd["visual.conv1.weight"] = _oihw(vis["patch_embed"]["kernel"])
+        sd["visual.class_embedding"] = _tensor(vis["class_embedding"])
+        sd["visual.positional_embedding"] = _tensor(
+            vis["positional_embedding"])
+        sd["visual.ln_pre.weight"] = _tensor(vis["ln_pre"]["ln"]["scale"])
+        sd["visual.ln_pre.bias"] = _tensor(vis["ln_pre"]["ln"]["bias"])
+        sd.update(transformer_state_dict(vis["transformer"],
+                                         "visual.transformer.resblocks"))
+        sd["visual.ln_post.weight"] = _tensor(vis["ln_post"]["ln"]["scale"])
+        sd["visual.ln_post.bias"] = _tensor(vis["ln_post"]["ln"]["bias"])
+        sd["visual.proj"] = _tensor(vis["proj"])
+    else:
+        if batch_stats is None:
+            batch_stats = params_np.get("batch_stats")
+        if batch_stats is None:
+            raise ValueError("a ResNet tower needs the JAX tree's "
+                             "batch_stats (the BatchNorm running statistics)")
+        sd.update(modified_resnet_state_dict(vis, batch_stats["visual"]))
 
     sd["token_embedding.weight"] = _tensor(txt["token_embedding"])
     sd["positional_embedding"] = _tensor(txt["positional_embedding"])
@@ -97,12 +152,16 @@ def clip_state_dict_from_jax(params_np: Mapping[str, Any], cfg: CLIPConfig
     return sd
 
 
-def clip_state_dict_from_train_state(state: Any, cfg: CLIPConfig
+def clip_state_dict_from_train_state(state: Any, cfg: CLIPConfig,
+                                     batch_stats: Optional[Mapping] = None
                                      ) -> Dict[str, torch.Tensor]:
     """The parameters of a JAX train state (anything with `.params`, or the
     params tree itself; device or numpy leaves) -> the port's state dict.
-    Leaves are read through `np.array`, so the result owns its memory."""
-    return clip_state_dict_from_jax(getattr(state, "params", state), cfg)
+    Leaves are read through `np.array`, so the result owns its memory.
+    `batch_stats` as in `clip_state_dict_from_jax` (training never moves a
+    frozen tower's statistics, so they come from the initial variables)."""
+    return clip_state_dict_from_jax(getattr(state, "params", state), cfg,
+                                    batch_stats)
 
 
 def load_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -25,7 +25,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from spn4cir_tpu_torch.eval.retrieval import GalleryIndex
+from spn4cir_tpu_torch.eval.retrieval import (GalleryIndex,
+                                              quantized_score_queries)
 from spn4cir_tpu_torch.models.api import CIRBackbone
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank, quantize_bank
 from spn4cir_tpu_torch.utils.tensors import to_host
@@ -46,13 +47,6 @@ def _round_up_k(k: int) -> int:
     while n < k:
         n *= 2
     return n
-
-
-def quantized_score_queries(queries: torch.Tensor, qbank: QuantBank
-                            ) -> torch.Tensor:
-    """Score against an int8 (M, D) `QuantBank` gallery, dequantizing after
-    the product (per-row scales factor out of the feature contraction)."""
-    return (queries.float() @ qbank.values.float().T) * qbank.scales[None, :]
 
 
 class RetrievalService:

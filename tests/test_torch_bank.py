@@ -21,11 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from spn4cir_tpu.bank import bank as jax_bank
 from spn4cir_tpu.bank.bank import Bank as JaxBank
 from spn4cir_tpu.ops import infonce as jax_infonce
 from spn4cir_tpu.ops.bank_kernels import bank_infonce_pallas
 from spn4cir_tpu.train.stage2 import sample_negatives as jax_sample_negatives
-from spn4cir_tpu_torch.bank.bank import Bank, extract_banks
+from spn4cir_tpu_torch.bank.bank import (Bank, extend_target_bank,
+                                         extract_banks,
+                                         extract_unlabeled_features)
 from spn4cir_tpu_torch.ops import bank_kernels as bk
 from spn4cir_tpu_torch.ops import infonce
 from spn4cir_tpu_torch.train.stage2 import sample_negatives
@@ -122,11 +125,52 @@ def test_cpu_route_counts_no_launch_and_bank_gets_no_grad(rng):
     assert qt.grad is not None and bt.grad is None
 
 
-def test_int8_bank_is_refused(rng):
+def test_each_kernel_wrapper_refuses_the_other_bank_type(rng):
+    """The dense wrappers refuse a QuantBank and the int8 wrappers a dense
+    bank, before any device check: a launch is never counted on the wrong
+    kernel. (`bank_infonce` takes both; tests/test_torch_q8_bank.py holds
+    the int8 numbers.)"""
     q, bank, labels = _case(rng, 4, 50, 16)
-    qbank = bk.quantize_bank(torch.from_numpy(bank))
-    with pytest.raises(NotImplementedError, match="kernels 7-8, not yet ported"):
-        bk.bank_infonce(torch.from_numpy(q), qbank, torch.from_numpy(labels), 0.1)
+    qt, lt = torch.from_numpy(q), torch.from_numpy(labels)
+    dense = torch.from_numpy(bank)
+    qbank = bk.quantize_bank(dense)
+    stats = (torch.zeros(4), torch.ones(4), torch.tensor(1.0))
+    with pytest.raises(ValueError, match="dense float32 or bfloat16"):
+        bk.bank_infonce_fwd(qt, qbank, lt, 0.1)
+    with pytest.raises(ValueError, match="dense float32 or bfloat16"):
+        bk.bank_infonce_bwd(qt, qbank, lt, 0.1, *stats)
+    with pytest.raises(ValueError, match="QuantBank"):
+        bk.bank_infonce_q8_fwd(qt, dense, lt, 0.1)
+    with pytest.raises(ValueError, match="QuantBank"):
+        bk.bank_infonce_q8_bwd(qt, dense, lt, 0.1, *stats)
+
+
+@pytest.mark.parametrize("b,m,d", [(5, 131, 640), (70, 257, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_reference_at_widths_past_512(b, m, d, dtype, rng):
+    """`bank_infonce_bwd_reference` at RN50x4's and ViT-L/14's widths with
+    ragged B and M, against autograd through the plain loss and against the
+    JAX package's Pallas kernel in interpret mode."""
+    q, bank, labels = _case(rng, b, m, d)
+    tau = 0.02
+    bt = torch.from_numpy(bank).to(dtype)
+    loss, dq, _ = _port_loss_and_grads(bk.bank_infonce_reference, q,
+                                       bt.float().numpy(), labels, tau,
+                                       bank_dtype=dtype)
+    qt, lt = torch.from_numpy(q), torch.from_numpy(labels)
+    mx, se, _, _ = bk.bank_infonce_stats_reference(qt, bt, lt, tau)
+    got = bk.bank_infonce_bwd_reference(qt, bt, lt, tau, mx, se,
+                                        torch.tensor(1.0))
+    np.testing.assert_allclose(got.numpy(), dq, atol=ATOL, rtol=RTOL)
+    jb = jnp.asarray(bt.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    want, jdq = jax.value_and_grad(
+        lambda q_: bank_infonce_pallas(q_, jb, jnp.asarray(labels),
+                                       jnp.float32(tau), 8, 128))(
+        jnp.asarray(q))
+    np.testing.assert_allclose(loss, float(want), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jdq), atol=ATOL,
+                               rtol=RTOL)
 
 
 @pytest.mark.parametrize("shape,msg", [
@@ -272,3 +316,70 @@ def test_extract_banks_scatter_padding_and_cache(tmp_path, rng):
     assert len(calls) == 6
     with pytest.raises(ValueError, match="no image batches"):
         extract_banks(features, iter(()), 11)
+
+
+def _unlabeled_batches(images, batch=4):
+    n = len(images)
+    for start in range(0, n, batch):
+        ids = np.arange(start, min(start + batch, n))
+        pad = batch - len(ids)
+        imgs = images[ids]
+        if pad:
+            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, 0)])
+            ids = np.concatenate([ids, np.full(pad, -1)])
+        yield ids, imgs
+
+
+def test_unlabeled_features_equal_jax_row_for_row_and_share_the_cache(
+        tmp_path, rng):
+    images = rng.randn(10, 4, 4, 3).astype(np.float32)
+    w = rng.randn(48, 8).astype(np.float32)
+
+    def encode_np(batch):
+        return _norm(batch.reshape(len(batch), -1) @ w).astype(np.float32)
+
+    calls = []
+
+    def encode_t(batch):
+        calls.append(len(batch))
+        return torch.from_numpy(encode_np(batch.numpy()))
+
+    want = jax_bank.extract_unlabeled_features(
+        lambda b: jnp.asarray(encode_np(np.asarray(b))),
+        _unlabeled_batches(images), 10,
+        cache_path=str(tmp_path / "jax_unlabeled.npz"))
+    cache = str(tmp_path / "bank_unlabeled.npz")
+    got = extract_unlabeled_features(encode_t, _unlabeled_batches(images), 10,
+                                     cache_path=cache)
+    np.testing.assert_array_equal(got, want)
+    assert calls == [4, 4, 4]
+    # same key in the file: either package reads the other's cache
+    assert list(np.load(cache).keys()) == ["unlabeled"]
+    np.testing.assert_array_equal(
+        jax_bank.extract_unlabeled_features(None, iter(()), 10,
+                                            cache_path=cache), want)
+    again = extract_unlabeled_features(
+        encode_t, iter(()), 10, cache_path=str(tmp_path / "jax_unlabeled.npz"))
+    np.testing.assert_array_equal(again, want)
+    assert calls == [4, 4, 4]
+    extract_unlabeled_features(encode_t, _unlabeled_batches(images), 10,
+                               cache_path=cache, reload=True)
+    assert len(calls) == 6
+    with pytest.raises(ValueError, match="no unlabeled batches"):
+        extract_unlabeled_features(encode_t, iter(()), 10)
+
+
+@pytest.mark.parametrize("neg_num", [0, 3, 50])
+def test_extend_target_bank_matches_jax(neg_num, rng):
+    refer, target = _bank_arrays(rng)
+    extra = _norm(rng.randn(6, 8)).astype(np.float32)
+    want = jax_bank.extend_target_bank(
+        JaxBank(refer=refer, target=jnp.asarray(target)), extra, neg_num)
+    got = extend_target_bank(Bank(refer=refer,
+                                  target=torch.from_numpy(target)),
+                             extra, neg_num)
+    np.testing.assert_array_equal(got.target.numpy(), np.asarray(want.target))
+    assert got.num_images == 11 + (3 if neg_num == 3 else 6)
+    assert got.refer is refer and got.refer_key == "image"
+    # the positives keep their ids in the first rows
+    np.testing.assert_array_equal(got.target[:11].numpy(), target)

@@ -164,9 +164,34 @@ def test_plain_attention_route_matches_short_attention_route(pair, rng):
     torch.testing.assert_close(plain, auto, atol=1e-5, rtol=1e-5)
 
 
-def test_resnet_towers_raise():
-    with pytest.raises(NotImplementedError, match="RN50x4"):
-        ClipCIR("RN50x4")
+def test_rn50x4_state_dict_names_are_exactly_openais():
+    """RN50x4 on the meta device has OpenAI's state-dict names, no more and
+    no fewer (tests/test_torch_resnet.py holds the shapes)."""
+    with torch.device("meta"):
+        names = set(ClipCIR("RN50x4").model.state_dict())
+    bn = ("weight", "bias", "running_mean", "running_var",
+          "num_batches_tracked")
+    want = {"positional_embedding", "text_projection", "logit_scale",
+            "token_embedding.weight", "ln_final.weight", "ln_final.bias",
+            "visual.attnpool.positional_embedding"}
+    want |= {f"visual.attnpool.{p}_proj.{w}" for p in "qkvc"
+             for w in ("weight", "bias")}
+    for i in range(12):
+        pre = f"transformer.resblocks.{i}"
+        want |= {f"{pre}.attn.in_proj_weight", f"{pre}.attn.in_proj_bias"}
+        want |= {f"{pre}.{m}.{w}" for w in ("weight", "bias")
+                 for m in ("attn.out_proj", "ln_1", "ln_2", "mlp.c_fc",
+                           "mlp.c_proj")}
+    blocks = ["visual"] + [f"visual.layer{s + 1}.{b}"
+                           for s, n in enumerate((4, 6, 10, 6))
+                           for b in range(n)]
+    for pre in blocks:
+        want |= {f"{pre}.conv{j}.weight" for j in (1, 2, 3)}
+        want |= {f"{pre}.bn{j}.{w}" for j in (1, 2, 3) for w in bn}
+        if pre.endswith(".0"):
+            want.add(f"{pre}.downsample.0.weight")
+            want |= {f"{pre}.downsample.1.{w}" for w in bn}
+    assert names == want
 
 
 def test_clipcir_index_and_fuse_match_jax(rng):

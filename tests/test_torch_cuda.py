@@ -133,7 +133,9 @@ def _bank_case(device, b, m, d, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,m,d", [(256, 2049, 512), (256, 65536, 512),
                                    (5, 2049, 512), (9, 130, 16),
-                                   (64, 128, 64), (70, 4000, 256)])
+                                   (64, 128, 64), (70, 4000, 256),
+                                   (256, 65536, 640), (5, 2049, 640),
+                                   (70, 4001, 768), (3, 300, 1040)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bank_infonce_kernels_match_plain_versions_on_card(cuda_device, b, m,
                                                            d, dtype):
@@ -183,8 +185,74 @@ def test_bank_infonce_autograd_on_card(cuda_device):
     q16 = q.to(torch.bfloat16).requires_grad_()
     bk.bank_infonce(q16, bank, labels, 0.05).backward()
     assert q16.grad.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="kernels 7-8"):
-        bk.bank_infonce(q, bk.quantize_bank(bank), labels, 0.05)
+    with pytest.raises(ValueError, match="QuantBank"):
+        bk.bank_infonce_q8_fwd(q, bank, labels, 0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,d", [(256, 65536, 640), (5, 2049, 512),
+                                   (9, 130, 16), (70, 4001, 768),
+                                   (64, 128, 64), (3, 300, 1040)])
+def test_int8_bank_kernels_match_plain_versions_on_card(cuda_device, b, m, d):
+    """Kernels 7 and 8 against their plain versions (scales after the
+    product), the tail of the scale buffer poisoned behind a view: rows past
+    M must contribute nothing."""
+    q, bank, labels = _bank_case(cuda_device, b, m, d, torch.float32)
+    full = bk.quantize_bank(bank)
+    scales = torch.full((m + 200,), float("nan"), device=cuda_device)
+    scales[:m] = full.scales
+    qbank = bk.QuantBank(full.values, scales[:m])
+    tau = 0.02
+    before = (bk.bank_infonce_q8_fwd.launches, bk.bank_infonce_q8_bwd.launches,
+              bk.bank_infonce_fwd.launches, bk.bank_infonce_bwd.launches)
+    loss, stats, dtau = bk.bank_infonce_q8_fwd(q, qbank, labels, tau)
+    gout = torch.tensor(1.5, device=cuda_device)
+    dq = bk.bank_infonce_q8_bwd(q, qbank, labels, tau, stats[0], stats[1], gout)
+    torch.cuda.synchronize()
+    assert (bk.bank_infonce_q8_fwd.launches, bk.bank_infonce_q8_bwd.launches,
+            bk.bank_infonce_fwd.launches, bk.bank_infonce_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    want = bk.bank_infonce_q8_stats_reference(q, qbank, labels, tau)
+    for got_s, want_s in zip(stats, want):
+        torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        loss, bk.bank_infonce_q8_reference(q, qbank, labels, tau),
+        atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dtau, bk.dtau_from_stats(want, tau),
+                               atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(
+        dq, bk.bank_infonce_q8_bwd_reference(q, qbank, labels, tau, want[0],
+                                             want[1], gout),
+        atol=1e-6, rtol=1e-4)
+    loss2, _, _ = bk.bank_infonce_q8_fwd(q, qbank, labels, tau)
+    dq2 = bk.bank_infonce_q8_bwd(q, qbank, labels, tau, stats[0], stats[1],
+                                 gout)
+    assert torch.equal(loss, loss2) and torch.equal(dq, dq2)
+
+
+@pytest.mark.cuda
+def test_int8_bank_infonce_autograd_on_card(cuda_device):
+    """`bank_infonce` on a CUDA QuantBank goes through kernels 7 and 8 and
+    agrees with autograd through the plain version."""
+    q, bank, labels = _bank_case(cuda_device, 32, 3000, 640, torch.float32, 1)
+    qbank = bk.quantize_bank(bank)
+    grads = []
+    before = (bk.bank_infonce_q8_fwd.launches, bk.bank_infonce_q8_bwd.launches)
+    for fn in (bk.bank_infonce, bk.bank_infonce_q8_reference):
+        qq = q.clone().requires_grad_()
+        tau = torch.tensor(0.05, device=cuda_device, requires_grad=True)
+        loss = fn(qq, qbank, labels, tau)
+        loss.backward()
+        grads.append((loss.detach(), qq.grad, tau.grad))
+    assert (bk.bank_infonce_q8_fwd.launches,
+            bk.bank_infonce_q8_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    q16 = q.to(torch.bfloat16).requires_grad_()
+    bk.bank_infonce(q16, qbank, labels, 0.05).backward()
+    assert q16.grad.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="dense"):
+        bk.bank_infonce_fwd(q, qbank, labels, 0.05)
 
 
 @pytest.mark.cuda

@@ -102,6 +102,36 @@ def test_recalls_equal_on_tied_scores(levels, rng):
         float(jmetrics.recall_at(jnp.asarray(ranks.numpy()), 10)), atol=1e-5)
 
 
+@pytest.mark.parametrize("levels", [1, 2, 3, 7, 1000])
+@pytest.mark.parametrize("k", [3, 50])
+def test_topk_names_order_equal_on_tied_scores(levels, k, rng):
+    """Among equal scores the lowest gallery id comes first, as
+    `jax.lax.top_k` has it; k past the gallery size is clipped."""
+    scores, _, refer, members = _tied_case(rng, levels)
+    js, jr, jm = _j(scores, refer, members)
+    ts, tr, tm = _t(scores, refer, members)
+    got = metrics.topk_names(ts, tr, k)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jmetrics.topk_names(js, jr, k)))
+    assert got.shape == (Q, min(k, N))
+    if k < N:   # the reference never makes the list
+        assert not (got == tr[:, None]).any()
+    got = metrics.subset_topk_names(ts, tr, tm, 3)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jmetrics.subset_topk_names(js, jr, jm, 3)))
+    assert not (got == tr[:, None]).any()
+    np.testing.assert_array_equal(ts.numpy(), scores)
+
+
+def test_topk_names_puts_the_lowest_index_first_among_ties():
+    scores = torch.tensor([[0.5, 0.9, 0.5, 0.5, 0.9, 0.1]])
+    assert metrics.topk_names(scores, torch.tensor([1]), 4).tolist() == [
+        [4, 0, 2, 3]]
+    members = torch.tensor([[3, 1, 2, 0, 5]])
+    assert metrics.subset_topk_names(scores, torch.tensor([1]), members,
+                                     3).tolist() == [[3, 2, 0]]
+
+
 def test_rank_counts_ties_in_the_targets_favour():
     scores = torch.tensor([[0.5, 0.5, 0.5, 0.9, 0.1]])
     tgt, ref = torch.tensor([1]), torch.tensor([3])
@@ -162,10 +192,20 @@ def test_generate_val_predictions_matches_jax(world, pil_decode):
     np.testing.assert_allclose(
         retrieval.query_scores(tb, got, tindex).numpy(),
         np.asarray(jretrieval.query_scores(jb, want, jindex)), atol=1e-4)
-    # validation over an int8 gallery is refused, not approximated
-    tindex.target = quantize_bank(tindex.target)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        retrieval.query_scores(tb, got, tindex)
+    # an int8 gallery is scored with the scales after the product, as the
+    # JAX package's serving side does
+    dense = tindex.target
+    tindex.target = quantize_bank(dense)
+    from spn4cir_tpu.serve.service import quantized_score_queries as jax_q8
+    from spn4cir_tpu.ops.bank_kernels import QuantBank as JaxQuantBank
+
+    q8 = retrieval.query_scores(tb, got, tindex)
+    want_q8 = jax_q8(jnp.asarray(got["query_feats"]), JaxQuantBank(
+        jnp.asarray(tindex.target.values.numpy()),
+        jnp.asarray(tindex.target.scales.numpy())))
+    np.testing.assert_allclose(q8.numpy(), np.asarray(want_q8), atol=1e-6)
+    assert (q8 - torch.from_numpy(got["query_feats"]) @ dense.T).abs().max() \
+        < 0.02
 
 
 def test_cirr_val_retrieval_matches_jax(world, pil_decode):

@@ -309,7 +309,8 @@ def test_serve_main_end_to_end(world, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error", [
-    ((), NotImplementedError),                       # RN50x4, the default
+    (("--clip-model-name", "test-tiny", "--text_max_len", "40"),
+     NotImplementedError),
     (("--clip-model-name", "test-tiny", "--mesh_bank", "2"),
      NotImplementedError),
     (("--clip-model-name", "test-tiny", "--device_preprocess"),
@@ -348,6 +349,8 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    spn4cir_tpu_torch.__path__, 'spn4cir_tpu_torch.')]\n"
         "assert len(names) > 20, names\n"
+        "for new in ('cli.validate', 'cli.submission', 'eval.submission'):\n"
+        "    assert 'spn4cir_tpu_torch.' + new in names, new\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"

@@ -33,13 +33,16 @@ from spn4cir_tpu.bank.bank import Bank as JaxBank
 from spn4cir_tpu.data.datasets import (CIRDataset as JaxCIRDataset,
                                        iter_train_bank as jax_iter_train_bank)
 from spn4cir_tpu.data.transforms import ImageTransform as JaxImageTransform
+from spn4cir_tpu.models import clip as jclip
 from spn4cir_tpu.models.api import build_backbone as jax_build_backbone
+from spn4cir_tpu.ops import bank_kernels as jax_bank_kernels
 from spn4cir_tpu.tokenizer.bpe import tokenize as jax_tokenize
 from spn4cir_tpu.train import stage2 as jstage2
 from spn4cir_tpu_torch.bank.bank import Bank
 from spn4cir_tpu_torch.cli.train import train_main
 from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_bank
 from spn4cir_tpu_torch.data.transforms import ImageTransform
+from spn4cir_tpu_torch.models import clip as tclip
 from spn4cir_tpu_torch.models.clip4cir import ClipCIR
 from spn4cir_tpu_torch.models.convert import clip_state_dict_from_train_state
 from spn4cir_tpu_torch.ops import attention_kernels, bank_kernels
@@ -225,6 +228,65 @@ def test_parameters_after_1_and_3_steps_match_jax(neg_num, tok, jax_side, rng):
     assert moved > 50 * PARAM_TOL["atol"], moved
 
 
+RN_TINY = dict(embed_dim=32, image_resolution=32, vision_layers=(1, 1, 1, 1),
+               vision_width=8, vision_patch_size=None, context_length=77,
+               transformer_width=32, transformer_heads=2,
+               transformer_layers=2)
+
+
+@pytest.fixture
+def rn_sides(tok, monkeypatch):
+    """Both packages' clip4cir backbone over a narrow ResNet-tower CLIP
+    ("test-rn", registered for the length of one test), same weights."""
+    monkeypatch.setitem(jclip.CLIP_CONFIGS, "test-rn",
+                        jclip.CLIPConfig(**RN_TINY))
+    monkeypatch.setitem(tclip.CLIP_CONFIGS, "test-rn",
+                        tclip.CLIPConfig(**RN_TINY))
+    jb = jax_build_backbone("clip", clip_model_name="test-rn")
+    params = jax.jit(jb.init_params)(jax.random.PRNGKey(0))
+    assert "batch_stats" in params
+    tb = ClipCIR("test-rn", tokenizer=tok)
+    tb.model.load_state_dict(clip_state_dict_from_train_state(params, tb.cfg))
+    return jb, params, tb
+
+
+def test_resnet_tower_int8_bank_steps_match_jax(rn_sides, rng):
+    """Stage-2 steps of a ResNet-tower model against an int8 bank: the JAX
+    step runs `bank_infonce_q8_pallas` in interpret mode, the port its plain
+    version; losses and the parameters after 1 and 3 steps agree (the key
+    third of `in_proj_bias` left out, see `_comparable`), and the image
+    tower, its running statistics and `logit_scale` do not move."""
+    jb, params, tb = rn_sides
+    start = {k: v.clone() for k, v in tb.model.state_dict().items()}
+    bank, batches = _batches(rng, 3)
+    tbank = bank_kernels.quantize_bank(torch.from_numpy(bank))
+    jbank = jax_bank_kernels.QuantBank(jnp.asarray(tbank.values.numpy()),
+                                       jnp.asarray(tbank.scales.numpy()))
+    jstate = jstage2.create_train_state(jb, params, LR)
+    state = stage2.create_train_state(tb, LR)
+    assert not any(p.requires_grad for n, p in tb.model.named_parameters()
+                   if n.startswith("visual."))
+    for step, batch in enumerate(batches, start=1):
+        jstate, want_loss = jstage2.stage2_train_step(jb, jstate, jbank,
+                                                      _to_jax(batch), "pallas")
+        loss = stage2.stage2_train_step(tb, state, tbank, _to_torch(batch))
+        np.testing.assert_allclose(loss.item(), float(want_loss), **LOSS_TOL)
+        if step not in (1, 3):
+            continue
+        want = clip_state_dict_from_train_state(jax.device_get(jstate), tb.cfg)
+        for name, got in tb.model.state_dict().items():
+            if _frozen(name):
+                assert torch.equal(got, start[name]), name
+                if not name.endswith("num_batches_tracked"):
+                    assert torch.equal(want[name], start[name]), name
+            else:
+                np.testing.assert_allclose(
+                    _comparable(name, got).numpy(),
+                    _comparable(name, want[name]).numpy(),
+                    err_msg=f"{name} after {step}", **PARAM_TOL)
+    assert not torch.equal(tb.model.text_projection, start["text_projection"])
+
+
 @pytest.mark.parametrize("kind,warmup", [("constant", 0), ("cosine", 0),
                                          ("cosine", 5), ("linear", 0)])
 def test_lr_schedules_match_optax(kind, warmup):
@@ -363,12 +425,53 @@ def test_train_main_cpu_end_to_end(tok, cirr_root, tmp_path, capsys):
     assert "bfloat16" in capsys.readouterr().out
 
 
+def test_train_main_int8_bank_and_unlabeled_pool_on_the_cpu(
+        tok, cirr_root, tmp_path, capsys, monkeypatch):
+    """`--bank_dtype int8 --unlabeled` on the CPU, a ResNet-tower model: the
+    bank is extended with the unlabeled pool (cached beside the bank under
+    the name derived from the resolved bank file), then quantized; `--neg_num`
+    with `--unlabeled` truncates the pool and keeps the full-bank loss."""
+    monkeypatch.setitem(tclip.CLIP_CONFIGS, "test-rn",
+                        tclip.CLIPConfig(**RN_TINY))
+    tf = ImageTransform("targetpad", 32)
+    pool = CIRDataset("cirr", "train", "unlabeled", tf, cirr_root,
+                      extend_suffix="clip").unlabeled_imagepaths
+    u = len(pool)
+    assert u >= 3
+    out = str(tmp_path / "run")
+    argv = [a if a != "test-tiny" else "test-rn" for a in ARGV] + [
+        "--data_path", cirr_root, "--output_path", out, "--num-epochs", "1",
+        "--bank_path", str(tmp_path / "banks" / "mybank"),
+        "--bank_dtype", "int8", "--unlabeled"]
+    n = CIRDataset("cirr", "train", "relative", tf,
+                   cirr_root).num_unique_images
+    best = train_main("clip", argv, tokenizer=tok, log_every=0)
+    text = capsys.readouterr().out
+    assert f"bank: {n + u} images" in text and "torch.int8" in text
+    assert 0.0 <= best <= 100.0
+    assert os.path.exists(tmp_path / "banks" / "mybank.npz")
+    cached = np.load(tmp_path / "banks" / "mybank_unlabeled.npz")["unlabeled"]
+    assert cached.shape == (u, 32)
+    np.testing.assert_allclose(np.linalg.norm(cached, axis=-1), 1.0, atol=1e-5)
+    train_main("clip", argv + ["--neg_num", "2"], tokenizer=tok, log_every=0)
+    assert f"bank: {n + 2} images" in capsys.readouterr().out
+
+
+def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
+        tok, cirr_root, tmp_path):
+    argv = ARGV + ["--data_path", cirr_root, "--output_path",
+                   str(tmp_path / "run"), "--bank_dtype", "int8",
+                   "--neg_num", "5"]
+    with pytest.raises(SystemExit, match="needs the full-bank loss"):
+        train_main("clip", argv, tokenizer=tok)
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--wo_bank"], "--wo_bank"),
     (["--neg_type", "1"], "--neg_type"),
-    (["--unlabeled"], "--unlabeled"),
+    (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
     (["--use_cc"], "--use_cc"),
-    (["--bank_dtype", "int8"], "--bank_dtype int8"),
+    (["--loss_impl", "xla"], "--loss_impl"),
     (["--mesh_data", "2"], "--mesh_data"),
     (["--mesh_bank", "2"], "--mesh_bank"),
     (["--mesh_model", "2"], "--mesh_model"),
@@ -382,8 +485,6 @@ def test_train_main_cpu_end_to_end(tok, cirr_root, tmp_path, capsys):
     (["--val_ret_train"], "--val_ret_train"),
     (["--device_canvas", "448"], "--device_canvas"),
     (["--profile_dir", "traces"], "--profile_dir"),
-    (["--loss_impl", "xla"], "--loss_impl"),
-    (["--clip-model-name", "RN50x4"], "RN50x4"),
 ])
 def test_unported_flags_raise_not_yet_ported(flags, match, tok, cirr_root,
                                              tmp_path):
