@@ -9,17 +9,20 @@ non-zero exit):
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
      per source, started together;
-  3. kernels: each of the six kernels against its plain PyTorch version on
-     the card at the shapes of the serving, training and flagship paths
-     (attention in bfloat16 and float32 at the ViT-B/32 towers' slices and
-     at RN50x4's 10-head text tower; the bank InfoNCE over float32,
-     bfloat16 and int8 banks at D = 512, 640 and 768, with a ragged case
-     each), with the
+  3. kernels: each of the eight kernels against its plain PyTorch version
+     on the card at the shapes of the serving, training, flagship and blip
+     paths (short attention in bfloat16 and float32 at the ViT-B/32 towers'
+     slices and at RN50x4's 10-head text tower; the bank InfoNCE over
+     float32, bfloat16 and int8 banks at D = 512, 640 and 768, with a
+     ragged case each; the long attention, forward and backward, at BLIP's
+     (1536, 577, 64) and (384, 577, 64), at ViT-L/14's, EVA-g's and
+     ViT-B/16's slices and a ragged one, two launches giving the same
+     bits), with the
      kernel's time, the plain version's, the time of the PyTorch library
      call that computes the same function (a yardstick only) and the bound
      (the larger of bytes / 3.35 TB/s and operations / peak);
   4. serving slice: `spn4cir_tpu_torch.cli.serve.serve_main` indexes a
-     2048-image synthetic CIRR gallery with ViT-B/32 in bf16 (random weights
+     1024-image synthetic CIRR gallery with ViT-B/32 in bf16 (random weights
      from seed 0) and serves it over HTTP; concurrent and sequential
      /retrieve requests must return valid, reference-excluded,
      score-ordered results; the launch counter must show the kernel ran in
@@ -48,14 +51,36 @@ non-zero exit):
      time of the bank and attention kernels cut from the step's own trace);
   8. one loss and gradient computed twice in float32, through the kernels
      and through the plain versions, over a dense and over an int8 bank,
-     must agree.
-The last three lines are the kernels JSON, the card's name and power limit
+     must agree; so must one blip stage-1 loss (two layers deep at BLIP
+     base width) through the long-attention kernels;
+  9. blip4cir at BLIP base width (ViT-B/16 at 384: 577 tokens, width 768, 12
+     layers; MED: hidden 768, 12 layers, cross-attention in each; embedding
+     256; bf16 over float32 weights, random from seed 0) on a 512-image
+     synthetic CIRR tree: `serve_main(backbone_name="blip")` with concurrent
+     and sequential /retrieve requests (12 launches of the long attention
+     per encode batch; 8 references re-encoded with plain attention keep
+     their queries' top-1); `train_main("blip")` at batch 128 for 4 steps
+     (extraction through the long attention, 1 + 1 dense bank launches a
+     step at D=256 and no attention launch inside the steps; the ViT and
+     vision_proj bit-identical, MED, text_proj and tau moved, the first
+     batch's loss lower), `validate_main("blip")` and
+     `submission_main("blip")` on its checkpoint; `train_main("blip",
+     ["--wo_bank"])` at batch 32 for 4 steps (24 + 24 long-attention
+     launches a step, no bank launch, the ViT moved, the loss lower) and
+     again with `--grad_ckpt` (the same first loss, 48 + 24 a step); the
+     blip stage-2 step at batch 128 against a 65,536 x 256 bank and a
+     2,048-image host refer pool (ms/step, host gather, host-to-device
+     copy, device busy, idle share) and the extraction rate.
+Phase 9 runs between phases 7 and 8. The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
 port's CLIP tokenizer built from a synthetic merges table
 (tests/torch_fixtures.py), written to a temporary file that
-SPN4CIR_BPE_VOCAB points at.
+SPN4CIR_BPE_VOCAB points at. Nor is the BERT vocabulary: blip's text goes
+through the port's WordPiece tokenizer over a synthetic vocabulary of the
+real size (30,522 entries + [DEC], [ENC] = 30,524, MED's embedding table),
+written to a temporary file that SPN4CIR_BERT_VOCAB points at.
 """
 
 from __future__ import annotations
@@ -108,7 +133,19 @@ FLAGSHIP_TEXT = dict(name="flagship-text", bh=256 * 10, s=77, d=64, causal=True)
 FLAGSHIP_EVAL_TEXT = dict(name="flagship-eval-text", bh=32 * 10, s=77, d=64,
                           causal=True)
 
-N_GALLERY = 2048
+# long attention: BLIP's ViT-B/16 at 384 (12 heads) at the extraction batch
+# of 128 and the index / validation / stage-1 batch of 32; then ViT-L/14
+# (16 heads, batch 32), EVA-g (head_dim 88, 16 heads, batch 16), ViT-B/16 at
+# 224 (batch 32) and a ragged slice
+BLIP_EXTRACT = dict(name="blip-extract", bh=128 * 12, s=577, d=64, causal=False)
+BLIP_INDEX = dict(name="blip-index", bh=32 * 12, s=577, d=64, causal=False)
+LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX,
+               dict(name="vit-l14", bh=32 * 16, s=257, d=64, causal=False),
+               dict(name="eva-g", bh=16 * 16, s=257, d=88, causal=False),
+               dict(name="vit-b16", bh=32 * 12, s=197, d=64, causal=False),
+               dict(name="ragged", bh=5, s=130, d=40, causal=False))
+
+N_GALLERY = 1024
 N_TRAIN = 1280
 N_VAL = 64
 ENCODE_BATCH = 256
@@ -124,8 +161,21 @@ FLAGSHIP_DIM = 640      # RN50x4's embedding; 768 is ViT-L/14's
 FLAGSHIP_IMAGES = 1024  # the flagship slice's own, smaller CIRR tree
 FLAGSHIP_TRAIN = 1024
 RECIPE_BANK = 65536
-RECIPE_STEPS = 10
+RECIPE_STEPS = 6
 PROFILE_STEPS = 4
+BLIP_IMAGES = 512       # host refer index 512 x 577 x 768 x 4 B = 0.9 GB
+BLIP_TRAIN = 512
+BLIP_BATCH = 128
+BLIP_LR = "1e-4"        # 20x the recipe's, so that 4 steps show in bf16
+BLIP_S1_IMAGES = 128    # the stage-1 runs' own tree
+BLIP_S1_TRAIN = 128
+BLIP_S1_BATCH = 32
+BLIP_DIM = 256
+BLIP_POOL = 2048        # host refer pool of the recipe-scale step
+BLIP_TAU = 0.03
+# limit on |kernel score - plain score| of the blip re-score: one bf16
+# rounding unit at 1.0 (2**-8); the cosine scores lie in [-1, 1]
+BLIP_SCORE_NOISE = 2.0 ** -8
 TAU = 0.02
 CAPTIONS = ("make it like number 7 but red", "is darker and has longer sleeves",
             "the dress is shorter with a floral print",
@@ -192,7 +242,7 @@ def attention_bound(shape, dtype, n_tensors: int, n_products: int) -> tuple:
 def build_kernels(cuda_build) -> None:
     """Phase 2: one nvcc per source, all started together."""
     t0 = time.perf_counter()
-    names = ("short_attention", "bank_infonce")
+    names = ("short_attention", "bank_infonce", "long_attention")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = [pool.submit(cuda_build.build_library, n, [f"{n}.cu"], True)
                 for n in names]
@@ -311,6 +361,94 @@ def check_attention_bwd(ak, device, card):
     return records
 
 
+def check_long_attention(ak, device, card):
+    """Phase 3d: long_attention and long_attention_bwd against their plain
+    versions (the backward also against float32 autograd through the plain
+    forward), per shape and dtype; two launches must give the same bits;
+    timed at the two blip shapes. Returns (forward, backward) records."""
+    g = torch.Generator(device=device).manual_seed(11)
+    fwd_records, bwd_records = [], []
+    for shape in LONG_SHAPES:
+        timed = shape in (BLIP_EXTRACT, BLIP_INDEX)
+        for dtype, tol, btol in ((torch.bfloat16, BF16_TOL, BWD_BF16_TOL),
+                                 (torch.float32, F32_TOL, BWD_F32_TOL)):
+            bh, s, d = shape["bh"], shape["s"], shape["d"]
+            q, k, v, do = (torch.randn(bh, s, d, generator=g, device=device,
+                                       dtype=dtype) for _ in range(4))
+            q = q * d ** -0.5
+            with torch.inference_mode():
+                got, lse = ak.long_attention_fwd(q, k, v)
+                again, _ = ak.long_attention_fwd(q, k, v)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), "forward not repeatable"
+                want = ak.long_attention_reference(q, k, v)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+                err = (got.float() - want.float()).abs().max().item()
+                del want, again
+                grads = ak.long_attention_bwd(q, k, v, do, got, lse)
+                grads2 = ak.long_attention_bwd(q, k, v, do, got, lse)
+                plain = ak.long_attention_bwd_reference(q, k, v, do)
+            exact = [t.to(torch.float32, copy=True).requires_grad_()
+                     for t in (q, k, v)]
+            auto = torch.autograd.grad(ak.long_attention_reference(*exact),
+                                       exact, do.float())
+            del exact
+            berr = 0.0
+            for a, a2, b, c in zip(grads, grads2, plain, auto):
+                assert torch.equal(a, a2), "backward not repeatable"
+                torch.testing.assert_close(a.float(), b.float(), atol=btol,
+                                           rtol=btol)
+                torch.testing.assert_close(a.float(), c.float(), atol=btol,
+                                           rtol=btol)
+                berr = max(berr, (a.float() - b.float()).abs().max().item())
+            del grads2, plain, auto
+            common = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
+                          causal=False, dtype=dtype_name(dtype))
+            f_ms, f_by = attention_bound(shape, dtype, 4, 2)
+            b_ms, b_by = attention_bound(shape, dtype, 7, 5)
+            frec = dict(common, rtol=tol, atol=tol, max_abs_err=err,
+                        bound_ms=f_ms, bound_by=f_by)
+            brec = dict(common, rtol=btol, atol=btol, max_abs_err=berr,
+                        bound_ms=b_ms, bound_by=b_by)
+            times = ["", ""]
+            if timed:
+                with torch.inference_mode():
+                    frec["ms"] = median_ms(
+                        lambda: ak.long_attention_fwd(q, k, v), reps=10)
+                    frec["plain_ms"] = median_ms(
+                        lambda: ak.long_attention_reference(q, k, v), reps=5,
+                        warmup=1)
+                    frec["library_ms"] = median_ms(
+                        lambda: sdpa(q, k, v, False), reps=10)
+                    brec["ms"] = median_ms(lambda: ak.long_attention_bwd(
+                        q, k, v, do, got, lse), reps=10)
+                    brec["plain_ms"] = median_ms(
+                        lambda: ak.long_attention_bwd_reference(q, k, v, do),
+                        reps=5, warmup=1)
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                lib_out = sdpa(*leaves, False)
+                brec["library_ms"] = median_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, do, retain_graph=True), reps=10)
+                del leaves, lib_out
+                times = [f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                         f"ms, library (SDPA{w}) {r['library_ms']:.4f} ms, "
+                         for r, w in ((frec, ""), (brec, " backward"))]
+            fwd_records.append(frec)
+            bwd_records.append(brec)
+            for name, rec, t in (("long_attention", frec, times[0]),
+                                 ("long_attention_bwd", brec, times[1])):
+                phase(f"kernel {name} {rec['tower']} {rec['shape']} "
+                      f"{rec['dtype']}: max_abs_err={rec['max_abs_err']:.3e} "
+                      f"vs the plain version (atol=rtol={rec['atol']}"
+                      f"{', also vs float32 autograd' if rec is brec else ''}"
+                      f"), two launches bit-identical; {t}bound "
+                      f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} [{card}]")
+            del q, k, v, do, got, lse, grads
+            torch.cuda.empty_cache()
+    return fwd_records, bwd_records
+
+
 def unit_rows(n, d, generator, device):
     return torch.nn.functional.normalize(
         torch.randn(n, d, generator=generator, device=device), dim=-1)
@@ -419,7 +557,8 @@ def check_bank_case(bk, q, bank, labels, card, time_it=True):
 def check_bank(bk, device, card):
     """Phase 3c: the bank kernels at batch 256. Dense: D=512 x M x (float32,
     bfloat16), then M=65,536 at D=640 (both types) and D=768 (float32).
-    int8: M=65,536 at D=640 and at D=512. Then ragged cases, untimed.
+    int8: M=65,536 at D=640 and at D=512. Then blip4cir's shape (batch 128,
+    D=256, float32), then ragged cases, untimed.
     Returns the records of the four kernels."""
     g = torch.Generator(device=device).manual_seed(2)
     records = {name: [] for name in (
@@ -444,6 +583,11 @@ def check_bank(bk, device, card):
                 run(q, bank32.to(torch.bfloat16), labels)
             if m == RECIPE_BANK and d != 768:
                 run(q, bk.quantize_bank(bank32), labels)
+    # blip4cir's stage-2 shape: batch 128, embedding 256
+    q = unit_rows(BLIP_BATCH, BLIP_DIM, g, device)
+    bank32 = unit_rows(RECIPE_BANK, BLIP_DIM, g, device)
+    run(q, bank32, torch.randint(0, RECIPE_BANK, (BLIP_BATCH,), generator=g,
+                                 device=device))
     # row and bank counts that are no multiple of a tile; the scales of the
     # int8 bank are a view into a buffer whose tail is NaN
     for b, m, d in ((5, 2049, BANK_DIM), (5, 2049, FLAGSHIP_DIM),
@@ -484,8 +628,9 @@ def pct(values, q: float) -> float:
     return vals[min(len(vals) - 1, int(math.ceil(q * len(vals))) - 1)]
 
 
-def drive_serving(ak, layers, root, card):
-    """Phase 4: the serving CLI end to end, then the checks."""
+def drive_serving(ak, bk, layers, root, card):
+    """Phase 4: the serving CLI end to end, then the checks. Returns the
+    launch counts of the run."""
     import numpy as np
 
     from spn4cir_tpu_torch.cli.serve import serve_main
@@ -499,7 +644,7 @@ def drive_serving(ak, layers, root, card):
             "--serve_host", "127.0.0.1", "--serve_port", "0", "--no-block"]
 
     # ---- the main path, counted ----
-    ak.short_attention.launches = 0
+    count = zero_counts(ak, bk)
     t0 = time.perf_counter()
     server, service = serve_main(argv)
     startup_s = time.perf_counter() - t0
@@ -530,8 +675,7 @@ def drive_serving(ak, layers, root, card):
                                       "k": K})
             check_results(n, results, name_set)
             sequential.append(ms)
-        torch.cuda.synchronize()
-        launches = ak.short_attention.launches
+        launches = read_counts(count)
         dispatches = service.metrics()["dispatches"]
     finally:
         server.shutdown()
@@ -540,13 +684,16 @@ def drive_serving(ak, layers, root, card):
     backbone = service.backbone
     cfg = backbone.cfg
     encode_batches = math.ceil(N_GALLERY / ENCODE_BATCH)
-    want = (cfg.vision_layers * encode_batches
-            + cfg.transformer_layers * dispatches)
+    want = dict(short_attention=(cfg.vision_layers * encode_batches
+                                 + cfg.transformer_layers * dispatches),
+                short_attention_bwd=0, **NO_LONG, **bank_launches(False, 0))
     phase(f"serving slice: {len(names)} images indexed in {encode_batches} "
           f"encode batches, {2 * N_CONCURRENT + N_SEQUENTIAL} queries in "
-          f"{dispatches} fuse dispatches; short_attention launches "
-          f"{launches} (want {cfg.vision_layers}*{encode_batches} + "
-          f"{cfg.transformer_layers}*{dispatches} = {want})")
+          f"{dispatches} fuse dispatches; launches {launches} (want "
+          f"{cfg.vision_layers}*{encode_batches} + "
+          f"{cfg.transformer_layers}*{dispatches} = "
+          f"{want['short_attention']} short-attention forwards and no other "
+          f"kernel)")
     assert launches == want, (launches, want)
 
     # ---- the outputs are right ----
@@ -660,10 +807,24 @@ class Tee(io.TextIOBase):
 def counters(ak, bk):
     return dict(short_attention=ak.short_attention,
                 short_attention_bwd=ak.short_attention_bwd,
+                long_attention=ak.long_attention,
+                long_attention_bwd=ak.long_attention_bwd,
                 bank_infonce_fwd=bk.bank_infonce_fwd,
                 bank_infonce_bwd=bk.bank_infonce_bwd,
                 bank_infonce_q8_fwd=bk.bank_infonce_q8_fwd,
                 bank_infonce_q8_bwd=bk.bank_infonce_q8_bwd)
+
+
+def zero_counts(ak, bk):
+    count = counters(ak, bk)
+    for fn in count.values():
+        fn.launches = 0
+    return count
+
+
+def read_counts(count):
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in count.items()}
 
 
 def bank_launches(quant: bool, steps: int) -> dict:
@@ -672,6 +833,12 @@ def bank_launches(quant: bool, steps: int) -> dict:
     dense, q8 = (0, steps) if quant else (steps, 0)
     return dict(bank_infonce_fwd=dense, bank_infonce_bwd=dense,
                 bank_infonce_q8_fwd=q8, bank_infonce_q8_bwd=q8)
+
+
+# the CLIP paths at S <= 128 never reach the long-attention kernels
+NO_LONG = dict(long_attention=0, long_attention_bwd=0)
+# nor the blip paths the short ones: MED's attention is plain tensor code
+NO_SHORT = dict(short_attention=0, short_attention_bwd=0)
 
 
 def drive_training_cli(ak, bk, root, tmp, card, model="ViT-B/32",
@@ -694,17 +861,14 @@ def drive_training_cli(ak, bk, root, tmp, card, model="ViT-B/32",
             "--bank_dtype", bank_dtype]
 
     # ---- the main path, counted (no --device: cuda:0 is the default) ----
-    count = counters(ak, bk)
-    for fn in count.values():
-        fn.launches = 0
+    count = zero_counts(ak, bk)
     tee = Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         best = train.train_main("clip", argv, log_every=1,
                                 **train.CLIP4CIR_DEFAULTS)
-    torch.cuda.synchronize()
+    launches = read_counts(count)
     train_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in count.items()}
 
     losses = [json.loads(line)["loss"]
               for line in tee.buffer_.getvalue().splitlines()
@@ -739,7 +903,7 @@ def drive_training_cli(ak, bk, root, tmp, card, model="ViT-B/32",
                          + vision_layers * val_gallery_batches
                          + cfg.transformer_layers * val_query_batches),
         short_attention_bwd=cfg.transformer_layers * steps,
-        **bank_launches(quant, steps))
+        **NO_LONG, **bank_launches(quant, steps))
     phase(f"training slice (train_main, {model} bf16, batch {TRAIN_BATCH}, "
           f"{bank_dtype} bank): "
           f"bank of {m} images in {extract_batches} encode batches, {steps} "
@@ -802,9 +966,7 @@ def drive_flagship_eval(ak, bk, argv, backbone, tmp, card):
 
     ckpt = os.path.join(argv[argv.index("--output_path") + 1], "best.pt")
     argv = argv + ["--model_path", ckpt]
-    count = counters(ak, bk)
-    for fn in count.values():
-        fn.launches = 0
+    count = zero_counts(ak, bk)
     with contextlib.redirect_stdout(io.StringIO()):
         results = validate.validate_main("clip", argv,
                                          **train.CLIP4CIR_DEFAULTS)
@@ -827,8 +989,7 @@ def drive_flagship_eval(ak, bk, argv, backbone, tmp, card):
                 docs.append(json.load(fh))
     finally:
         os.chdir(cwd)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in count.items()}
+    launches = read_counts(count)
     pred, group = docs
     assert (pred.pop("version"), pred.pop("metric")) == ("rc2", "recall")
     assert (group.pop("version"), group.pop("metric")) == (
@@ -843,7 +1004,7 @@ def drive_flagship_eval(ak, bk, argv, backbone, tmp, card):
         assert name not in pred[pid] and name not in group[pid], pid
     query_batches = 2 * math.ceil(N_VAL / 32)       # validation + submission
     want = dict(short_attention=backbone.cfg.transformer_layers * query_batches,
-                short_attention_bwd=0, **bank_launches(True, 0))
+                short_attention_bwd=0, **NO_LONG, **bank_launches(True, 0))
     phase(f"flagship slice: validate_main on best.pt {json.dumps(results)}; "
           f"submission_main wrote {[os.path.basename(p) for p in paths]}: "
           f"{len(pred)} pairs, 50 and 3 names each, no reference in its own "
@@ -890,7 +1051,7 @@ def device_busy(trace_path: str):
         low = name.lower()
         if "bank_infonce" in name:
             key = "bank kernels"
-        elif "short_attention" in name:
+        elif "short_attention" in name or "long_attention" in name:
             key = "attention kernels"
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
             key = "GEMMs"
@@ -969,11 +1130,11 @@ def drive_training_recipe(ak, bk, tmp, card, model, bank_dtypes):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / RECIPE_STEPS
         event_ms = start.elapsed_time(end) / RECIPE_STEPS
-        launches = {name: fn.launches for name, fn in count.items()}
+        launches = read_counts(count)
         assert launches == dict(
             short_attention=layers_n * RECIPE_STEPS,
             short_attention_bwd=layers_n * RECIPE_STEPS,
-            **bank_launches(quant, RECIPE_STEPS)), launches
+            **NO_LONG, **bank_launches(quant, RECIPE_STEPS)), launches
         assert math.isfinite(mean_loss), mean_loss
         phase(f"recipe scale, M={RECIPE_BANK} x {dim} {name} bank, batch "
               f"{TRAIN_BATCH}, {model} bf16, {RECIPE_STEPS} steps: "
@@ -1018,6 +1179,606 @@ def drive_training_recipe(ak, bk, tmp, card, model, bank_dtypes):
               f"{100 * attn_ms / event_ms:.1f}%); device ms per step by "
               f"group: { {k: round(v, 3) for k, v in per.items()} } [{card}]")
     phase(f"recipe scale stats {model} " + json.dumps(results))
+
+
+def blip_argv(root, *extra):
+    return ["--dataset", "cirr", "--data_path", root, "--bf16", "--seed", "0",
+            *extra]
+
+
+def drive_blip_serving(ak, bk, layers, root, card):
+    """Phase 9a: the serving CLI over blip4cir, then the checks. Returns the
+    launch counts of the run."""
+    import numpy as np
+
+    from spn4cir_tpu_torch.cli.serve import serve_main
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_gallery
+
+    argv = blip_argv(root, "--batch-size", str(SERVE_BATCH), "--serve_batch",
+                     str(SERVE_BATCH), "--default_k", str(K), "--serve_host",
+                     "127.0.0.1", "--serve_port", "0", "--no-block")
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    server, service = serve_main(argv, backbone_name="blip")
+    startup_s = time.perf_counter() - t0
+    port = server.server_address[1]
+    try:
+        index = service.index
+        names = list(index.names)
+        name_set = set(names)
+        rng = np.random.RandomState(0)
+        picks = rng.choice(len(names), N_CONCURRENT, replace=False)
+        jobs = [(names[i], CAPTIONS[j % len(CAPTIONS)])
+                for j, i in enumerate(picks)]
+        with concurrent.futures.ThreadPoolExecutor(N_CONCURRENT) as pool:
+            futs = [pool.submit(post, port, {"reference_name": n,
+                                             "caption": c, "k": K})
+                    for n, c in jobs]
+            outs = [f.result() for f in futs]
+        for (n, _), (results, _) in zip(jobs, outs):
+            check_results(n, results, name_set)
+        concurrent_ms = [ms for _, ms in outs]
+        sequential = []
+        for j in range(N_SEQUENTIAL):
+            n = names[int(rng.randint(len(names)))]
+            results, ms = post(port, {"reference_name": n,
+                                      "caption": CAPTIONS[j % len(CAPTIONS)],
+                                      "k": K})
+            check_results(n, results, name_set)
+            sequential.append(ms)
+        launches = read_counts(count)
+        dispatches = service.metrics()["dispatches"]
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    backbone = service.backbone
+    vit = backbone.vit_cfg
+    assert (vit.width, vit.layers, vit.heads, vit.num_tokens) == (
+        768, 12, 12, 577), vit
+    med = backbone.med_cfg
+    assert (med.hidden_size, med.num_layers, med.vocab_size) == (
+        768, 12, 30524), med
+    encode_batches = math.ceil(BLIP_IMAGES / SERVE_BATCH)
+    want = dict(long_attention=vit.layers * encode_batches,
+                long_attention_bwd=0, **NO_SHORT, **bank_launches(False, 0))
+    phase(f"blip serving slice: {len(names)} images indexed at 384 in "
+          f"{encode_batches} encode batches of {SERVE_BATCH} "
+          f"({startup_s:.1f} s with the model's construction), "
+          f"{N_CONCURRENT + N_SEQUENTIAL} queries in {dispatches} fuse "
+          f"dispatches; launches {launches} (want {vit.layers} long-attention "
+          f"forwards per encode batch and no other kernel: MED's attention "
+          f"carries padding masks)")
+    assert launches == want, (launches, want)
+
+    target = index.target
+    assert target.shape == (BLIP_IMAGES, BLIP_DIM), target.shape
+    assert index.refer.shape == (BLIP_IMAGES, 577, 768), index.refer.shape
+    assert torch.isfinite(target).all() and np.isfinite(index.refer).all()
+    norms = target.float().norm(dim=-1)
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-3), norms
+
+    # the first 8 gallery images again, their tokens through the plain
+    # attention: the scores of the two routes differ by no more than
+    # BLIP_SCORE_NOISE, and each query keeps its top-1 unless its two best
+    # were closer than twice that fixed limit
+    classic = CIRDataset("cirr", "val", "classic", service.preprocess, root)
+    ids, images = next(iter_gallery(classic, 8, 0))
+    dev = backbone.device
+    with torch.inference_mode():
+        text = torch.from_numpy(backbone.tokenize(
+            [CAPTIONS[j % len(CAPTIONS)] for j in range(8)])).to(dev)
+        mask = torch.zeros(8, BLIP_IMAGES, device=dev)
+        mask[torch.arange(8), torch.from_numpy(ids)] = float("-inf")
+        kern_scores = backbone.score_queries(
+            backbone.fuse(index.refer_rows(ids), text), target) + mask
+        layers.set_attention_impl(backbone, "plain")
+        try:
+            before = ak.long_attention.launches
+            plain_refer = backbone.index_features(
+                torch.from_numpy(images).to(dev))["refer"]
+            assert ak.long_attention.launches == before
+        finally:
+            layers.set_attention_impl(backbone, "auto")
+        plain_scores = backbone.score_queries(
+            backbone.fuse(plain_refer, text), target) + mask
+        top_k = kern_scores.topk(2, dim=-1)
+        top_p = plain_scores.topk(1, dim=-1).indices[:, 0]
+        gaps = top_k.values[:, 0] - top_k.values[:, 1]
+        diff = (kern_scores - plain_scores)[mask == 0].abs().max().item()
+        same = top_k.indices[:, 0] == top_p
+        phase(f"blip re-score, references re-encoded with plain attention: "
+              f"top-1 kernel {top_k.indices[:, 0].tolist()} plain "
+              f"{top_p.tolist()}: {int(same.sum())}/8 kept; max |score diff| "
+              f"{diff:.3e} (limit {BLIP_SCORE_NOISE:.1e}); top-1/top-2 gaps "
+              f"min {gaps.min().item():.3e}")
+        assert diff <= BLIP_SCORE_NOISE, diff
+        assert bool((same | (gaps <= 2 * BLIP_SCORE_NOISE)).all()), \
+            "top-1 changed"
+        assert int(same.sum()) >= 6, same
+
+    stats = dict(startup_s=startup_s, dispatches=dispatches,
+                 concurrent_p50_ms=statistics.median(concurrent_ms),
+                 concurrent_p99_ms=pct(concurrent_ms, 0.99),
+                 sequential_p50_ms=statistics.median(sequential),
+                 sequential_p99_ms=pct(sequential, 0.99))
+    phase(f"blip query latency, {N_CONCURRENT} concurrent (first round): p50 "
+          f"{stats['concurrent_p50_ms']:.2f} ms, p99 "
+          f"{stats['concurrent_p99_ms']:.2f} ms; sequential: p50 "
+          f"{stats['sequential_p50_ms']:.2f} ms, p99 "
+          f"{stats['sequential_p99_ms']:.2f} ms (each dispatch gathers its "
+          f"references' 577 x 768 tokens on the host) [{card}]")
+    phase("blip serving slice stats " + json.dumps(stats))
+    return launches
+
+
+def blip_sides(common, train, argv):
+    """(args, a fresh backbone with the weights `train_main` started from)."""
+    from spn4cir_tpu_torch.utils.seeding import seed_everything
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        args = common.base_parser(**train.BLIP4CIR_DEFAULTS).parse_args(argv)
+        common.finalize_args(args)
+    fresh = common.make_backbone("blip", args)
+    common.load_or_init_params(fresh, args, seed_everything(args.seed))
+    return args, fresh.eval()
+
+
+def logged_losses(text):
+    losses = [json.loads(line)["loss"] for line in text.splitlines()
+              if line.startswith('{"step"')]
+    assert losses and all(math.isfinite(x) for x in losses), losses
+    return losses
+
+
+def drive_blip_training(ak, bk, root, tmp, card):
+    """Phase 9b: `train_main("blip")` (stage 2) through its argv, the checks,
+    then `validate_main` and `submission_main` on its checkpoint. Returns the
+    launch counts of the training run and of the two evaluation runs."""
+    from spn4cir_tpu_torch.bank.bank import Bank
+    from spn4cir_tpu_torch.cli import common, submission, train, validate
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_bank
+    from spn4cir_tpu_torch.models.convert import load_blip_checkpoint
+
+    out = os.path.join(tmp, "blip_run")
+    argv = blip_argv(root, "--batch-size", str(BLIP_BATCH), "--num-epochs",
+                     "1", "--learning-rate", BLIP_LR, "--output_path", out)
+    count = zero_counts(ak, bk)
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        best = train.train_main("blip", argv, log_every=1)
+    launches = read_counts(count)
+    train_s = time.perf_counter() - t0
+    losses = logged_losses(tee.buffer_.getvalue())
+    steps = BLIP_TRAIN // BLIP_BATCH
+    assert len(losses) == steps == 4, (len(losses), steps)
+
+    args, fresh = blip_sides(common, train, argv)
+    assert args.tau == BLIP_TAU and args.clip_model_name == "RN50x4"
+    ckpt = os.path.join(out, "best.pt")
+    _, trained = blip_sides(common, train, argv)
+    trained.model.load_state_dict(load_blip_checkpoint(ckpt))
+    layers_n = trained.vit_cfg.layers
+
+    preprocess = common.make_transform(trained, args)
+    ds = CIRDataset("cirr", "train", "relative", preprocess, root,
+                    args.dress_types, extend_suffix=trained.extend_suffix,
+                    seed=args.seed, replace_extended=trained.replace_extended)
+    m = ds.num_unique_images
+    extract_batches = math.ceil(m / BLIP_BATCH)
+    val_batches = math.ceil(BLIP_IMAGES / 32)
+    want = dict(long_attention=layers_n * (extract_batches + val_batches),
+                long_attention_bwd=0, **NO_SHORT,
+                **bank_launches(False, steps))
+    phase(f"blip training slice (train_main, BLIP base bf16, batch "
+          f"{BLIP_BATCH}): bank of {m} images in {extract_batches} encode "
+          f"batches, {steps} steps, validation over {BLIP_IMAGES} images and "
+          f"{N_VAL} queries, {train_s:.1f} s in all; launches {launches} "
+          f"(want {layers_n} long-attention forwards per encode batch of "
+          f"extraction and validation, 1 dense bank forward + 1 backward per "
+          f"step and no attention launch inside the steps: {want})")
+    assert launches == want, (launches, want)
+
+    moved, still = [], []
+    fresh_sd, trained_sd = fresh.model.state_dict(), trained.model.state_dict()
+    for name, before in fresh_sd.items():
+        after = trained_sd[name]
+        if name.startswith(("visual_encoder.", "vision_proj.")):
+            assert torch.equal(before, after), f"frozen {name} changed"
+        else:
+            (still if torch.equal(before, after) else moved).append(name)
+    # a key bias has a gradient of exactly zero and starts at zero: AdamW
+    # leaves it where it is unless rounding noise moves it
+    assert all(n.endswith(".self.key.bias") for n in still), still
+    for name in ("tau", "text_proj.weight",
+                 "text_encoder.embeddings.word_embeddings.weight",
+                 "text_encoder.encoder.layer.0.attention.self.query.weight",
+                 "text_encoder.encoder.layer.11.crossattention.self.value.weight",
+                 "text_encoder.encoder.layer.5.output.LayerNorm.bias"):
+        assert name in moved, f"{name} did not move"
+
+    bank = Bank.load(os.path.join(out, "cirr_bank.npz"), device=trained.device)
+    assert bank.target.shape == (m, BLIP_DIM), bank.target.shape
+    assert bank.refer.shape == (m, 577, 768), bank.refer.shape
+    assert torch.isfinite(bank.target).all()
+    raw = next(iter_train_bank(ds, BLIP_BATCH, epoch_seed=args.seed))
+    dev = trained.device
+    batch = (torch.from_numpy(bank.gather_refer(raw)).to(dev),
+             torch.from_numpy(trained.tokenize(raw["captions"])).to(dev),
+             bank.target, torch.from_numpy(raw["target_image_id"]).to(dev))
+    with torch.no_grad():
+        before = fresh.stage2_loss(*batch).item()
+        after = trained.stage2_loss(*batch).item()
+    tau = trained.model.tau.item()
+    phase(f"blip training slice: per-step losses "
+          f"{[round(x, 4) for x in losses]}; first batch before training "
+          f"{before:.4f} (logged {losses[0]:.4f}), after {steps} steps "
+          f"{after:.4f}; tau {BLIP_TAU} -> {tau:.6f}; best score {best:.2f}; "
+          f"{len(moved)} text-side tensors moved ({len(still)} zero-gradient "
+          f"key biases did not), ViT and vision_proj bit-identical; best.pt "
+          f"read back [{card}]")
+    assert abs(before - losses[0]) < 2e-3 * abs(before), (before, losses[0])
+    assert after < before, (after, before)
+    assert tau != BLIP_TAU
+
+    # kernels #5 / #6 at the shape this path gave them: the extracted bank
+    q = unit_rows(BLIP_BATCH, BLIP_DIM,
+                  torch.Generator(device=dev).manual_seed(3), dev)
+    check_bank_case(bk, q, bank.target, batch[3], card, time_it=False)
+    del bank, batch, fresh, trained
+    torch.cuda.empty_cache()
+
+    # validate_main and submission_main on the checkpoint
+    eval_argv = blip_argv(root, "--model_path", ckpt)
+    count = zero_counts(ak, bk)
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = validate.validate_main("blip", eval_argv)
+    assert set(results) >= {"recall_at1", "recall_at5", "recall_at50",
+                            "group_recall_at1", "arithmetic_mean"}, results
+    assert all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in results.values()), results
+    assert abs(results["arithmetic_mean"] - best) < 1e-6, (results, best)
+    cwd = os.getcwd()
+    os.chdir(tmp)       # the files land under the working directory
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = submission.submission_main(
+                "blip", eval_argv + ["--submission-name", "blip_smoke"])
+        docs = []
+        for path in paths:
+            with open(path) as fh:
+                docs.append(json.load(fh))
+    finally:
+        os.chdir(cwd)
+    eval_launches = read_counts(count)
+    pred, group = docs
+    assert (pred.pop("version"), pred.pop("metric")) == ("rc2", "recall")
+    assert (group.pop("version"), group.pop("metric")) == (
+        "rc2", "recall_subset")
+    assert len(pred) == len(group) == N_VAL and set(pred) == set(group)
+    assert all(len(v) == len(set(v)) == 50 for v in pred.values())
+    assert all(len(v) == 3 for v in group.values())
+    want = dict(long_attention=layers_n * 2 * val_batches,
+                long_attention_bwd=0, **NO_SHORT, **bank_launches(False, 0))
+    phase(f"blip training slice: validate_main on best.pt "
+          f"{json.dumps(results)}; submission_main wrote "
+          f"{[os.path.relpath(p, 'submission') for p in paths]}: {len(pred)} "
+          f"pairs, 50 and 3 names each; launches {eval_launches} (want "
+          f"{want})")
+    assert eval_launches == want, (eval_launches, want)
+    return launches, eval_launches
+
+
+def drive_blip_stage1(ak, bk, root, tmp, card):
+    """Phase 9c: `train_main("blip", ["--wo_bank", ...])` through its argv,
+    without and with `--grad_ckpt`, and the checks. Returns the launch
+    counts of both runs together."""
+    from spn4cir_tpu_torch.cli import common, train
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_images
+    from spn4cir_tpu_torch.models.convert import load_blip_checkpoint
+
+    steps = BLIP_S1_TRAIN // BLIP_S1_BATCH
+    val_batches = math.ceil(BLIP_S1_IMAGES / 32)
+    total = {}
+    runs = {}
+    for ckpt_flag in ((), ("--grad_ckpt",)):
+        out = os.path.join(tmp, f"blip_stage1{'_ckpt' if ckpt_flag else ''}")
+        argv = blip_argv(root, "--batch-size", str(BLIP_S1_BATCH),
+                         "--num-epochs", "1", "--learning-rate", BLIP_LR,
+                         "--output_path", out, "--wo_bank", *ckpt_flag)
+        count = zero_counts(ak, bk)
+        torch.cuda.reset_peak_memory_stats()
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            best = train.train_main("blip", argv, log_every=1)
+        launches = read_counts(count)
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = logged_losses(tee.buffer_.getvalue())
+        assert len(losses) == steps == 4, (len(losses), steps)
+        # with --grad_ckpt each block's forward runs again in the backward
+        fwd_per_step = 24 * (2 if ckpt_flag else 1)
+        want = dict(long_attention=fwd_per_step * steps + 12 * val_batches,
+                    long_attention_bwd=24 * steps, **NO_SHORT,
+                    **bank_launches(False, 0))
+        phase(f"blip stage-1 slice (train_main --wo_bank"
+              f"{' --grad_ckpt' if ckpt_flag else ''}, BLIP base bf16, batch "
+              f"{BLIP_S1_BATCH}): {steps} steps and a validation over "
+              f"{BLIP_S1_IMAGES} images in {run_s:.1f} s, peak device memory "
+              f"{peak_gb:.2f} GiB; per-step losses "
+              f"{[round(x, 4) for x in losses]}; best score {best:.2f}; "
+              f"launches {launches} (want {fwd_per_step} long-attention "
+              f"forwards + 24 backwards per step (two tower calls), 12 "
+              f"forwards per validation batch, no bank kernel: {want}) "
+              f"[{card}]")
+        assert launches == want, (launches, want)
+        assert not os.path.exists(os.path.join(out, "cirr_bank.npz"))
+        runs[bool(ckpt_flag)] = (argv, out, losses)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    # the same seed, the same first loss: rematerialisation changes what is
+    # kept, not what is computed
+    first, first_ckpt = runs[False][2][0], runs[True][2][0]
+    assert abs(first - first_ckpt) <= 1e-6 * abs(first), (first, first_ckpt)
+
+    argv, out, losses = runs[False]
+    args, fresh = blip_sides(common, train, argv)
+    _, trained = blip_sides(common, train, argv)
+    trained.model.load_state_dict(
+        load_blip_checkpoint(os.path.join(out, "best.pt")))
+    for name in ("visual_encoder.blocks.0.attn.qkv.weight",
+                 "visual_encoder.blocks.11.mlp.fc2.weight",
+                 "visual_encoder.patch_embed.proj.weight", "vision_proj.weight",
+                 "text_proj.weight", "tau",
+                 "text_encoder.encoder.layer.3.crossattention.self.key.weight"):
+        assert not torch.equal(fresh.model.state_dict()[name],
+                               trained.model.state_dict()[name]), name
+    preprocess = common.make_transform(trained, args)
+    ds = CIRDataset("cirr", "train", "relative", preprocess, root,
+                    args.dress_types, extend_suffix=trained.extend_suffix,
+                    seed=args.seed, replace_extended=trained.replace_extended)
+    raw = next(iter_train_images(ds, BLIP_S1_BATCH, shuffle=True,
+                                 epoch_seed=args.seed))
+    dev = trained.device
+    batch = (torch.from_numpy(raw["refer_images"]).to(dev),
+             torch.from_numpy(raw["target_images"]).to(dev),
+             torch.from_numpy(trained.tokenize(raw["captions"])).to(dev))
+    with torch.no_grad():
+        before = fresh.stage1_loss(*batch).item()
+        after = trained.stage1_loss(*batch).item()
+    phase(f"blip stage-1 slice: first batch before training {before:.4f} "
+          f"(logged {losses[0]:.4f}; with --grad_ckpt {first_ckpt:.4f}), "
+          f"after {steps} steps {after:.4f}; the ViT, vision_proj, MED, "
+          f"text_proj and tau moved [{card}]")
+    assert abs(before - losses[0]) < 2e-3 * abs(before), (before, losses[0])
+    assert after < before, (after, before)
+    return total
+
+
+def drive_blip_recipe(ak, bk, tmp, card):
+    """Phase 9d: the blip stage-2 epoch loop at the recipe's bank size
+    (65,536 x 256 float32) with a 2,048-image host refer pool at batch 128:
+    ms/step, the host gather and the host-to-device copy of one batch's
+    refer tokens, a profiler window, and the extraction rate."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spn4cir_tpu_torch.bank.bank import Bank
+    from spn4cir_tpu_torch.models.blip4cir import BlipCIR
+    from spn4cir_tpu_torch.train.stage2 import create_train_state, train_epoch
+
+    device = torch.device("cuda:0")
+    backbone = BlipCIR("base", tau=BLIP_TAU, dtype=torch.bfloat16,
+                       device=device)
+    backbone.init_params(torch.Generator().manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(4)
+    target = unit_rows(RECIPE_BANK, BLIP_DIM, g, device)
+    # 64 distinct images' worth of tokens, tiled: what a gather costs does
+    # not depend on the values
+    block = torch.randn(64, 577, 768, generator=g, device=device).cpu().numpy()
+    refer = np.tile(block, (BLIP_POOL // 64, 1, 1))
+    bank = Bank(refer=refer, target=target)
+    state = create_train_state(backbone, 5e-6)
+    steps, profile_steps = 6, 3
+
+    def batches(n, seed):
+        return synthetic_batches(n, BLIP_BATCH, BLIP_POOL, seed)
+
+    backbone.train()
+    train_epoch(backbone, state, bank, batches(2, 6), log_every=0)  # warm-up
+    count = zero_counts(ak, bk)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    _, mean_loss = train_epoch(backbone, state, bank, batches(steps, 7),
+                               log_every=0)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    event_ms = start.elapsed_time(end) / steps
+    launches = read_counts(count)
+    assert launches == dict(**NO_LONG, **NO_SHORT,
+                            **bank_launches(False, steps)), launches
+    assert math.isfinite(mean_loss), mean_loss
+
+    # the two host stages of one batch's refer tokens, alone
+    raws = list(batches(5, 8))
+    gather, copy = [], []
+    for raw in raws:
+        t0 = time.perf_counter()
+        rows = bank.gather_refer(raw)
+        t1 = time.perf_counter()
+        dev_rows = torch.from_numpy(rows).to(device)
+        torch.cuda.synchronize()
+        copy.append((time.perf_counter() - t1) * 1e3)
+        gather.append((t1 - t0) * 1e3)
+    gather_ms, copy_ms = statistics.median(gather), statistics.median(copy)
+    mb = rows.nbytes / 1e6
+    del dev_rows, rows
+
+    def profiled(n, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train_epoch(backbone, state, bank, batches(n, seed), log_every=0)
+            torch.cuda.synchronize()
+        return prof, (time.perf_counter() - t0) * 1e3
+
+    profiled(1, 9)      # takes the profiler's start-up cost
+    prof, window_ms = profiled(profile_steps, 10)
+    trace = os.path.join(tmp, "blip_train_trace.json")
+    prof.export_chrome_trace(trace)
+    busy_ms, n_ops, groups = device_busy(trace)
+    assert n_ops > 0, "the profiler's trace holds no device interval"
+    per = {k: v / profile_steps for k, v in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    busy_step = busy_ms / profile_steps
+    stats = dict(ms_per_step=event_ms, wall_ms_per_step=wall_ms,
+                 mean_loss=mean_loss, host_gather_ms=gather_ms,
+                 host_to_device_copy_ms=copy_ms, refer_batch_mb=mb,
+                 busy_ms_per_step=busy_step,
+                 window_ms_per_step=window_ms / profile_steps,
+                 idle_share_of_unprofiled_step=1 - busy_step / event_ms,
+                 device_ops_per_step=n_ops / profile_steps,
+                 ms_per_step_by_group=per)
+    phase(f"blip recipe scale, M={RECIPE_BANK} x {BLIP_DIM} float32 bank, "
+          f"{BLIP_POOL}-image host refer pool, batch {BLIP_BATCH}, BLIP base "
+          f"bf16, {steps} steps: {event_ms:.3f} ms/step (CUDA events; host "
+          f"clock {wall_ms:.3f}); one batch's refer tokens ({mb:.1f} MB): "
+          f"host gather {gather_ms:.3f} ms "
+          f"({100 * gather_ms / wall_ms:.1f}% of the step), host-to-device "
+          f"copy {copy_ms:.3f} ms ({100 * copy_ms / wall_ms:.1f}%); device "
+          f"busy {busy_step:.3f} ms/step in {n_ops / profile_steps:.0f} "
+          f"device operations, idle share "
+          f"{100 * (1 - busy_step / event_ms):.1f}% of the step timed "
+          f"without the profiler ({window_ms / profile_steps:.3f} ms/step "
+          f"under it); device ms per step by group: "
+          f"{ {k: round(v, 3) for k, v in per.items()} } [{card}]")
+    phase("blip recipe scale stats " + json.dumps(stats))
+    assert per.get("bank kernels", 0) > 0, per
+
+    del bank, refer, state
+    blip_stage1_step(backbone, card)
+    backbone.eval()
+    images = torch.randn(BLIP_BATCH, 384, 384, 3, device=device,
+                         generator=torch.Generator(device).manual_seed(2))
+    qkv = [torch.randn(BLIP_BATCH * 12, 577, 64, device=device,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    with torch.inference_mode():
+        ms = median_ms(lambda: backbone.bank_features(images), reps=4,
+                       warmup=1)
+        attn_ms = 12 * median_ms(lambda: ak.long_attention_fwd(*qkv), reps=4,
+                                 warmup=1)
+    phase(f"BLIP base bf16 bank extraction at 384: "
+          f"{BLIP_BATCH / (ms / 1e3):.1f} images/s on the device (batch "
+          f"{BLIP_BATCH}, {ms:.3f} ms/batch; 12 long-attention launches at "
+          f"its shape take {attn_ms:.1f} ms alone, "
+          f"{100 * attn_ms / ms:.0f}% of the batch) [{card}]")
+
+
+def blip_stage1_step(backbone, card):
+    """The blip stage-1 step at batch 32 on one resident batch (no image
+    decode): ms/step by CUDA events, then a profiler window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spn4cir_tpu_torch.train.stage1 import (create_stage1_state,
+                                                stage1_train_step)
+
+    device = backbone.device
+    state = create_stage1_state(backbone, 5e-6)
+    g = torch.Generator(device=device).manual_seed(13)
+    batch = {
+        "refer_images": torch.randn(BLIP_S1_BATCH, 384, 384, 3, generator=g,
+                                    device=device),
+        "target_images": torch.randn(BLIP_S1_BATCH, 384, 384, 3, generator=g,
+                                     device=device),
+        "text_ids": torch.from_numpy(backbone.tokenize(
+            [CAPTIONS[i % len(CAPTIONS)] for i in range(BLIP_S1_BATCH)])
+        ).to(device)}
+    backbone.train()
+    step_ms = median_ms(lambda: stage1_train_step(backbone, state, batch),
+                        reps=4, warmup=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        for n in (1, 2):    # the first window takes the profiler's start-up
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    stage1_train_step(backbone, state, batch)
+                torch.cuda.synchronize()
+        trace = os.path.join(tmp, "blip_stage1_trace.json")
+        prof.export_chrome_trace(trace)
+        busy_ms, n_ops, groups = device_busy(trace)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert n_ops > 0, "the profiler's trace holds no device interval"
+    per = {k: round(v / 2, 3) for k, v in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    attn = per.get("attention kernels", 0.0)
+    assert attn > 0, per
+    phase(f"blip stage-1 step, BLIP base bf16, batch {BLIP_S1_BATCH}, one "
+          f"resident batch, no --grad_ckpt: {step_ms:.3f} ms/step (median of "
+          f"4, CUDA events); device busy {busy_ms / 2:.3f} ms/step in "
+          f"{n_ops / 2:.0f} device operations, idle share "
+          f"{100 * (1 - busy_ms / 2 / step_ms):.1f}%; the 24 + 24 "
+          f"long-attention launches take {attn:.3f} ms/step "
+          f"({100 * attn / step_ms:.1f}% of the step); device ms per step "
+          f"by group: {per} [{card}]")
+    backbone.zero_grad(set_to_none=True)
+    del state
+
+
+def check_blip_plain_step(layers, card):
+    """Phase 8, blip: one float32 stage-1 loss and its gradients through the
+    long-attention kernels and through the plain attention, same weights and
+    batch; BLIP base width, 384-pixel images, two layers deep."""
+    from spn4cir_tpu_torch.models.blip4cir import BlipCIR
+    from spn4cir_tpu_torch.models.blip_vit import BlipViTConfig
+    from spn4cir_tpu_torch.models.med import MedConfig
+    from spn4cir_tpu_torch.train.stage1 import create_stage1_state
+
+    device = torch.device("cuda:0")
+    backbone = BlipCIR("base", tau=BLIP_TAU, dtype=torch.float32,
+                       device=device, vit_cfg=BlipViTConfig(layers=2),
+                       med_cfg=MedConfig(num_layers=2))
+    backbone.init_params(torch.Generator().manual_seed(0))
+    create_stage1_state(backbone, 5e-6)
+    g = torch.Generator(device=device).manual_seed(12)
+    refer, target = (torch.randn(4, 384, 384, 3, generator=g, device=device)
+                     for _ in range(2))
+    text_ids = torch.from_numpy(backbone.tokenize(CAPTIONS)).to(device)
+    probe = ("visual_encoder.blocks.0.attn.qkv.weight",
+             "visual_encoder.patch_embed.proj.weight",
+             "visual_encoder.blocks.1.mlp.fc1.weight", "vision_proj.weight",
+             "text_encoder.encoder.layer.0.crossattention.self.value.weight",
+             "text_proj.weight")
+
+    def run(impl):
+        backbone.zero_grad(set_to_none=True)
+        layers.set_attention_impl(backbone, impl)
+        loss = backbone.stage1_loss(refer, target, text_ids)
+        loss.backward()
+        return loss.item(), [backbone.model.get_parameter(n).grad.clone()
+                             for n in probe]
+
+    kern_loss, kern_grads = run("auto")
+    plain_loss, plain_grads = run("plain")
+    layers.set_attention_impl(backbone, "auto")
+    rel = [((a - b_).norm() / b_.norm()).item()
+           for a, b_ in zip(kern_grads, plain_grads)]
+    phase(f"one float32 blip stage-1 loss (B=4 at 384, two layers at BLIP "
+          f"base width): long-attention kernels {kern_loss:.6f}, plain "
+          f"attention {plain_loss:.6f} (rtol {STEP_TOL}); relative gradient "
+          f"difference of {probe}: {[f'{r:.2e}' for r in rel]} (each under "
+          f"{10 * STEP_TOL}) [{card}]")
+    assert abs(kern_loss - plain_loss) <= STEP_TOL * abs(plain_loss)
+    assert all(r < 10 * STEP_TOL for r in rel), rel
 
 
 def check_plain_step(layers, bk, card):
@@ -1122,7 +1883,11 @@ def main() -> int:
         # the tokenizer reads SPN4CIR_BPE_VOCAB when it first loads
         merges = os.path.join(tmp, "bpe_synthetic.txt.gz")
         os.environ["SPN4CIR_BPE_VOCAB"] = merges
-        load_test_module("torch_fixtures").write_merges_file(merges)
+        fixtures = load_test_module("torch_fixtures")
+        fixtures.write_merges_file(merges)
+        # and so does the WordPiece tokenizer with SPN4CIR_BERT_VOCAB
+        os.environ["SPN4CIR_BERT_VOCAB"] = fixtures.write_bert_vocab(
+            os.path.join(tmp, "bert_vocab_synthetic.txt"))
         from spn4cir_tpu_torch.models import layers
         from spn4cir_tpu_torch.ops import attention_kernels as ak
         from spn4cir_tpu_torch.ops import bank_kernels as bk
@@ -1143,6 +1908,8 @@ def main() -> int:
         fwd_records = check_attention_fwd(ak, device, card)
         bwd_records = check_attention_bwd(ak, device, card)
         bank_records = check_bank(bk, device, card)
+        long_fwd_records, long_bwd_records = check_long_attention(
+            ak, device, card)
 
         # one synthetic CIRR tree for the two ViT-B/32 slices, a smaller one
         # for the flagship slice
@@ -1154,7 +1921,7 @@ def main() -> int:
             n_train=FLAGSHIP_TRAIN, n_val=N_VAL, extended=False)
 
         # phase 4: the serving slice
-        serve_launches = drive_serving(ak, layers, root, card)
+        serve_launches = drive_serving(ak, bk, layers, root, card)
 
         # phase 5: the training slice through its entry point
         train_launches, _, _ = drive_training_cli(ak, bk, root, tmp, card)
@@ -1173,17 +1940,39 @@ def main() -> int:
         drive_training_recipe(ak, bk, tmp, card, FLAGSHIP,
                               ("int8", "float32"))
 
+        # phase 9: blip4cir through its entry points
+        blip_root = make_cirr(os.path.join(tmp, "cirr_blip"),
+                              n_images=BLIP_IMAGES, n_train=BLIP_TRAIN,
+                              n_val=N_VAL, extended=False)
+        blip_s1_root = make_cirr(os.path.join(tmp, "cirr_blip_stage1"),
+                                 n_images=BLIP_S1_IMAGES,
+                                 n_train=BLIP_S1_TRAIN, n_val=N_VAL,
+                                 extended=False)
+        blip_serve_launches = drive_blip_serving(ak, bk, layers, blip_root,
+                                                 card)
+        blip_train_launches, blip_eval_launches = drive_blip_training(
+            ak, bk, blip_root, tmp, card)
+        blip_stage1_launches = drive_blip_stage1(ak, bk, blip_s1_root, tmp,
+                                                 card)
+        drive_blip_recipe(ak, bk, tmp, card)
+        torch.cuda.empty_cache()
+
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
+        check_blip_plain_step(layers, card)
 
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "spn4cir_tpu"))
         assert not bad, f"JAX or the JAX package was imported: {bad}"
 
         def by_path(name):
-            return {"serve": serve_launches if name == "short_attention" else 0,
+            return {"serve": serve_launches[name],
                     "train": train_launches[name],
-                    "flagship": flagship_launches[name] + eval_launches[name]}
+                    "flagship": flagship_launches[name] + eval_launches[name],
+                    "blip_serve": blip_serve_launches[name],
+                    "blip_train": (blip_train_launches[name]
+                                   + blip_eval_launches[name]),
+                    "blip_stage1": blip_stage1_launches[name]}
 
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
         at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
@@ -1208,13 +1997,16 @@ def main() -> int:
             recs = bank_records[name]
             entries.append(kernel_entry(
                 name, f"{jax_ops}bank_kernels.py:{line}",
-                csrc + "bank_infonce.cu", by_path(name), ("train",), recs,
+                csrc + "bank_infonce.cu", by_path(name),
+                ("train", "blip_train"), recs,
                 pick(recs, shape=at_bank, dtype="float32"),
                 also=[pick(recs, shape=at_bank, dtype="bfloat16"),
                       pick(recs, shape=at_flag, dtype="float32"),
                       pick(recs, shape=at_flag, dtype="bfloat16"),
                       pick(recs, shape=f"B={TRAIN_BATCH}, M={RECIPE_BANK}, "
-                                       f"D=768", dtype="float32")]))
+                                       f"D=768", dtype="float32"),
+                      pick(recs, shape=f"B={BLIP_BATCH}, M={RECIPE_BANK}, "
+                                       f"D={BLIP_DIM}", dtype="float32")]))
         for name, line in (("bank_infonce_q8_fwd", 398),
                            ("bank_infonce_q8_bwd", 444)):
             recs = bank_records[name]
@@ -1223,6 +2015,20 @@ def main() -> int:
                 csrc + "bank_infonce.cu", by_path(name), ("flagship",), recs,
                 pick(recs, shape=at_flag, dtype="int8"),
                 also=[pick(recs, shape=at_bank, dtype="int8")]))
+        for name, line, on_paths, recs in (
+                ("long_attention", 74,
+                 ("blip_serve", "blip_train", "blip_stage1"),
+                 long_fwd_records),
+                ("long_attention_bwd", 109, ("blip_stage1",),
+                 long_bwd_records)):
+            entries.append(kernel_entry(
+                name, f"{jax_ops}attention_kernels.py:{line}",
+                csrc + "long_attention.cu", by_path(name), on_paths, recs,
+                pick(recs, tower="blip-index", dtype="bfloat16"),
+                also=[pick(recs, tower="blip-extract", dtype="bfloat16"),
+                      pick(recs, tower="blip-extract", dtype="float32"),
+                      pick(recs, tower="blip-index", dtype="float32")]))
+        assert len(entries) == 8, len(entries)
         print(json.dumps({"kernels": entries}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,14 @@ Counterpart of `Bank` / `extract_banks` in `spn4cir_tpu/bank/bank.py`
   - The target bank lives on the device (it takes part in every step's
     loss); the refer bank stays in host memory as numpy and is gathered per
     batch.
-  - The cache is a compressed `.npz` with the keys `refer`, `target`,
-    `refer_key`, the same as the JAX package writes: a bank cache written
-    by either package loads in the other. It is recomputed only if missing
-    or on `reload`. A bfloat16 target is stored widened to float32.
+  - The cache is an `.npz` with the keys `refer`, `target`, `refer_key`,
+    the same as the JAX package writes: a bank cache written by either
+    package loads in the other. It is recomputed only if missing or on
+    `reload`. A bfloat16 target is stored widened to float32. The port
+    writes it uncompressed (`np.load` reads either): float features do not
+    compress (7% in float32), and deflate takes ~0.2 s per MB on a bfloat16
+    tower's widened values, minutes for a token-shaped blip4cir refer bank
+    (577 x 768 float32 per image).
 
 `extract_unlabeled_features` / `extend_target_bank` (`--unlabeled`) append
 the normalized features of an unlabeled image pool to the target bank as
@@ -57,7 +61,7 @@ class Bank:
 
     @staticmethod
     def cache_file(path: str) -> str:
-        """np.savez_compressed appends '.npz' to extensionless paths; the
+        """np.savez appends '.npz' to extensionless paths; the
         exists-check and load must use the same resolved name or the cache
         never hits and the whole train set re-encodes every run."""
         return path if path.endswith(".npz") else path + ".npz"
@@ -72,9 +76,8 @@ class Bank:
     def save(self, path: str) -> None:
         path = Bank.cache_file(path)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        np.savez_compressed(path, refer=self.refer,
-                            target=to_host(self.target),
-                            refer_key=np.asarray(self.refer_key))
+        np.savez(path, refer=self.refer, target=to_host(self.target),
+                 refer_key=np.asarray(self.refer_key))
 
     @classmethod
     def load(cls, path: str, device="cpu") -> "Bank":

@@ -149,20 +149,62 @@ def resolve_device(spec: str) -> torch.device:
     return device
 
 
+#: the recipe defaults of each ported backbone (the JAX package keeps them
+#: in its per-backbone entry scripts): clip4cir/train.py and blip4cir/train.py
+CLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.02,
+                         default_lr=2e-05, default_bs=256, default_epochs=3)
+BLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.03,
+                         default_lr=5e-06, default_bs=128, default_epochs=10)
+#: zs is clip4cir's recipe on other checkpoints and loaders
+BACKBONE_DEFAULTS = {"clip": CLIP4CIR_DEFAULTS, "zs": CLIP4CIR_DEFAULTS,
+                     "blip": BLIP4CIR_DEFAULTS}
+
+
+def recipe_defaults(backbone_name: str) -> dict:
+    """The parser defaults of a ported backbone; any other name raises here,
+    before a parser is built on another backbone's recipe."""
+    if backbone_name not in BACKBONE_DEFAULTS:
+        raise NotImplementedError(f"the {backbone_name} backbone is not "
+                                  "ported to PyTorch yet")
+    return BACKBONE_DEFAULTS[backbone_name]
+
+
+def backbone_from_argv(argv: list) -> tuple:
+    """`python -m spn4cir_tpu_torch.cli.<entry> [clip|blip] ...`: an optional
+    first word picks the backbone, and with it the recipe defaults (clip
+    when absent). Returns (backbone name, the remaining argv)."""
+    if argv and argv[0] in ("clip", "blip"):
+        return argv[0], argv[1:]
+    return "clip", argv
+
+
 def make_backbone(name: str, args, tokenizer=None) -> CIRBackbone:
-    if name not in ("clip", "zs"):
+    """`tokenizer` overrides the tokenizer the backbone would load (CLIP's
+    BPE for clip / zs, BERT WordPiece for blip)."""
+    if name not in ("clip", "zs", "blip"):
         raise NotImplementedError(f"the {name} backbone is not ported to "
                                   "PyTorch yet")
     refuse_unported(args, [
-        ("--grad_ckpt (activation rematerialisation)", args.grad_ckpt),
-        ("--dropout (the BLIP/BLIP-2 text side)", args.dropout),
-        ("--text_max_len (the BLIP text side)", args.text_max_len),
         ("--val_ret_train (retrieval-on-train analysis)", args.val_ret_train),
     ])
-    return build_backbone(
-        name, clip_model_name=args.clip_model_name, tau=args.tau,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=resolve_device(args.device), tokenizer=tokenizer)
+    kw = dict(tau=args.tau, remat=bool(args.grad_ckpt),
+              dtype=torch.bfloat16 if args.bf16 else torch.float32,
+              device=resolve_device(args.device), tokenizer=tokenizer)
+    if name == "blip":
+        # --clip-model-name doubles as the BLIP size (base/large/test-tiny)
+        kw["blip_size"] = (args.clip_model_name if args.clip_model_name
+                           in ("base", "large", "test-tiny") else "base")
+        if args.text_max_len:
+            kw["text_max_len"] = args.text_max_len
+        if args.dropout:
+            kw["dropout"] = args.dropout
+    else:
+        refuse_unported(args, [
+            ("--dropout (the CLIP towers have none)", args.dropout),
+            ("--text_max_len (the BLIP text side)", args.text_max_len),
+        ])
+        kw["clip_model_name"] = args.clip_model_name
+    return build_backbone(name, **kw)
 
 
 def make_transform(backbone: CIRBackbone, args) -> ImageTransform:
@@ -176,20 +218,28 @@ def make_transform(backbone: CIRBackbone, args) -> ImageTransform:
 
 def load_or_init_params(backbone: CIRBackbone, args,
                         generator: torch.Generator) -> CIRBackbone:
-    """--model_path loads an OpenAI CLIP / clip4cir `.pt` checkpoint (the
-    port keeps OpenAI's parameter names); otherwise random weights from
-    `generator`. Returns the backbone, its weights filled in place."""
+    """--model_path loads an OpenAI CLIP / clip4cir `.pt` checkpoint, or
+    for blip a BLIP / BLIP4CIR `.pth` (the port keeps the checkpoints'
+    parameter names); otherwise random weights from `generator`. Returns
+    the backbone, its weights filled in place."""
     if not args.model_path:
         backbone.init_params(generator)
         return backbone
     if not args.model_path.endswith((".pt", ".pth")):
         raise NotImplementedError(
             "the PyTorch port loads .pt/.pth checkpoints; convert a JAX "
-            "checkpoint with models.convert.clip_state_dict_from_jax and "
-            "torch.save")
-    from spn4cir_tpu_torch.models.convert import load_clip_checkpoint
+            "checkpoint with models.convert.clip_state_dict_from_jax (or "
+            "blip_state_dict_from_jax) and torch.save")
+    from spn4cir_tpu_torch.models import convert
 
-    backbone.model.load_state_dict(load_clip_checkpoint(args.model_path))
+    if backbone.name == "blip":
+        sd = convert.load_blip_checkpoint(
+            args.model_path, num_tokens=backbone.vit_cfg.num_tokens)
+        # an upstream BLIP checkpoint has no temperature: --tau then
+        sd.setdefault("tau", torch.tensor(float(args.tau)))
+    else:
+        sd = convert.load_clip_checkpoint(args.model_path)
+    backbone.model.load_state_dict(sd)
     return backbone
 
 

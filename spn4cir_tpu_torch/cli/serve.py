@@ -21,17 +21,16 @@ from typing import Optional
 import torch
 
 from spn4cir_tpu_torch.cli.common import (
+    backbone_from_argv,
     base_parser,
     finalize_args,
     load_or_init_params,
     make_backbone,
     make_transform,
+    recipe_defaults,
     refuse_unported,
 )
 from spn4cir_tpu_torch.utils.seeding import seed_everything
-
-CLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.02,
-                         default_lr=2e-05, default_bs=256, default_epochs=3)
 
 
 def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
@@ -39,7 +38,7 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
     """Parse `argv`, index the gallery and start the server. With
     --no-block, returns (server, service); `tokenizer` overrides the CLIP
     tokenizer the backbone would load."""
-    p = base_parser(**(parser_kw or CLIP4CIR_DEFAULTS))
+    p = base_parser(**(parser_kw or recipe_defaults(backbone_name)))
     p.add_argument("--serve_host", default="0.0.0.0")
     p.add_argument("--serve_port", type=int, default=8080)
     p.add_argument("--serve_split", default="val", choices=["val", "test1"],
@@ -124,4 +123,7 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
 
 
 if __name__ == "__main__":
-    serve_main(None, "clip", **CLIP4CIR_DEFAULTS)
+    import sys
+
+    _name, _argv = backbone_from_argv(sys.argv[1:])
+    serve_main(_argv, _name)

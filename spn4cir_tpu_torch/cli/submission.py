@@ -17,13 +17,14 @@ from __future__ import annotations
 from typing import Optional
 
 from spn4cir_tpu_torch.cli.common import (
+    backbone_from_argv,
     base_parser,
     finalize_args,
     load_or_init_params,
     make_backbone,
     make_transform,
+    recipe_defaults,
 )
-from spn4cir_tpu_torch.cli.train import CLIP4CIR_DEFAULTS
 from spn4cir_tpu_torch.cli.validate import refuse_mesh
 from spn4cir_tpu_torch.eval.submission import generate_cirr_test_submissions
 from spn4cir_tpu_torch.utils.seeding import seed_everything
@@ -33,7 +34,7 @@ def submission_main(backbone_name: str = "clip", argv: Optional[list] = None,
                     tokenizer=None, **parser_kw):
     """Parse `argv`, build the backbone and write both submission files;
     returns their paths."""
-    parser = base_parser(**(parser_kw or CLIP4CIR_DEFAULTS))
+    parser = base_parser(**(parser_kw or recipe_defaults(backbone_name)))
     parser.add_argument("--submission-name", default="tpu", type=str,
                         help="file_name suffix of the submission JSONs")
     args = parser.parse_args(argv)
@@ -55,4 +56,6 @@ def submission_main(backbone_name: str = "clip", argv: Optional[list] = None,
 
 
 if __name__ == "__main__":
-    submission_main("clip", None, **CLIP4CIR_DEFAULTS)
+    import sys
+
+    submission_main(*backbone_from_argv(sys.argv[1:]))

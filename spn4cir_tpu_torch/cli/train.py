@@ -1,16 +1,27 @@
-"""Training CLI of the PyTorch port: clip4cir stage-2 ("scaling negatives")
-on one CUDA device.
+"""Training CLI of the PyTorch port: stage 2 ("scaling negatives") and
+stage 1 (`--wo_bank`) of clip4cir and blip4cir on one CUDA device.
 
-Counterpart of the single-device clip stage-2 branch of
-`spn4cir_tpu/cli/train.py`: build the dataset, run the frozen image tower
-once over the unique train images into a `Bank` (cached `.npz`), then per
-step gather refer rows on the host, tokenize, run the text tower, the
-full-bank InfoNCE and masked AdamW; validate every
+Counterpart of the single-device branches of `spn4cir_tpu/cli/train.py`.
+Stage 2: build the dataset, run the frozen image tower once over the unique
+train images into a `Bank` (cached `.npz`), then per step gather refer rows
+on the host, tokenize, run the text side, the full-bank InfoNCE and masked
+AdamW. Stage 1 (`--wo_bank`): no bank; every step decodes both images of
+its triplets, runs them through the live image tower and trains every
+weight with the in-batch InfoNCE. Either way: validate every
 `--validation-frequency` epochs and keep the best checkpoint.
 
     python -m spn4cir_tpu_torch.cli.train --dataset cirr \\
         --data_path cirr_dataset --clip-model-name RN50x4 --bf16 \\
         --bank_dtype int8
+    python -m spn4cir_tpu_torch.cli.train blip --dataset cirr \\
+        --data_path cirr_dataset --bf16 --dropout 0.1
+
+An optional first word, `clip` (the default) or `blip`, picks the backbone
+and its recipe defaults (blip: tau 0.03, learning rate 5e-6, batch 128, 10
+epochs; BLIP base unless `--clip-model-name large`). blip needs the BERT
+vocabulary: `SPN4CIR_BERT_VOCAB` names `bert-base-uncased/vocab.txt`.
+`--grad_ckpt` rematerialises the ViT blocks (and CLIP's transformer blocks)
+in the backward; `--dropout` is MED's train-mode dropout.
 
 `--bank_dtype int8` quantizes the target bank (per-row absmax) after it is
 extracted and extended, and the loss runs through the int8 kernels; it
@@ -21,10 +32,9 @@ then keeps only the first `neg_num` of them), cached beside the bank as
 `<bank>_unlabeled.npz`.
 
 Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
-Flags whose path is not ported raise "not yet ported": stage-1 training
-(--wo_bank, --neg_type), --use_cc, meshes, --distributed,
---device_preprocess, --loader_procs, --resume / --ckpt_every_steps,
---grad_ckpt and --profile_dir.
+Flags whose path is not ported raise "not yet ported": --neg_type (the
+stage-1 ablation), --use_cc, meshes, --distributed, --device_preprocess,
+--loader_procs, --resume / --ckpt_every_steps and --profile_dir.
 """
 
 from __future__ import annotations
@@ -39,17 +49,22 @@ from spn4cir_tpu_torch.bank.bank import (Bank, extend_target_bank,
                                          extract_banks,
                                          extract_unlabeled_features)
 from spn4cir_tpu_torch.cli.common import (
+    BLIP4CIR_DEFAULTS,
+    CLIP4CIR_DEFAULTS,
+    backbone_from_argv,
     base_parser,
     finalize_args,
     load_or_init_params,
     make_backbone,
     make_transform,
+    recipe_defaults,
     refuse_unported,
     resolve_output_path,
 )
 from spn4cir_tpu_torch.data.datasets import (
     CIRDataset,
     iter_train_bank,
+    iter_train_images,
     iter_unique_images,
     iter_unlabeled,
 )
@@ -57,14 +72,16 @@ from spn4cir_tpu_torch.eval.metrics import fiq_average
 from spn4cir_tpu_torch.eval.retrieval import (cirr_val_retrieval,
                                               fiq_val_retrieval)
 from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
+from spn4cir_tpu_torch.train.stage1 import (create_stage1_state,
+                                            train_epoch_stage1)
 from spn4cir_tpu_torch.train.stage2 import (create_train_state,
                                             make_lr_schedule, train_epoch)
 from spn4cir_tpu_torch.utils.checkpoint import save_model
 from spn4cir_tpu_torch.utils.logging import MetricLogger
 from spn4cir_tpu_torch.utils.seeding import seed_everything
 
-CLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.02,
-                         default_lr=2e-05, default_bs=256, default_epochs=3)
+__all__ = ["BLIP4CIR_DEFAULTS", "CLIP4CIR_DEFAULTS", "run_validation",
+           "train_main"]
 
 
 def run_validation(backbone, args, preprocess) -> tuple[float, dict]:
@@ -87,41 +104,11 @@ def run_validation(backbone, args, preprocess) -> tuple[float, dict]:
     return avg["mean_recall"], results
 
 
-def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
-               tokenizer=None, log_every: int = 50, **parser_kw):
-    """Parse `argv` and train; returns the best validation score.
-    `tokenizer` overrides the CLIP tokenizer the backbone would load."""
-    args = base_parser(**(parser_kw or CLIP4CIR_DEFAULTS)).parse_args(argv)
-    finalize_args(args)
-    refuse_unported(args, [
-        ("--wo_bank (stage-1 training)", args.wo_bank),
-        ("--neg_type (stage-1 ablation)", args.neg_type),
-        ("--use_cc", args.use_cc),
-        ("--mesh_data/--mesh_bank/--mesh_model > 1",
-         args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
-        ("--distributed", args.distributed),
-        ("--loader_procs (multi-process image loader)", args.loader_procs),
-        ("--resume / --ckpt_every_steps (full training-state checkpoints)",
-         args.resume or args.ckpt_every_steps),
-        ("--profile_dir", args.profile_dir),
-        ("--loss_impl pallas/xla (one route per device here)",
-         args.loss_impl != "auto"),
-    ])
-    generator = seed_everything(args.seed)
-
-    backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
-    preprocess = make_transform(backbone, args)
-    load_or_init_params(backbone, args, generator)
-    device = backbone.device
-    output_path = resolve_output_path(args, backbone_name)
-    logger = MetricLogger(prefix=f"{backbone_name}-train")
-
-    train_ds = CIRDataset(args.dataset, "train", "relative", preprocess,
-                          args.data_path, args.dress_types, plus=args.plus,
-                          llmcap=args.llmcap, use_cc=args.use_cc,
-                          extend_suffix=backbone.extend_suffix, seed=args.seed,
-                          replace_extended=backbone.replace_extended)
-
+def build_bank(backbone, args, train_ds, preprocess, output_path, device
+               ) -> Bank:
+    """The stage-2 bank: one frozen-tower pass over the unique train images
+    (cached), the unlabeled pool appended under `--unlabeled`, the target
+    cast or quantized per `--bank_dtype`."""
     # --- bank extraction (cached) ---
     bank_path = args.bank_path or os.path.join(
         output_path, f"{args.dataset}_bank.npz")
@@ -163,6 +150,60 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
     print(f"bank: {bank.num_images} images, refer {bank.refer.shape}, "
           f"target {tuple(bank.target.shape)} {bank.target.dtype} -> "
           f"{bank_path}")
+    return bank
+
+
+def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
+               tokenizer=None, log_every: int = 50, **parser_kw):
+    """Parse `argv` and train; returns the best validation score.
+    `tokenizer` overrides the tokenizer the backbone would load; the parser
+    defaults are the backbone's recipe unless `parser_kw` gives others."""
+    args = base_parser(**(parser_kw or recipe_defaults(backbone_name))
+                       ).parse_args(argv)
+    finalize_args(args)
+    if args.wo_bank:
+        # stage 1 builds no bank: a flag that shapes one has nothing to act on
+        for flag, is_set in (
+                ("--bank_dtype " + args.bank_dtype,
+                 args.bank_dtype != "float32"),
+                ("--bank_path", args.bank_path),
+                ("--reload_bank", args.reload_bank),
+                ("--neg_num", args.neg_num > 0),
+                ("--unlabeled", args.unlabeled)):
+            if is_set:
+                raise SystemExit(f"--wo_bank (stage-1) has no bank: {flag} "
+                                 "goes with stage-2 training only")
+    refuse_unported(args, [
+        ("--neg_type (stage-1 ablation)", args.neg_type),
+        ("--use_cc", args.use_cc),
+        ("--mesh_data/--mesh_bank/--mesh_model > 1",
+         args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
+        ("--distributed", args.distributed),
+        ("--loader_procs (multi-process image loader)", args.loader_procs),
+        ("--resume / --ckpt_every_steps (full training-state checkpoints)",
+         args.resume or args.ckpt_every_steps),
+        ("--profile_dir", args.profile_dir),
+        ("--loss_impl pallas/xla (one route per device here)",
+         args.loss_impl != "auto"),
+    ])
+    generator = seed_everything(args.seed)
+
+    backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
+    preprocess = make_transform(backbone, args)
+    load_or_init_params(backbone, args, generator)
+    device = backbone.device
+    output_path = resolve_output_path(args, backbone_name)
+    logger = MetricLogger(prefix=f"{backbone_name}-train")
+
+    train_ds = CIRDataset(args.dataset, "train", "relative", preprocess,
+                          args.data_path, args.dress_types, plus=args.plus,
+                          llmcap=args.llmcap, use_cc=args.use_cc,
+                          extend_suffix=backbone.extend_suffix, seed=args.seed,
+                          replace_extended=backbone.replace_extended)
+
+    bank = (None if args.wo_bank else
+            build_bank(backbone, args, train_ds, preprocess, output_path,
+                       device))
 
     if args.lr_schedule != "constant":
         steps_per_epoch = max(len(train_ds.triplets) // args.batch_size, 1)
@@ -175,19 +216,33 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
     neg_num = (args.neg_num if (args.neg_num > 0 and not args.unlabeled)
                else None)
 
-    state = create_train_state(backbone, lr)
+    state = (create_stage1_state(backbone, lr) if args.wo_bank
+             else create_train_state(backbone, lr))
 
     for epoch in range(args.num_epochs):
-        # the text side trains without dropout (the CLIP towers have none),
-        # so train() and eval() compute the same function
+        # train() makes MED's dropout live (blip with --dropout); the CLIP
+        # towers have none, and BatchNorm runs on its stored statistics in
+        # either mode
         backbone.train()
-        state, mean_loss = train_epoch(
-            backbone, state, bank,
-            iter_train_bank(train_ds, args.batch_size,
-                            epoch_seed=args.seed + epoch),
-            neg_num=neg_num, neg_seed=args.seed * 1000 + epoch,
-            log_every=log_every,
-            log_fn=lambda step, loss: logger.log(step, epoch=epoch, loss=loss))
+        drop = None
+        if args.dropout:    # only a backbone with dropout gets past the flag
+            drop = torch.Generator(device=device).manual_seed(
+                args.seed * 1000 + epoch)
+        log_fn = lambda step, loss: logger.log(step, epoch=epoch, loss=loss)
+        if args.wo_bank:
+            state, mean_loss = train_epoch_stage1(
+                backbone, state,
+                iter_train_images(train_ds, args.batch_size, shuffle=True,
+                                  epoch_seed=args.seed + epoch),
+                dropout_generator=drop, log_every=log_every, log_fn=log_fn)
+        else:
+            state, mean_loss = train_epoch(
+                backbone, state, bank,
+                iter_train_bank(train_ds, args.batch_size,
+                                epoch_seed=args.seed + epoch),
+                neg_num=neg_num, neg_seed=args.seed * 1000 + epoch,
+                log_every=log_every, log_fn=log_fn,
+                dropout_generator=drop)
         print(f"epoch {epoch}: mean loss {mean_loss:.4f}")
 
         if (epoch + 1) % args.validation_frequency == 0:
@@ -219,4 +274,6 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
 
 
 if __name__ == "__main__":
-    train_main("clip", None, **CLIP4CIR_DEFAULTS)
+    import sys
+
+    train_main(*backbone_from_argv(sys.argv[1:]))

@@ -18,14 +18,15 @@ import json
 from typing import Optional
 
 from spn4cir_tpu_torch.cli.common import (
+    backbone_from_argv,
     base_parser,
     finalize_args,
     load_or_init_params,
     make_backbone,
     make_transform,
+    recipe_defaults,
     refuse_unported,
 )
-from spn4cir_tpu_torch.cli.train import CLIP4CIR_DEFAULTS
 from spn4cir_tpu_torch.eval.metrics import fiq_average
 from spn4cir_tpu_torch.eval.retrieval import (cirr_val_retrieval,
                                               fiq_val_retrieval)
@@ -37,7 +38,8 @@ def validate_main(backbone_name: str = "clip", argv: Optional[list] = None,
     """Parse `argv`, build the backbone (weights from --model_path, else
     random from --seed) and return the validation metrics as a dict.
     `tokenizer` overrides the CLIP tokenizer the backbone would load."""
-    args = base_parser(**(parser_kw or CLIP4CIR_DEFAULTS)).parse_args(argv)
+    args = base_parser(**(parser_kw or recipe_defaults(backbone_name))
+                       ).parse_args(argv)
     finalize_args(args)
     refuse_mesh(args)
     generator = seed_everything(args.seed)
@@ -73,4 +75,6 @@ def refuse_mesh(args) -> None:
 
 
 if __name__ == "__main__":
-    validate_main("clip", None, **CLIP4CIR_DEFAULTS)
+    import sys
+
+    validate_main(*backbone_from_argv(sys.argv[1:]))

@@ -31,7 +31,7 @@ from spn4cir_tpu_torch.utils.tensors import to_host
 
 
 def cache_file(path: str) -> str:
-    """np.savez_compressed appends '.npz' to an extensionless path; the
+    """np.savez appends '.npz' to an extensionless path; the
     exists-check and the load must use the same resolved name."""
     return path if path.endswith(".npz") else path + ".npz"
 
@@ -63,8 +63,10 @@ class GalleryIndex:
             extra = {"target": to_host(self.target)}
             if self.target.dtype == torch.bfloat16:
                 extra["target_bf16"] = np.asarray(True)
-        np.savez_compressed(path, refer=self.refer,
-                            names=np.asarray(self.names), **extra)
+        # uncompressed, as the bank cache (bank/bank.py): a blip4cir index
+        # holds 577 x 768 float32 tokens per image
+        np.savez(path, refer=self.refer, names=np.asarray(self.names),
+                 **extra)
 
     @classmethod
     def load(cls, path: str, device="cpu") -> "GalleryIndex":

@@ -77,9 +77,23 @@ class CIRBackbone(nn.Module, metaclass=abc.ABCMeta):
     @abc.abstractmethod
     def fuse(self, refer_feats: torch.Tensor, text_ids: torch.Tensor
              ) -> torch.Tensor:
-        """(refer-side feats, text ids) -> L2-normalized query features."""
+        """(refer-side feats, text ids) -> L2-normalized query features.
+
+        Train-mode dropout: a backbone whose text side has dropout (the MED
+        family) runs it when the module is in `train()` mode, and its
+        `fuse`, `stage1_loss` and `stage2_loss` take a `generator` keyword,
+        the `torch.Generator` (of the activations' device) that the noise
+        is drawn from. The CLIP towers have no dropout and no such
+        keyword (the CLIs refuse `--dropout` for them)."""
 
     # ---- losses ----
+    @abc.abstractmethod
+    def stage1_loss(self, images_refer: torch.Tensor,
+                    images_target: torch.Tensor, text_ids: torch.Tensor
+                    ) -> torch.Tensor:
+        """End-to-end in-batch InfoNCE (`--wo_bank`): both image batches go
+        through the live image tower."""
+
     @abc.abstractmethod
     def stage2_loss(self, refer_feats: torch.Tensor, text_ids: torch.Tensor,
                     target_bank, labels: torch.Tensor, *,
@@ -124,8 +138,9 @@ def register_backbone(name: str):
 
 
 def build_backbone(name: str, **kw) -> CIRBackbone:
-    if name not in _REGISTRY:
-        import spn4cir_tpu_torch.models.clip4cir  # noqa: F401  (registers)
+    if name not in _REGISTRY:  # the modules register their backbones
+        import spn4cir_tpu_torch.models.blip4cir  # noqa: F401
+        import spn4cir_tpu_torch.models.clip4cir  # noqa: F401
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"backbone {name!r} is not ported to PyTorch yet; have "

@@ -16,7 +16,9 @@ Images enter NHWC `(B, H, W, 3)` as in the JAX package. Parameters are
 float32; activations run in `dtype`. The ResNet tower permutes to NCHW at
 its entry, which makes a channels-last view of the NHWC batch without a
 copy, and always normalises with the running statistics: the image tower is
-frozen in every training stage the port has.
+frozen in stage 2, and in stage 1 the BatchNorms run on their stored
+statistics while their affine parameters train, as in the JAX package
+(`train/stage1.py`).
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ CLIP_CONFIGS = {
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         width, p = cfg.vision_width, cfg.vision_patch_size
         self.cfg = cfg
@@ -89,7 +92,7 @@ class VisionTransformer(nn.Module):
             torch.empty((cfg.image_resolution // p) ** 2 + 1, width))
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, cfg.vision_layers,
-                                       cfg.vision_heads)
+                                       cfg.vision_heads, remat=remat)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, cfg.embed_dim))
 
@@ -207,7 +210,10 @@ class ModifiedResNet(nn.Module):
     average pool, four stages of anti-aliased bottlenecks, and an attention
     pool in place of the global average."""
 
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
+        # `remat` is accepted for interface parity: the conv tower keeps its
+        # activations
         super().__init__()
         width = cfg.vision_width
         self.cfg = cfg
@@ -248,7 +254,8 @@ class ModifiedResNet(nn.Module):
 class TextTransformer(nn.Module):
     """The causal text tower; pooled at the EOT token (argmax of the ids)."""
 
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         tw = cfg.transformer_width
         self.cfg = cfg
@@ -257,7 +264,8 @@ class TextTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.context_length, tw))
         self.transformer = Transformer(tw, cfg.transformer_layers,
-                                       cfg.transformer_heads, causal=True)
+                                       cfg.transformer_heads, causal=True,
+                                       remat=remat)
         self.ln_final = LayerNorm(tw)
         self.text_projection = nn.Parameter(torch.empty(tw, cfg.embed_dim))
 
@@ -278,10 +286,11 @@ class TextTransformer(nn.Module):
 class CLIP(TextTransformer):
     """The dual encoder in OpenAI CLIP's parameter layout."""
 
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
-        super().__init__(cfg, dtype)
+    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
+        super().__init__(cfg, dtype, remat)
         tower = VisionTransformer if cfg.is_vit else ModifiedResNet
-        self.visual = tower(cfg, dtype)
+        self.visual = tower(cfg, dtype, remat)
         self.logit_scale = nn.Parameter(torch.empty(()))
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
@@ -324,5 +333,6 @@ class CLIP(TextTransformer):
                 p.zero_()
 
 
-def build_clip(name: str, dtype: torch.dtype = torch.float32) -> CLIP:
-    return CLIP(CLIP_CONFIGS[name], dtype=dtype)
+def build_clip(name: str, dtype: torch.dtype = torch.float32,
+               remat: bool = False) -> CLIP:
+    return CLIP(CLIP_CONFIGS[name], dtype=dtype, remat=remat)

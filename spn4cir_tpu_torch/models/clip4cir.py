@@ -1,9 +1,9 @@
 """clip4cir backbone: CLIP dual encoder + element-wise-sum combiner.
 
 Counterpart of `spn4cir_tpu/models/clip4cir.py`: encoders, the
-element-wise-sum fusion, tokenization and the stage-2 loss (full-bank
-InfoNCE through `ops/bank_kernels.py`, or sampled negatives). The stage-1
-loss is not ported yet.
+element-wise-sum fusion, tokenization, the stage-2 loss (full-bank InfoNCE
+through `ops/bank_kernels.py`, or sampled negatives) and the stage-1 loss
+(in-batch InfoNCE through the live towers).
 """
 
 from __future__ import annotations
@@ -26,14 +26,15 @@ class ClipCIR(CIRBackbone):
 
     def __init__(self, clip_model_name: str = "RN50x4", tau: float = 0.02,
                  dtype: torch.dtype = torch.float32, device="cpu",
-                 tokenizer: ClipTokenizer | None = None):
+                 tokenizer: ClipTokenizer | None = None,
+                 remat: bool = False):
         super().__init__()
         self.clip_model_name = clip_model_name
         self.tau = tau
         self.dtype = dtype
         self.tokenizer = tokenizer
         with torch.device(device):
-            self.model = build_clip(clip_model_name, dtype=dtype)
+            self.model = build_clip(clip_model_name, dtype=dtype, remat=remat)
         self.cfg = self.model.cfg
         self.input_dim = self.cfg.image_resolution
         self.embed_dim = self.cfg.embed_dim
@@ -87,9 +88,17 @@ class ClipCIR(CIRBackbone):
                                                neg_idx, self.tau)
         return bank_infonce(query, target_bank, labels, self.tau)
 
-    def stage1_loss(self, *args, **kw):
-        raise NotImplementedError("clip4cir stage-1 training is not yet "
-                                  "ported to PyTorch")
+    def stage1_loss(self, images_refer: torch.Tensor,
+                    images_target: torch.Tensor, text_ids: torch.Tensor
+                    ) -> torch.Tensor:
+        """In-batch InfoNCE training the full model end to end (`--wo_bank`).
+        Refer and target ride one 2B-batch tower call, as in the JAX
+        package: per-sample math is identical to two B-batch calls."""
+        b = images_refer.shape[0]
+        both = self.encode_image(torch.cat([images_refer, images_target]))
+        target = l2_normalize(both[b:].float())
+        query = self.combine(both[:b], self.encode_text(text_ids))
+        return infonce.in_batch_infonce(query, target, self.tau)
 
     # ---- host helpers ----
     def tokenize(self, texts):

@@ -19,6 +19,14 @@ let one side's training mutate the other's tree).
 
 `load_clip_checkpoint` reads an OpenAI / clip4cir `.pt` file; since the port
 keeps OpenAI's names, the state dict loads without conversion.
+
+`blip_state_dict_from_jax` does the same for the blip4cir backbone: it
+reads `convert_blip_vit_state_dict`, `convert_med_state_dict` and
+`convert_blip_retrieval` of the JAX package backwards, into the BLIP
+checkpoint's names (timm's for the ViT, HF BERT's for MED).
+`load_blip_checkpoint` reads a BLIP / BLIP4CIR `.pth` (or a checkpoint the
+port saved), strips the `blip.` wrapper prefix and resamples the position
+embedding when the resolutions differ (`interpolate_pos_embed`, bicubic).
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from spn4cir_tpu_torch.models.blip_vit import BlipViTConfig
 from spn4cir_tpu_torch.models.clip import CLIPConfig
+from spn4cir_tpu_torch.models.med import MedConfig
 
 # keys of an OpenAI jit archive that describe the model rather than hold
 # weights (the OpenAI loader deletes them too)
@@ -184,3 +194,158 @@ def load_clip_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return {(k[len("clip."):] if k.startswith("clip.") else k):
             v.detach().to(torch.float32)
             for k, v in sd.items() if k not in _METADATA_KEYS}
+
+
+# ---------------------------------------------------------------------------
+# blip4cir
+# ---------------------------------------------------------------------------
+
+def _unstack(sd: Dict[str, torch.Tensor], prefix: str, name: str, leaf,
+             transpose: bool = False) -> None:
+    """A scan-stacked leaf (leading axis = layer) -> `{prefix}.{i}.{name}`."""
+    arr = np.asarray(leaf)
+    for i in range(arr.shape[0]):
+        sd[f"{prefix}.{i}.{name}"] = _tensor(arr[i].T if transpose else arr[i])
+
+
+def blip_vit_state_dict(tree: Mapping, prefix: str = "visual_encoder"
+                        ) -> Dict[str, torch.Tensor]:
+    """A JAX `BlipViT` params tree -> the port's timm-named entries (bare
+    names with an empty `prefix`)."""
+    pre = f"{prefix}." if prefix else ""
+    sd: Dict[str, torch.Tensor] = {
+        f"{pre}cls_token": _tensor(tree["cls_token"]),
+        f"{pre}pos_embed": _tensor(np.asarray(tree["pos_embed"])[None]),
+        f"{pre}patch_embed.proj.weight": _oihw(
+            tree["patch_embed"]["kernel"]),
+        f"{pre}patch_embed.proj.bias": _tensor(
+            tree["patch_embed"]["bias"]),
+        f"{pre}norm.weight": _tensor(tree["norm"]["ln"]["scale"]),
+        f"{pre}norm.bias": _tensor(tree["norm"]["ln"]["bias"]),
+    }
+    block = tree["blocks"]["blocks"]["block"]
+    blocks = f"{pre}blocks"
+    for ours, theirs in (("norm1", "ln_1"), ("norm2", "ln_2")):
+        _unstack(sd, blocks, f"{ours}.weight", block[theirs]["ln"]["scale"])
+        _unstack(sd, blocks, f"{ours}.bias", block[theirs]["ln"]["bias"])
+    for ours, node in (("attn.qkv", block["attn"]["qkv"]),
+                       ("attn.proj", block["attn"]["out"]),
+                       ("mlp.fc1", block["mlp"]["fc"]),
+                       ("mlp.fc2", block["mlp"]["proj"])):
+        _unstack(sd, blocks, f"{ours}.weight", node["kernel"], True)
+        _unstack(sd, blocks, f"{ours}.bias", node["bias"])
+    return sd
+
+
+def med_state_dict(tree: Mapping, prefix: str = "text_encoder"
+                   ) -> Dict[str, torch.Tensor]:
+    """A JAX `MedBert` params tree -> the port's HF-named entries. Layers
+    whose cross-attention was never traced (a text-only tree) have no
+    `cross_attn` entry; those keys are then left out."""
+    pre = f"{prefix}." if prefix else ""
+    emb = f"{pre}embeddings"
+    sd: Dict[str, torch.Tensor] = {
+        f"{emb}.word_embeddings.weight": _tensor(tree["word_embeddings"]),
+        f"{emb}.position_embeddings.weight": _tensor(
+            tree["position_embeddings"]),
+        f"{emb}.LayerNorm.weight": _tensor(tree["embeddings_ln"]["scale"]),
+        f"{emb}.LayerNorm.bias": _tensor(tree["embeddings_ln"]["bias"]),
+    }
+    if "token_type_embeddings" in tree:
+        sd[f"{emb}.token_type_embeddings.weight"] = _tensor(
+            tree["token_type_embeddings"])
+    layer = tree["layers"]["layer"]
+    layers = f"{pre}encoder.layer"
+
+    def dense(name, node):
+        _unstack(sd, layers, f"{name}.weight", node["kernel"], True)
+        _unstack(sd, layers, f"{name}.bias", node["bias"])
+
+    def norm(name, node):
+        _unstack(sd, layers, f"{name}.weight", node["scale"])
+        _unstack(sd, layers, f"{name}.bias", node["bias"])
+
+    for ours, theirs in (("attention", "self_attn"),
+                         ("crossattention", "cross_attn")):
+        if theirs not in layer:
+            continue
+        for proj in ("query", "key", "value"):
+            dense(f"{ours}.self.{proj}", layer[theirs][proj])
+        dense(f"{ours}.output.dense", layer[theirs]["output"])
+        norm(f"{ours}.output.LayerNorm", layer[theirs]["ln"])
+    dense("intermediate.dense", layer["intermediate"])
+    dense("output.dense", layer["output"])
+    norm("output.LayerNorm", layer["ln"])
+    return sd
+
+
+def blip_state_dict_from_jax(params_np: Mapping[str, Any],
+                             vit_cfg: Optional[BlipViTConfig] = None,
+                             med_cfg: Optional[MedConfig] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX `BlipCirModule` params ({'params': ...}, the inner tree, or
+    anything with `.params`; numpy or device leaves) -> the state dict of the
+    port's `BlipCirModule` (float32 CPU tensors that own their memory). The
+    configs, when given, check the layer counts."""
+    p = getattr(params_np, "params", params_np)
+    p = p.get("params", p)
+    sd = blip_vit_state_dict(p["visual_encoder"])
+    sd.update(med_state_dict(p["text_encoder"]))
+    for proj in ("vision_proj", "text_proj"):
+        sd[f"{proj}.weight"] = _tensor(np.asarray(p[proj]["kernel"]).T)
+        sd[f"{proj}.bias"] = _tensor(p[proj]["bias"])
+    sd["tau"] = _tensor(p["tau"])
+    for cfg_layers, key in (
+            (vit_cfg and vit_cfg.layers, "visual_encoder.blocks.{}.norm1.weight"),
+            (med_cfg and med_cfg.num_layers,
+             "text_encoder.encoder.layer.{}.output.dense.weight")):
+        if cfg_layers and (key.format(cfg_layers - 1) not in sd
+                           or key.format(cfg_layers) in sd):
+            raise ValueError(f"the tree's depth is not the config's "
+                             f"{cfg_layers} layers ({key})")
+    return sd
+
+
+def interpolate_pos_embed(pos: torch.Tensor, target_num_tokens: int,
+                          num_prefix: int = 1) -> torch.Tensor:
+    """Bicubic resampling of a (1, T, D) position embedding's grid to
+    `target_num_tokens` (prefix tokens unchanged, align_corners=False), as
+    BLIP does when a checkpoint's resolution differs from the model's."""
+    if pos.shape[1] == target_num_tokens:
+        return pos
+    dim = pos.shape[-1]
+    orig = int(round((pos.shape[1] - num_prefix) ** 0.5))
+    new = int(round((target_num_tokens - num_prefix) ** 0.5))
+    if orig * orig != pos.shape[1] - num_prefix or \
+            new * new != target_num_tokens - num_prefix:
+        raise ValueError(f"position grids are not square: {pos.shape[1]} -> "
+                         f"{target_num_tokens} tokens")
+    grid = pos[:, num_prefix:].reshape(1, orig, orig, dim).permute(0, 3, 1, 2)
+    grid = torch.nn.functional.interpolate(
+        grid.float(), size=(new, new), mode="bicubic", align_corners=False)
+    grid = grid.permute(0, 2, 3, 1).reshape(1, new * new, dim)
+    return torch.cat([pos[:, :num_prefix].float(), grid], dim=1)
+
+
+def load_blip_checkpoint(path: str, num_tokens: Optional[int] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Read a BLIP_Retrieval / BLIP4CIR checkpoint (or one the port saved)
+    into a float32 state dict for `BlipCirModule`: takes the {'model': sd} /
+    {'state_dict': sd} wrappers, strips the CIRPlus `blip.` prefix, drops
+    HF's `position_ids` buffers and BLIP's momentum / queue entries, and
+    resamples `visual_encoder.pos_embed` to `num_tokens`."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+            break
+    if any(k.startswith("blip.") for k in obj):
+        obj = {k[len("blip."):]: v for k, v in obj.items()
+               if k.startswith("blip.")}
+    keep = ("visual_encoder.", "text_encoder.", "vision_proj.", "text_proj.")
+    sd = {k: v.detach().to(torch.float32) for k, v in obj.items()
+          if (k.startswith(keep) or k == "tau") and "position_ids" not in k}
+    if num_tokens is not None and "visual_encoder.pos_embed" in sd:
+        sd["visual_encoder.pos_embed"] = interpolate_pos_embed(
+            sd["visual_encoder.pos_embed"], num_tokens)
+    return sd

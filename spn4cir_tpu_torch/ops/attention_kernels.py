@@ -1,7 +1,8 @@
-"""Short-sequence self-attention: the Hopper kernels and their plain versions.
+"""Self-attention: the Hopper kernels and their plain versions.
 
-Counterpart of the packed short-sequence attention in
-`spn4cir_tpu/ops/attention_kernels.py` (`packed_attention_pallas`,
+Counterpart of `spn4cir_tpu/ops/attention_kernels.py`, in two pairs.
+
+Short sequences: the packed attention (`packed_attention_pallas`,
 `packed_causal_attention_pallas`; kernel bodies `_packed_fwd_kernel` and
 `_packed_bwd_kernel`). It serves the CLIP towers: ViT-B/32 vision attention
 at S=50 and the causal text attention at S=77, both at head_dim 64.
@@ -16,6 +17,20 @@ scaled by head_dim**-0.5 and is differentiable:
     `short_attention_bwd_reference`, the plain PyTorch versions, and counts
     nothing.
 There is no other route: a CUDA tensor that a kernel cannot take raises.
+
+Long sequences: the maskless fused attention (`fused_attention_pallas`;
+kernel bodies `_fwd_kernel` and `_bwd_kernel`). It serves the ViT towers
+whose sequence passes 128: BLIP's ViT-B/16 at 384 (S=577), CLIP ViT-L/14
+(S=257) and ViT-B/16 (S=197), EVA-g (head_dim 88).
+`long_attention(q, k, v)` has the same contract as `short_attention`
+without the causal option: on CUDA tensors `long_attention_fwd` and
+`long_attention_bwd` of `csrc/long_attention.cu`, counted in
+`long_attention.launches` and `long_attention_bwd.launches`; on CPU tensors
+`long_attention_reference` and `long_attention_bwd_reference`. It takes
+every S >= 1 and every head_dim <= 128 that is a multiple of 8.
+
+`attention_route` is the one place that decides which of the three routes
+(short kernel, long kernel, plain tensor code) a self-attention takes.
 """
 
 from __future__ import annotations
@@ -73,8 +88,35 @@ def short_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def kernel_takes(s: int, d: int) -> bool:
-    """Whether the kernels, forward and backward, take an (S, D) slice."""
+    """Whether the short-sequence kernels, forward and backward, take an
+    (S, D) slice."""
     return s <= MAX_SEQ and d <= MAX_HEAD_DIM
+
+
+def attention_route(s: int, d: int, causal: bool, masked: bool,
+                    fused: str = "auto") -> str:
+    """Which route a self-attention over (S, D) slices takes: "short"
+    (`short_attention`), "long" (`long_attention`) or "plain" (tensor code in
+    the layer). The rule looks at no device: with `fused="auto"` a maskless
+    or causal self-attention always goes to a kernel wrapper (which, on a
+    CUDA tensor, launches or raises), so such an attention on a CUDA tensor
+    can never reach the plain path. Only an explicit (data-dependent) mask
+    or `fused="plain"` takes the plain path.
+
+    Maskless: S <= 128 and D <= 128 -> short, S > 128 -> long. Causal (the
+    CLIP text towers, S=77) -> short; a causal S > 128 has no kernel and
+    raises."""
+    if fused == "plain" or masked:
+        return "plain"
+    if fused != "auto":
+        raise ValueError(f"fused must be 'auto' or 'plain', not {fused!r}")
+    if causal:
+        if not kernel_takes(s, d):
+            raise ValueError(f"causal attention has a kernel for S <= "
+                             f"{MAX_SEQ}, D <= {MAX_HEAD_DIM} only; got "
+                             f"S={s}, D={d}")
+        return "short"
+    return "short" if kernel_takes(s, d) else "long"
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,7 +136,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           long: bool = False) -> None:
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (BH, S, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -104,7 +147,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
     _, s, d = q.shape
-    if s > MAX_SEQ or d > MAX_HEAD_DIM:
+    if long:
+        if q.shape[0] < 1 or s < 1 or d > MAX_HEAD_DIM or d % 8:
+            raise ValueError(f"long_attention takes BH, S >= 1 and a D <= "
+                             f"{MAX_HEAD_DIM} that is a multiple of 8; got "
+                             f"{tuple(q.shape)}")
+    elif s > MAX_SEQ or d > MAX_HEAD_DIM:
         raise ValueError(f"short_attention takes S <= {MAX_SEQ} and "
                          f"D <= {MAX_HEAD_DIM}; got S={s}, D={d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -195,3 +243,139 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 short_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Long sequences
+# ---------------------------------------------------------------------------
+
+def long_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ) v per leading slice in plain PyTorch, with the order of
+    the TPU kernel: float32 logits and softmax, P normalised, then cast to
+    the input dtype before P·v."""
+    return short_attention_reference(q, k, v, False)
+
+
+def long_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, dout: torch.Tensor):
+    """(dq, dk, dv) of `long_attention_reference` in plain PyTorch, with the
+    roundings of the TPU kernel (P recomputed whole; P and dS cast to the
+    input dtype before their products; rowsum(dP∘P))."""
+    return short_attention_bwd_reference(q, k, v, dout, False)
+
+
+@functools.lru_cache(maxsize=None)
+def _long_library() -> ctypes.CDLL:
+    from spn4cir_tpu_torch.ops.cuda_build import build_library
+
+    lib = ctypes.CDLL(str(build_library("long_attention",
+                                        ["long_attention.cu"])))
+    fn = lib.long_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn = lib.long_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    return lib
+
+
+def long_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(out, lse) for CUDA tensors through the forward kernel: the output
+    and the rows' log-sum-exp (BH, S) float32, which the backward takes."""
+    _check(q, k, v, long=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"long_attention_fwd launches a CUDA kernel; the "
+                         f"tensors lie on {q.device}")
+    lib = _long_library()
+    bh, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.long_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     out.data_ptr(), lse.data_ptr(), bh, s, d,
+                                     _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"long_attention launch failed with CUDA error "
+                           f"{err} (BH={bh}, S={s}, D={d}, {q.dtype})")
+    long_attention.launches += 1
+    return out, lse
+
+
+def long_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, out: torch.Tensor,
+                       lse: torch.Tensor):
+    """(dq, dk, dv) for CUDA tensors through the backward kernels; `out`
+    and `lse` are what `long_attention_fwd` returned for (q, k, v); `dout`
+    must already have q's dtype and shape and be contiguous."""
+    _check(q, k, v, long=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"long_attention_bwd launches a CUDA kernel; the "
+                         f"tensors lie on {q.device}")
+    for name, t in (("dout", dout), ("out", out)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must match q in shape, dtype and "
+                             "device and be contiguous")
+    bh, s, d = q.shape
+    if (lse.shape != (bh, s) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("lse must be the forward's (BH, S) float32 tensor")
+    lib = _long_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    delta = torch.empty_like(lse)       # rowsum(dO∘O), written by the kernel
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.long_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, s, d, _DTYPE_CODES[q.dtype],
+            stream)
+    if err != 0:
+        raise RuntimeError(f"long_attention_bwd launch failed with CUDA "
+                           f"error {err} (BH={bh}, S={s}, D={d}, {q.dtype})")
+    long_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+long_attention_bwd.launches = 0
+
+
+class _LongAttention(torch.autograd.Function):
+    """Forward and backward by device: the kernels on CUDA, the plain
+    versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return long_attention_reference(q, k, v)
+        out, lse = long_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        # autograd's thread: the launch takes the current stream and device
+        # again
+        q, k, v, *saved = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        if q.device.type == "cpu":
+            return long_attention_bwd_reference(q, k, v, dout)
+        return long_attention_bwd(q, k, v, dout, *saved)
+
+
+def long_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+    """(BH, S, D) maskless self-attention with caller-prescaled q, any S;
+    see module doc."""
+    _check(q, k, v, long=True)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"long_attention runs on cuda or cpu, not {q.device}")
+    return _LongAttention.apply(q, k, v)
+
+
+long_attention.launches = 0

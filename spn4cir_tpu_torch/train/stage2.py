@@ -17,6 +17,12 @@ Frozen parameters (the image tower, by the backbone's `trainable_filter`,
 and `logit_scale`, which no CIR loss reads and which weight decay would
 otherwise shrink) get `requires_grad=False` and are not handed to the
 optimizer, so they come out of training bit-identical.
+
+Dropout: a backbone whose text side has dropout (blip4cir's MED, with
+`--dropout`) runs it during the steps because the trainer's caller puts the
+backbone in `train()` mode; the steps hand it `dropout_generator`, the
+generator its noise is drawn from. The frozen ViT has no dropout and its
+features come from the bank, so it never is live.
 """
 
 from __future__ import annotations
@@ -35,13 +41,17 @@ from spn4cir_tpu_torch.models.api import CIRBackbone
 LearningRate = Union[float, Callable[[int], float]]
 
 
-def trainable_mask(backbone: CIRBackbone) -> Dict[str, bool]:
-    """Parameter name -> trains in stage 2. Besides the backbone's freeze
-    filter, CLIP's `logit_scale` is excluded: it never appears in a CIR
-    loss, so its gradient is exactly zero and unmasked weight decay would
-    shrink the stored checkpoint value every step."""
+def trainable_mask(backbone: CIRBackbone,
+                   trainable: Optional[Callable[[str], bool]] = None
+                   ) -> Dict[str, bool]:
+    """Parameter name -> trains. `trainable` is the freeze filter (default:
+    the backbone's stage-2 `trainable_filter`). Besides it, CLIP's
+    `logit_scale` is excluded: it never appears in a CIR loss, so its
+    gradient is exactly zero and unmasked weight decay would shrink the
+    stored checkpoint value every step."""
+    trainable = trainable or backbone.trainable_filter
     return {name: ("logit_scale" not in name.split(".")
-                   and bool(backbone.trainable_filter(name)))
+                   and bool(trainable(name)))
             for name, _ in backbone.named_parameters()}
 
 
@@ -61,11 +71,14 @@ class TrainState:
 
 def make_optimizer(learning_rate: float, backbone: CIRBackbone, *,
                    weight_decay: float = 1e-2, b1: float = 0.9,
-                   b2: float = 0.999, eps: float = 1e-7
+                   b2: float = 0.999, eps: float = 1e-7,
+                   trainable: Optional[Callable[[str], bool]] = None
                    ) -> torch.optim.AdamW:
-    """AdamW over the trainable parameters only; sets `requires_grad` of
-    every parameter from `trainable_mask`, so a frozen one can never move."""
-    mask = trainable_mask(backbone)
+    """AdamW over the trainable parameters only, all in one group (a
+    learnable temperature is decayed with the rest, as optax's adamw over
+    the whole tree does); sets `requires_grad` of every parameter from
+    `trainable_mask`, so a frozen one can never move."""
+    mask = trainable_mask(backbone, trainable)
     params = []
     for name, p in backbone.named_parameters():
         p.requires_grad_(mask[name])
@@ -141,18 +154,10 @@ def sample_negatives(rng, pos_ids, num_images: int, neg_num: int) -> np.ndarray:
     return out
 
 
-def stage2_train_step(backbone: CIRBackbone, state: TrainState,
-                      target_bank, batch: Dict[str, torch.Tensor]
-                      ) -> torch.Tensor:
-    """One optimizer step. batch: refer_feats (B, *refer_shape) gathered
-    bank rows, text_ids (B, L), labels (B,) target-image ids into the bank,
-    optionally neg_idx (B, neg_num). Returns the loss as a detached device
-    scalar (no host read)."""
+def apply_gradients(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """Backward from `loss`, one AdamW step at the state's learning rate;
+    returns the loss as a detached device scalar (no host read)."""
     optimizer = state.optimizer
-    optimizer.zero_grad(set_to_none=True)
-    loss = backbone.stage2_loss(batch["refer_feats"], batch["text_ids"],
-                                target_bank, batch["labels"],
-                                neg_idx=batch.get("neg_idx"))
     loss.backward()
     lr = state.lr_at(state.step)
     for group in optimizer.param_groups:
@@ -160,6 +165,24 @@ def stage2_train_step(backbone: CIRBackbone, state: TrainState,
     optimizer.step()
     state.step += 1
     return loss.detach()
+
+
+def stage2_train_step(backbone: CIRBackbone, state: TrainState,
+                      target_bank, batch: Dict[str, torch.Tensor],
+                      dropout_generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """One optimizer step. batch: refer_feats (B, *refer_shape) gathered
+    bank rows, text_ids (B, L), labels (B,) target-image ids into the bank,
+    optionally neg_idx (B, neg_num). `dropout_generator` goes to a backbone
+    that takes one (see `CIRBackbone.fuse`). Returns the loss as a detached
+    device scalar."""
+    state.optimizer.zero_grad(set_to_none=True)
+    kw = ({"generator": dropout_generator}
+          if dropout_generator is not None else {})
+    loss = backbone.stage2_loss(batch["refer_feats"], batch["text_ids"],
+                                target_bank, batch["labels"],
+                                neg_idx=batch.get("neg_idx"), **kw)
+    return apply_gradients(state, loss)
 
 
 def train_epoch(
@@ -174,10 +197,12 @@ def train_epoch(
     log_every: int = 50,
     log_fn: Callable[[int, float], None] = lambda step, loss: None,
     start_step: int = 0,
+    dropout_generator: Optional[torch.Generator] = None,
 ):
     """Host epoch loop over `iter_train_bank` batches: gather refer rows,
     tokenize, run the step. Returns (state, mean_loss). Batches are
-    prefetched on a background thread."""
+    prefetched on a background thread. `dropout_generator`: see
+    `stage2_train_step`."""
     device = backbone.device
     # The loss stays on the device between steps (loss_sum is a device
     # scalar); the host reads it only every `log_every` steps — a per-step
@@ -203,7 +228,8 @@ def train_epoch(
             dev_batch["neg_idx"] = torch.from_numpy(sample_negatives(
                 rng, raw["target_image_id"], bank.num_images, neg_num)
             ).to(device)
-        loss = stage2_train_step(backbone, state, bank.target, dev_batch)
+        loss = stage2_train_step(backbone, state, bank.target, dev_batch,
+                                 dropout_generator)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         count += 1
         if log_every and step % log_every == 0:

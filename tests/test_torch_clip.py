@@ -108,8 +108,9 @@ def test_text_tower_matches_jax(pair, rng):
     (50, False, True)])
 def test_transformer_matches_jax(s, causal, masked, rng):
     """Two pre-LN blocks at width 128, 2 heads of 64. S=130 exceeds the
-    short-attention limit and an explicit additive mask is not the
-    kernel's to take: both run the plain path."""
+    short-attention limit and goes to `long_attention` (on the CPU, its
+    plain version); an explicit additive mask is not a kernel's to take
+    and runs the plain path."""
     x = rng.standard_normal((2, s, 128)).astype(np.float32)
     mask = None
     if masked:  # -inf at random key positions, never on the diagonal

@@ -12,7 +12,11 @@ before their products in both versions; one rounding step that falls the
 other way moves an output by up to 2^-8 of its value, and the outputs are
 themselves stored in bf16). Bank InfoNCE: statistics, loss, dQ and dtau
 within 1e-4 relative (float32 sums over up to 65,536 bank rows in another
-order), with an absolute floor of 1e-6 for dQ.
+order), with an absolute floor of 1e-6 for dQ. The long-sequence attention
+holds the same four tolerances: its forward rounds the un-normalised P
+(online softmax) where the plain version rounds the normalised one, both
+one bf16 rounding of a value in [0, 1]; its backward takes rowsum(dO∘O) for
+the plain version's rowsum(dP∘P), equal in exact arithmetic.
 """
 
 import pytest
@@ -22,7 +26,9 @@ from spn4cir_tpu_torch.models import clip as tclip
 from spn4cir_tpu_torch.models import layers
 from spn4cir_tpu_torch.ops import bank_kernels as bk
 from spn4cir_tpu_torch.ops.attention_kernels import (
-    short_attention, short_attention_bwd, short_attention_bwd_reference,
+    long_attention, long_attention_bwd, long_attention_bwd_reference,
+    long_attention_fwd, long_attention_reference, short_attention,
+    short_attention_bwd, short_attention_bwd_reference,
     short_attention_reference)
 
 
@@ -278,3 +284,114 @@ def test_towers_kernel_route_matches_plain_route_on_card(cuda_device):
         plain = (model.encode_image(images), model.encode_text(ids))
     for a, b in zip(kern, plain):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# the long-sequence shapes of the card's smoke run: BLIP's ViT-B/16 at 384
+# (extraction and index batches), ViT-L/14, EVA-g (head_dim 88), ViT-B/16 at
+# 224, a ragged slice; then head_dim 128, one key tile and one key
+LONG_SHAPES = [(1536, 577, 64), (384, 577, 64), (512, 257, 64),
+               (256, 257, 88), (384, 197, 64), (5, 130, 40), (3, 300, 128),
+               (2, 64, 8), (2, 1, 16)]
+
+
+def _long_inputs(bh, s, d, dtype, device, n=3, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    ts = [torch.randn(bh, s, d, generator=g, device=device, dtype=dtype)
+          for _ in range(n)]
+    ts[0] = ts[0] * d ** -0.5
+    return ts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d", LONG_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_long_attention_matches_plain_version_on_card(cuda_device, bh, s, d,
+                                                      dtype, tol):
+    q, k, v = _long_inputs(bh, s, d, dtype, cuda_device)
+    before = long_attention.launches
+    with torch.inference_mode():
+        got = long_attention(q, k, v)
+        again = long_attention(q, k, v)
+    assert long_attention.launches == before + 2
+    want = long_attention_reference(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again), "two launches differ"
+    _, lse = long_attention_fwd(q, k, v)
+    want_lse = torch.logsumexp(q.float() @ k.float().transpose(-1, -2), -1)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d", LONG_SHAPES[1:])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_long_attention_backward_matches_plain_version_on_card(
+        cuda_device, bh, s, d, dtype, tol):
+    """Against the plain backward and against float32 autograd through the
+    plain forward; two launches give the same bits."""
+    q, k, v, do = _long_inputs(bh, s, d, dtype, cuda_device, n=4, seed=1)
+    out, lse = long_attention_fwd(q, k, v)
+    before = long_attention_bwd.launches
+    got = long_attention_bwd(q, k, v, do, out, lse)
+    again = long_attention_bwd(q, k, v, do, out, lse)
+    assert long_attention_bwd.launches == before + 2
+    want = long_attention_bwd_reference(q, k, v, do)
+    exact = [t.to(torch.float32, copy=True).requires_grad_()
+             for t in (q, k, v)]
+    auto = torch.autograd.grad(long_attention_reference(*exact), exact,
+                               do.float())
+    for a, a2, b, c in zip(got, again, want, auto):
+        assert torch.equal(a, a2), "two launches differ"
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(a.float(), c.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_long_attention_refuses_what_the_kernel_cannot_take(cuda_device):
+    bad = torch.zeros(2, 200, 36, device=cuda_device)       # 36 % 8 != 0
+    with pytest.raises(ValueError, match="multiple of 8"):
+        long_attention(bad, bad, bad)
+    wide = torch.zeros(2, 200, 136, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        long_attention(wide, wide, wide)
+    ok = torch.zeros(2, 200, 64, device=cuda_device)
+    strided = torch.zeros(2, 64, 200, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        long_attention(strided, ok, ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_blip_vit_block_trains_through_the_long_kernels_on_card(cuda_device,
+                                                                dtype, tol):
+    """One BLIP ViT block (width 768, 12 heads, S=577) under autograd: the
+    kernel route against the plain route, output and input gradient; the
+    launch counters move by one each."""
+    from spn4cir_tpu_torch.models.blip_vit import Block
+
+    g = torch.Generator().manual_seed(0)
+    block = Block(768, 12)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * (
+                p.shape[-1] ** -0.5 if p.dim() > 1 else 0.02))
+        block.norm1.weight.fill_(1.0)
+        block.norm2.weight.fill_(1.0)
+    block.to(cuda_device)
+    x = torch.randn(2, 577, 768, generator=g).to(cuda_device, dtype)
+    outs = {}
+    for impl in ("auto", "plain"):
+        layers.set_attention_impl(block, impl)
+        leaf = x.clone().requires_grad_()
+        fwd, bwd = long_attention.launches, long_attention_bwd.launches
+        y = block(leaf)
+        y.float().square().mean().backward()
+        moved = (long_attention.launches - fwd,
+                 long_attention_bwd.launches - bwd)
+        assert moved == ((1, 1) if impl == "auto" else (0, 0)), (impl, moved)
+        outs[impl] = (y.detach().float(), leaf.grad.float())
+    for a, b in zip(outs["auto"], outs["plain"]):
+        torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()),
+                                   rtol=tol)

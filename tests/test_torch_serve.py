@@ -349,7 +349,9 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    spn4cir_tpu_torch.__path__, 'spn4cir_tpu_torch.')]\n"
         "assert len(names) > 20, names\n"
-        "for new in ('cli.validate', 'cli.submission', 'eval.submission'):\n"
+        "for new in ('cli.validate', 'cli.submission', 'eval.submission',\n"
+        "            'models.blip4cir', 'models.blip_vit', 'models.med',\n"
+        "            'tokenizer.wordpiece', 'train.stage1'):\n"
         "    assert 'spn4cir_tpu_torch.' + new in names, new\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -467,7 +467,7 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--wo_bank"], "--wo_bank"),
+    (["--wo_bank", "--neg_type", "1"], "--neg_type"),
     (["--neg_type", "1"], "--neg_type"),
     (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
     (["--use_cc"], "--use_cc"),
@@ -479,7 +479,7 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
     (["--device_preprocess"], "--device_preprocess"),
     (["--loader_procs", "2"], "--loader_procs"),
     (["--resume"], "--resume"),
-    (["--grad_ckpt"], "--grad_ckpt"),
+    (["--wo_bank", "--use_cc"], "--use_cc"),
     (["--dropout", "0.1"], "--dropout"),
     (["--text_max_len", "40"], "--text_max_len"),
     (["--val_ret_train"], "--val_ret_train"),

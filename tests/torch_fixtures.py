@@ -1,10 +1,17 @@
-"""A synthetic CLIP BPE merges table.
+"""Synthetic tokenizer assets: a CLIP BPE merges table and a BERT WordPiece
+vocabulary.
 
 The real merges file (`bpe_simple_vocab_16e6.txt.gz`) is not in the
 repository, so the port's tests and `chip_smoke.py` learn a small merges
 table from a fixed caption corpus and build `ClipTokenizer(merges=...)`
 from it. Token ids keep CLIP's layout (bytes, bytes + '</w>', merges,
 SOT, EOT); only the number of merges differs.
+
+The BERT vocabulary (`bert-base-uncased/vocab.txt`) is not there either:
+`synthetic_bert_vocab` builds one of the real size (30,522 entries, to which
+the tokenizer appends BLIP's `[DEC]` and `[ENC]`: 30,524, the size of MED's
+embedding table) from the specials, single characters, `##` pieces, the
+words of the fixture captions and filler entries.
 """
 
 from __future__ import annotations
@@ -77,4 +84,42 @@ def write_merges_file(path: str) -> str:
     lines = ["#version: synthetic"] + [f"{a} {b}" for a, b in synthetic_merges()]
     with gzip.open(path, "wt", encoding="utf-8") as fh:
         fh.write("\n".join(lines))  # a trailing newline would read as an empty merge
+    return path
+
+
+BERT_VOCAB_SIZE = 30522
+# captions of tests/fixtures.py (make_cirr, make_fiq) beside the corpus
+_FIXTURE_WORDS = ("cap", "ext", "cirr", "llm", "rewrite", "v1", "v2", "make",
+                  "it", "like", "number")
+
+
+def synthetic_bert_vocab(n: int = BERT_VOCAB_SIZE) -> List[str]:
+    """A WordPiece vocabulary of `n` distinct entries: BERT's specials,
+    letters, digits and punctuation, their `##` continuation pieces, the
+    words of `CORPUS` and of the fixture captions (so that those encode to
+    whole words), some suffix pieces, and `[unusedN]` filler up to `n`."""
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789") + list(
+        "!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+    words = sorted({w for text in CORPUS for w in text.split()}
+                   | set(_FIXTURE_WORDS))
+    pieces = ["##" + c for c in chars[:36]] + [
+        "##s", "##er", "##ing", "##ed", "##ly", "##es", "##est"]
+    out: List[str] = []
+    seen = set()
+    for tok in (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars
+                + pieces + words):
+        if tok not in seen:
+            seen.add(tok)
+            out.append(tok)
+    if len(out) > n:
+        raise ValueError(f"the fixed part alone has {len(out)} entries")
+    out += [f"[unused{i}]" for i in range(n - len(out))]
+    return out
+
+
+def write_bert_vocab(path: str, n: int = BERT_VOCAB_SIZE) -> str:
+    """Write `synthetic_bert_vocab(n)` in the vocab.txt format (one token a
+    line, id = line number); returns `path`."""
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(synthetic_bert_vocab(n)) + "\n")
     return path
