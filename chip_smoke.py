@@ -9,15 +9,18 @@ non-zero exit):
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
      per source, started together;
-  3. kernels: each of the eight kernels against its plain PyTorch version
-     on the card at the shapes of the serving, training, flagship and blip
-     paths (short attention in bfloat16 and float32 at the ViT-B/32 towers'
-     slices and at RN50x4's 10-head text tower; the bank InfoNCE over
-     float32, bfloat16 and int8 banks at D = 512, 640 and 768, with a
+  3. kernels: each of the ten kernels against its plain PyTorch version
+     on the card at the shapes of the serving, training, flagship, blip and
+     blip2 paths (short attention in bfloat16 and float32 at the ViT-B/32
+     towers' slices and at RN50x4's 10-head text tower; the bank InfoNCE
+     over float32, bfloat16 and int8 banks at D = 512, 640 and 768, with a
      ragged case each; the long attention, forward and backward, at BLIP's
-     (1536, 577, 64) and (384, 577, 64), at ViT-L/14's, EVA-g's and
-     ViT-B/16's slices and a ragged one, two launches giving the same
-     bits), with the
+     (1536, 577, 64) and (384, 577, 64), at EVA-g's extraction slice
+     (512, 257, 88) and (256, 257, 88), at ViT-L/14's and ViT-B/16's
+     slices and a ragged one; the max-over-query InfoNCE at blip2's
+     B=32, M=65,536, Q=32, D=256 over float32, bfloat16 and int8 banks and
+     a ragged B=5, M=1,000, Q=8; two launches giving the same bits), with
+     the
      kernel's time, the plain version's, the time of the PyTorch library
      call that computes the same function (a yardstick only) and the bound
      (the larger of bytes / 3.35 TB/s and operations / peak);
@@ -52,7 +55,9 @@ non-zero exit):
   8. one loss and gradient computed twice in float32, through the kernels
      and through the plain versions, over a dense and over an int8 bank,
      must agree; so must one blip stage-1 loss (two layers deep at BLIP
-     base width) through the long-attention kernels;
+     base width) through the long-attention kernels, and one blip2 stage-2
+     loss (the Q-Former at full width) through the max-query kernels over
+     a dense and an int8 bank;
   9. blip4cir at BLIP base width (ViT-B/16 at 384: 577 tokens, width 768, 12
      layers; MED: hidden 768, 12 layers, cross-attention in each; embedding
      256; bf16 over float32 weights, random from seed 0) on a 512-image
@@ -70,9 +75,26 @@ non-zero exit):
      again with `--grad_ckpt` (the same first loss, 48 + 24 a step); the
      blip stage-2 step at batch 128 against a 65,536 x 256 bank and a
      2,048-image host refer pool (ms/step, host gather, host-to-device
-     copy, device busy, idle share) and the extraction rate.
-Phase 9 runs between phases 7 and 8. The last three lines are the kernels JSON, the card's name and power limit
-(nvidia-smi), and {"ok": true, "device": {...}}.
+     copy, device busy, idle share) and the extraction rate;
+ 10. blip24cir at full width (EVA ViT-g at 224: 257 tokens, width 1408, 39
+     layers, 16 heads of 88; Q-Former: hidden 768, 12 layers, 32 queries;
+     embedding 256; bf16 over float32 weights, random from seed 0) on a
+     256-image synthetic CIRR tree: `train_main("blip2")` at batch 32 for 8
+     steps (the caption-aware fusion bank through the long attention, 39
+     launches per EVA batch; 1 + 1 max-query launches a step and no
+     attention launch inside the steps; EVA, Qformer and the projections
+     bit-identical, Qformer_query, text_proj_q and temp moved, the first
+     batch's loss lower), `validate_main("blip2")` and
+     `submission_main("blip2")` on its checkpoint;
+     `serve_main(backbone_name="blip2")` with concurrent and sequential
+     /retrieve requests (8 references re-encoded with plain attention keep
+     their top-1); the stage-2 step at batch 32 against a 65,536 x 32 x 256
+     bank, float32 then int8, and a 2,048-triplet host refer pool (ms/step,
+     host gather, host-to-device copy, device busy, idle share, ms by kernel
+     group); the EVA-g extraction rate at batch 32 with #3's share.
+Phases 9 and 10 run between phases 7 and 8. The last three lines are the
+kernels JSON, the card's name and power limit (nvidia-smi), and
+{"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
 port's CLIP tokenizer built from a synthetic merges table
@@ -139,7 +161,9 @@ FLAGSHIP_EVAL_TEXT = dict(name="flagship-eval-text", bh=32 * 10, s=77, d=64,
 # 224 (batch 32) and a ragged slice
 BLIP_EXTRACT = dict(name="blip-extract", bh=128 * 12, s=577, d=64, causal=False)
 BLIP_INDEX = dict(name="blip-index", bh=32 * 12, s=577, d=64, causal=False)
-LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX,
+# EVA ViT-g (16 heads of 88) at blip2's extraction / index batch of 32
+EVA_EXTRACT = dict(name="eva-g-extract", bh=32 * 16, s=257, d=88, causal=False)
+LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT,
                dict(name="vit-l14", bh=32 * 16, s=257, d=64, causal=False),
                dict(name="eva-g", bh=16 * 16, s=257, d=88, causal=False),
                dict(name="vit-b16", bh=32 * 12, s=197, d=64, causal=False),
@@ -177,6 +201,20 @@ BLIP_TAU = 0.03
 # rounding unit at 1.0 (2**-8); the cosine scores lie in [-1, 1]
 BLIP_SCORE_NOISE = 2.0 ** -8
 TAU = 0.02
+# blip24cir: EVA ViT-g (39 layers) + Q-Former; batch 32, 32 query features of
+# 256 per target image
+BLIP2_IMAGES = 256      # host refer index 256 x 257 x 1408 x 4 B = 370 MB
+BLIP2_TRAIN = 256
+BLIP2_BATCH = 32
+# the recipe's: at random weights the loss sits at chance (log M) and its
+# gradient is small, so Adam's sign-sized steps of 1e-4 over the 110 M
+# trainable parameters overshoot (the first batch's loss rose 5.447 ->
+# 5.551 over 8 steps at 1e-4 on the H100)
+BLIP2_LR = "1e-5"
+BLIP2_POOL = 2048       # host refer pool (triplets) of the recipe-scale step
+BLIP2_TAU = 0.05
+BLIP2_QUERIES = 32
+EVA_LAYERS = 39
 CAPTIONS = ("make it like number 7 but red", "is darker and has longer sleeves",
             "the dress is shorter with a floral print",
             "change the dog to a cat sitting on the grass")
@@ -242,7 +280,8 @@ def attention_bound(shape, dtype, n_tensors: int, n_products: int) -> tuple:
 def build_kernels(cuda_build) -> None:
     """Phase 2: one nvcc per source, all started together."""
     t0 = time.perf_counter()
-    names = ("short_attention", "bank_infonce", "long_attention")
+    names = ("short_attention", "bank_infonce", "long_attention",
+             "max_query_infonce")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = [pool.submit(cuda_build.build_library, n, [f"{n}.cu"], True)
                 for n in names]
@@ -365,11 +404,12 @@ def check_long_attention(ak, device, card):
     """Phase 3d: long_attention and long_attention_bwd against their plain
     versions (the backward also against float32 autograd through the plain
     forward), per shape and dtype; two launches must give the same bits;
-    timed at the two blip shapes. Returns (forward, backward) records."""
+    timed at the two blip shapes and EVA-g's extraction slice. Returns
+    (forward, backward) records."""
     g = torch.Generator(device=device).manual_seed(11)
     fwd_records, bwd_records = [], []
     for shape in LONG_SHAPES:
-        timed = shape in (BLIP_EXTRACT, BLIP_INDEX)
+        timed = shape in (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT)
         for dtype, tol, btol in ((torch.bfloat16, BF16_TOL, BWD_BF16_TOL),
                                  (torch.float32, F32_TOL, BWD_F32_TOL)):
             bh, s, d = shape["bh"], shape["s"], shape["d"]
@@ -805,6 +845,8 @@ class Tee(io.TextIOBase):
 
 
 def counters(ak, bk):
+    from spn4cir_tpu_torch.ops import maxquery_kernels as mk
+
     return dict(short_attention=ak.short_attention,
                 short_attention_bwd=ak.short_attention_bwd,
                 long_attention=ak.long_attention,
@@ -812,7 +854,9 @@ def counters(ak, bk):
                 bank_infonce_fwd=bk.bank_infonce_fwd,
                 bank_infonce_bwd=bk.bank_infonce_bwd,
                 bank_infonce_q8_fwd=bk.bank_infonce_q8_fwd,
-                bank_infonce_q8_bwd=bk.bank_infonce_q8_bwd)
+                bank_infonce_q8_bwd=bk.bank_infonce_q8_bwd,
+                max_query_infonce_fwd=mk.max_query_infonce_fwd,
+                max_query_infonce_bwd=mk.max_query_infonce_bwd)
 
 
 def zero_counts(ak, bk):
@@ -827,12 +871,16 @@ def read_counts(count):
     return {name: fn.launches for name, fn in count.items()}
 
 
-def bank_launches(quant: bool, steps: int) -> dict:
+def bank_launches(quant: bool, steps: int, max_query: bool = False) -> dict:
     """The bank kernels' launches of `steps` optimizer steps: one forward
-    and one backward of the pair that takes the bank, none of the other."""
-    dense, q8 = (0, steps) if quant else (steps, 0)
+    and one backward of the pair that takes the bank (the max-over-query
+    pair for blip2's (M, 32, 256) bank, of either type), none of the
+    others."""
+    dense, q8, mq = ((0, 0, steps) if max_query else
+                     (0, steps, 0) if quant else (steps, 0, 0))
     return dict(bank_infonce_fwd=dense, bank_infonce_bwd=dense,
-                bank_infonce_q8_fwd=q8, bank_infonce_q8_bwd=q8)
+                bank_infonce_q8_fwd=q8, bank_infonce_q8_bwd=q8,
+                max_query_infonce_fwd=mq, max_query_infonce_bwd=mq)
 
 
 # the CLIP paths at S <= 128 never reach the long-attention kernels
@@ -1028,12 +1076,15 @@ def synthetic_batches(n_steps, batch, num_images, seed):
     import numpy as np
 
     rng = np.random.RandomState(seed)
+    # the triplet ids of a triplet-keyed refer pool (blip2) from a stream of
+    # their own
+    triplets = np.random.RandomState(seed + 10_000)
     for _ in range(n_steps):
         yield {"captions": [CAPTIONS[int(i)] for i in
                             rng.randint(0, len(CAPTIONS), batch)],
                "refer_image_id": rng.randint(0, num_images, batch),
                "target_image_id": rng.randint(0, num_images, batch),
-               "triplet_idx": np.arange(batch)}
+               "triplet_idx": triplets.randint(0, num_images, batch)}
 
 
 def device_busy(trace_path: str):
@@ -1051,6 +1102,8 @@ def device_busy(trace_path: str):
         low = name.lower()
         if "bank_infonce" in name:
             key = "bank kernels"
+        elif "mq_" in name and "kernel" in name:
+            key = "max-query kernels"
         elif "short_attention" in name or "long_attention" in name:
             key = "attention kernels"
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
@@ -1186,20 +1239,34 @@ def blip_argv(root, *extra):
             *extra]
 
 
-def drive_blip_serving(ak, bk, layers, root, card):
-    """Phase 9a: the serving CLI over blip4cir, then the checks. Returns the
-    launch counts of the run."""
+# what the two BLIP serving slices expect of their models: (image tower
+# width, layers, heads, tokens), (text side hidden, layers, vocabulary), the
+# gallery's size, a target row's shape and the text side's name
+BLIP_SERVING = dict(name="blip", phase="9a", vit=(768, 12, 12, 577),
+                    text_cfg="med_cfg", text=(768, 12, 30524),
+                    n_images=BLIP_IMAGES, target_row=(BLIP_DIM,),
+                    text_side="MED's")
+BLIP2_SERVING = dict(name="blip2", phase="10b", vit=(1408, EVA_LAYERS, 16, 257),
+                     text_cfg="q_cfg", text=(768, 12, 30524),
+                     n_images=BLIP2_IMAGES, target_row=(BLIP2_QUERIES, BLIP_DIM),
+                     text_side="the Q-Former's")
+
+
+def drive_blip_serving(ak, bk, layers, root, card, spec=BLIP_SERVING):
+    """Phases 9a and 10b: the serving CLI over blip4cir or blip24cir (`spec`),
+    then the checks. Returns the launch counts of the run."""
     import numpy as np
 
     from spn4cir_tpu_torch.cli.serve import serve_main
     from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_gallery
 
+    name, n_images = spec["name"], spec["n_images"]
     argv = blip_argv(root, "--batch-size", str(SERVE_BATCH), "--serve_batch",
                      str(SERVE_BATCH), "--default_k", str(K), "--serve_host",
                      "127.0.0.1", "--serve_port", "0", "--no-block")
     count = zero_counts(ak, bk)
     t0 = time.perf_counter()
-    server, service = serve_main(argv, backbone_name="blip")
+    server, service = serve_main(argv, backbone_name=name)
     startup_s = time.perf_counter() - t0
     port = server.server_address[1]
     try:
@@ -1234,26 +1301,26 @@ def drive_blip_serving(ak, bk, layers, root, card):
 
     backbone = service.backbone
     vit = backbone.vit_cfg
-    assert (vit.width, vit.layers, vit.heads, vit.num_tokens) == (
-        768, 12, 12, 577), vit
-    med = backbone.med_cfg
-    assert (med.hidden_size, med.num_layers, med.vocab_size) == (
-        768, 12, 30524), med
-    encode_batches = math.ceil(BLIP_IMAGES / SERVE_BATCH)
+    assert (vit.width, vit.layers, vit.heads, vit.num_tokens) == spec["vit"], vit
+    text_cfg = getattr(backbone, spec["text_cfg"])
+    assert (text_cfg.hidden_size, text_cfg.num_layers,
+            text_cfg.vocab_size) == spec["text"], text_cfg
+    encode_batches = math.ceil(n_images / SERVE_BATCH)
     want = dict(long_attention=vit.layers * encode_batches,
                 long_attention_bwd=0, **NO_SHORT, **bank_launches(False, 0))
-    phase(f"blip serving slice: {len(names)} images indexed at 384 in "
-          f"{encode_batches} encode batches of {SERVE_BATCH} "
-          f"({startup_s:.1f} s with the model's construction), "
+    phase(f"{name} serving slice: {len(names)} images indexed at "
+          f"{vit.image_size} in {encode_batches} encode batches of "
+          f"{SERVE_BATCH} ({startup_s:.1f} s with the model's construction), "
           f"{N_CONCURRENT + N_SEQUENTIAL} queries in {dispatches} fuse "
           f"dispatches; launches {launches} (want {vit.layers} long-attention "
-          f"forwards per encode batch and no other kernel: MED's attention "
-          f"carries padding masks)")
+          f"forwards per encode batch and no other kernel: "
+          f"{spec['text_side']} attention carries padding masks)")
     assert launches == want, (launches, want)
 
     target = index.target
-    assert target.shape == (BLIP_IMAGES, BLIP_DIM), target.shape
-    assert index.refer.shape == (BLIP_IMAGES, 577, 768), index.refer.shape
+    assert target.shape == (n_images, *spec["target_row"]), target.shape
+    assert index.refer.shape == (n_images, vit.num_tokens, vit.width), \
+        index.refer.shape
     assert torch.isfinite(target).all() and np.isfinite(index.refer).all()
     norms = target.float().norm(dim=-1)
     assert torch.allclose(norms, torch.ones_like(norms), atol=1e-3), norms
@@ -1268,7 +1335,7 @@ def drive_blip_serving(ak, bk, layers, root, card):
     with torch.inference_mode():
         text = torch.from_numpy(backbone.tokenize(
             [CAPTIONS[j % len(CAPTIONS)] for j in range(8)])).to(dev)
-        mask = torch.zeros(8, BLIP_IMAGES, device=dev)
+        mask = torch.zeros(8, n_images, device=dev)
         mask[torch.arange(8), torch.from_numpy(ids)] = float("-inf")
         kern_scores = backbone.score_queries(
             backbone.fuse(index.refer_rows(ids), text), target) + mask
@@ -1287,7 +1354,7 @@ def drive_blip_serving(ak, bk, layers, root, card):
         gaps = top_k.values[:, 0] - top_k.values[:, 1]
         diff = (kern_scores - plain_scores)[mask == 0].abs().max().item()
         same = top_k.indices[:, 0] == top_p
-        phase(f"blip re-score, references re-encoded with plain attention: "
+        phase(f"{name} re-score, references re-encoded with plain attention: "
               f"top-1 kernel {top_k.indices[:, 0].tolist()} plain "
               f"{top_p.tolist()}: {int(same.sum())}/8 kept; max |score diff| "
               f"{diff:.3e} (limit {BLIP_SCORE_NOISE:.1e}); top-1/top-2 gaps "
@@ -1302,24 +1369,27 @@ def drive_blip_serving(ak, bk, layers, root, card):
                  concurrent_p99_ms=pct(concurrent_ms, 0.99),
                  sequential_p50_ms=statistics.median(sequential),
                  sequential_p99_ms=pct(sequential, 0.99))
-    phase(f"blip query latency, {N_CONCURRENT} concurrent (first round): p50 "
-          f"{stats['concurrent_p50_ms']:.2f} ms, p99 "
+    phase(f"{name} query latency, {N_CONCURRENT} concurrent (first round): "
+          f"p50 {stats['concurrent_p50_ms']:.2f} ms, p99 "
           f"{stats['concurrent_p99_ms']:.2f} ms; sequential: p50 "
           f"{stats['sequential_p50_ms']:.2f} ms, p99 "
           f"{stats['sequential_p99_ms']:.2f} ms (each dispatch gathers its "
-          f"references' 577 x 768 tokens on the host) [{card}]")
-    phase("blip serving slice stats " + json.dumps(stats))
+          f"references' {vit.num_tokens} x {vit.width} tokens on the host) "
+          f"[{card}]")
+    phase(f"{name} serving slice stats " + json.dumps(stats))
     return launches
 
 
-def blip_sides(common, train, argv):
-    """(args, a fresh backbone with the weights `train_main` started from)."""
+def blip_sides(common, argv, name="blip"):
+    """(args, a fresh `name` backbone with the weights `train_main` started
+    from)."""
     from spn4cir_tpu_torch.utils.seeding import seed_everything
 
     with contextlib.redirect_stdout(io.StringIO()):
-        args = common.base_parser(**train.BLIP4CIR_DEFAULTS).parse_args(argv)
+        args = common.base_parser(**common.recipe_defaults(name)).parse_args(
+            argv)
         common.finalize_args(args)
-    fresh = common.make_backbone("blip", args)
+    fresh = common.make_backbone(name, args)
     common.load_or_init_params(fresh, args, seed_everything(args.seed))
     return args, fresh.eval()
 
@@ -1354,10 +1424,10 @@ def drive_blip_training(ak, bk, root, tmp, card):
     steps = BLIP_TRAIN // BLIP_BATCH
     assert len(losses) == steps == 4, (len(losses), steps)
 
-    args, fresh = blip_sides(common, train, argv)
+    args, fresh = blip_sides(common, argv)
     assert args.tau == BLIP_TAU and args.clip_model_name == "RN50x4"
     ckpt = os.path.join(out, "best.pt")
-    _, trained = blip_sides(common, train, argv)
+    _, trained = blip_sides(common, argv)
     trained.model.load_state_dict(load_blip_checkpoint(ckpt))
     layers_n = trained.vit_cfg.layers
 
@@ -1525,8 +1595,8 @@ def drive_blip_stage1(ak, bk, root, tmp, card):
     assert abs(first - first_ckpt) <= 1e-6 * abs(first), (first, first_ckpt)
 
     argv, out, losses = runs[False]
-    args, fresh = blip_sides(common, train, argv)
-    _, trained = blip_sides(common, train, argv)
+    args, fresh = blip_sides(common, argv)
+    _, trained = blip_sides(common, argv)
     trained.model.load_state_dict(
         load_blip_checkpoint(os.path.join(out, "best.pt")))
     for name in ("visual_encoder.blocks.0.attn.qkv.weight",
@@ -1835,6 +1905,504 @@ def check_plain_step(layers, bk, card):
         assert np.isfinite(kern_loss)
 
 
+def max_query_case(mk, bk, q, bank, labels, card, time_it=True):
+    """#9 and #10 against their plain versions on one case (a dense
+    (M, Q, D) bank or a 3-D QuantBank): the four statistics, the loss, dtau
+    and dfeats; a second launch gives the same bits. Returns (fwd, bwd)
+    records."""
+    b, d = q.shape
+    quant = isinstance(bank, bk.QuantBank)
+    rows = bank.values if quant else bank
+    m, nq = rows.shape[:2]
+    gout = torch.tensor(1.0, device=q.device)
+    loss, stats, dtau = mk.max_query_infonce_fwd(q, bank, labels, BLIP2_TAU)
+    dq = mk.max_query_infonce_bwd(q, bank, labels, BLIP2_TAU, stats[0],
+                                  stats[1], gout)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = mk.max_query_infonce_stats_reference(q, bank, labels, BLIP2_TAU)
+        want_loss = mk.max_query_infonce_reference(q, bank, labels, BLIP2_TAU)
+        want_dq = mk.max_query_infonce_bwd_reference(
+            q, bank, labels, BLIP2_TAU, want[0], want[1], gout)
+    for got_s, want_s in zip(stats, want):
+        torch.testing.assert_close(got_s, want_s, atol=BANK_RTOL,
+                                   rtol=BANK_RTOL)
+    torch.testing.assert_close(loss, want_loss, atol=BANK_RTOL, rtol=BANK_RTOL)
+    torch.testing.assert_close(dtau, bk.dtau_from_stats(want, BLIP2_TAU),
+                               atol=10 * BANK_RTOL, rtol=BANK_RTOL)
+    torch.testing.assert_close(dq, want_dq, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
+    loss2, _, _ = mk.max_query_infonce_fwd(q, bank, labels, BLIP2_TAU)
+    dq2 = mk.max_query_infonce_bwd(q, bank, labels, BLIP2_TAU, stats[0],
+                                   stats[1], gout)
+    assert torch.equal(loss, loss2) and torch.equal(dq, dq2), "not repeatable"
+    fwd_err = max((a - b_).abs().max().item() for a, b_ in zip(stats, want))
+    fwd_err = max(fwd_err, (loss - want_loss).abs().item())
+    bwd_err = (dq - want_dq).abs().max().item()
+
+    def over_tol(got_t, want_t, atol):
+        return ((got_t - want_t).abs()
+                / (atol + BANK_RTOL * want_t.abs())).max().item()
+
+    fwd_share = max(over_tol(a, b_, BANK_RTOL) for a, b_ in
+                    zip((*stats, loss), (*want, want_loss)))
+    bwd_share = over_tol(dq, want_dq, BANK_DQ_ATOL)
+    common = dict(shape=f"B={b}, M={m}, Q={nq}, D={d}",
+                  dtype=dtype_name(bank.dtype))
+    # float32 products (the bank widens exactly); bytes: feats, the bank
+    # (with its scales), the labels, the statistics (the backward: mx, se,
+    # gout in, dfeats out), each once
+    bank_bytes = rows.numel() * rows.element_size() + (
+        4 * bank.scales.numel() if quant else 0)
+    f_ms, f_by = bound_ms(b * d * 4 + bank_bytes + b * 4 + 4 * b * 4 + 8,
+                          2 * b * m * nq * d, torch.float32)
+    b_ms, b_by = bound_ms(2 * b * d * 4 + bank_bytes + b * 4 + 2 * b * 4 + 4,
+                          2 * b * m * nq * d + 2 * b * m * d, torch.float32)
+    fwd = dict(common, rtol=BANK_RTOL, atol=BANK_RTOL, max_abs_err=fwd_err,
+               max_err_over_tol=fwd_share, bound_ms=f_ms, bound_by=f_by)
+    bwd = dict(common, rtol=BANK_RTOL, atol=BANK_DQ_ATOL, max_abs_err=bwd_err,
+               max_err_over_tol=bwd_share, bound_ms=b_ms, bound_by=b_by)
+    del want_dq, dq2
+    if time_it:
+        ce = torch.nn.functional.cross_entropy
+        dense = bank.dequantize if quant else bank.float
+
+        def library(feats):
+            sims = torch.einsum("bd,mqd->bmq", feats, dense())
+            return ce(sims.amax(dim=-1) / BLIP2_TAU, labels)
+
+        with torch.no_grad():
+            fwd["ms"] = median_ms(lambda: mk.max_query_infonce_fwd(
+                q, bank, labels, BLIP2_TAU), reps=10)
+            fwd["plain_ms"] = median_ms(
+                lambda: mk.max_query_infonce_stats_reference(
+                    q, bank, labels, BLIP2_TAU), reps=5, warmup=1)
+            fwd["library_ms"] = median_ms(lambda: library(q), reps=5,
+                                          warmup=1)
+            bwd["ms"] = median_ms(lambda: mk.max_query_infonce_bwd(
+                q, bank, labels, BLIP2_TAU, stats[0], stats[1], gout),
+                reps=10)
+            bwd["plain_ms"] = median_ms(
+                lambda: mk.max_query_infonce_bwd_reference(
+                    q, bank, labels, BLIP2_TAU, want[0], want[1], gout),
+                reps=5, warmup=1)
+        leaf = q.clone().requires_grad_()
+        lib_loss = library(leaf)
+        bwd["library_ms"] = median_ms(lambda: torch.autograd.grad(
+            lib_loss, leaf, retain_graph=True), reps=5, warmup=1)
+        del leaf, lib_loss
+    for name, rec in (("max_query_infonce_fwd", fwd),
+                      ("max_query_infonce_bwd", bwd)):
+        times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                 f"library (einsum + amax + cross_entropy"
+                 f"{' backward' if name.endswith('bwd') else ''}) "
+                 f"{rec['library_ms']:.4f} ms, " if time_it else "")
+        phase(f"kernel {name} {rec['shape']} bank {rec['dtype']}: "
+              f"max_abs_err={rec['max_abs_err']:.3e}, "
+              f"{rec['max_err_over_tol']:.3f} of the tolerance "
+              f"(atol={rec['atol']} + rtol={rec['rtol']}·|plain|), "
+              f"repeatable; {times}bound {rec['bound_ms']:.5f} ms by "
+              f"{rec['bound_by']} [{card}]")
+    return fwd, bwd
+
+
+def unit_bank(m, nq, d, generator, device):
+    return torch.nn.functional.normalize(
+        torch.randn(m, nq, d, generator=generator, device=device), dim=-1)
+
+
+def check_max_query(mk, bk, device, card):
+    """Phase 3e: the max-over-query kernels at blip2's stage-2 shape (B=32,
+    M=65,536, Q=32, D=256) over float32, bfloat16 and int8 banks, timed;
+    then a ragged case (B=5, M=1,000, Q=8) in the three types, the int8
+    scales a view into a buffer whose tail is NaN. Returns the records of
+    the two kernels."""
+    g = torch.Generator(device=device).manual_seed(13)
+    records = {"max_query_infonce_fwd": [], "max_query_infonce_bwd": []}
+
+    def run(q, bank, labels, time_it=True):
+        for name, rec in zip(records, max_query_case(mk, bk, q, bank, labels,
+                                                     card, time_it)):
+            records[name].append(rec)
+
+    q = unit_rows(BLIP2_BATCH, BLIP_DIM, g, device)
+    bank32 = unit_bank(RECIPE_BANK, BLIP2_QUERIES, BLIP_DIM, g, device)
+    labels = torch.randint(0, RECIPE_BANK, (BLIP2_BATCH,), generator=g,
+                           device=device)
+    for bank in (bank32, bank32.to(torch.bfloat16), bk.quantize_bank(bank32)):
+        run(q, bank, labels)
+        del bank
+        torch.cuda.empty_cache()
+    del bank32
+    b, m, nq = 5, 1000, 8
+    q = unit_rows(b, BLIP_DIM, g, device)
+    bank32 = unit_bank(m, nq, BLIP_DIM, g, device)
+    labels = torch.randint(0, m, (b,), generator=g, device=device)
+    run(q, bank32, labels, time_it=False)
+    run(q, bank32.to(torch.bfloat16), labels, time_it=False)
+    qbank = bk.quantize_bank(bank32)
+    scales = torch.full((m + 300, nq), float("nan"), device=device)
+    scales[:m] = qbank.scales
+    run(q, bk.QuantBank(qbank.values, scales[:m]), labels, time_it=False)
+    torch.cuda.empty_cache()
+    return records
+
+
+def blip2_unrun(name: str) -> bool:
+    """Parts of Qformer_query that the stage-2 text re-read never runs: no
+    gradient, so AdamW leaves them where they are."""
+    return name.startswith("Qformer_query.") and (
+        ".crossattention." in name or ".intermediate_query." in name
+        or ".output_query." in name)
+
+
+def drive_blip2_training(ak, bk, mk, root, tmp, card):
+    """Phase 10a: `train_main("blip2")` (stage 2) through its argv, the
+    checks, then `validate_main` and `submission_main` on its checkpoint.
+    Returns the launch counts of the training run and of the two evaluation
+    runs."""
+    from spn4cir_tpu_torch.bank.bank import Bank
+    from spn4cir_tpu_torch.cli import common, submission, train, validate
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_bank
+    from spn4cir_tpu_torch.models.convert import load_blip2_checkpoint
+
+    out = os.path.join(tmp, "blip2_run")
+    argv = blip_argv(root, "--batch-size", str(BLIP2_BATCH), "--num-epochs",
+                      "1", "--learning-rate", BLIP2_LR, "--output_path", out)
+    count = zero_counts(ak, bk)
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        best = train.train_main("blip2", argv, log_every=1)
+    launches = read_counts(count)
+    train_s = time.perf_counter() - t0
+    losses = logged_losses(tee.buffer_.getvalue())
+    steps = BLIP2_TRAIN // BLIP2_BATCH
+    assert len(losses) == steps == 8, (len(losses), steps)
+
+    args, fresh = blip_sides(common, argv, "blip2")
+    assert args.tau == BLIP2_TAU and args.clip_model_name == "pretrain"
+    ckpt = os.path.join(out, "best.pt")
+    t1 = time.perf_counter()
+    _, trained = blip_sides(common, argv, "blip2")
+    trained.model.load_state_dict(load_blip2_checkpoint(ckpt))
+    reload_s = time.perf_counter() - t1
+    vit, qf = trained.vit_cfg, trained.q_cfg
+    assert (vit.width, vit.layers, vit.heads, vit.num_tokens,
+            int(vit.width * vit.mlp_ratio)) == (1408, EVA_LAYERS, 16, 257,
+                                                6144), vit
+    assert (qf.hidden_size, qf.num_layers, qf.num_query_tokens,
+            qf.encoder_width, qf.vocab_size) == (768, 12, 32, 1408, 30524), qf
+    n_params = sum(p.numel() for p in trained.parameters())
+
+    preprocess = common.make_transform(trained, args)
+    ds = CIRDataset("cirr", "train", "relative", preprocess, root,
+                    args.dress_types, extend_suffix=trained.extend_suffix,
+                    seed=args.seed, replace_extended=trained.replace_extended)
+    m = ds.num_unique_images
+    extract_batches = math.ceil(len(ds.triplets) / BLIP2_BATCH)
+    val_batches = math.ceil(BLIP2_IMAGES / 32)
+    # two EVA passes per triplet batch (refer and target images)
+    want = dict(long_attention=EVA_LAYERS * (2 * extract_batches
+                                             + val_batches),
+                long_attention_bwd=0, **NO_SHORT,
+                **bank_launches(False, steps, max_query=True))
+    phase(f"blip2 training slice (train_main, EVA ViT-g + Q-Former bf16, "
+          f"{n_params / 1e9:.3f} B parameters, batch {BLIP2_BATCH}): fusion "
+          f"bank of {len(ds.triplets)} triplets and {m} target images in "
+          f"{2 * extract_batches} EVA batches, {steps} steps, validation over "
+          f"{BLIP2_IMAGES} images and {N_VAL} queries, {train_s:.1f} s in all "
+          f"(best.pt read back and loaded in {reload_s:.1f} s); launches "
+          f"{launches} (want {EVA_LAYERS} long-attention forwards per EVA "
+          f"batch of extraction and validation, 1 max-query forward + 1 "
+          f"backward per step and no attention launch inside the steps: "
+          f"{want})")
+    assert launches == want, (launches, want)
+
+    moved, still = [], []
+    fresh_sd, trained_sd = fresh.model.state_dict(), trained.model.state_dict()
+    for name, before in fresh_sd.items():
+        after = trained_sd[name]
+        trains = name.startswith(("Qformer_query.", "text_proj_q.", "temp"))
+        if not trains or blip2_unrun(name):
+            assert torch.equal(before, after), f"frozen {name} changed"
+        else:
+            (still if torch.equal(before, after) else moved).append(name)
+    # a key bias has a gradient of exactly zero and starts at zero
+    assert all(n.endswith(".self.key.bias") for n in still), still
+    for name in ("temp", "text_proj_q.weight",
+                 "Qformer_query.bert.embeddings.word_embeddings.weight",
+                 "Qformer_query.bert.encoder.layer.0.attention.self.query.weight",
+                 "Qformer_query.bert.encoder.layer.11.output.dense.weight",
+                 "Qformer_query.bert.encoder.layer.5.output.LayerNorm.bias"):
+        assert name in moved, f"{name} did not move"
+
+    bank = Bank.load(os.path.join(out, "cirr_bank.npz"), device=trained.device)
+    assert bank.refer_key == "triplet"
+    assert bank.target.shape == (m, BLIP2_QUERIES, BLIP_DIM), bank.target.shape
+    assert bank.refer.shape == (len(ds.triplets), BLIP2_QUERIES, 768)
+    assert torch.isfinite(bank.target).all()
+    raw = next(iter_train_bank(ds, BLIP2_BATCH, epoch_seed=args.seed))
+    dev = trained.device
+    batch = (torch.from_numpy(bank.gather_refer(raw)).to(dev),
+             torch.from_numpy(trained.tokenize(raw["captions"])).to(dev),
+             bank.target, torch.from_numpy(raw["target_image_id"]).to(dev))
+    with torch.no_grad():
+        before = fresh.stage2_loss(*batch).item()
+        after = trained.stage2_loss(*batch).item()
+    temp = trained.model.temp.item()
+    phase(f"blip2 training slice: per-step losses "
+          f"{[round(x, 4) for x in losses]}; first batch before training "
+          f"{before:.4f} (logged {losses[0]:.4f}), after {steps} steps "
+          f"{after:.4f}; temp {BLIP2_TAU} -> {temp:.6f}; best score "
+          f"{best:.2f}; {len(moved)} tensors of Qformer_query, text_proj_q "
+          f"and temp moved ({len(still)} zero-gradient key biases did not; "
+          f"the copy's cross-attention and query feed-forward, which the "
+          f"text re-read never runs, held), EVA, ln_vision, Qformer, the "
+          f"projections and the query tokens bit-identical [{card}]")
+    assert abs(before - losses[0]) < 2e-3 * abs(before), (before, losses[0])
+    assert after < before, (after, before)
+    assert temp != BLIP2_TAU
+
+    # #9 / #10 at the shape this path gave them: the extracted bank
+    q = unit_rows(BLIP2_BATCH, BLIP_DIM,
+                  torch.Generator(device=dev).manual_seed(3), dev)
+    max_query_case(mk, bk, q, bank.target, batch[3], card, time_it=False)
+    del bank, batch, fresh, trained
+    torch.cuda.empty_cache()
+
+    # validate_main and submission_main on the checkpoint
+    eval_argv = blip_argv(root, "--model_path", ckpt)
+    count = zero_counts(ak, bk)
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = validate.validate_main("blip2", eval_argv)
+    assert set(results) >= {"recall_at1", "recall_at5", "recall_at50",
+                            "group_recall_at1", "arithmetic_mean"}, results
+    assert all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in results.values()), results
+    assert abs(results["arithmetic_mean"] - best) < 1e-6, (results, best)
+    cwd = os.getcwd()
+    os.chdir(tmp)       # the files land under the working directory
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = submission.submission_main(
+                "blip2", eval_argv + ["--submission-name", "blip2_smoke"])
+        docs = []
+        for path in paths:
+            with open(path) as fh:
+                docs.append(json.load(fh))
+    finally:
+        os.chdir(cwd)
+    eval_launches = read_counts(count)
+    pred, group = docs
+    assert (pred.pop("version"), pred.pop("metric")) == ("rc2", "recall")
+    assert (group.pop("version"), group.pop("metric")) == (
+        "rc2", "recall_subset")
+    assert len(pred) == len(group) == N_VAL and set(pred) == set(group)
+    assert all(len(v) == len(set(v)) == 50 for v in pred.values())
+    assert all(len(v) == 3 for v in group.values())
+    want = dict(long_attention=EVA_LAYERS * 2 * val_batches,
+                long_attention_bwd=0, **NO_SHORT, **bank_launches(False, 0))
+    phase(f"blip2 training slice: validate_main on best.pt "
+          f"{json.dumps(results)}; submission_main wrote "
+          f"{[os.path.relpath(p, 'submission') for p in paths]}: {len(pred)} "
+          f"pairs, 50 and 3 names each; launches {eval_launches} (want "
+          f"{want})")
+    assert eval_launches == want, (eval_launches, want)
+    return launches, eval_launches
+
+
+def drive_blip2_recipe(ak, bk, tmp, card):
+    """Phase 10c: the blip2 stage-2 epoch loop at the recipe's batch of 32
+    against a synthetic 65,536 x 32 x 256 target bank (float32, then int8)
+    and a 2,048-triplet host refer pool of fused states (32 x 768 each):
+    ms/step, the host gather and the host-to-device copy of one batch's
+    refer rows, a profiler window per bank type; then the EVA-g extraction
+    rate at batch 32 with #3's share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spn4cir_tpu_torch.bank.bank import Bank
+    from spn4cir_tpu_torch.models.blip24cir import Blip2CIR
+    from spn4cir_tpu_torch.train.stage2 import create_train_state, train_epoch
+
+    device = torch.device("cuda:0")
+    backbone = Blip2CIR("pretrain", tau=BLIP2_TAU, dtype=torch.bfloat16,
+                        device=device)
+    backbone.init_params(torch.Generator().manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(4)
+    target32 = unit_bank(RECIPE_BANK, BLIP2_QUERIES, BLIP_DIM, g, device)
+    # 64 distinct triplets' worth of fused states, tiled: what a gather
+    # costs does not depend on the values
+    block = torch.randn(64, BLIP2_QUERIES, 768, generator=g,
+                        device=device).cpu().numpy()
+    refer = np.tile(block, (BLIP2_POOL // 64, 1, 1))
+    state = create_train_state(backbone, 1e-5)
+    steps, profile_steps = 6, 3
+
+    def batches(n, seed):
+        return synthetic_batches(n, BLIP2_BATCH, BLIP2_POOL, seed)
+
+    results = {}
+    for name in ("float32", "int8"):
+        quant = name == "int8"
+        bank = Bank(refer=refer, target=bk.quantize_bank(target32) if quant
+                    else target32, refer_key="triplet")
+        backbone.train()
+        train_epoch(backbone, state, bank, batches(2, 6), log_every=0)
+        count = zero_counts(ak, bk)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        _, mean_loss = train_epoch(backbone, state, bank, batches(steps, 7),
+                                   log_every=0)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        event_ms = start.elapsed_time(end) / steps
+        launches = read_counts(count)
+        assert launches == dict(**NO_LONG, **NO_SHORT,
+                                **bank_launches(False, steps, max_query=True)
+                                ), launches
+        assert math.isfinite(mean_loss), mean_loss
+
+        # the two host stages of one batch's refer rows, alone
+        gather, copy = [], []
+        for raw in batches(5, 8):
+            t0 = time.perf_counter()
+            rows = bank.gather_refer(raw)
+            t1 = time.perf_counter()
+            dev_rows = torch.from_numpy(rows).to(device)
+            torch.cuda.synchronize()
+            copy.append((time.perf_counter() - t1) * 1e3)
+            gather.append((t1 - t0) * 1e3)
+        gather_ms, copy_ms = statistics.median(gather), statistics.median(copy)
+        mb = rows.nbytes / 1e6
+        del dev_rows, rows
+
+        def profiled(n, seed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                train_epoch(backbone, state, bank, batches(n, seed),
+                            log_every=0)
+                torch.cuda.synchronize()
+            return prof, (time.perf_counter() - t0) * 1e3
+
+        profiled(1, 9)      # takes the profiler's start-up cost
+        prof, window_ms = profiled(profile_steps, 10)
+        trace = os.path.join(tmp, f"blip2_train_trace_{name}.json")
+        prof.export_chrome_trace(trace)
+        busy_ms, n_ops, groups = device_busy(trace)
+        assert n_ops > 0, "the profiler's trace holds no device interval"
+        per = {k: v / profile_steps for k, v in
+               sorted(groups.items(), key=lambda kv: -kv[1])}
+        assert per.get("max-query kernels", 0) > 0, per
+        busy_step = busy_ms / profile_steps
+        results[name] = dict(
+            ms_per_step=event_ms, wall_ms_per_step=wall_ms,
+            mean_loss=mean_loss, host_gather_ms=gather_ms,
+            host_to_device_copy_ms=copy_ms, refer_batch_mb=mb,
+            busy_ms_per_step=busy_step,
+            window_ms_per_step=window_ms / profile_steps,
+            idle_share_of_unprofiled_step=1 - busy_step / event_ms,
+            device_ops_per_step=n_ops / profile_steps,
+            ms_per_step_by_group=per)
+        mq_ms = per["max-query kernels"]
+        phase(f"blip2 recipe scale, M={RECIPE_BANK} x {BLIP2_QUERIES} x "
+              f"{BLIP_DIM} {name} bank, {BLIP2_POOL}-triplet host refer pool, "
+              f"batch {BLIP2_BATCH}, Q-Former bf16, {steps} steps: "
+              f"{event_ms:.3f} ms/step (CUDA events; host clock "
+              f"{wall_ms:.3f}); one batch's refer rows ({mb:.1f} MB): host "
+              f"gather {gather_ms:.3f} ms, host-to-device copy {copy_ms:.3f} "
+              f"ms; device busy {busy_step:.3f} ms/step in "
+              f"{n_ops / profile_steps:.0f} device operations, idle share "
+              f"{100 * (1 - busy_step / event_ms):.1f}% of the step timed "
+              f"without the profiler ({window_ms / profile_steps:.3f} "
+              f"ms/step under it); the max-query kernels {mq_ms:.3f} ms/step "
+              f"({100 * mq_ms / event_ms:.1f}% of the step); device ms per "
+              f"step by group: { {k: round(v, 3) for k, v in per.items()} } "
+              f"[{card}]")
+        del bank
+        torch.cuda.empty_cache()
+    phase("blip2 recipe scale stats " + json.dumps(results))
+    del state, target32, refer
+
+    backbone.eval()
+    images = torch.randn(BLIP2_BATCH, 224, 224, 3, device=device,
+                         generator=torch.Generator(device).manual_seed(2))
+    text = torch.from_numpy(backbone.tokenize(
+        [CAPTIONS[j % len(CAPTIONS)] for j in range(BLIP2_BATCH)])).to(device)
+    qkv = [torch.randn(EVA_EXTRACT["bh"], 257, 88, device=device,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    with torch.inference_mode():
+        ms = median_ms(lambda: backbone.fusion_bank_features(images, text),
+                       reps=4, warmup=1)
+        attn_ms = EVA_LAYERS * median_ms(lambda: ak.long_attention_fwd(*qkv),
+                                         reps=4, warmup=1)
+    phase(f"EVA ViT-g bf16 bank extraction at 224 (fusion_bank_features): "
+          f"{BLIP2_BATCH / (ms / 1e3):.1f} images/s on the device (batch "
+          f"{BLIP2_BATCH}, {ms:.3f} ms/batch; {EVA_LAYERS} long-attention "
+          f"launches at its shape take {attn_ms:.1f} ms alone, "
+          f"{100 * attn_ms / ms:.0f}% of the batch) [{card}]")
+
+
+def check_blip2_plain_step(layers, bk, mk, card):
+    """Phase 8, blip2: one float32 stage-2 loss and its gradients through
+    #9 / #10 and through the plain versions, same weights and batch, over a
+    dense and over an int8 bank; the Q-Former at full width (its EVA cut to
+    two layers: the stage-2 loss does not run it)."""
+    from spn4cir_tpu_torch.models.blip24cir import Blip2CIR
+    from spn4cir_tpu_torch.models.eva_vit import EvaViTConfig
+    from spn4cir_tpu_torch.train.stage2 import create_train_state
+
+    device = torch.device("cuda:0")
+    backbone = Blip2CIR("pretrain", tau=BLIP2_TAU, dtype=torch.float32,
+                        device=device, vit_cfg=EvaViTConfig(layers=2))
+    backbone.init_params(torch.Generator().manual_seed(0))
+    create_train_state(backbone, 1e-5)      # freezes what stage 2 freezes
+    g = torch.Generator(device=device).manual_seed(14)
+    m, b = 4099, BLIP2_BATCH
+    bank = unit_bank(m, BLIP2_QUERIES, BLIP_DIM, g, device)
+    refer = torch.randn(b, BLIP2_QUERIES, 768, generator=g, device=device)
+    labels = torch.randint(0, m, (b,), generator=g, device=device)
+    raw = next(synthetic_batches(1, b, m, 10))
+    text_ids = torch.from_numpy(backbone.tokenize(raw["captions"])).to(device)
+    probe = ("Qformer_query.bert.encoder.layer.0.attention.self.query.weight",
+             "Qformer_query.bert.encoder.layer.11.output.dense.weight",
+             "Qformer_query.bert.embeddings.word_embeddings.weight",
+             "text_proj_q.weight", "temp")
+
+    def run(plain: bool, target):
+        backbone.zero_grad(set_to_none=True)
+        if plain:
+            loss = mk.max_query_infonce_reference(
+                backbone.stage2_query_feats(refer, text_ids), target, labels,
+                backbone.model.temp)
+        else:
+            loss = backbone.stage2_loss(refer, text_ids, target, labels)
+        loss.backward()
+        return loss.item(), [backbone.model.get_parameter(n).grad.clone()
+                             for n in probe]
+
+    for target in (bank, bk.quantize_bank(bank)):
+        kern_loss, kern_grads = run(False, target)
+        plain_loss, plain_grads = run(True, target)
+        rel = [((a - b_).norm() / b_.norm()).item()
+               for a, b_ in zip(kern_grads, plain_grads)]
+        phase(f"one float32 blip2 stage-2 loss (B={b}, M={m}, Q="
+              f"{BLIP2_QUERIES}, {dtype_name(target.dtype)} bank, Q-Former "
+              f"at full width): kernels {kern_loss:.6f}, plain versions "
+              f"{plain_loss:.6f} (rtol {STEP_TOL}); relative gradient "
+              f"difference of {probe}: {[f'{r:.2e}' for r in rel]} (each "
+              f"under {10 * STEP_TOL}) [{card}]")
+        assert abs(kern_loss - plain_loss) <= STEP_TOL * abs(plain_loss)
+        assert all(r < 10 * STEP_TOL for r in rel), rel
+        assert math.isfinite(kern_loss)
+
+
 def pick(records, **want):
     return next(r for r in records
                 if all(r[k] == v for k, v in want.items()))
@@ -1892,6 +2460,7 @@ def main() -> int:
         from spn4cir_tpu_torch.ops import attention_kernels as ak
         from spn4cir_tpu_torch.ops import bank_kernels as bk
         from spn4cir_tpu_torch.ops import cuda_build
+        from spn4cir_tpu_torch.ops import maxquery_kernels as mk
 
         device = torch.device("cuda:0")
         card = card_line()
@@ -1910,6 +2479,7 @@ def main() -> int:
         bank_records = check_bank(bk, device, card)
         long_fwd_records, long_bwd_records = check_long_attention(
             ak, device, card)
+        mq_records = check_max_query(mk, bk, device, card)
 
         # one synthetic CIRR tree for the two ViT-B/32 slices, a smaller one
         # for the flagship slice
@@ -1957,9 +2527,23 @@ def main() -> int:
         drive_blip_recipe(ak, bk, tmp, card)
         torch.cuda.empty_cache()
 
+        # phase 10: blip24cir through its entry points
+        blip2_root = make_cirr(os.path.join(tmp, "cirr_blip2"),
+                               n_images=BLIP2_IMAGES, n_train=BLIP2_TRAIN,
+                               n_val=N_VAL, extended=False)
+        blip2_train_launches, blip2_eval_launches = drive_blip2_training(
+            ak, bk, mk, blip2_root, tmp, card)
+        torch.cuda.empty_cache()
+        blip2_serve_launches = drive_blip_serving(ak, bk, layers, blip2_root,
+                                                  card, BLIP2_SERVING)
+        torch.cuda.empty_cache()
+        drive_blip2_recipe(ak, bk, tmp, card)
+        torch.cuda.empty_cache()
+
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
         check_blip_plain_step(layers, card)
+        check_blip2_plain_step(layers, bk, mk, card)
 
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "spn4cir_tpu"))
@@ -1972,7 +2556,10 @@ def main() -> int:
                     "blip_serve": blip_serve_launches[name],
                     "blip_train": (blip_train_launches[name]
                                    + blip_eval_launches[name]),
-                    "blip_stage1": blip_stage1_launches[name]}
+                    "blip_stage1": blip_stage1_launches[name],
+                    "blip2_serve": blip2_serve_launches[name],
+                    "blip2_train": (blip2_train_launches[name]
+                                    + blip2_eval_launches[name])}
 
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
         at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
@@ -2017,7 +2604,8 @@ def main() -> int:
                 also=[pick(recs, shape=at_bank, dtype="int8")]))
         for name, line, on_paths, recs in (
                 ("long_attention", 74,
-                 ("blip_serve", "blip_train", "blip_stage1"),
+                 ("blip_serve", "blip_train", "blip_stage1", "blip2_serve",
+                  "blip2_train"),
                  long_fwd_records),
                 ("long_attention_bwd", 109, ("blip_stage1",),
                  long_bwd_records)):
@@ -2027,8 +2615,22 @@ def main() -> int:
                 pick(recs, tower="blip-index", dtype="bfloat16"),
                 also=[pick(recs, tower="blip-extract", dtype="bfloat16"),
                       pick(recs, tower="blip-extract", dtype="float32"),
-                      pick(recs, tower="blip-index", dtype="float32")]))
-        assert len(entries) == 8, len(entries)
+                      pick(recs, tower="blip-index", dtype="float32"),
+                      pick(recs, tower="eva-g-extract", dtype="bfloat16"),
+                      pick(recs, tower="eva-g-extract", dtype="float32")]))
+        at_mq = (f"B={BLIP2_BATCH}, M={RECIPE_BANK}, Q={BLIP2_QUERIES}, "
+                 f"D={BLIP_DIM}")
+        for name, line in (("max_query_infonce_fwd", 72),
+                           ("max_query_infonce_bwd", 116)):
+            recs = mq_records[name]
+            entries.append(kernel_entry(
+                name, f"{jax_ops}maxquery_kernels.py:{line}",
+                csrc + "max_query_infonce.cu", by_path(name),
+                ("blip2_train",), recs,
+                pick(recs, shape=at_mq, dtype="float32"),
+                also=[pick(recs, shape=at_mq, dtype="bfloat16"),
+                      pick(recs, shape=at_mq, dtype="int8")]))
+        assert len(entries) == 10, len(entries)
         print(json.dumps({"kernels": entries}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {

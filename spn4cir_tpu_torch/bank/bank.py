@@ -20,6 +20,12 @@ Counterpart of `Bank` / `extract_banks` in `spn4cir_tpu/bank/bank.py`
     tower's widened values, minutes for a token-shaped blip4cir refer bank
     (577 x 768 float32 per image).
 
+`extract_fusion_banks` is the caption-aware extraction of blip24cir, whose
+refer entries are the fused query states of an (image, caption) pair: keyed
+by triplet (`refer_key="triplet"`), or under `--plus` by image, written for
+the refer and the target image of each triplet with that triplet's caption.
+Its target bank, (M, 32, 256) on the device, covers the refer images too.
+
 `extract_unlabeled_features` / `extend_target_bank` (`--unlabeled`) append
 the normalized features of an unlabeled image pool to the target bank as
 extra negatives; the pool's cache is an `.npz` with the key `unlabeled`, as
@@ -125,6 +131,66 @@ def extract_banks(
 
     bank = Bank(refer=refer_buf, target=torch.from_numpy(target_buf).to(device),
                 refer_key="image")
+    if cache_path:
+        bank.save(cache_path)
+    return bank
+
+
+@torch.no_grad()
+def extract_fusion_banks(
+    fusion_features_fn: Callable,
+    triplet_batches: Iterator[dict],
+    num_triplets: int,
+    num_images: int,
+    tokenize: Callable,
+    cache_path: Optional[str] = None,
+    reload: bool = False,
+    by_image: bool = False,
+    device="cpu",
+) -> Bank:
+    """Caption-aware bank extraction (the counterpart of the JAX package's
+    `extract_fusion_banks`).
+
+    fusion_features_fn: (images, text_ids) tensors on `device` ->
+        (refer_form, target_form) for one batch; for blip2 the fusion hidden
+        states and the target query features.
+    triplet_batches: `iter_train_images` output (the last batch padded, ids
+        -1 ignored).
+    by_image: False -> refer bank keyed by triplet index; True -> keyed by
+        image id, written for both images of each triplet with its caption
+        (the --plus path)."""
+    if cache_path and os.path.exists(Bank.cache_file(cache_path)) and not reload:
+        return Bank.load(cache_path, device=device)
+
+    refer_buf = None
+    target_buf = None
+    refer_rows = num_images if by_image else num_triplets
+    for batch in triplet_batches:
+        text_ids = torch.from_numpy(tokenize(batch["captions"])).to(device)
+        refer, target = fusion_features_fn(
+            torch.from_numpy(batch["refer_images"]).to(device), text_ids)
+        refer_t, target_t = fusion_features_fn(
+            torch.from_numpy(batch["target_images"]).to(device), text_ids)
+        refer, target = to_host(refer), to_host(target)
+        target_t = to_host(target_t)
+        if refer_buf is None:
+            refer_buf = np.zeros((refer_rows, *refer.shape[1:]), refer.dtype)
+            target_buf = np.zeros((num_images, *target.shape[1:]), target.dtype)
+        valid = batch["triplet_idx"] >= 0
+        if by_image:
+            refer_buf[batch["refer_image_id"][valid]] = refer[valid]
+            refer_buf[batch["target_image_id"][valid]] = to_host(
+                refer_t)[valid]
+        else:
+            refer_buf[batch["triplet_idx"][valid]] = refer[valid]
+        # the target bank covers the refer images too
+        target_buf[batch["refer_image_id"][valid]] = target[valid]
+        target_buf[batch["target_image_id"][valid]] = target_t[valid]
+    if refer_buf is None:
+        raise ValueError("no batches supplied")
+
+    bank = Bank(refer=refer_buf, target=torch.from_numpy(target_buf).to(device),
+                refer_key="image" if by_image else "triplet")
     if cache_path:
         bank.save(cache_path)
     return bank

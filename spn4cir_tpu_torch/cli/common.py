@@ -150,14 +150,20 @@ def resolve_device(spec: str) -> torch.device:
 
 
 #: the recipe defaults of each ported backbone (the JAX package keeps them
-#: in its per-backbone entry scripts): clip4cir/train.py and blip4cir/train.py
+#: in its per-backbone entry scripts): clip4cir/train.py, blip4cir/train.py
+#: and blip24cir/train.py
 CLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.02,
                          default_lr=2e-05, default_bs=256, default_epochs=3)
 BLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.03,
                          default_lr=5e-06, default_bs=128, default_epochs=10)
+BLIP24CIR_DEFAULTS = dict(default_model="pretrain", default_tau=0.05,
+                          default_lr=1e-05, default_bs=32, default_epochs=3)
 #: zs is clip4cir's recipe on other checkpoints and loaders
 BACKBONE_DEFAULTS = {"clip": CLIP4CIR_DEFAULTS, "zs": CLIP4CIR_DEFAULTS,
-                     "blip": BLIP4CIR_DEFAULTS}
+                     "blip": BLIP4CIR_DEFAULTS, "blip2": BLIP24CIR_DEFAULTS}
+#: the backbones an entry point takes as its first word (zs is reached
+#: through clip4cir's entry points with its own checkpoints)
+FIRST_WORDS = tuple(name for name in BACKBONE_DEFAULTS if name != "zs")
 
 
 def recipe_defaults(backbone_name: str) -> dict:
@@ -170,18 +176,18 @@ def recipe_defaults(backbone_name: str) -> dict:
 
 
 def backbone_from_argv(argv: list) -> tuple:
-    """`python -m spn4cir_tpu_torch.cli.<entry> [clip|blip] ...`: an optional
-    first word picks the backbone, and with it the recipe defaults (clip
-    when absent). Returns (backbone name, the remaining argv)."""
-    if argv and argv[0] in ("clip", "blip"):
+    """`python -m spn4cir_tpu_torch.cli.<entry> [clip|blip|blip2] ...`: an
+    optional first word picks the backbone, and with it the recipe defaults
+    (clip when absent). Returns (backbone name, the remaining argv)."""
+    if argv and argv[0] in FIRST_WORDS:
         return argv[0], argv[1:]
     return "clip", argv
 
 
 def make_backbone(name: str, args, tokenizer=None) -> CIRBackbone:
     """`tokenizer` overrides the tokenizer the backbone would load (CLIP's
-    BPE for clip / zs, BERT WordPiece for blip)."""
-    if name not in ("clip", "zs", "blip"):
+    BPE for clip / zs, BERT WordPiece for blip and blip2)."""
+    if name not in BACKBONE_DEFAULTS:
         raise NotImplementedError(f"the {name} backbone is not ported to "
                                   "PyTorch yet")
     refuse_unported(args, [
@@ -196,6 +202,15 @@ def make_backbone(name: str, args, tokenizer=None) -> CIRBackbone:
                            in ("base", "large", "test-tiny") else "base")
         if args.text_max_len:
             kw["text_max_len"] = args.text_max_len
+        if args.dropout:
+            kw["dropout"] = args.dropout
+    elif name == "blip2":
+        refuse_unported(args, [
+            ("--text_max_len (blip2 tokenizes to its fixed 32)",
+             args.text_max_len)])
+        # --clip-model-name doubles as the BLIP-2 size (pretrain/test-tiny;
+        # the backbone refuses any other)
+        kw["blip2_size"] = args.clip_model_name
         if args.dropout:
             kw["dropout"] = args.dropout
     else:
@@ -218,10 +233,11 @@ def make_transform(backbone: CIRBackbone, args) -> ImageTransform:
 
 def load_or_init_params(backbone: CIRBackbone, args,
                         generator: torch.Generator) -> CIRBackbone:
-    """--model_path loads an OpenAI CLIP / clip4cir `.pt` checkpoint, or
-    for blip a BLIP / BLIP4CIR `.pth` (the port keeps the checkpoints'
-    parameter names); otherwise random weights from `generator`. Returns
-    the backbone, its weights filled in place."""
+    """--model_path loads an OpenAI CLIP / clip4cir `.pt` checkpoint, for
+    blip a BLIP / BLIP4CIR `.pth`, for blip2 a LAVIS BLIP-2 / SPRC `.pth`
+    (the port keeps the checkpoints' parameter names); otherwise random
+    weights from `generator`. Returns the backbone, its weights filled in
+    place."""
     if not args.model_path:
         backbone.init_params(generator)
         return backbone
@@ -229,7 +245,8 @@ def load_or_init_params(backbone: CIRBackbone, args,
         raise NotImplementedError(
             "the PyTorch port loads .pt/.pth checkpoints; convert a JAX "
             "checkpoint with models.convert.clip_state_dict_from_jax (or "
-            "blip_state_dict_from_jax) and torch.save")
+            "blip_state_dict_from_jax, blip2_state_dict_from_jax) and "
+            "torch.save")
     from spn4cir_tpu_torch.models import convert
 
     if backbone.name == "blip":
@@ -237,6 +254,10 @@ def load_or_init_params(backbone: CIRBackbone, args,
             args.model_path, num_tokens=backbone.vit_cfg.num_tokens)
         # an upstream BLIP checkpoint has no temperature: --tau then
         sd.setdefault("tau", torch.tensor(float(args.tau)))
+    elif backbone.name == "blip2":
+        sd = convert.load_blip2_checkpoint(
+            args.model_path, num_tokens=backbone.vit_cfg.num_tokens)
+        sd.setdefault("temp", torch.tensor(float(args.tau)))
     else:
         sd = convert.load_clip_checkpoint(args.model_path)
     backbone.model.load_state_dict(sd)

@@ -10,6 +10,13 @@ or without micro-batching (--serve_batch).
     python -m spn4cir_tpu_torch.cli.serve --dataset cirr \\
         --data_path cirr_dataset --clip-model-name ViT-B/32 --bf16 \\
         --serve_batch 32
+    python -m spn4cir_tpu_torch.cli.serve blip2 --dataset cirr \\
+        --data_path cirr_dataset --bf16 --serve_batch 32
+
+An optional first word, `clip` (the default), `blip` or `blip2`, picks the
+backbone. A blip2 gallery holds 32 query features per image on the device
+(scored by the best of them; `--gallery_dtype int8` quantizes each of them
+per row) and the frozen EVA tokens of each image on the host.
 """
 
 from __future__ import annotations

@@ -7,8 +7,10 @@ Counterpart of `spn4cir_tpu/cli/submission.py`:
         --data_path cirr_dataset --clip-model-name RN50x4 --bf16 \\
         --model_path models/run/best.pt --submission-name run
 
-They land in `submission/<backbone>4cir/` under the working directory.
-Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
+They land in `submission/<backbone>4cir/` under the working directory
+(`blip24cir/` for blip2). An optional first word, `clip` (the default),
+`blip` or `blip2`, picks the backbone. Runs on cuda:0 unless --device says
+otherwise (`--device cpu` for the CPU).
 `--mesh_*` > 1 raise "not yet ported".
 """
 

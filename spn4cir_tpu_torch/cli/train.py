@@ -1,5 +1,6 @@
-"""Training CLI of the PyTorch port: stage 2 ("scaling negatives") and
-stage 1 (`--wo_bank`) of clip4cir and blip4cir on one CUDA device.
+"""Training CLI of the PyTorch port: stage 2 ("scaling negatives") of
+clip4cir, blip4cir and blip24cir, and stage 1 (`--wo_bank`) of the first
+two, on one CUDA device.
 
 Counterpart of the single-device branches of `spn4cir_tpu/cli/train.py`.
 Stage 2: build the dataset, run the frozen image tower once over the unique
@@ -15,11 +16,19 @@ weight with the in-batch InfoNCE. Either way: validate every
         --bank_dtype int8
     python -m spn4cir_tpu_torch.cli.train blip --dataset cirr \\
         --data_path cirr_dataset --bf16 --dropout 0.1
+    python -m spn4cir_tpu_torch.cli.train blip2 --dataset cirr \\
+        --data_path cirr_dataset --bf16
 
-An optional first word, `clip` (the default) or `blip`, picks the backbone
-and its recipe defaults (blip: tau 0.03, learning rate 5e-6, batch 128, 10
-epochs; BLIP base unless `--clip-model-name large`). blip needs the BERT
-vocabulary: `SPN4CIR_BERT_VOCAB` names `bert-base-uncased/vocab.txt`.
+An optional first word, `clip` (the default), `blip` or `blip2`, picks the
+backbone and its recipe defaults (blip: tau 0.03, learning rate 5e-6, batch
+128, 10 epochs; BLIP base unless `--clip-model-name large`; blip2: tau 0.05,
+learning rate 1e-5, batch 32, 3 epochs, EVA ViT-g + Q-Former unless
+`--clip-model-name test-tiny`). blip and blip2 need the BERT vocabulary:
+`SPN4CIR_BERT_VOCAB` names `bert-base-uncased/vocab.txt`. blip2's bank is
+caption-aware: its refer rows are the fused query states of each (reference
+image, caption) pair, keyed by triplet (by image under `--plus`), and its
+target rows the (32, 256) query features of each image; blip2 has no stage
+1, so `--wo_bank` raises.
 `--grad_ckpt` rematerialises the ViT blocks (and CLIP's transformer blocks)
 in the backward; `--dropout` is MED's train-mode dropout.
 
@@ -46,10 +55,11 @@ from typing import Optional
 import torch
 
 from spn4cir_tpu_torch.bank.bank import (Bank, extend_target_bank,
-                                         extract_banks,
+                                         extract_banks, extract_fusion_banks,
                                          extract_unlabeled_features)
 from spn4cir_tpu_torch.cli.common import (
     BLIP4CIR_DEFAULTS,
+    BLIP24CIR_DEFAULTS,
     CLIP4CIR_DEFAULTS,
     backbone_from_argv,
     base_parser,
@@ -80,8 +90,8 @@ from spn4cir_tpu_torch.utils.checkpoint import save_model
 from spn4cir_tpu_torch.utils.logging import MetricLogger
 from spn4cir_tpu_torch.utils.seeding import seed_everything
 
-__all__ = ["BLIP4CIR_DEFAULTS", "CLIP4CIR_DEFAULTS", "run_validation",
-           "train_main"]
+__all__ = ["BLIP4CIR_DEFAULTS", "BLIP24CIR_DEFAULTS", "CLIP4CIR_DEFAULTS",
+           "run_validation", "train_main"]
 
 
 def run_validation(backbone, args, preprocess) -> tuple[float, dict]:
@@ -107,20 +117,30 @@ def run_validation(backbone, args, preprocess) -> tuple[float, dict]:
 def build_bank(backbone, args, train_ds, preprocess, output_path, device
                ) -> Bank:
     """The stage-2 bank: one frozen-tower pass over the unique train images
-    (cached), the unlabeled pool appended under `--unlabeled`, the target
-    cast or quantized per `--bank_dtype`."""
+    (cached; blip2: over the train triplets, caption-aware), the unlabeled
+    pool appended under `--unlabeled`, the target cast or quantized per
+    `--bank_dtype`."""
     # --- bank extraction (cached) ---
     bank_path = args.bank_path or os.path.join(
         output_path, f"{args.dataset}_bank.npz")
     backbone.eval()
-    bank = extract_banks(
-        backbone.bank_features,
-        iter_unique_images(train_ds, args.batch_size),
-        train_ds.num_unique_images,
-        cache_path=bank_path,
-        reload=args.reload_bank,
-        device=device,
-    )
+    if backbone.caption_aware_bank:
+        # the refer entries are caption-dependent fusion states
+        bank = extract_fusion_banks(
+            backbone.fusion_bank_features,
+            iter_train_images(train_ds, args.batch_size),
+            len(train_ds.triplets), train_ds.num_unique_images,
+            backbone.tokenize, cache_path=bank_path,
+            reload=args.reload_bank, by_image=args.plus, device=device)
+    else:
+        bank = extract_banks(
+            backbone.bank_features,
+            iter_unique_images(train_ds, args.batch_size),
+            train_ds.num_unique_images,
+            cache_path=bank_path,
+            reload=args.reload_bank,
+            device=device,
+        )
     if args.unlabeled:
         unlabeled_ds = CIRDataset(args.dataset, "train", "unlabeled",
                                   preprocess, args.data_path,
@@ -186,6 +206,10 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
         ("--loss_impl pallas/xla (one route per device here)",
          args.loss_impl != "auto"),
     ])
+    if args.wo_bank and backbone_name == "blip2":
+        raise NotImplementedError(
+            "--wo_bank with blip2: the JAX package's blip2 backbone has no "
+            "stage-1 loss, so there is none to port yet")
     generator = seed_everything(args.seed)
 
     backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)

@@ -7,7 +7,9 @@ Counterpart of `spn4cir_tpu/cli/validate.py`:
         --data_path cirr_dataset --clip-model-name RN50x4 --bf16 \\
         --model_path models/run/best.pt
 
-Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
+An optional first word, `clip` (the default), `blip` or `blip2`, picks the
+backbone and its recipe defaults. Runs on cuda:0 unless --device says
+otherwise (`--device cpu` for the CPU).
 `--mesh_data` / `--mesh_model` > 1 (a sharded indexing mesh) raise "not yet
 ported".
 """

@@ -58,7 +58,8 @@
 //     each split writes its partial dQ to scratch and a reduce kernel sums
 //     the splits in index order.
 // No atomics: every sum has a fixed order, so results are run-to-run
-// identical for a given split plan.
+// identical for a given split plan. The merge and the reduce are
+// split_merge.cuh's, shared with max_query_infonce.cu.
 
 #include <cstdint>
 
@@ -66,9 +67,14 @@
 #include <cuda_bf16.h>
 #include <math_constants.h>
 
+#include "split_merge.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using split_merge::merge_stats;
+struct bank_infonce_split {};  // names the merge / reduce kernels
+
+constexpr int kThreads = split_merge::kThreads;
 constexpr int kTileR = 64;    // query rows per CTA
 constexpr int kTileC = 128;   // bank rows per logits tile
 constexpr int kBK = 16;       // depth chunk of the logits product
@@ -178,17 +184,6 @@ __device__ __forceinline__ void logits_tile(const float* __restrict__ q,
   }
 }
 
-// Merge two online-softmax partials (m, s, e) <- (m, s, e) + (om, os, oe).
-__device__ __forceinline__ void merge_stats(float& m, float& s, float& e, float om, float os,
-                                            float oe) {
-  const float nm = fmaxf(m, om);
-  if (nm == -CUDART_INF_F) return;  // both sides empty
-  const float sa = expf(m - nm), sb = expf(om - nm);
-  s = s * sa + os * sb;
-  e = e * sa + oe * sb;
-  m = nm;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 bank_infonce_fwd_kernel(const float* __restrict__ q, const T* __restrict__ bank,
@@ -278,46 +273,6 @@ bank_infonce_fwd_kernel(const float* __restrict__ q, const T* __restrict__ bank,
       const int row = row0 + ty * 4 + a;
       if (row < B) part[size_t(blockIdx.x) * B + row] = make_float4(mx[a], se[a], pos[a], el[a]);
     }
-  }
-}
-
-// One block: merge the splits per row in index order, then reduce the rows.
-__global__ void __launch_bounds__(kThreads)
-bank_infonce_merge_kernel(const float4* __restrict__ part, int n_splits, int B, float tau,
-                          float* __restrict__ mx, float* __restrict__ se,
-                          float* __restrict__ pos, float* __restrict__ el,
-                          float* __restrict__ out2) {
-  __shared__ float s_loss[kThreads];
-  __shared__ float s_dtau[kThreads];
-  const int tid = threadIdx.x;
-  float loss = 0.f, dtau = 0.f;
-  for (int row = tid; row < B; row += kThreads) {
-    float m = -CUDART_INF_F, s = 0.f, e = 0.f, p = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp) {
-      const float4 v = part[size_t(sp) * B + row];
-      merge_stats(m, s, e, v.x, v.y, v.w);
-      p += v.z;
-    }
-    mx[row] = m;
-    se[row] = s;
-    pos[row] = p;
-    el[row] = e;
-    loss += logf(s) + m - p;
-    dtau += (p - e / s) / tau;
-  }
-  s_loss[tid] = loss;
-  s_dtau[tid] = dtau;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (tid < half) {
-      s_loss[tid] += s_loss[tid + half];
-      s_dtau[tid] += s_dtau[tid + half];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    out2[0] = s_loss[0] / float(B);
-    out2[1] = s_dtau[0] / float(B);
   }
 }
 
@@ -474,23 +429,6 @@ bank_infonce_bwd_kernel(const float* __restrict__ q, const T* __restrict__ bank,
   }
 }
 
-// dq = Σ_split dq_part[split], splits in index order.
-__global__ void __launch_bounds__(kThreads)
-bank_infonce_dq_reduce_kernel(const float4* __restrict__ part, int n_splits, int n4,
-                              float4* __restrict__ dq) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n4) return;
-  float4 s = part[i];
-  for (int sp = 1; sp < n_splits; ++sp) {
-    const float4 v = part[size_t(sp) * n4 + i];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  dq[i] = s;
-}
-
 bool plan_ok(int B, int M, int D, int tiles_per_split, int n_splits) {
   if (B <= 0 || M <= 0 || D <= 0 || D % 16 != 0 || tiles_per_split <= 0 || n_splits <= 0)
     return false;
@@ -511,11 +449,8 @@ cudaError_t launch_fwd(const void* q, const void* bank, const void* scales, cons
       tiles_per_split, static_cast<float4*>(part));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bank_infonce_merge_kernel<<<1, kThreads, 0, st>>>(
-      static_cast<const float4*>(part), n_splits, B, tau, static_cast<float*>(mx),
-      static_cast<float*>(se), static_cast<float*>(pos), static_cast<float*>(el),
-      static_cast<float*>(out2));
-  return cudaGetLastError();
+  return split_merge::launch_merge<bank_infonce_split>(part, n_splits, B, tau, mx, se, pos, el,
+                                                       out2, st);
 }
 
 template <typename T>
@@ -538,10 +473,7 @@ cudaError_t launch_bwd(const void* q, const void* bank, const void* scales, cons
       static_cast<float*>(dq_part));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n4 = B * D / 4;
-  bank_infonce_dq_reduce_kernel<<<(n4 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      static_cast<const float4*>(dq_part), n_splits, n4, static_cast<float4*>(dq));
-  return cudaGetLastError();
+  return split_merge::launch_dq_reduce<bank_infonce_split>(dq_part, n_splits, B, D, dq, st);
 }
 
 }  // namespace

@@ -141,9 +141,15 @@ def generate_val_predictions(backbone: CIRBackbone, dataset: CIRDataset,
 
 def quantized_score_queries(queries: torch.Tensor, qbank: QuantBank
                             ) -> torch.Tensor:
-    """Score against an int8 (M, D) `QuantBank` gallery, dequantizing after
-    the product (per-row scales factor out of the feature contraction)."""
-    return (queries.float() @ qbank.values.float().T) * qbank.scales[None, :]
+    """Score against an int8 `QuantBank` gallery, dequantizing after the
+    product (per-row scales factor out of the feature contraction): a flat
+    (M, D) gallery by the cosine dot; a blip2 (M, Q, D) one by the max over
+    q of the per-(m, q) scaled sims."""
+    q = queries.float()
+    if qbank.values.dim() == 3:
+        sims = torch.einsum("bd,mqd->bmq", q, qbank.values.float())
+        return (sims * qbank.scales[None]).amax(dim=-1)
+    return (q @ qbank.values.float().T) * qbank.scales[None, :]
 
 
 def query_scores(backbone: CIRBackbone, preds: Dict[str, np.ndarray],

@@ -36,6 +36,10 @@ class CIRBackbone(nn.Module, metaclass=abc.ABCMeta):
     replace_extended: bool = False
     #: input resolution for the image tower
     input_dim: int = 224
+    #: the stage-2 bank's refer entries depend on the caption: they come from
+    #: `fusion_bank_features(images, text_ids)` over the train triplets, not
+    #: from `bank_features(images)` over the unique images
+    caption_aware_bank: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -139,6 +143,7 @@ def register_backbone(name: str):
 
 def build_backbone(name: str, **kw) -> CIRBackbone:
     if name not in _REGISTRY:  # the modules register their backbones
+        import spn4cir_tpu_torch.models.blip24cir  # noqa: F401
         import spn4cir_tpu_torch.models.blip4cir  # noqa: F401
         import spn4cir_tpu_torch.models.clip4cir  # noqa: F401
     if name not in _REGISTRY:

@@ -76,14 +76,16 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN block, the shape of the CLIP block with exact GELU and LN eps
-    1e-6."""
+    1e-6. EVA's block (`models/eva_vit.py`) is this one with its own
+    attention class and MLP ratio."""
 
-    def __init__(self, width: int, num_heads: int):
+    def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
+                 attention: type = Attention):
         super().__init__()
         self.norm1 = LayerNorm(width, eps=LN_EPS)
-        self.attn = Attention(width, num_heads)
+        self.attn = attention(width, num_heads)
         self.norm2 = LayerNorm(width, eps=LN_EPS)
-        self.mlp = Mlp(width)
+        self.mlp = Mlp(width, mlp_ratio)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))

@@ -27,6 +27,13 @@ checkpoint's names (timm's for the ViT, HF BERT's for MED).
 `load_blip_checkpoint` reads a BLIP / BLIP4CIR `.pth` (or a checkpoint the
 port saved), strips the `blip.` wrapper prefix and resamples the position
 embedding when the resolutions differ (`interpolate_pos_embed`, bicubic).
+
+`blip2_state_dict_from_jax` and `load_blip2_checkpoint` do the same for the
+blip24cir backbone, into LAVIS's names (`visual_encoder.*` with EVA's
+`q_bias` / `v_bias`, `ln_vision`, `Qformer.bert.*`, `Qformer_query.bert.*`,
+the projections, `query_tokens`, `prompt_tokens`, `temp`); they invert
+`convert_eva_vit_state_dict`, `convert_qformer_state_dict` and
+`convert_blip2_cir` of the JAX package.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ import torch
 
 from spn4cir_tpu_torch.models.blip_vit import BlipViTConfig
 from spn4cir_tpu_torch.models.clip import CLIPConfig
+from spn4cir_tpu_torch.models.eva_vit import EvaViTConfig
 from spn4cir_tpu_torch.models.med import MedConfig
+from spn4cir_tpu_torch.models.qformer import QFormerConfig
 
 # keys of an OpenAI jit archive that describe the model rather than hold
 # weights (the OpenAI loader deletes them too)
@@ -326,6 +335,14 @@ def interpolate_pos_embed(pos: torch.Tensor, target_num_tokens: int,
     grid = grid.permute(0, 2, 3, 1).reshape(1, new * new, dim)
     return torch.cat([pos[:, :num_prefix].float(), grid], dim=1)
 
+def _unwrap_checkpoint(path: str) -> Dict[str, Any]:
+    """torch.load, then the {'state_dict': sd} / {'model': sd} wrappers."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            return obj[key]
+    return obj
+
 
 def load_blip_checkpoint(path: str, num_tokens: Optional[int] = None
                          ) -> Dict[str, torch.Tensor]:
@@ -334,17 +351,182 @@ def load_blip_checkpoint(path: str, num_tokens: Optional[int] = None
     {'state_dict': sd} wrappers, strips the CIRPlus `blip.` prefix, drops
     HF's `position_ids` buffers and BLIP's momentum / queue entries, and
     resamples `visual_encoder.pos_embed` to `num_tokens`."""
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    for key in ("state_dict", "model"):
-        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
-            obj = obj[key]
-            break
+    obj = _unwrap_checkpoint(path)
     if any(k.startswith("blip.") for k in obj):
         obj = {k[len("blip."):]: v for k, v in obj.items()
                if k.startswith("blip.")}
     keep = ("visual_encoder.", "text_encoder.", "vision_proj.", "text_proj.")
     sd = {k: v.detach().to(torch.float32) for k, v in obj.items()
           if (k.startswith(keep) or k == "tau") and "position_ids" not in k}
+    if num_tokens is not None and "visual_encoder.pos_embed" in sd:
+        sd["visual_encoder.pos_embed"] = interpolate_pos_embed(
+            sd["visual_encoder.pos_embed"], num_tokens)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# blip24cir
+# ---------------------------------------------------------------------------
+
+def eva_vit_state_dict(tree: Mapping, prefix: str = "visual_encoder"
+                       ) -> Dict[str, torch.Tensor]:
+    """A JAX `EvaViT` params tree -> the port's LAVIS-named entries (bare
+    names with an empty `prefix`). The fused qkv bias splits into `q_bias`
+    and `v_bias`; its key third must be zero (EVA has no key bias)."""
+    pre = f"{prefix}." if prefix else ""
+    sd: Dict[str, torch.Tensor] = {
+        f"{pre}cls_token": _tensor(tree["cls_token"]),
+        f"{pre}pos_embed": _tensor(np.asarray(tree["pos_embed"])[None]),
+        f"{pre}patch_embed.proj.weight": _oihw(tree["patch_embed"]["kernel"]),
+        f"{pre}patch_embed.proj.bias": _tensor(tree["patch_embed"]["bias"]),
+    }
+    block = tree["blocks"]["blocks"]["block"]
+    blocks = f"{pre}blocks"
+    for ours, theirs in (("norm1", "ln_1"), ("norm2", "ln_2")):
+        _unstack(sd, blocks, f"{ours}.weight", block[theirs]["ln"]["scale"])
+        _unstack(sd, blocks, f"{ours}.bias", block[theirs]["ln"]["bias"])
+    _unstack(sd, blocks, "attn.qkv.weight", block["attn"]["qkv"]["kernel"],
+             True)
+    bias = np.asarray(block["attn"]["qkv"]["bias"])
+    width = bias.shape[-1] // 3
+    if np.any(bias[:, width:2 * width]):
+        raise ValueError("EVA has no key bias: the key third of the fused qkv "
+                         "bias must be zero")
+    _unstack(sd, blocks, "attn.q_bias", bias[:, :width])
+    _unstack(sd, blocks, "attn.v_bias", bias[:, 2 * width:])
+    for ours, node in (("attn.proj", block["attn"]["out"]),
+                       ("mlp.fc1", block["mlp"]["fc"]),
+                       ("mlp.fc2", block["mlp"]["proj"])):
+        _unstack(sd, blocks, f"{ours}.weight", node["kernel"], True)
+        _unstack(sd, blocks, f"{ours}.bias", node["bias"])
+    return sd
+
+
+def _put_pairs(sd: Dict[str, torch.Tensor], layers: str, layer: int,
+               stride: int, name: str, leaf, transpose: bool = False) -> None:
+    """A pair-scan-stacked leaf (leading axis = pair k) -> layer
+    `layer + stride·k`."""
+    arr = np.asarray(leaf)
+    for k in range(arr.shape[0]):
+        sd[f"{layers}.{layer + stride * k}.{name}"] = _tensor(
+            arr[k].T if transpose else arr[k])
+
+
+def qformer_state_dict(tree: Mapping, prefix: str = "Qformer.bert"
+                       ) -> Dict[str, torch.Tensor]:
+    """A JAX `QFormer` params tree (pairs of a cross layer and a plain
+    layer, scan-stacked) -> the port's LAVIS-named entries: even layers from
+    `pairs/cross_layer`, odd ones from `pairs/plain_layer`. A tree without
+    `cross_attn` (the JAX package's trainable copy) gives no
+    `crossattention` entries."""
+    emb = f"{prefix}.embeddings"
+    sd: Dict[str, torch.Tensor] = {
+        f"{emb}.word_embeddings.weight": _tensor(tree["word_embeddings"]),
+        f"{emb}.position_embeddings.weight": _tensor(
+            tree["position_embeddings"]),
+        f"{emb}.LayerNorm.weight": _tensor(tree["embeddings_ln"]["scale"]),
+        f"{emb}.LayerNorm.bias": _tensor(tree["embeddings_ln"]["bias"]),
+    }
+    layers = f"{prefix}.encoder.layer"
+    for first, member in ((0, "cross_layer"), (1, "plain_layer")):
+        node = tree["pairs"][member]
+
+        def dense(name, leaf):
+            _put_pairs(sd, layers, first, 2, f"{name}.weight", leaf["kernel"],
+                       True)
+            _put_pairs(sd, layers, first, 2, f"{name}.bias", leaf["bias"])
+
+        def norm(name, leaf):
+            _put_pairs(sd, layers, first, 2, f"{name}.weight", leaf["scale"])
+            _put_pairs(sd, layers, first, 2, f"{name}.bias", leaf["bias"])
+
+        for ours, theirs in (("attention", "self_attn"),
+                             ("crossattention", "cross_attn")):
+            if theirs not in node:
+                continue
+            for proj in ("query", "key", "value"):
+                dense(f"{ours}.self.{proj}", node[theirs][proj])
+            dense(f"{ours}.output.dense", node[theirs]["output"])
+            norm(f"{ours}.output.LayerNorm", node[theirs]["ln"])
+        ffn = node["ffn"]
+        for suffix in ("", "_query"):
+            dense(f"intermediate{suffix}.dense", ffn[f"intermediate{suffix}"])
+            dense(f"output{suffix}.dense", ffn[f"output{suffix}"])
+            norm(f"output{suffix}.LayerNorm", ffn[f"ln{suffix}"])
+    return sd
+
+
+def blip2_state_dict_from_jax(params_np: Mapping[str, Any],
+                              vit_cfg: Optional[EvaViTConfig] = None,
+                              q_cfg: Optional[QFormerConfig] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX `Blip2CirModule` params ({'params': ...}, the inner tree, or
+    anything with `.params`; numpy or device leaves) -> the state dict of the
+    port's `Blip2CirModule` (float32 CPU tensors that own their memory). The
+    JAX tree's trainable copy has no cross-attention (it never
+    cross-attends); the port keeps LAVIS's, copied from `Qformer` as
+    `init_stage2`'s deep copy has it. The configs, when given, check the
+    layer counts."""
+    p = getattr(params_np, "params", params_np)
+    p = p.get("params", p)
+    sd = eva_vit_state_dict(p["visual_encoder"])
+    sd["ln_vision.weight"] = _tensor(p["ln_vision"]["ln"]["scale"])
+    sd["ln_vision.bias"] = _tensor(p["ln_vision"]["ln"]["bias"])
+    sd.update(qformer_state_dict(p["qformer"], "Qformer.bert"))
+    copy = qformer_state_dict(p["qformer_query"], "Qformer_query.bert")
+    for k, v in sd.items():
+        if k.startswith("Qformer.bert.") and ".crossattention." in k:
+            copy.setdefault("Qformer_query." + k[len("Qformer."):], v.clone())
+    sd.update(copy)
+    for proj in ("vision_proj", "text_proj", "text_proj_q"):
+        sd[f"{proj}.weight"] = _tensor(np.asarray(p[proj]["kernel"]).T)
+        sd[f"{proj}.bias"] = _tensor(p[proj]["bias"])
+    for name in ("query_tokens", "prompt_tokens"):
+        sd[name] = _tensor(p[name])
+    sd["temp"] = _tensor(p["tau"])
+    for cfg_layers, key in (
+            (vit_cfg and vit_cfg.layers, "visual_encoder.blocks.{}.norm1.weight"),
+            (q_cfg and q_cfg.num_layers,
+             "Qformer.bert.encoder.layer.{}.output.dense.weight")):
+        if cfg_layers and (key.format(cfg_layers - 1) not in sd
+                           or key.format(cfg_layers) in sd):
+            raise ValueError(f"the tree's depth is not the config's "
+                             f"{cfg_layers} layers ({key})")
+    return sd
+
+
+_BLIP2_KEEP = ("visual_encoder.", "ln_vision.", "Qformer.", "Qformer_query.",
+               "vision_proj.", "text_proj.", "text_proj_q.")
+_BLIP2_TENSORS = ("query_tokens", "prompt_tokens", "temp")
+
+
+def load_blip2_checkpoint(path: str, num_tokens: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Read a LAVIS `Blip2QformerCirAlignPrompt` / SPRC checkpoint (or one
+    the port saved) into a float32 state dict for `Blip2CirModule`: takes
+    the {'model': sd} / {'state_dict': sd} wrappers, strips the
+    `blip_model.` prefix, drops the Q-Formers' `cls` heads and HF's
+    `position_ids`, fills `Qformer_query.*` / `text_proj_q.*` from
+    `Qformer.*` / `text_proj.*` when they are absent (the `init_stage2`
+    surgery of a stage-1 checkpoint), gives `prompt_tokens` zeros when
+    absent, and resamples `visual_encoder.pos_embed` to `num_tokens`. A
+    missing `temp` is left to the caller (the CLIs take --tau)."""
+    obj = _unwrap_checkpoint(path)
+    if any(k.startswith("blip_model.") for k in obj):
+        obj = {k[len("blip_model."):]: v for k, v in obj.items()
+               if k.startswith("blip_model.")}
+    sd = {k: v.detach().to(torch.float32) for k, v in obj.items()
+          if (k.startswith(_BLIP2_KEEP) or k in _BLIP2_TENSORS)
+          and "position_ids" not in k
+          and not k.startswith(("Qformer.cls.", "Qformer_query.cls."))}
+    if not any(k.startswith("Qformer_query.") for k in sd):
+        for k in [k for k in sd if k.startswith("Qformer.")]:
+            sd["Qformer_query." + k[len("Qformer."):]] = sd[k].clone()
+    if "text_proj_q.weight" not in sd:
+        for leaf in ("weight", "bias"):
+            sd[f"text_proj_q.{leaf}"] = sd[f"text_proj.{leaf}"].clone()
+    if "prompt_tokens" not in sd:
+        sd["prompt_tokens"] = torch.zeros_like(sd["query_tokens"])
     if num_tokens is not None and "visual_encoder.pos_embed" in sd:
         sd["visual_encoder.pos_embed"] = interpolate_pos_embed(
             sd["visual_encoder.pos_embed"], num_tokens)

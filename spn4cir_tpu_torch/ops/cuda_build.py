@@ -2,11 +2,11 @@
 
 Each library is compiled by `nvcc` for Hopper (`sm_90a`) at first use, for
 its wrapper to load with `ctypes`; nothing is built when a module is
-imported. Outputs go
-to `build/kernels/` at the root of the checkout, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the library already there. The `ptxas` report (registers, shared memory,
-spills) is kept beside each library as `<name>-<hash>.log`.
+imported. Outputs go to `build/kernels/` at the root of the checkout, named
+by a hash of the sources, the shared `.cuh` headers and the flags, so an
+edited source rebuilds and an unchanged one loads the library already there.
+The `ptxas` report (registers, shared memory, spills) is kept beside each
+library as `<name>-<hash>.log`.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ def build_library(name: str, sources: Sequence[str], force: bool = False
     unless the library for these exact sources exists (or `force`);
     returns its path."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    # the shared headers too: a source may include any of them
+    for src in [*sources, *sorted(p.name for p in CSRC_DIR.glob("*.cuh"))]:
         digest.update((CSRC_DIR / src).read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists() and not force:

@@ -1,10 +1,11 @@
 """Contrastive (InfoNCE) losses and feature normalization in plain PyTorch.
 
 Counterpart of `spn4cir_tpu/ops/infonce.py` (`cross_entropy`,
-`in_batch_infonce`, `bank_infonce`, `sampled_neg_infonce`, `l2_normalize`).
-These materialise the logits; they are the semantic ground truth that the
-blocked bank-InfoNCE kernel (`ops/bank_kernels.py`) is tested against, and
-the sampled-negatives loss of `--neg_num`.
+`in_batch_infonce`, `bank_infonce`, `sampled_neg_infonce`, `l2_normalize`,
+`max_query_infonce`, `max_query_scores`). These materialise the logits; they
+are the semantic ground truth that the blocked bank-InfoNCE kernels
+(`ops/bank_kernels.py`, `ops/maxquery_kernels.py`) are tested against, the
+sampled-negatives loss of `--neg_num` and the BLIP-2 retrieval scores.
 
 All losses take logits in float32 whatever the input dtype: the operands
 are widened before the product (bfloat16 widens exactly), which is what the
@@ -69,3 +70,23 @@ def sampled_neg_infonce(query: torch.Tensor, target_bank: torch.Tensor,
     logits = torch.einsum("bd,bnd->bn", query.float(), cands.float()) / tau
     return cross_entropy(logits, torch.zeros(query.shape[0], dtype=torch.long,
                                              device=query.device))
+
+
+def max_query_infonce(fusion_feats: torch.Tensor, target_bank: torch.Tensor,
+                      labels: torch.Tensor, tau: Tau) -> torch.Tensor:
+    """BLIP-2 stage-2 loss: per-target max over the query tokens.
+
+    fusion_feats: (B, D); target_bank: (M, Q, D); labels: (B,). The
+    semantic ground truth of `ops/maxquery_kernels.py` (one einsum; the
+    reference loops over the samples)."""
+    logits = max_query_scores(fusion_feats, target_bank) / tau
+    return cross_entropy(logits, labels)
+
+
+def max_query_scores(fusion_feats: torch.Tensor, target_bank: torch.Tensor
+                     ) -> torch.Tensor:
+    """Retrieval scores of the BLIP-2 backbone: (B, M) float32, the max over
+    the Q query features of each gallery image."""
+    sims = torch.einsum("bd,mqd->bmq", fusion_feats.float(),
+                        target_bank.float())
+    return sims.amax(dim=-1)

@@ -274,9 +274,8 @@ def test_backbone_surface(sides):
     assert "generator" in inspect.signature(tb.stage1_loss).parameters
     assert isinstance(tb.model.tau, torch.nn.Parameter)
     assert tb.model.tau.shape == () and abs(tb.model.tau.item() - 0.03) < 1e-7
-    full = build_backbone
     with pytest.raises(NotImplementedError, match="not ported"):
-        full("blip2")
+        build_backbone("tgcir")
 
 
 def test_stage2_freeze_mask_equals_jax(sides):

@@ -384,8 +384,8 @@ def test_defaults_are_the_recipes():
     assert common.recipe_defaults("clip") is CLIP4CIR_DEFAULTS
     assert common.recipe_defaults("zs") is CLIP4CIR_DEFAULTS
     # an unknown backbone raises before a parser takes another's recipe
-    with pytest.raises(NotImplementedError, match="blip2"):
-        train_main("blip2", ["--dataset", "cirr"])
+    with pytest.raises(NotImplementedError, match="tgcir"):
+        train_main("tgcir", ["--dataset", "cirr"])
     args = common.base_parser(**BLIP4CIR_DEFAULTS).parse_args(
         ["--dataset", "cirr"])
     assert (args.tau, args.learning_rate, args.batch_size,

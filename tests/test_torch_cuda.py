@@ -395,3 +395,119 @@ def test_blip_vit_block_trains_through_the_long_kernels_on_card(cuda_device,
     for a, b in zip(outs["auto"], outs["plain"]):
         torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()),
                                    rtol=tol)
+
+
+# ---- max-over-query bank InfoNCE (#9, #10) ----
+
+def _mq_case(device, b, m, q, d, kind, seed=0):
+    from spn4cir_tpu_torch.ops import maxquery_kernels as mk
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.nn.functional.normalize(
+        torch.randn(b, d, generator=g, device=device), dim=-1)
+    bank = torch.nn.functional.normalize(
+        torch.randn(m, q, d, generator=g, device=device), dim=-1)
+    labels = torch.randint(0, m, (b,), generator=g, device=device)
+    if kind == "int8":
+        bank = bk.quantize_bank(bank)
+    elif kind == "bfloat16":
+        bank = bank.to(torch.bfloat16)
+    return mk, feats, bank, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,q", [(32, 65536, 32), (5, 1000, 8), (70, 4001, 3),
+                                   (1, 1, 1), (64, 777, 4)])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_max_query_kernels_match_plain_versions_on_card(cuda_device, b, m, q,
+                                                        kind):
+    """Statistics, loss, dtau and dfeats of #9 / #10 against the plain
+    versions, at the recipe's shape (B=32: one 32-row tile of feats), ragged
+    ones (B=70: three row tiles, the last one of 6 rows), and a second launch
+    giving the same bits."""
+    mk, feats, bank, labels = _mq_case(cuda_device, b, m, q, 256, kind)
+    tau = 0.05
+    gout = torch.tensor(1.0, device=cuda_device)
+    before = (mk.max_query_infonce_fwd.launches,
+              mk.max_query_infonce_bwd.launches)
+    loss, stats, dtau = mk.max_query_infonce_fwd(feats, bank, labels, tau)
+    dq = mk.max_query_infonce_bwd(feats, bank, labels, tau, stats[0],
+                                  stats[1], gout)
+    torch.cuda.synchronize()
+    assert (mk.max_query_infonce_fwd.launches,
+            mk.max_query_infonce_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = mk.max_query_infonce_stats_reference(feats, bank, labels, tau)
+    for got_s, want_s in zip(stats, want):
+        torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        loss, mk.max_query_infonce_reference(feats, bank, labels, tau),
+        atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dtau, bk.dtau_from_stats(want, tau),
+                               atol=1e-3, rtol=1e-4)
+    want_dq = mk.max_query_infonce_bwd_reference(feats, bank, labels, tau,
+                                                 want[0], want[1], gout)
+    torch.testing.assert_close(dq, want_dq, atol=1e-6, rtol=1e-4)
+    loss2, _, _ = mk.max_query_infonce_fwd(feats, bank, labels, tau)
+    dq2 = mk.max_query_infonce_bwd(feats, bank, labels, tau, stats[0],
+                                   stats[1], gout)
+    assert torch.equal(loss, loss2) and torch.equal(dq, dq2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64])
+def test_max_query_kernels_take_the_widest_dim_on_card(cuda_device, b):
+    """D=512, the widest the backward's routed sum takes, fits the shared
+    memory at any B: dfeats against the plain version."""
+    mk, feats, bank, labels = _mq_case(cuda_device, b, 700, 4, 512, "bfloat16")
+    tau, gout = 0.05, torch.tensor(1.0, device=cuda_device)
+    want = mk.max_query_infonce_stats_reference(feats, bank, labels, tau)
+    dq = mk.max_query_infonce_bwd(feats, bank, labels, tau, want[0], want[1],
+                                  gout)
+    torch.testing.assert_close(
+        dq, mk.max_query_infonce_bwd_reference(feats, bank, labels, tau,
+                                               want[0], want[1], gout),
+        atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "int8"])
+def test_max_query_infonce_autograd_on_card(cuda_device, kind):
+    """The autograd Function: dfeats and dtau (a learnable 0-d temperature)
+    against autograd through the plain loss."""
+    mk, feats, bank, labels = _mq_case(cuda_device, 32, 3001, 32, 256, kind,
+                                       seed=1)
+    leaf = feats.clone().requires_grad_()
+    tau = torch.tensor(0.05, device=cuda_device, requires_grad=True)
+    before = mk.max_query_infonce_bwd.launches
+    mk.max_query_infonce(leaf, bank, labels, tau).backward()
+    assert mk.max_query_infonce_bwd.launches == before + 1
+    ref = feats.clone().requires_grad_()
+    ref_tau = torch.tensor(0.05, device=cuda_device, requires_grad=True)
+    mk.max_query_infonce_reference(ref, bank, labels, ref_tau).backward()
+    torch.testing.assert_close(leaf.grad, ref.grad, atol=1e-6, rtol=1e-4)
+    torch.testing.assert_close(tau.grad, ref_tau.grad, atol=1e-3, rtol=1e-4)
+    # a bf16 feats tensor is widened for the kernels; its gradient comes
+    # back in bf16
+    half = feats.to(torch.bfloat16).requires_grad_()
+    mk.max_query_infonce(half, bank, labels, 0.05).backward()
+    assert half.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_max_query_kernels_refuse_what_they_cannot_take(cuda_device):
+    mk, feats, bank, labels = _mq_case(cuda_device, 4, 10, 2, 256, "float32")
+    with pytest.raises(ValueError, match="D % 32"):
+        mk.max_query_infonce_fwd(feats[:, :48].contiguous(),
+                                 bank[..., :48].contiguous(), labels, 0.05)
+    with pytest.raises(ValueError, match="D <= 512"):
+        mk.max_query_infonce_fwd(
+            torch.zeros(4, 544, device=cuda_device),
+            torch.zeros(3, 2, 544, device=cuda_device), labels, 0.05)
+    with pytest.raises(ValueError, match="float32 feats"):
+        mk.max_query_infonce_fwd(feats.half(), bank, labels, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.max_query_infonce_fwd(feats, bank.transpose(0, 1), labels[:4],
+                                 0.05)
+    with pytest.raises(ValueError, match="one device"):
+        mk.max_query_infonce_fwd(feats, bank, labels.cpu(), 0.05)

@@ -351,7 +351,9 @@ def test_port_imports_no_jax():
         "assert len(names) > 20, names\n"
         "for new in ('cli.validate', 'cli.submission', 'eval.submission',\n"
         "            'models.blip4cir', 'models.blip_vit', 'models.med',\n"
-        "            'tokenizer.wordpiece', 'train.stage1'):\n"
+        "            'tokenizer.wordpiece', 'train.stage1',\n"
+        "            'models.blip24cir', 'models.eva_vit', 'models.qformer',\n"
+        "            'ops.maxquery_kernels'):\n"
         "    assert 'spn4cir_tpu_torch.' + new in names, new\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
