@@ -9,7 +9,7 @@ non-zero exit):
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
      per source, started together;
-  3. kernels: each of the ten kernels against its plain PyTorch version
+  3. kernels: each of the twelve kernels against its plain PyTorch version
      on the card at the shapes of the serving, training, flagship, blip and
      blip2 paths (short attention in bfloat16 and float32 at the ViT-B/32
      towers' slices and at RN50x4's 10-head text tower; the bank InfoNCE
@@ -91,10 +91,36 @@ non-zero exit):
      their top-1); the stage-2 step at batch 32 against a 65,536 x 32 x 256
      bank, float32 then int8, and a 2,048-triplet host refer pool (ms/step,
      host gather, host-to-device copy, device busy, idle share, ms by kernel
-     group); the EVA-g extraction rate at batch 32 with #3's share.
-Phases 9 and 10 run between phases 7 and 8. The last three lines are the
-kernels JSON, the card's name and power limit (nvidia-smi), and
-{"ok": true, "device": {...}}.
+     group); the EVA-g extraction rate at batch 32 with #3's share;
+ 11. the LLaMA-2-7B-chat rewriter of the datagen pipeline at full width (32
+     layers, width 4096, 32 heads of 128, MLP 11008, vocabulary 32,000;
+     random bf16 weights drawn on the device from seed 0; the byte
+     tokenizer, as the repository has no sentencepiece model), on a
+     32-image synthetic CIRR tree with 32 CIRR-like captions: (a)
+     `generate_extended_triplets` with the batch rewriter that
+     `load_torch_rewriter` composes (B=16, 50 new tokens, prefill in chunks
+     of 128), then `write_extended_triplets`, over a bf16 and then an int8
+     KV cache (32 x 49 x 2 = 3,136 launches of #11 each; prefill ms per
+     group, decode ms/step, tokens/s, peak memory, a profiler window over
+     decode steps; over bf16 the first step's logits through #11 against
+     the plain route from the same cache); (b) the weights through
+     `quantize_llama_weights` and `llama_generate(quant_kernel=True,
+     cache_dtype=int8)` at B = 1, 8, 16 (225 launches of #12 per decode
+     step), and the decode step timed through #12, through
+     dequant-after-matmul and with the bf16 model; (c) `python -m
+     spn4cir_tpu_torch.cli.get_cir_data ... --llm_backend torch-tiny`
+     through its main(), #11 at head_dim 8; (d) at full width, 2 layers,
+     float32, greedy, B=4: #11 on and off, and #12 on and
+     dequant-after-matmul over int8 weights, give the same 50-token
+     streams (where they part, the plain path's top-2 margin there must be
+     under the float32 tolerance).
+Phase 3 ends with 3f: #11 at the 7B's decode shapes (B = 1, 8, 16 over
+1,842 cache rows, B=16 over 1,241; float32, bf16 and int8 caches; a ragged
+B=3, H=4, hd=8, L=37) and #12 at the 7B's four weight shapes (x float32 and
+bf16 at 1, 8, 16 rows; a ragged 5 x 40 x 77), timed beside their plain
+versions, the library call and the bound. Phases 9, 10 and 11 run between
+phases 7 and 8. The last three lines are the kernels JSON, the card's name
+and power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
 port's CLIP tokenizer built from a synthetic merges table
@@ -109,6 +135,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import json
@@ -215,6 +242,37 @@ BLIP2_POOL = 2048       # host refer pool (triplets) of the recipe-scale step
 BLIP2_TAU = 0.05
 BLIP2_QUERIES = 32
 EVA_LAYERS = 39
+# the LLaMA-2 7B rewriter (datagen): 32 CIRR pairs rewritten in 2 groups of
+# 16, 50 new tokens each (49 decode steps), prompts prefilled in chunks of
+# 128 positions; the CIRR few-shot prompt is 1,720-1,791 byte tokens, padded
+# to 1,792, so the cache holds 1,842 rows (FIQ's prompts: 1,241)
+REWRITE_PAIRS = 32
+LLAMA_BATCH = 16
+LLAMA_NEW = 50
+LLAMA_CHUNK = 128
+LLAMA_LEN_CIRR = 1842
+LLAMA_LEN_FIQ = 1241
+Q8_BATCHES = (1, 8, 16)
+LLAMA_PROFILE_STEPS = 5
+# tolerances of #11 and #12 against their plain versions (phase 3f):
+# #11 float32: summation order; bf16: the plain version rounds the softmax
+# weights to bf16 before the V product, the kernel rounds once at the
+# output; int8 cache: float32 arithmetic on exact int8 values, the scales
+# applied in another order (absolute and relative)
+DECODE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.int8: 1e-4}
+# #12: relative to the largest |output|: float32 sums over D in another
+# order; bf16 x: one rounding of the output to bf16
+QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the first decode step's logits at full depth in bf16, #11 against the
+# plain route from the same cache: 32 layers, each attention output differs
+# by a bf16 rounding (~2^-8 relative) between the routes and the residual
+# stream carries it; against logits of std ~1.3 (random weights) the bound
+# is 2^-3 absolute
+LLAMA_BF16_LOGIT_TOL = 0.125
+# phase 11d: where two float32 greedy streams part, the plain path's top-2
+# margin at that step must be under the float32 tolerance (relative to the
+# top logit, at least 1)
+STREAM_MARGIN_TOL = 1e-5
 CAPTIONS = ("make it like number 7 but red", "is darker and has longer sleeves",
             "the dress is shorter with a floral print",
             "change the dog to a cat sitting on the grass")
@@ -281,7 +339,7 @@ def build_kernels(cuda_build) -> None:
     """Phase 2: one nvcc per source, all started together."""
     t0 = time.perf_counter()
     names = ("short_attention", "bank_infonce", "long_attention",
-             "max_query_infonce")
+             "max_query_infonce", "decode_attention", "quant_matmul")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = [pool.submit(cuda_build.build_library, n, [f"{n}.cu"], True)
                 for n in names]
@@ -845,7 +903,9 @@ class Tee(io.TextIOBase):
 
 
 def counters(ak, bk):
+    from spn4cir_tpu_torch.ops import decode_attn as da
     from spn4cir_tpu_torch.ops import maxquery_kernels as mk
+    from spn4cir_tpu_torch.ops import quant_matmul as qm
 
     return dict(short_attention=ak.short_attention,
                 short_attention_bwd=ak.short_attention_bwd,
@@ -856,7 +916,9 @@ def counters(ak, bk):
                 bank_infonce_q8_fwd=bk.bank_infonce_q8_fwd,
                 bank_infonce_q8_bwd=bk.bank_infonce_q8_bwd,
                 max_query_infonce_fwd=mk.max_query_infonce_fwd,
-                max_query_infonce_bwd=mk.max_query_infonce_bwd)
+                max_query_infonce_bwd=mk.max_query_infonce_bwd,
+                decode_attention=da.decode_attention,
+                quant_matmul=qm.quant_matmul)
 
 
 def zero_counts(ak, bk):
@@ -872,17 +934,22 @@ def read_counts(count):
 
 
 def bank_launches(quant: bool, steps: int, max_query: bool = False) -> dict:
-    """The bank kernels' launches of `steps` optimizer steps: one forward
-    and one backward of the pair that takes the bank (the max-over-query
-    pair for blip2's (M, 32, 256) bank, of either type), none of the
-    others."""
+    """The launches of every kernel but attention in `steps` optimizer steps
+    of a retrieval path: one forward and one backward of the bank pair that
+    takes the bank (the max-over-query pair for blip2's (M, 32, 256) bank,
+    of either type), none of the other bank kernels, and none of the LLaMA
+    decoders' (#11, #12)."""
     dense, q8, mq = ((0, 0, steps) if max_query else
                      (0, steps, 0) if quant else (steps, 0, 0))
     return dict(bank_infonce_fwd=dense, bank_infonce_bwd=dense,
                 bank_infonce_q8_fwd=q8, bank_infonce_q8_bwd=q8,
-                max_query_infonce_fwd=mq, max_query_infonce_bwd=mq)
+                max_query_infonce_fwd=mq, max_query_infonce_bwd=mq,
+                **NO_LLAMA)
 
 
+# the retrieval paths never reach the LLaMA decoders' kernels, and the LLaMA
+# paths reach none of the retrieval ones
+NO_LLAMA = dict(decode_attention=0, quant_matmul=0)
 # the CLIP paths at S <= 128 never reach the long-attention kernels
 NO_LONG = dict(long_attention=0, long_attention_bwd=0)
 # nor the blip paths the short ones: MED's attention is plain tensor code
@@ -1106,10 +1173,16 @@ def device_busy(trace_path: str):
             key = "max-query kernels"
         elif "short_attention" in name or "long_attention" in name:
             key = "attention kernels"
+        elif "decode_attention" in name:
+            key = "decode attention (#11)"
+        elif "quant_matmul" in name:
+            key = "int8 matmul (#12)"
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
             key = "GEMMs"
         elif "layer_norm" in low or "layernorm" in low:
             key = "LayerNorm"
+        elif "reduce" in low:
+            key = "reductions (RMSNorm variance, sampling)"
         elif "adam" in low or "multi_tensor" in low:
             key = "optimizer"
         elif ev["cat"] != "kernel":
@@ -2403,6 +2476,716 @@ def check_blip2_plain_step(layers, bk, mk, card):
         assert math.isfinite(kern_loss)
 
 
+# ---------------------------------------------------------------------------
+# The LLaMA-2 7B rewriter: kernels #11 and #12 (phase 3f), the rewrite path
+# (11a), int8 weights through #12 (11b), the CLI (11c), plain-route checks
+# (11d)
+# ---------------------------------------------------------------------------
+
+def llama_launches(decode: int, quant: int = 0) -> dict:
+    """The counts of a LLaMA path: #11 and #12 as given, none of the
+    retrieval kernels."""
+    return dict(short_attention=0, short_attention_bwd=0, **NO_LONG,
+                **{**bank_launches(False, 0), "decode_attention": decode,
+                   "quant_matmul": quant})
+
+
+def decode_attention_case(da, q, k, v, li, bias, ks, vs, card, time_it=True):
+    """#11 against its plain version on one case; a second launch gives the
+    same bits. Returns the record."""
+    import torch.nn.functional as F
+
+    quant = ks is not None
+    tol = DECODE_TOL[k.dtype]
+    got = da.decode_attention(q, k, v, li, bias, ks, vs)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = da.decode_attention_reference(q, k, v, li, bias, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, da.decode_attention(q, k, v, li, bias, ks, vs)), \
+        "not repeatable"
+    diff = (got.float() - want.float()).abs()
+    n_layers, b, length, width = k.shape
+    heads, hd = q.shape[1], q.shape[2]
+    # bytes: layer li's K and V rows (and their scales), q, bias and the
+    # output, each once; 4·B·H·L·hd float32 operations
+    n_bytes = (2 * b * length * width * k.element_size()
+               + q.numel() * q.element_size() + bias.numel() * 4
+               + got.numel() * got.element_size()
+               + (2 * b * length * 4 if quant else 0))
+    b_ms, b_by = bound_ms(n_bytes, 4 * b * heads * length * hd, torch.float32)
+    rec = dict(shape=f"B={b}, H={heads}, hd={hd}, L={length}, layer {li} of "
+                     f"{n_layers}", dtype=dtype_name(k.dtype), atol=tol,
+               rtol=tol, max_abs_err=diff.max().item(),
+               max_err_over_tol=(diff / (tol + tol * want.float().abs())
+                                 ).max().item(), bound_ms=b_ms, bound_by=b_by)
+    del want, diff
+    if time_it:
+        kv_heads = width // hd
+
+        def library():
+            kl, vl = k[li], v[li]
+            if quant:
+                kl = kl.float() * ks[li][..., None]
+                vl = vl.float() * vs[li][..., None]
+            kh = kl.view(b, length, kv_heads, hd).transpose(1, 2)
+            vh = vl.view(b, length, kv_heads, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :].to(kh.dtype), kh, vh,
+                attn_mask=bias[:, None, None, :].to(kh.dtype))
+
+        with torch.no_grad():
+            rec["ms"] = median_ms(lambda: da.decode_attention(
+                q, k, v, li, bias, ks, vs))
+            rec["plain_ms"] = median_ms(
+                lambda: da.decode_attention_reference(q, k, v, li, bias, ks,
+                                                      vs), reps=10)
+            rec["library_ms"] = median_ms(library, reps=10)
+    times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+             f"library (SDPA at query length 1"
+             f"{', int8 dequantized first' if quant else ''}) "
+             f"{rec['library_ms']:.4f} ms, " if time_it else "")
+    phase(f"kernel decode_attention {rec['shape']} cache {rec['dtype']}: "
+          f"max_abs_err={rec['max_abs_err']:.3e}, "
+          f"{rec['max_err_over_tol']:.3f} of the tolerance (atol={tol} + "
+          f"rtol={tol}·|plain|), repeatable; {times}bound "
+          f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} [{card}]")
+    return rec
+
+
+def decode_inputs(b, heads, hd, length, layers, li, kind, generator, device):
+    """q (B, H, hd) float32 (the decode step's q after RoPE); a stacked
+    (layers, B, L, H·hd) cache whose layer li alone is written (the kernel
+    and the plain version read no other); a bias masking the rows past the
+    step's position and a left pad of row 0."""
+    from spn4cir_tpu_torch.models.llama import _quant_rows
+
+    q = torch.randn(b, heads, hd, generator=generator, device=device)
+    shape = (layers, b, length, heads * hd)
+    dtype = torch.int8 if kind == "int8" else getattr(torch, kind)
+    k = torch.empty(shape, dtype=dtype, device=device)
+    v = torch.empty(shape, dtype=dtype, device=device)
+    ks = vs = None
+    rows = [torch.randn(shape[1:], generator=generator, device=device)
+            for _ in range(2)]
+    if kind == "int8":
+        ks = torch.empty(shape[:3], device=device)
+        vs = torch.empty(shape[:3], device=device)
+        (k[li], ks[li]), (v[li], vs[li]) = (_quant_rows(r) for r in rows)
+    else:
+        k[li], v[li] = (r.to(dtype) for r in rows)
+    del rows
+    pos = length - 1 - min(LLAMA_NEW // 2, length // 3)
+    bias = torch.zeros(b, length, device=device)
+    bias[:, pos + 1:] = -1e9
+    bias[0, :min(40, pos)] = -1e9
+    return q, k, v, bias, ks, vs
+
+
+def check_decode_attention(da, device, card):
+    """Phase 3f, #11: the 7B's decode geometry (32 heads of 128, layer 31 of
+    32) at B = 1, 8, 16 over the CIRR prompts' 1,842 cache rows and at B=16
+    over FIQ's 1,241, each over float32, bf16 and int8 caches, timed; then a
+    ragged B=3, H=4, hd=8, L=37 (the tiny LM's head_dim) untimed."""
+    g = torch.Generator(device=device).manual_seed(21)
+    records = []
+    shapes = [(bb, LLAMA_LEN_CIRR) for bb in (1, 8, LLAMA_BATCH)]
+    shapes.append((LLAMA_BATCH, LLAMA_LEN_FIQ))
+    for b, length in shapes:
+        for kind in ("bfloat16", "float32", "int8"):
+            case = decode_inputs(b, 32, 128, length, 32, 31, kind, g, device)
+            records.append(decode_attention_case(da, *case[:3], 31, *case[3:],
+                                                 card))
+            del case
+            torch.cuda.empty_cache()
+    for kind in ("float32", "bfloat16", "int8"):
+        case = decode_inputs(3, 4, 8, 37, 2, 1, kind, g, device)
+        records.append(decode_attention_case(da, *case[:3], 1, *case[3:],
+                                             card, time_it=False))
+    return records
+
+
+def quant_matmul_case(qm, x, values, scales, w_bf16, card, time_it=True):
+    """#12 against its plain version on one case; a second launch gives the
+    same bits. Returns the record."""
+    tol = QMM_TOL[x.dtype]
+    got = qm.quant_matmul(x, values, scales)
+    torch.cuda.synchronize()
+    want = qm.quant_matmul_reference(x, values, scales)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+    assert torch.equal(got, qm.quant_matmul(x, values, scales)), \
+        "not repeatable"
+    diff = (got.float() - want.float()).abs()
+    rows, d = x.shape
+    f = values.shape[1]
+    # bytes: the int8 weight, its scales, x and y, each once; 2·R·D·F
+    # float32 operations on the CUDA cores
+    b_ms, b_by = bound_ms(d * f + 4 * f + rows * (d + f) * x.element_size(),
+                          2 * rows * d * f, torch.float32)
+    rec = dict(shape=f"rows={rows}, D={d}, F={f}", dtype=dtype_name(x.dtype),
+               atol=tol * scale, rtol=tol, max_abs_err=diff.max().item(),
+               max_err_over_tol=(diff / (tol * scale + tol * want.float().abs())
+                                 ).max().item(), bound_ms=b_ms, bound_by=b_by)
+    if time_it:
+        xb = x.to(torch.bfloat16)
+        rec["ms"] = median_ms(lambda: qm.quant_matmul(x, values, scales))
+        rec["plain_ms"] = median_ms(
+            lambda: qm.quant_matmul_reference(x, values, scales), reps=10)
+        rec["library_ms"] = median_ms(
+            lambda: (x @ values.to(x.dtype)) * scales.to(x.dtype), reps=10)
+        rec["library_bf16_ms"] = median_ms(lambda: xb @ w_bf16, reps=10)
+    times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+             f"library (x @ values.to(x.dtype) * scales, the JAX package's "
+             f"dequant-after-matmul) {rec['library_ms']:.4f} ms, bf16 cuBLAS "
+             f"on the dense weight {rec['library_bf16_ms']:.4f} ms, "
+             if time_it else "")
+    phase(f"kernel quant_matmul {rec['shape']} x {rec['dtype']}: "
+          f"max_abs_err={rec['max_abs_err']:.3e}, "
+          f"{rec['max_err_over_tol']:.3f} of the tolerance (rtol={tol} of "
+          f"max|plain| + rtol·|plain|), repeatable; {times}bound "
+          f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} [{card}]")
+    return rec
+
+
+def check_quant_matmul(qm, device, card):
+    """Phase 3f, #12: x float32 and bf16 at 1, 8 and 16 rows (the decode
+    batches of phase 11b) against the 7B's four int8 weight shapes, timed;
+    then a ragged rows=5, D=40, F=77 untimed."""
+    g = torch.Generator(device=device).manual_seed(22)
+    records = []
+    for d, f in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+        values = torch.randint(-127, 128, (d, f), generator=g, device=device
+                               ).to(torch.int8)
+        scales = torch.rand(f, generator=g, device=device) * 1e-3 + 1e-4
+        w_bf16 = (values.float() * scales).to(torch.bfloat16)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in Q8_BATCHES:
+                x = torch.randn(rows, d, generator=g, device=device).to(dtype)
+                records.append(quant_matmul_case(qm, x, values, scales,
+                                                 w_bf16, card))
+        del values, w_bf16
+    values = torch.randint(-127, 128, (40, 77), generator=g, device=device
+                           ).to(torch.int8)
+    scales = torch.rand(77, generator=g, device=device) + 0.1
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(5, 40, generator=g, device=device).to(dtype)
+        records.append(quant_matmul_case(qm, x, values, scales, None, card,
+                                         time_it=False))
+    torch.cuda.empty_cache()
+    return records
+
+
+def llama_model(device, dtype=torch.bfloat16, layers=None, seed=0):
+    """LLaMA-2-7B-chat at full width (32 layers unless `layers` cuts the
+    depth), random weights drawn in place on the device from a seeded
+    generator."""
+    from spn4cir_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b_chat()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = LlamaForCausalLM(cfg, device="meta", dtype=dtype)
+    model.to_empty(device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return cfg, model.eval()
+
+
+def rewrite_world(tmp):
+    """A synthetic CIRR tree whose train split holds REWRITE_PAIRS images,
+    CIRR-like captions for them (an it-list on disk too), and the port's
+    CIRDataset over it."""
+    import random
+
+    from spn4cir_tpu_torch.data.datasets import CIRDataset
+    from spn4cir_tpu_torch.data.transforms import ImageTransform
+
+    root = load_test_module("fixtures").make_cirr(
+        os.path.join(tmp, "cirr_rewrite"), n_images=REWRITE_PAIRS,
+        n_train=8 * REWRITE_PAIRS, n_val=8, extended=False)
+    ds = CIRDataset("cirr", "train", "relative",
+                    ImageTransform("targetpad", 224), root)
+    assert len(ds.imagenames) == REWRITE_PAIRS, len(ds.imagenames)
+    rng = random.Random(0)
+    subjects = ("A brown dog", "Two parrots", "A red car", "A small cat",
+                "An old church", "Three monkeys", "A white horse",
+                "A blue bicycle", "A baby panda", "A tall tower")
+    places = ("on the grass", "in a cage", "near a lake", "on a street",
+              "under a tree", "in the snow", "by a window", "at the beach")
+    details = ("looking up at the sky", "in the bright sun",
+               "with a red collar", "seen from far above",
+               "late in the evening", "next to a wooden fence")
+    # 39-52 characters: any pair's prompt is 1,765-1,791 byte tokens, so
+    # every group pads to 1,792 (LLAMA_LEN_CIRR - LLAMA_NEW)
+    name2cap = {n: f"{rng.choice(subjects)} {rng.choice(places)}, "
+                   f"{rng.choice(details)}." for n in ds.imagenames}
+    it_path = os.path.join(tmp, "rewrite_it.json")
+    with open(it_path, "w") as fh:
+        json.dump([{"image_id": n, "caption": c}
+                   for n, c in name2cap.items()], fh)
+    return root, ds, name2cap, it_path
+
+
+class StepClock:
+    """Wraps the llama module's prefill and decode-step functions (which
+    `llama_generate` calls through the module) with CUDA events and the host
+    clock around every call; with `keep_state`, keeps the state of the last
+    decode step (and so its cache alive)."""
+
+    NAMES = ("llama_prefill", "llama_prefill_chunked", "llama_decode_step")
+
+    def __init__(self, tl, keep_state=False):
+        self.tl, self.calls, self.saved, self.last_state = tl, [], {}, None
+        self.keep_state = keep_state
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self.saved[name] = getattr(self.tl, name)
+            setattr(self.tl, name, self._wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.tl, name, fn)
+
+    def _wrap(self, name, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.calls.append((name, start, end, t0, time.perf_counter()))
+            if self.keep_state and name == "llama_decode_step":
+                self.last_state = out[1]
+            return out
+        return wrapper
+
+    def groups(self):
+        """Per generate call: (prefill ms, decode steps, decode ms/step by
+        CUDA events, decode ms/step by the host clock)."""
+        torch.cuda.synchronize()
+        out, cur = [], None
+        for call in self.calls:
+            if call[0] != "llama_decode_step":
+                cur = [call, []]
+                out.append(cur)
+            else:
+                cur[1].append(call)
+        res = []
+        for pre, steps in out:
+            n = len(steps)
+            res.append(dict(
+                prefill_ms=pre[1].elapsed_time(pre[2]), steps=n,
+                step_ms=steps[0][1].elapsed_time(steps[-1][2]) / n,
+                step_host_ms=(steps[-1][4] - steps[0][3]) * 1e3 / n))
+        return res
+
+
+def left_padded(params, tok, prompts, device):
+    """The batch generate function's layout: ids left-padded with EOS to the
+    next multiple of 32 -> (embeddings, mask)."""
+    from spn4cir_tpu_torch.models.llama import embed_tokens
+
+    enc = [tok.encode(p) for p in prompts]
+    plen = -(-max(len(e) for e in enc) // 32) * 32
+    ids = torch.full((len(enc), plen), tok.eos_token_id, dtype=torch.long)
+    mask = torch.zeros(len(enc), plen, dtype=torch.long)
+    for r, e in enumerate(enc):
+        ids[r, plen - len(e):] = torch.tensor(e)
+        mask[r, plen - len(e):] = 1
+    ids, mask = ids.to(device), mask.to(device)
+    return embed_tokens(params, ids), mask
+
+
+def decode_args(tl, params, cfg, tok, mask, step, device):
+    """Arguments of decode step `step` (1-based) after a left-padded prefill
+    of `mask`'s width: (x, pos, rope_pos, key_mask)."""
+    b, plen = mask.shape
+    x = tl.embed_tokens(params, torch.full((b,), tok.eos_token_id,
+                                           device=device))
+    valid = torch.cat([mask, torch.ones(b, LLAMA_NEW, dtype=mask.dtype,
+                                        device=device)], 1)
+    return x, plen + step - 1, mask.sum(1) + step - 1, valid
+
+
+def profile_decode(tl, params, cfg, state, args, quant_kernel, tmp, tag):
+    """Decode steps timed with CUDA events without the profiler, then a
+    profiler window over as many: (ms/step, device busy ms/step, idle share
+    of the unprofiled step, ms/step by kernel group)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, pos, rope_pos, valid = args
+
+    def steps(n):
+        for _ in range(n):
+            tl.llama_decode_step(params, cfg, state, x, pos,
+                                 rope_pos=rope_pos, key_mask=valid,
+                                 quant_kernel=quant_kernel, attn_kernel=True)
+
+    steps(2)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    steps(LLAMA_PROFILE_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / LLAMA_PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        steps(1)                 # the profiler's start-up, dropped
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(LLAMA_PROFILE_STEPS)
+        torch.cuda.synchronize()
+    trace = os.path.join(tmp, f"decode_trace_{tag}.json")
+    prof.export_chrome_trace(trace)
+    busy, n_ops, groups = device_busy(trace)
+    assert n_ops > 0, "the profiler's trace holds no device interval"
+    busy /= LLAMA_PROFILE_STEPS
+    per = {k: round(v / LLAMA_PROFILE_STEPS, 4) for k, v in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    return dict(step_ms=step_ms, busy_ms=busy,
+                idle_share=1 - busy / step_ms,
+                ops_per_step=n_ops / LLAMA_PROFILE_STEPS, ms_by_group=per)
+
+
+def drive_rewrite(ak, bk, model, cfg, tok, world, tmp, card):
+    """Phase 11a: the 7B rewriter through the datagen core at full width:
+    `generate_extended_triplets` with the batch rewriter that
+    `load_torch_rewriter` composes (16 prompts a group, 50 new tokens,
+    prefill in chunks of 128), then `write_extended_triplets`; once with a
+    bf16 cache, once with an int8 one. Each run is counted from zero; then,
+    outside the count, the first group's prompts are prefilled again for a
+    profiler window over decode steps and, over the bf16 cache, the first
+    step's logits through #11 against the plain route from the same cache.
+    Returns the launches of both runs, summed."""
+    from spn4cir_tpu_torch.datagen import generate as gen
+    from spn4cir_tpu_torch.datagen import llm_rewrite as lr
+    from spn4cir_tpu_torch.models import llama as tl
+
+    root, ds, name2cap, _ = world
+    device = torch.device("cuda:0")
+    count = counters(ak, bk)
+    total = {}
+    results = {}
+    groups_n = -(-REWRITE_PAIRS // LLAMA_BATCH)
+    for cache in (torch.bfloat16, torch.int8):
+        name = dtype_name(cache)
+        rewriter = lr.make_llm_batch_rewriter(
+            lr.make_torch_batch_generate_fn(
+                model, cfg, tok, batch_size=LLAMA_BATCH,
+                max_new_tokens=LLAMA_NEW, prefill_chunk=LLAMA_CHUNK,
+                cache_dtype=cache), "cirr", mod_type=0, llm_type=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in count.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with StepClock(tl) as clock:
+            triplets = gen.generate_extended_triplets(
+                ds, name2cap, llm_rewrite=rewriter, seed=0)
+        wall = time.perf_counter() - t0
+        launches = read_counts(count)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert launches == llama_launches(
+            cfg.num_layers * (LLAMA_NEW - 1) * groups_n), launches
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        path = gen.write_extended_triplets(ds, triplets, f"zs7b_{name}",
+                                           llm=True)
+        with open(path) as fh:
+            written = json.load(fh)
+        assert len(written) == REWRITE_PAIRS, len(written)
+        assert all(isinstance(t["llm_caption"], str) for t in written)
+        assert all(t["caption1"] == name2cap[t["reference"]]
+                   for t in written)
+        per = clock.groups()
+        assert len(per) == groups_n and all(g["steps"] == LLAMA_NEW - 1
+                                            for g in per), per
+        step_ms = statistics.mean(g["step_ms"] for g in per)
+        stats = dict(
+            wall_s=wall, groups=per, peak_gb=peak_gb,
+            decode_ms_per_step=step_ms,
+            decode_host_ms_per_step=statistics.mean(
+                g["step_host_ms"] for g in per),
+            decode_tokens_s=LLAMA_BATCH * 1e3 / step_ms,
+            generated_tokens_s=REWRITE_PAIRS * LLAMA_NEW / wall)
+
+        # outside the count: the first group again, for the profiler and,
+        # over bf16, the logits of #11 against the plain route
+        prompts = [lr.build_rewrite_prompt(t["caption1"], t["caption2"],
+                                           "cirr", 0, 1)
+                   for t in triplets[:LLAMA_BATCH]]
+        emb, mask = left_padded(model, tok, prompts, device)
+        plen = mask.shape[1]
+        assert plen + LLAMA_NEW == LLAMA_LEN_CIRR, plen
+        state = tl.init_llama_state(cfg, LLAMA_BATCH, plen + LLAMA_NEW,
+                                    dtype=cache, device=device)
+        tl.llama_prefill_chunked(
+            model, cfg, state, emb, chunk=LLAMA_CHUNK,
+            positions=torch.clamp(torch.cumsum(mask, 1) - 1, min=0),
+            pad_mask=mask)
+        args = decode_args(tl, model, cfg, tok, mask, 1, device)
+        if cache == torch.bfloat16:
+            x, pos, rope_pos, valid = args
+            # [0]: the logits alone, so that no name keeps a cache alive
+            plain = tl.llama_decode_step(model, cfg, state.clone(), x, pos,
+                                         rope_pos=rope_pos, key_mask=valid,
+                                         attn_kernel=False)[0]
+            kern = tl.llama_decode_step(model, cfg, state, x, pos,
+                                        rope_pos=rope_pos, key_mask=valid,
+                                        attn_kernel=True)[0]
+            diff = (kern - plain).abs().max().item()
+            same_top = (kern.argmax(-1) == plain.argmax(-1)).sum().item()
+            stats["first_step_logits"] = dict(
+                max_abs_diff=diff, tol=LLAMA_BF16_LOGIT_TOL,
+                logit_std=plain.std().item(), same_top1=same_top)
+            phase(f"rewrite, 7B bf16 at full depth: the first decode step's "
+                  f"logits through #11 against the plain route from the same "
+                  f"bf16 cache (B={LLAMA_BATCH}, {plen} prompt rows): max "
+                  f"|diff| {diff:.4e} (tolerance {LLAMA_BF16_LOGIT_TOL}; "
+                  f"logit std {plain.std().item():.3f}), the same top-1 in "
+                  f"{same_top} of {LLAMA_BATCH} rows [{card}]")
+            assert diff <= LLAMA_BF16_LOGIT_TOL, diff
+            del plain, kern
+        stats["profile"] = profile_decode(tl, model, cfg, state, args, False,
+                                          tmp, f"rewrite_{name}")
+        del state, emb
+        torch.cuda.empty_cache()
+        prof = stats["profile"]
+        stats["kernel_11_device_ms_per_launch"] = prof["ms_by_group"].get(
+            "decode attention (#11)", 0.0) / cfg.num_layers
+        assert stats["kernel_11_device_ms_per_launch"] > 0, prof
+        results[name] = stats
+        phase(f"rewrite slice ({name} cache): generate_extended_triplets "
+              f"rewrote {REWRITE_PAIRS} CIRR pairs with the 7B (bf16 weights, "
+              f"B={LLAMA_BATCH}, {groups_n} groups, {plen}-row prompts, "
+              f"{LLAMA_NEW} new tokens) in {wall:.2f} s: prefill "
+              f"{[round(g['prefill_ms'], 1) for g in per]} ms per group; "
+              f"decode {step_ms:.3f} ms/step by CUDA events (host clock "
+              f"{stats['decode_host_ms_per_step']:.3f}), "
+              f"{stats['decode_tokens_s']:.1f} tokens/s in decode, "
+              f"{stats['generated_tokens_s']:.1f} generated tokens/s end to "
+              f"end; peak device memory {peak_gb:.2f} GiB; #11 launched "
+              f"{launches['decode_attention']} times ({cfg.num_layers} x "
+              f"{LLAMA_NEW - 1} x {groups_n}); "
+              f"profile over {LLAMA_PROFILE_STEPS} decode steps: "
+              f"{prof['step_ms']:.3f} ms/step unprofiled, device busy "
+              f"{prof['busy_ms']:.3f} ms/step in {prof['ops_per_step']:.0f} "
+              f"device operations, idle share {100 * prof['idle_share']:.1f}%"
+              f"; device ms per step by group {prof['ms_by_group']} (#11 "
+              f"{1e3 * stats['kernel_11_device_ms_per_launch']:.1f} us a "
+              f"launch); wrote "
+              f"{os.path.relpath(path, root)} [{card}]")
+    phase("rewrite slice stats " + json.dumps(results))
+    return total
+
+
+def drive_llama_q8(ak, bk, model, cfg, tok, prompts, tmp, card):
+    """Phase 11b: the 7B's weights through `quantize_llama_weights`, then
+    `llama_generate(..., quant_kernel=True, cache_dtype=int8)` at B = 1, 8
+    and 16 on the CIRR prompts, each counted from zero (#12 in every decode
+    step's 225 products, #11 in its 32 attentions). Outside the count, the
+    A/B: decode steps from the generated cache through #12, through
+    dequant-after-matmul (`quant_kernel=False`), and with the bf16 model
+    over a bf16 cache of the same size. Returns the launches, summed."""
+    from spn4cir_tpu_torch.models import llama as tl
+
+    device = torch.device("cuda:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = tl.quantize_llama_weights(model)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    count = counters(ak, bk)
+    total, results = {}, {}
+    per_step = 7 * cfg.num_layers + 1
+    for b in Q8_BATCHES:
+        emb, mask = left_padded(qparams, tok, prompts[:b], device)
+        plen = mask.shape[1]
+        torch.cuda.empty_cache()
+        for fn in count.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with StepClock(tl, keep_state=True) as clock:
+            out = tl.llama_generate(
+                qparams, cfg, emb, eos_id=tok.eos_token_id,
+                pad_id=tok.eos_token_id, max_new_tokens=LLAMA_NEW,
+                do_sample=True, top_k=10, attention_mask=mask,
+                generator=torch.Generator(device=device).manual_seed(b),
+                cache_dtype=torch.int8, quant_kernel=True,
+                prefill_chunk=LLAMA_CHUNK)
+            out = out.cpu()
+        wall = time.perf_counter() - t0
+        launches = read_counts(count)
+        steps = LLAMA_NEW - 1
+        assert launches == llama_launches(cfg.num_layers * steps,
+                                          per_step * steps), launches
+        assert out.shape == (b, LLAMA_NEW) and int(out.min()) >= 0
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        (group,) = clock.groups()
+        state = clock.last_state
+        clock.last_state = None
+        # the last decode step's arguments, stepped again at that row
+        args = decode_args(tl, qparams, cfg, tok, mask, steps, device)
+        ways = dict(kernel_12=profile_decode(tl, qparams, cfg, state, args,
+                                             True, tmp, f"q8_{b}_kernel"),
+                    dequant_after_matmul=profile_decode(
+                        tl, qparams, cfg, state, args, False, tmp,
+                        f"q8_{b}_dequant"))
+        del state
+        torch.cuda.empty_cache()
+        bstate = tl.init_llama_state(cfg, b, plen + LLAMA_NEW,
+                                     dtype=torch.bfloat16, device=device)
+        ways["bf16_model_bf16_cache"] = profile_decode(
+            tl, model, cfg, bstate, decode_args(tl, model, cfg, tok, mask,
+                                                steps, device),
+            False, tmp, f"q8_{b}_bf16")
+        del bstate
+        torch.cuda.empty_cache()
+        ab = {k: w["step_ms"] for k, w in ways.items()}
+        kernel_dev = ways["kernel_12"]["ms_by_group"].get("int8 matmul (#12)",
+                                                          0.0)
+        assert kernel_dev > 0, ways["kernel_12"]
+        results[b] = dict(generate_s=wall, prefill_ms=group["prefill_ms"],
+                          step_ms=group["step_ms"],
+                          step_host_ms=group["step_host_ms"],
+                          decode_tokens_s=b * 1e3 / group["step_ms"],
+                          ways=ways,
+                          tokens_s_by_way={k: b * 1e3 / v
+                                           for k, v in ab.items()},
+                          kernel_12_device_ms_per_launch=kernel_dev / per_step)
+        phase(f"llama_q8, int8 weights + int8 cache, B={b} ({plen}-row "
+              f"prompts): llama_generate(quant_kernel=True) in {wall:.2f} s "
+              f"(prefill {group['prefill_ms']:.1f} ms, float32 activations "
+              f"over dequantized weights), decode {group['step_ms']:.3f} "
+              f"ms/step by CUDA events (host clock "
+              f"{group['step_host_ms']:.3f}); #12 launched "
+              f"{launches['quant_matmul']} times ({per_step} x {steps}), #11 "
+              f"{launches['decode_attention']}; the decode step three ways "
+              f"({LLAMA_PROFILE_STEPS} steps, CUDA events; device busy and "
+              f"idle share from a profiler window): "
+              + "; ".join(f"{k} {w['step_ms']:.3f} ms, busy "
+                          f"{w['busy_ms']:.3f}, idle "
+                          f"{100 * w['idle_share']:.1f}%, by group "
+                          f"{w['ms_by_group']}" for k, w in ways.items())
+              + f"; #12 {1e3 * kernel_dev / per_step:.2f} us of device time "
+              f"a launch [{card}]")
+    del qparams
+    torch.cuda.empty_cache()
+    phase(f"llama_q8 stats (weights quantized on the device in {quant_s:.2f}"
+          f" s) " + json.dumps(results))
+    return total
+
+
+def drive_get_cir_data(ak, bk, world, card):
+    """Phase 11c: `python -m spn4cir_tpu_torch.cli.get_cir_data` through its
+    main(): the tiny LM with random weights (`--llm_backend torch-tiny`, the
+    byte tokenizer, head_dim 8) rewrites the tree's triplets at --llm_batch
+    8 on cuda:0 (the default --device), counted from zero."""
+    from spn4cir_tpu_torch.cli import get_cir_data
+    from spn4cir_tpu_torch.models.llama import LlamaConfig
+
+    root, _, _, it_path = world
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    path = get_cir_data.main([
+        "--dataset", "cirr", "--data_path", root, "--it_list", it_path,
+        "--use_llm", "1", "--llm_backend", "torch-tiny", "--llm_batch", "8",
+        "--model", "tiny"])
+    wall = time.perf_counter() - t0
+    launches = read_counts(count)
+    with open(path) as fh:
+        written = json.load(fh)
+    assert len(written) == REWRITE_PAIRS, len(written)
+    keys = {"reference", "target_hard", "caption", "pairid", "img_set",
+            "caption1", "caption2", "llm_caption"}
+    assert all(set(t) == keys and isinstance(t["llm_caption"], str)
+               for t in written)
+    groups_n = -(-REWRITE_PAIRS // 8)
+    assert launches == llama_launches(
+        LlamaConfig.tiny().num_layers * (LLAMA_NEW - 1) * groups_n), launches
+    phase(f"get_cir_data slice: the CLI wrote {len(written)} triplets with "
+          f"llm_caption to {os.path.relpath(path, root)} in {wall:.2f} s "
+          f"(torch-tiny, --llm_batch 8, cuda:0); #11 launched "
+          f"{launches['decode_attention']} times at head_dim 8 [{card}]")
+    return launches
+
+
+def plain_margin(tl, params, cfg, emb, mask, tokens, t, row, route):
+    """The plain route's top-2 margin (and top logit) of `row` at generate
+    step t (0: the prefill's logits), replayed from the prompt with the
+    plain stream's own tokens."""
+    b, plen = mask.shape
+    state = tl.init_llama_state(cfg, b, plen + LLAMA_NEW,
+                                device=emb.device)
+    logits, state = tl.llama_prefill_chunked(
+        params, cfg, state, emb, chunk=LLAMA_CHUNK,
+        positions=torch.clamp(torch.cumsum(mask, 1) - 1, min=0),
+        pad_mask=mask)
+    valid = torch.cat([mask, torch.ones(b, LLAMA_NEW, dtype=mask.dtype,
+                                        device=emb.device)], 1)
+    for i in range(1, t + 1):
+        x = tl.embed_tokens(params, tokens[:, i - 1])
+        logits, state = tl.llama_decode_step(
+            params, cfg, state, x, plen + i - 1,
+            rope_pos=mask.sum(1) + i - 1, key_mask=valid, **route)
+    top = logits[row].topk(2).values
+    return (top[0] - top[1]).item(), top[0].item()
+
+
+def check_llama_streams(tok, prompts, card):
+    """Phase 11d: at full width, 2 layers, float32, greedy, B=4 on CIRR
+    prompts: #11 on and off give the same 50-token streams, and so do #12 and
+    dequant-after-matmul over int8 weights; where two streams part, the
+    plain path's top-2 margin at that step must be under the float32
+    tolerance."""
+    from spn4cir_tpu_torch.models import llama as tl
+
+    device = torch.device("cuda:0")
+    cfg, model = llama_model(device, torch.float32, layers=2, seed=1)
+    qparams = tl.quantize_llama_weights(model)
+    emb, mask = left_padded(model, tok, prompts[:4], device)
+    kw = dict(eos_id=tok.eos_token_id, pad_id=tok.eos_token_id,
+              max_new_tokens=LLAMA_NEW, attention_mask=mask,
+              prefill_chunk=LLAMA_CHUNK)
+    report = {}
+    for label, params, plain_route, kernel_route in (
+            ("#11 on / off", model, dict(attn_kernel=False),
+             dict(attn_kernel=True)),
+            ("#12 on / dequant-after-matmul", qparams,
+             dict(attn_kernel=True, quant_kernel=False),
+             dict(attn_kernel=True, quant_kernel=True))):
+        x = left_padded(params, tok, prompts[:4], device)[0]
+        plain = tl.llama_generate(params, cfg, x, **plain_route, **kw).cpu()
+        kern = tl.llama_generate(params, cfg, x, **kernel_route, **kw).cpu()
+        parted = []
+        for r in range(plain.shape[0]):
+            where = (plain[r] != kern[r]).nonzero()
+            if len(where):
+                t = int(where[0])
+                margin, top = plain_margin(tl, params, cfg, x, mask,
+                                           plain.to(device), t, r,
+                                           plain_route)
+                parted.append(dict(row=r, step=t, margin=margin, top=top))
+                assert margin < STREAM_MARGIN_TOL * max(1.0, abs(top)), \
+                    (label, parted)
+        report[label] = parted
+        phase(f"streams, 2 layers at full width, float32, greedy, B=4: "
+              f"{label}: {plain.shape[0] - len(parted)} of {plain.shape[0]} "
+              f"{LLAMA_NEW}-token streams identical"
+              f"{'; parted at ' + str(parted) if parted else ''} [{card}]")
+    del model, qparams
+    torch.cuda.empty_cache()
+    return report
+
+
 def pick(records, **want):
     return next(r for r in records
                 if all(r[k] == v for k, v in want.items()))
@@ -2460,7 +3243,9 @@ def main() -> int:
         from spn4cir_tpu_torch.ops import attention_kernels as ak
         from spn4cir_tpu_torch.ops import bank_kernels as bk
         from spn4cir_tpu_torch.ops import cuda_build
+        from spn4cir_tpu_torch.ops import decode_attn as da
         from spn4cir_tpu_torch.ops import maxquery_kernels as mk
+        from spn4cir_tpu_torch.ops import quant_matmul as qm
 
         device = torch.device("cuda:0")
         card = card_line()
@@ -2480,6 +3265,8 @@ def main() -> int:
         long_fwd_records, long_bwd_records = check_long_attention(
             ak, device, card)
         mq_records = check_max_query(mk, bk, device, card)
+        decode_records = check_decode_attention(da, device, card)
+        qmm_records = check_quant_matmul(qm, device, card)
 
         # one synthetic CIRR tree for the two ViT-B/32 slices, a smaller one
         # for the flagship slice
@@ -2540,6 +3327,27 @@ def main() -> int:
         drive_blip2_recipe(ak, bk, tmp, card)
         torch.cuda.empty_cache()
 
+        # phase 11: the LLaMA-2 7B rewriter of the datagen pipeline
+        from spn4cir_tpu_torch.datagen.llm_rewrite import build_rewrite_prompt
+        from spn4cir_tpu_torch.tokenizer.bytelevel import ByteTokenizer
+
+        tok = ByteTokenizer()
+        world = rewrite_world(tmp)
+        caps = list(world[2].values())
+        prompts = [build_rewrite_prompt(caps[i], caps[(i + 1) % len(caps)],
+                                        "cirr", 0, 1)
+                   for i in range(len(caps))]
+        cfg7, model7 = llama_model(device)
+        rewrite_launches = drive_rewrite(ak, bk, model7, cfg7, tok, world,
+                                         tmp, card)
+        torch.cuda.empty_cache()
+        q8_launches = drive_llama_q8(ak, bk, model7, cfg7, tok, prompts, tmp,
+                                     card)
+        del model7
+        torch.cuda.empty_cache()
+        get_cir_data_launches = drive_get_cir_data(ak, bk, world, card)
+        check_llama_streams(tok, prompts, card)
+
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
         check_blip_plain_step(layers, card)
@@ -2559,7 +3367,10 @@ def main() -> int:
                     "blip_stage1": blip_stage1_launches[name],
                     "blip2_serve": blip2_serve_launches[name],
                     "blip2_train": (blip2_train_launches[name]
-                                    + blip2_eval_launches[name])}
+                                    + blip2_eval_launches[name]),
+                    "rewrite": rewrite_launches[name],
+                    "llama_q8": q8_launches[name],
+                    "get_cir_data": get_cir_data_launches[name]}
 
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
         at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
@@ -2630,7 +3441,34 @@ def main() -> int:
                 pick(recs, shape=at_mq, dtype="float32"),
                 also=[pick(recs, shape=at_mq, dtype="bfloat16"),
                       pick(recs, shape=at_mq, dtype="int8")]))
-        assert len(entries) == 10, len(entries)
+        at_dec = (f"B={LLAMA_BATCH}, H=32, hd=128, L={LLAMA_LEN_CIRR}, "
+                  f"layer 31 of 32")
+        entries.append(kernel_entry(
+            "decode_attention", jax_ops + "decode_attn.py:97",
+            csrc + "decode_attention.cu", by_path("decode_attention"),
+            ("rewrite", "llama_q8", "get_cir_data"), decode_records,
+            pick(decode_records, shape=at_dec, dtype="bfloat16"),
+            also=[pick(decode_records, shape=at_dec, dtype=t)
+                  for t in ("float32", "int8")]
+            + [pick(decode_records, shape=at_dec.replace(
+                f"B={LLAMA_BATCH}", f"B={b}"), dtype=t)
+               for b in (1, 8) for t in ("bfloat16", "int8")]
+            + [pick(decode_records, shape=at_dec.replace(
+                f"L={LLAMA_LEN_CIRR}", f"L={LLAMA_LEN_FIQ}"),
+                dtype="bfloat16")]))
+        entries.append(kernel_entry(
+            "quant_matmul", jax_ops + "quant_matmul.py:54",
+            csrc + "quant_matmul.cu", by_path("quant_matmul"), ("llama_q8",),
+            qmm_records,
+            pick(qmm_records, shape="rows=16, D=4096, F=11008",
+                 dtype="float32"),
+            also=[pick(qmm_records, shape=f"rows={r}, D={d}, F={f}",
+                       dtype="float32")
+                  for r in Q8_BATCHES
+                  for d, f in ((4096, 4096), (4096, 11008), (11008, 4096),
+                               (4096, 32000))
+                  if (r, d, f) != (16, 4096, 11008)]))
+        assert len(entries) == 12, len(entries)
         print(json.dumps({"kernels": entries}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {

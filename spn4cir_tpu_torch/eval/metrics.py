@@ -18,7 +18,7 @@ they take the head of a stable descending sort.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,8 +93,14 @@ def fiq_average(per_type: Sequence[Dict[str, float]]) -> Dict[str, float]:
     }
 
 
-def _topk_lowest_index_first(scores: torch.Tensor, k: int) -> torch.Tensor:
-    return torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :k]
+def topk_lowest_index_first(scores: torch.Tensor, k: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest scores per row, in
+    `jax.lax.top_k`'s order: descending, the lower index first among equal
+    scores. A stable sort picks the tied members at the k boundary too,
+    which `torch.topk` does not promise."""
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
 
 
 def topk_names(scores: torch.Tensor, refer_ids: torch.Tensor, k: int
@@ -104,7 +110,7 @@ def topk_names(scores: torch.Tensor, refer_ids: torch.Tensor, k: int
     cols = torch.arange(scores.shape[1], device=scores.device)
     masked = scores.masked_fill(cols[None, :] == refer_ids.long()[:, None],
                                 float("-inf"))
-    return _topk_lowest_index_first(masked, min(k, scores.shape[1]))
+    return topk_lowest_index_first(masked, min(k, scores.shape[1]))[1]
 
 
 def subset_topk_names(scores: torch.Tensor, refer_ids: torch.Tensor,
@@ -114,4 +120,4 @@ def subset_topk_names(scores: torch.Tensor, refer_ids: torch.Tensor,
     member_ids = member_ids.long()
     member_scores = scores.gather(1, member_ids).masked_fill(
         member_ids == refer_ids.long()[:, None], float("-inf"))
-    return member_ids.gather(1, _topk_lowest_index_first(member_scores, k))
+    return member_ids.gather(1, topk_lowest_index_first(member_scores, k)[1])

@@ -34,6 +34,11 @@ blip24cir backbone, into LAVIS's names (`visual_encoder.*` with EVA's
 the projections, `query_tokens`, `prompt_tokens`, `temp`); they invert
 `convert_eva_vit_state_dict`, `convert_qformer_state_dict` and
 `convert_blip2_cir` of the JAX package.
+
+`llama_state_dict_from_jax` and `load_llama_checkpoint` do the same for the
+LLaMA of the datagen rewriter, into HF `LlamaForCausalLM`'s names; they
+invert `convert_llama_state_dict` of the JAX package, for a dense tree and
+for an int8 one.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 from spn4cir_tpu_torch.models.blip_vit import BlipViTConfig
 from spn4cir_tpu_torch.models.clip import CLIPConfig
 from spn4cir_tpu_torch.models.eva_vit import EvaViTConfig
+from spn4cir_tpu_torch.models.llama import LlamaConfig, QuantKernel
 from spn4cir_tpu_torch.models.med import MedConfig
 from spn4cir_tpu_torch.models.qformer import QFormerConfig
 
@@ -530,4 +536,81 @@ def load_blip2_checkpoint(path: str, num_tokens: Optional[int] = None
     if num_tokens is not None and "visual_encoder.pos_embed" in sd:
         sd["visual_encoder.pos_embed"] = interpolate_pos_embed(
             sd["visual_encoder.pos_embed"], num_tokens)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# LLaMA (the datagen rewriter's LM)
+# ---------------------------------------------------------------------------
+
+def _is_quant(leaf) -> bool:
+    """A QuantKernel of either package: a named (values, scales) pair."""
+    return isinstance(leaf, tuple) and getattr(leaf, "_fields", ()) == (
+        "values", "scales")
+
+
+def llama_state_dict_from_jax(params_np: Mapping[str, Any],
+                              cfg: LlamaConfig) -> Dict[str, Any]:
+    """JAX `LlamaLM` params ({'params': ...} or the inner tree; numpy or
+    device leaves) -> the port's weights under HF `LlamaForCausalLM` names.
+    Inverts `spn4cir_tpu.models.convert.convert_llama_state_dict`: the
+    scan-stacked layers are unstacked and each (in, out) kernel becomes an
+    (out, in) Linear weight. A dense tree gives a float32 state dict for
+    `load_state_dict`; an int8 tree (`quantize_llama_weights` of the JAX
+    package, QuantKernel leaves) gives the dict that the port's
+    `quantize_llama_weights` returns, its int8 values kept in the (in, out)
+    layout that kernel #12 reads."""
+    p = params_np.get("params", params_np)
+    layer = p["layers"]["layer"]
+    sd: Dict[str, Any] = {}
+
+    def put(name, leaf, transpose):
+        if _is_quant(leaf):
+            vals, scales = np.asarray(leaf.values), np.asarray(leaf.scales)
+            for i in range(cfg.num_layers):
+                sd[name.format(i)] = QuantKernel(
+                    torch.from_numpy(np.array(vals[i], np.int8)),
+                    _tensor(scales[i]))
+            return
+        arr = np.asarray(leaf)
+        for i in range(cfg.num_layers):
+            sd[name.format(i)] = _tensor(arr[i].T if transpose else arr[i])
+
+    pre = "model.layers.{}."
+    put(pre + "input_layernorm.weight", layer["input_ln"]["scale"], False)
+    put(pre + "post_attention_layernorm.weight", layer["post_ln"]["scale"],
+        False)
+    for proj in ("q", "k", "v", "o"):
+        put(pre + f"self_attn.{proj}_proj.weight",
+            layer["attn"][proj]["kernel"], True)
+    for proj in ("gate", "up", "down"):
+        put(pre + f"mlp.{proj}_proj.weight", layer[proj]["kernel"], True)
+    for name, leaf, transpose in (
+            ("model.embed_tokens.weight", p["embed_tokens"], False),
+            ("lm_head.weight", p["lm_head"], True)):
+        if _is_quant(leaf):
+            sd[name] = QuantKernel(
+                torch.from_numpy(np.array(leaf.values, np.int8)),
+                _tensor(leaf.scales))
+        else:
+            sd[name] = _tensor(np.asarray(leaf).T if transpose else leaf)
+    sd["model.norm.weight"] = _tensor(p["norm"]["scale"])
+    return sd
+
+
+def load_llama_checkpoint(path: str, cfg: LlamaConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """Read an HF `LlamaForCausalLM` state dict (a torch file, possibly
+    under {'state_dict': ...} / {'model': ...}) for the port's
+    `LlamaForCausalLM`, in its own types; HF's `rotary_emb.inv_freq`
+    buffers are dropped (the port computes the tables). The layer count must
+    be the config's."""
+    obj = _unwrap_checkpoint(path)
+    sd = {k: v.detach() for k, v in obj.items()
+          if not k.endswith("rotary_emb.inv_freq")}
+    last = f"model.layers.{cfg.num_layers - 1}.input_layernorm.weight"
+    extra = f"model.layers.{cfg.num_layers}.input_layernorm.weight"
+    if last not in sd or extra in sd:
+        raise ValueError(f"{path} is not a {cfg.num_layers}-layer LLaMA "
+                         f"state dict")
     return sd

@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from spn4cir_tpu_torch.eval.metrics import topk_lowest_index_first
 from spn4cir_tpu_torch.eval.retrieval import (GalleryIndex,
                                               quantized_score_queries)
 from spn4cir_tpu_torch.models.api import CIRBackbone
@@ -159,13 +160,14 @@ class RetrievalService:
     def _score_topk(self, index: GalleryIndex, queries: torch.Tensor,
                     gids: np.ndarray, kk: int):
         """Score `queries` against the gallery; return device (B, kk)
-        (values, gids). Rows with gid < 0 exclude nothing."""
+        (values, gids) in `jax.lax.top_k`'s order (the lower gallery id
+        first among equal scores). Rows with gid < 0 exclude nothing."""
         if isinstance(index.target, QuantBank):
             scores = quantized_score_queries(queries, index.target)
         else:
             scores = self.backbone.score_queries(queries, index.target)
         gids = torch.from_numpy(np.asarray(gids, np.int64)).to(scores.device)
-        return torch.topk(_mask_rows(scores, gids), kk, dim=-1)
+        return topk_lowest_index_first(_mask_rows(scores, gids), kk)
 
     def _dispatch(self, index: GalleryIndex, refer: torch.Tensor,
                   captions: List[str], gids: np.ndarray, kk: int):

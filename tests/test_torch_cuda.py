@@ -511,3 +511,142 @@ def test_max_query_kernels_refuse_what_they_cannot_take(cuda_device):
                                  0.05)
     with pytest.raises(ValueError, match="one device"):
         mk.max_query_infonce_fwd(feats, bank, labels.cpu(), 0.05)
+
+
+# --------------------------------------------------------------------------
+# #11 decode attention and #12 int8 weight matmul (the LLaMA decoders).
+# Tolerances: float32 1e-5 (sums in another order); bf16 2e-2 (the plain
+# version rounds the softmax weights to bf16 before the V product, the
+# kernel rounds once at the output); int8 cache 1e-4 relative (float32
+# arithmetic on exact int8 values, the scales applied in another order).
+# #12: float32 x 1e-5 relative (sums over D in another order), bf16 x 2e-2
+# (one rounding of the output to bf16).
+# --------------------------------------------------------------------------
+
+def _decode_case(device, b, h, kvh, hd, length, layers, kind, seed=0):
+    from spn4cir_tpu_torch.models.llama import _quant_rows
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, h, hd, generator=g, device=device)
+    k = torch.randn(layers, b, length, kvh * hd, generator=g, device=device)
+    v = torch.randn(layers, b, length, kvh * hd, generator=g, device=device)
+    bias = torch.zeros(b, length, device=device)
+    bias[:, length - length // 7:] = -1e9            # the causal tail
+    bias[0, :min(3, length - 1)] = -1e9              # a left pad
+    if kind == "int8":
+        (k, ks), (v, vs) = _quant_rows(k), _quant_rows(v)
+        return q, k, v, bias, ks, vs
+    dtype = getattr(torch, kind)
+    return q.to(dtype), k.to(dtype), v.to(dtype), bias, None, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,hd,length", [
+    (16, 32, 32, 128, 1842), (1, 32, 32, 128, 1842), (3, 4, 4, 8, 37),
+    (2, 8, 2, 64, 300), (5, 6, 3, 40, 129), (2, 4, 4, 128, 1)])
+@pytest.mark.parametrize("kind,atol,rtol", [
+    ("float32", 1e-5, 1e-5), ("bfloat16", 2e-2, 2e-2), ("int8", 1e-4, 1e-4)])
+def test_decode_attention_matches_plain_version_on_card(
+        cuda_device, b, h, kvh, hd, length, kind, atol, rtol):
+    """#11 against its plain version: the 7B's decode shape at B=16 and B=1,
+    hd=8 (the tiny LM), GQA, an off-power-of-two head_dim and L=1; the
+    last of 3 layers; a second launch gives the same bits."""
+    from spn4cir_tpu_torch.ops.decode_attn import (decode_attention,
+                                                   decode_attention_reference)
+
+    q, k, v, bias, ks, vs = _decode_case(cuda_device, b, h, kvh, hd, length,
+                                         3, kind)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, 2, bias, ks, vs)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert got.dtype == (torch.float32 if kind == "int8" else k.dtype)
+    want = decode_attention_reference(q, k, v, 2, bias, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, decode_attention(q, k, v, 2, bias, ks, vs))
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_what_it_cannot_take(cuda_device):
+    from spn4cir_tpu_torch.ops.decode_attn import decode_attention
+
+    q, k, v, bias, _, _ = _decode_case(cuda_device, 2, 4, 4, 8, 20, 2,
+                                       "float32")
+    with pytest.raises(ValueError, match="head_dim % 8"):
+        decode_attention(q[..., :4].contiguous(), k[..., :16].contiguous(),
+                         v[..., :16].contiguous(), 0, bias)
+    with pytest.raises(ValueError, match="k_scale"):
+        decode_attention(q, k, v, 0, bias, bias, bias)
+    with pytest.raises(ValueError, match="one device"):
+        decode_attention(q, k, v, 0, bias.cpu())
+    with pytest.raises(ValueError, match="layer 2"):
+        decode_attention(q, k, v, 2, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,f", [
+    (1, 4096, 4096), (16, 4096, 11008), (8, 11008, 4096), (16, 4096, 32000),
+    (5, 40, 77), (33, 300, 130), (3, 64, 8)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_quant_matmul_matches_plain_version_on_card(cuda_device, rows, d, f,
+                                                    dtype, tol):
+    """#12 against its plain version at the 7B's decode shapes, ragged ones
+    (F=77 takes the byte loads; 33 rows take five row tiles) and a 3-D x;
+    a second launch gives the same bits."""
+    from spn4cir_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                    quant_matmul_reference)
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(rows, d, generator=g, device=cuda_device).to(dtype)
+    values = torch.randint(-127, 128, (d, f), generator=g,
+                           device=cuda_device).to(torch.int8)
+    scales = torch.rand(f, generator=g, device=cuda_device) * 1e-3 + 1e-4
+    before = quant_matmul.launches
+    got = quant_matmul(x, values, scales)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1 and got.dtype == dtype
+    want = quant_matmul_reference(x, values, scales)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+    assert torch.equal(got, quant_matmul(x, values, scales))
+    # leading dims flatten: the same bits as the 2-D call on those rows
+    three = quant_matmul(x[None].expand(2, rows, d), values, scales)
+    assert three.shape == (2, rows, f)
+    assert torch.equal(three.reshape(2 * rows, f),
+                       quant_matmul(torch.cat([x, x]), values, scales))
+
+
+@pytest.mark.cuda
+def test_llama_generate_through_the_kernels_on_card(cuda_device):
+    """A GQA LLaMA (hd=64) generates the same greedy tokens through #11 and
+    #12 as through the plain routes, over an int8 cache and int8 weights,
+    and the counters show both kernels ran in every decode step."""
+    from spn4cir_tpu_torch.models.llama import (
+        LlamaConfig, LlamaForCausalLM, embed_tokens, llama_generate,
+        quantize_llama_weights)
+    from spn4cir_tpu_torch.ops.decode_attn import decode_attention
+    from spn4cir_tpu_torch.ops.quant_matmul import quant_matmul
+
+    cfg = LlamaConfig(vocab_size=300, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, intermediate_size=512)
+    model = LlamaForCausalLM(cfg, device=cuda_device)
+    model.init_weights(torch.Generator(device=cuda_device).manual_seed(0))
+    params = quantize_llama_weights(model)
+    ids = torch.randint(0, 300, (3, 40), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[0, :7] = 0
+    kw = dict(eos_id=299, pad_id=0, max_new_tokens=8, attention_mask=mask,
+              cache_dtype=torch.int8, prefill_chunk=16)
+    emb = embed_tokens(params, ids)
+    plain = llama_generate(params, cfg, emb, attn_kernel=False,
+                           quant_kernel=False, **kw)
+    before = decode_attention.launches, quant_matmul.launches
+    fused = llama_generate(params, cfg, emb, attn_kernel=True,
+                           quant_kernel=True, **kw)
+    assert torch.equal(plain, fused)
+    assert decode_attention.launches - before[0] == 2 * 7
+    assert quant_matmul.launches - before[1] == 7 * (7 * 2 + 1)

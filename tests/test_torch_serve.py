@@ -5,8 +5,9 @@ gallery and the serving CLI, on a fixture gallery on the CPU.
 Both services hold the same weights (converted by `clip_state_dict_from_jax`)
 and tokenize with the same synthetic-merges tokenizer (the JAX backbone's
 `tokenize` is replaced on the instance). Tolerances: top-k names identical,
-scores within 1e-5 (float32). The features are random, so the scores have no
-ties and the order of `jax.lax.top_k` and `torch.topk` cannot differ on ties.
+scores within 1e-5 (float32). The fixture's features are random and do not
+tie; `test_tied_scores_come_in_jax_top_k_order` makes exact ties from
+duplicated gallery rows, where the order among equal scores is checked.
 The port decodes images with PIL (its copy of the datasets module has no
 native loader), so the JAX index is extracted with `SPN4CIR_NATIVE=0` too:
 both sides then see the same pixels.
@@ -120,6 +121,29 @@ def test_query_by_name_matches_jax(world, gallery_dtype):
         assert len(got) == 5 and name not in _names(got)
         assert all(a["score"] >= b["score"] for a, b in zip(got, got[1:]))
         _assert_same_results(got, ref.query_by_name(name, caption))
+
+
+def test_tied_scores_come_in_jax_top_k_order(world):
+    """A gallery of a few hundred rows in which every image appears many
+    times: the scores tie in groups, and the top 16 must hold the same ids
+    in the same order as the JAX service's `jax.lax.top_k` (the lower
+    gallery id first), the members of a tied group cut at k included."""
+    index, jax_index = world["index"], world["jax_index"]
+    n = len(index.names)
+    m = 300
+    rows = np.arange(m) % n
+    names = [f"dup{i:03d}_{index.names[r]}" for i, r in enumerate(rows)]
+    ours = RetrievalService(world["tb"], GalleryIndex(
+        index.target[torch.from_numpy(rows)], index.refer[rows], names),
+        preprocess=TF, default_k=16)
+    ref = JaxRetrievalService(world["jb"], world["params"], JaxGalleryIndex(
+        np.asarray(jax_index.target)[rows], np.asarray(jax_index.refer)[rows],
+        names), preprocess=TF, default_k=16)
+    for i in (0, 1, n + 2, m - 1):
+        caption = CAPTIONS[i % len(CAPTIONS)]
+        got = ours.query_by_name(names[i], caption, k=16)
+        assert len(got) == 16 and names[i] not in _names(got)
+        _assert_same_results(got, ref.query_by_name(names[i], caption, k=16))
 
 
 def test_int8_gallery_quantizes_like_jax(world):
@@ -353,7 +377,9 @@ def test_port_imports_no_jax():
         "            'models.blip4cir', 'models.blip_vit', 'models.med',\n"
         "            'tokenizer.wordpiece', 'train.stage1',\n"
         "            'models.blip24cir', 'models.eva_vit', 'models.qformer',\n"
-        "            'ops.maxquery_kernels'):\n"
+        "            'ops.maxquery_kernels', 'datagen.llm_rewrite',\n"
+        "            'models.llama', 'ops.decode_attn', 'ops.quant_matmul',\n"
+        "            'cli.get_cir_data'):\n"
         "    assert 'spn4cir_tpu_torch.' + new in names, new\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
