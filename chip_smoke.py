@@ -8,7 +8,8 @@ non-zero exit):
   1. device: CUDA must be present; prints the card and its power limit and
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
-     per source, started together;
+     per source, started together; the bf16 long-attention kernels must
+     hold tensor-core (HMMA) instructions and spill nothing;
   3. kernels: each of the twelve kernels against its plain PyTorch version
      on the card at the shapes of the serving, training, flagship, blip and
      blip2 paths (short attention in bfloat16 and float32 at the ViT-B/32
@@ -17,13 +18,14 @@ non-zero exit):
      ragged case each; the long attention, forward and backward, at BLIP's
      (1536, 577, 64) and (384, 577, 64), at EVA-g's extraction slice
      (512, 257, 88) and (256, 257, 88), at ViT-L/14's and ViT-B/16's
-     slices and a ragged one; the max-over-query InfoNCE at blip2's
-     B=32, M=65,536, Q=32, D=256 over float32, bfloat16 and int8 banks and
-     a ragged B=5, M=1,000, Q=8; two launches giving the same bits), with
-     the
-     kernel's time, the plain version's, the time of the PyTorch library
-     call that computes the same function (a yardstick only) and the bound
-     (the larger of bytes / 3.35 TB/s and operations / peak);
+     slices, a ragged one and the edges of its tiles (S = 63, 65, 129),
+     with each timed record's TFLOP/s and share of its bound; the
+     max-over-query InfoNCE at blip2's B=32, M=65,536, Q=32, D=256 over
+     float32, bfloat16 and int8 banks and a ragged B=5, M=1,000, Q=8; two
+     launches giving the same bits), with the kernel's time, the plain
+     version's, the time of the PyTorch library call that computes the
+     same function (a yardstick only) and the bound (the larger of bytes /
+     3.35 TB/s and operations / peak);
   4. serving slice: `spn4cir_tpu_torch.cli.serve.serve_main` indexes a
      1024-image synthetic CIRR gallery with ViT-B/32 in bf16 (random weights
      from seed 0) and serves it over HTTP; concurrent and sequential
@@ -75,7 +77,8 @@ non-zero exit):
      again with `--grad_ckpt` (the same first loss, 48 + 24 a step); the
      blip stage-2 step at batch 128 against a 65,536 x 256 bank and a
      2,048-image host refer pool (ms/step, host gather, host-to-device
-     copy, device busy, idle share) and the extraction rate;
+     copy, device busy, idle share) and the extraction rate with a
+     profiled batch (device busy, idle share, ms by kernel group);
  10. blip24cir at full width (EVA ViT-g at 224: 257 tokens, width 1408, 39
      layers, 16 heads of 88; Q-Former: hidden 768, 12 layers, 32 queries;
      embedding 256; bf16 over float32 weights, random from seed 0) on a
@@ -91,7 +94,8 @@ non-zero exit):
      their top-1); the stage-2 step at batch 32 against a 65,536 x 32 x 256
      bank, float32 then int8, and a 2,048-triplet host refer pool (ms/step,
      host gather, host-to-device copy, device busy, idle share, ms by kernel
-     group); the EVA-g extraction rate at batch 32 with #3's share;
+     group); the EVA-g extraction rate at batch 32 with #3's share and a
+     profiled batch;
  11. the LLaMA-2-7B-chat rewriter of the datagen pipeline at full width (32
      layers, width 4096, 32 heads of 128, MLP 11008, vocabulary 32,000;
      random bf16 weights drawn on the device from seed 0; the byte
@@ -185,7 +189,10 @@ FLAGSHIP_EVAL_TEXT = dict(name="flagship-eval-text", bh=32 * 10, s=77, d=64,
 # long attention: BLIP's ViT-B/16 at 384 (12 heads) at the extraction batch
 # of 128 and the index / validation / stage-1 batch of 32; then ViT-L/14
 # (16 heads, batch 32), EVA-g (head_dim 88, 16 heads, batch 16), ViT-B/16 at
-# 224 (batch 32) and a ragged slice
+# 224 (batch 32), a ragged slice, and the edges of the bf16 kernels' tiles
+# (64 query rows or keys a block, 64 keys / 32 query rows a ring stage):
+# S = 63 (one partial tile), 65 (a one-row query tile and a one-key key
+# tile) and 129 (a one-key stage in both walks), one slice at S = 65
 BLIP_EXTRACT = dict(name="blip-extract", bh=128 * 12, s=577, d=64, causal=False)
 BLIP_INDEX = dict(name="blip-index", bh=32 * 12, s=577, d=64, causal=False)
 # EVA ViT-g (16 heads of 88) at blip2's extraction / index batch of 32
@@ -194,7 +201,10 @@ LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT,
                dict(name="vit-l14", bh=32 * 16, s=257, d=64, causal=False),
                dict(name="eva-g", bh=16 * 16, s=257, d=88, causal=False),
                dict(name="vit-b16", bh=32 * 12, s=197, d=64, causal=False),
-               dict(name="ragged", bh=5, s=130, d=40, causal=False))
+               dict(name="ragged", bh=5, s=130, d=40, causal=False),
+               dict(name="edge-63", bh=3, s=63, d=64, causal=False),
+               dict(name="edge-65", bh=1, s=65, d=64, causal=False),
+               dict(name="edge-129", bh=2, s=129, d=88, causal=False))
 
 N_GALLERY = 1024
 N_TRAIN = 1280
@@ -357,6 +367,38 @@ def build_kernels(cuda_build) -> None:
                                          "0 bytes spill stores" not in line):
                 phase(f"ptxas {lib.name.split('-')[0]}: {line.strip()} "
                       f"[{entry}]")
+    check_tensor_cores(cuda_build, next(l for l in libs
+                                        if l.name.startswith("long_attention")))
+
+
+def check_tensor_cores(cuda_build, lib) -> None:
+    """The bfloat16 kernels of long_attention.cu (`*_tc_kernel`) run on the
+    tensor cores: each holds HMMA instructions in `cuobjdump -sass` of the
+    built library, and ptxas spilled nothing in any of them."""
+    spills, entry = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry:
+            spills[entry] = "0 bytes spill stores, 0 bytes spill loads" in line
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            hmma[fn] = 0
+        elif fn and "HMMA" in line:
+            hmma[fn] += 1
+    tc = sorted(f for f in hmma if "_tc_kernel" in f)
+    assert len(tc) == 9, tc
+    for f in tc:
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", f)[:48]
+        assert hmma[f] > 0 and spills.get(f), (f, hmma[f], spills.get(f))
+        phase(f"sass {name}: {hmma[f]} HMMA instructions, no spills")
 
 
 def sdpa(q, k, v, causal):
@@ -529,8 +571,14 @@ def check_long_attention(ak, device, card):
                 brec["library_ms"] = median_ms(lambda: torch.autograd.grad(
                     lib_out, leaves, do, retain_graph=True), reps=10)
                 del leaves, lib_out
-                times = [f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-                         f"ms, library (SDPA{w}) {r['library_ms']:.4f} ms, "
+                # achieved rate of the counted products, share of the bound
+                for r, n_products in ((frec, 2), (brec, 5)):
+                    r["tflops"] = n_products * 2 * bh * s * s * d / r["ms"] / 1e9
+                    r["bound_share"] = r["bound_ms"] / r["ms"]
+                times = [f"kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+                         f"{100 * r['bound_share']:.1f}% of the bound), plain "
+                         f"{r['plain_ms']:.4f} ms, library (SDPA{w}) "
+                         f"{r['library_ms']:.4f} ms, "
                          for r, w in ((frec, ""), (brec, " backward"))]
             fwd_records.append(frec)
             bwd_records.append(brec)
@@ -1818,11 +1866,45 @@ def drive_blip_recipe(ak, bk, tmp, card):
                        warmup=1)
         attn_ms = 12 * median_ms(lambda: ak.long_attention_fwd(*qkv), reps=4,
                                  warmup=1)
+        prof = batch_profile(lambda: backbone.bank_features(images),
+                             "blip_extract")
     phase(f"BLIP base bf16 bank extraction at 384: "
           f"{BLIP_BATCH / (ms / 1e3):.1f} images/s on the device (batch "
           f"{BLIP_BATCH}, {ms:.3f} ms/batch; 12 long-attention launches at "
           f"its shape take {attn_ms:.1f} ms alone, "
-          f"{100 * attn_ms / ms:.0f}% of the batch) [{card}]")
+          f"{100 * attn_ms / ms:.0f}% of the batch; "
+          f"{extraction_line(*prof, ms)}) [{card}]")
+
+
+def batch_profile(fn, name):
+    """(device busy ms, device operations, ms by kernel group) of one call
+    of `fn` in a profiler window, after a first window that takes the
+    profiler's start-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        trace = os.path.join(tmp, f"{name}_trace.json")
+        prof.export_chrome_trace(trace)
+        busy_ms, n_ops, groups = device_busy(trace)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert n_ops > 0, "the profiler's trace holds no device interval"
+    return busy_ms, n_ops, groups
+
+
+def extraction_line(busy_ms, n_ops, groups, ms) -> str:
+    return (f"device busy {busy_ms:.3f} ms in {n_ops} operations under the "
+            f"profiler, idle {100 * (1 - busy_ms / ms):.1f}% of the batch "
+            f"timed without it; the long-attention launches "
+            f"{groups.get('attention kernels', 0.0):.3f} ms of it, GEMMs "
+            f"{groups.get('GEMMs', 0.0):.3f}, elementwise and other "
+            f"{groups.get('elementwise and other', 0.0):.3f}")
 
 
 def blip_stage1_step(backbone, card):
@@ -2415,11 +2497,15 @@ def drive_blip2_recipe(ak, bk, tmp, card):
                        reps=4, warmup=1)
         attn_ms = EVA_LAYERS * median_ms(lambda: ak.long_attention_fwd(*qkv),
                                          reps=4, warmup=1)
+        prof = batch_profile(lambda: backbone.fusion_bank_features(images,
+                                                                   text),
+                             "eva_extract")
     phase(f"EVA ViT-g bf16 bank extraction at 224 (fusion_bank_features): "
           f"{BLIP2_BATCH / (ms / 1e3):.1f} images/s on the device (batch "
           f"{BLIP2_BATCH}, {ms:.3f} ms/batch; {EVA_LAYERS} long-attention "
           f"launches at its shape take {attn_ms:.1f} ms alone, "
-          f"{100 * attn_ms / ms:.0f}% of the batch) [{card}]")
+          f"{100 * attn_ms / ms:.0f}% of the batch; "
+          f"{extraction_line(*prof, ms)}) [{card}]")
 
 
 def check_blip2_plain_step(layers, bk, mk, card):
@@ -3224,6 +3310,7 @@ def kernel_entry(name, replaces, source, launches_by_path, on_paths, records,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke runs "
@@ -3469,6 +3556,7 @@ def main() -> int:
                                (4096, 32000))
                   if (r, d, f) != (16, 4096, 11008)]))
         assert len(entries) == 12, len(entries)
+        phase(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": entries}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {

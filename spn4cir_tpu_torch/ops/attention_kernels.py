@@ -27,7 +27,9 @@ without the causal option: on CUDA tensors `long_attention_fwd` and
 `long_attention_bwd` of `csrc/long_attention.cu`, counted in
 `long_attention.launches` and `long_attention_bwd.launches`; on CPU tensors
 `long_attention_reference` and `long_attention_bwd_reference`. It takes
-every S >= 1 and every head_dim <= 128 that is a multiple of 8.
+every S >= 1 and every head_dim <= 128 that is a multiple of 8; bfloat16
+runs on the tensor cores and needs its tensors to start on a 16-byte
+boundary (as every fresh allocation does), float32 on the CUDA cores.
 
 `attention_route` is the one place that decides which of the three routes
 (short kernel, long kernel, plain tensor code) a self-attention takes.
@@ -282,13 +284,24 @@ def _long_library() -> ctypes.CDLL:
     return lib
 
 
+def _check_aligned(*ts: torch.Tensor) -> None:
+    # the bfloat16 kernels copy their operands with 16-byte cp.async
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("long_attention's bfloat16 kernels take tensors "
+                         "whose data starts on a 16-byte boundary")
+
+
 def long_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """(out, lse) for CUDA tensors through the forward kernel: the output
-    and the rows' log-sum-exp (BH, S) float32, which the backward takes."""
+    and the rows' log-sum-exp (BH, S) float32, which the backward takes.
+    bfloat16 runs on the tensor cores, float32 on the CUDA cores; a
+    bfloat16 tensor whose data does not start on a 16-byte boundary is
+    refused (ValueError)."""
     _check(q, k, v, long=True)
     if q.device.type != "cuda":
         raise ValueError(f"long_attention_fwd launches a CUDA kernel; the "
                          f"tensors lie on {q.device}")
+    _check_aligned(q, k, v)
     lib = _long_library()
     bh, s, d = q.shape
     out = torch.empty_like(q)
@@ -310,7 +323,8 @@ def long_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        lse: torch.Tensor):
     """(dq, dk, dv) for CUDA tensors through the backward kernels; `out`
     and `lse` are what `long_attention_fwd` returned for (q, k, v); `dout`
-    must already have q's dtype and shape and be contiguous."""
+    must already have q's dtype and shape and be contiguous; bfloat16 q,
+    k, v and dout must start on a 16-byte boundary (ValueError)."""
     _check(q, k, v, long=True)
     if q.device.type != "cuda":
         raise ValueError(f"long_attention_bwd launches a CUDA kernel; the "
@@ -324,6 +338,7 @@ def long_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (lse.shape != (bh, s) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("lse must be the forward's (BH, S) float32 tensor")
+    _check_aligned(q, k, v, dout)
     lib = _long_library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     delta = torch.empty_like(lse)       # rowsum(dO∘O), written by the kernel

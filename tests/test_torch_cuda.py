@@ -288,10 +288,14 @@ def test_towers_kernel_route_matches_plain_route_on_card(cuda_device):
 
 # the long-sequence shapes of the card's smoke run: BLIP's ViT-B/16 at 384
 # (extraction and index batches), ViT-L/14, EVA-g (head_dim 88), ViT-B/16 at
-# 224, a ragged slice; then head_dim 128, one key tile and one key
+# 224, a ragged slice; then head_dim 128, one key tile and one key; then the
+# edges of the bf16 kernels' tiles (64 query rows or keys a block, 64 keys /
+# 32 query rows a ring stage): one partial tile, a one-row query tile and a
+# one-key key tile in one slice, a one-key stage in both walks
 LONG_SHAPES = [(1536, 577, 64), (384, 577, 64), (512, 257, 64),
                (256, 257, 88), (384, 197, 64), (5, 130, 40), (3, 300, 128),
-               (2, 64, 8), (2, 1, 16)]
+               (2, 64, 8), (2, 1, 16), (3, 63, 64), (1, 65, 64),
+               (2, 129, 88)]
 
 
 def _long_inputs(bh, s, d, dtype, device, n=3, seed=0):
@@ -345,6 +349,50 @@ def test_long_attention_backward_matches_plain_version_on_card(
         assert torch.equal(a, a2), "two launches differ"
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(a.float(), c.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,btol", [(torch.float32, 1e-5, 1e-4),
+                                            (torch.bfloat16, 2e-2, 5e-2)])
+def test_long_attention_takes_every_head_dim_on_card(cuda_device, dtype, tol,
+                                                     btol):
+    """Every D in 8..128 step 8 at S = 100 (a partial tile), forward and
+    backward against the plain versions: each padded depth of the bf16
+    kernels (64, 96, 128) and both depth classes of the float32 ones, with
+    the zeroed pad columns."""
+    for d in range(8, 129, 8):
+        q, k, v, do = _long_inputs(3, 100, d, dtype, cuda_device, n=4,
+                                   seed=d)
+        out, lse = long_attention_fwd(q, k, v)
+        want = long_attention_reference(q, k, v)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=f"D={d}")
+        got = long_attention_bwd(q, k, v, do, out, lse)
+        for a, b in zip(got, long_attention_bwd_reference(q, k, v, do)):
+            torch.testing.assert_close(a.float(), b.float(), atol=btol,
+                                       rtol=btol, msg=f"D={d}")
+
+
+@pytest.mark.cuda
+def test_long_attention_bf16_refuses_a_misaligned_tensor(cuda_device):
+    """The bf16 kernels copy with 16-byte cp.async: a tensor whose data
+    starts off a 16-byte boundary is refused, never sent to the plain
+    version; float32 takes it."""
+    flat = torch.randn(2 * 130 * 64 + 1, device=cuda_device)
+    odd = flat[1:].view(2, 130, 64)
+    ok = torch.randn(2, 130, 64, device=cuda_device)
+    long_attention_fwd(odd, ok, ok)
+    odd16, ok16 = odd.to(torch.bfloat16), ok.to(torch.bfloat16)
+    odd16 = torch.cat([odd16.new_zeros(1), odd16.flatten()])[1:].view(
+        2, 130, 64)
+    assert odd16.data_ptr() % 16
+    before = long_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        long_attention(odd16, ok16, ok16)
+    out, lse = long_attention_fwd(ok16, ok16, ok16)
+    with pytest.raises(ValueError, match="16-byte"):
+        long_attention_bwd(ok16, ok16, ok16, odd16, out, lse)
+    assert long_attention.launches == before + 1
 
 
 @pytest.mark.cuda

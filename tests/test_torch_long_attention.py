@@ -238,3 +238,20 @@ def test_long_attention_bwd_never_runs_on_the_cpu():
         ak.long_attention_fwd(t, t, t)
     with pytest.raises(ValueError, match="CUDA kernel"):
         ak.long_attention_bwd(t, t, t, t, t, torch.zeros(2, 130))
+
+
+def test_bf16_kernels_refuse_a_misaligned_tensor():
+    """The bf16 kernels copy their operands 16 bytes at a time; the
+    wrappers' rule, checked before any launch, refuses a bf16 tensor whose
+    data starts off a 16-byte boundary and lets float32 through (its
+    kernels have a scalar path)."""
+    ok = torch.zeros(2, 130, 64, dtype=torch.bfloat16)
+    odd = torch.zeros(2 * 130 * 64 + 1, dtype=torch.bfloat16)[1:].view(
+        2, 130, 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    for args in ((odd, ok, ok), (ok, ok, odd), (ok, ok, ok, odd)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ak._check_aligned(*args)
+    ak._check_aligned(ok, ok, ok, ok)
+    odd32 = torch.zeros(2 * 130 * 64 + 1)[1:].view(2, 130, 64)
+    ak._check_aligned(odd32, odd32, odd32)
