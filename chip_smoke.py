@@ -8,14 +8,20 @@ non-zero exit):
   1. device: CUDA must be present; prints the card and its power limit and
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
-     per source, started together; the bf16 long-attention kernels must
-     hold tensor-core (HMMA) instructions and spill nothing;
+     per source, started together; the tensor-core kernels (bf16 long and
+     short attention, the split-TF32 bank backward) must hold HMMA
+     instructions and spill nothing;
   3. kernels: each of the twelve kernels against its plain PyTorch version
      on the card at the shapes of the serving, training, flagship, blip and
      blip2 paths (short attention in bfloat16 and float32 at the ViT-B/32
      towers' slices and at RN50x4's 10-head text tower; the bank InfoNCE
      over float32, bfloat16 and int8 banks at D = 512, 640 and 768, with a
-     ragged case each; the long attention, forward and backward, at BLIP's
+     ragged case each; the short attention also at the edges of its
+     tensor-core kernel, S = 1..128 x D = 8..128, causal and not, and at a
+     BH past the blocks the card holds; #1 and the bank kernels timed per
+     call and as the device time of back-to-back launches, with TFLOP/s and
+     the share of the bound; the long attention, forward and backward, at
+     BLIP's
      (1536, 577, 64) and (384, 577, 64), at EVA-g's extraction slice
      (512, 257, 88) and (256, 257, 88), at ViT-L/14's and ViT-B/16's
      slices, a ragged one and the edges of its tiles (S = 63, 65, 129),
@@ -175,7 +181,7 @@ STEP_TOL = 2e-4
 
 # the card's published peaks (H100 SXM): HBM bytes/s, dense FLOP/s by type
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 VISION = dict(name="vision", bh=256 * 12, s=50, d=64, causal=False)
 TEXT = dict(name="text", bh=32 * 8, s=77, d=64, causal=True)
@@ -185,6 +191,17 @@ TRAIN_TEXT = dict(name="train-text", bh=256 * 8, s=77, d=64, causal=True)
 FLAGSHIP_TEXT = dict(name="flagship-text", bh=256 * 10, s=77, d=64, causal=True)
 FLAGSHIP_EVAL_TEXT = dict(name="flagship-eval-text", bh=32 * 10, s=77, d=64,
                           causal=True)
+
+# the edges of short_attention's tensor-core kernel (slices padded to 64, 80
+# or 128 rows, one warp per 16; head dims padded to 64 or 128): every S x D
+# below, causal and not, at a BH that is no multiple of anything, then BH
+# past the blocks the card holds at once (each block walks several slices)
+SHORT_EDGE_S = (1, 15, 16, 17, 50, 77, 128)
+SHORT_EDGE_D = (8, 64, 72, 128)
+SHORT_EDGE_BH = 5
+SHORT_RAGGED = (dict(name="ragged-text", bh=1001, s=77, d=64, causal=True),
+                dict(name="ragged-vision", bh=1001, s=50, d=64, causal=False),
+                dict(name="one-slice", bh=1, s=77, d=64, causal=True))
 
 # long attention: BLIP's ViT-B/16 at 384 (12 heads) at the extraction batch
 # of 128 and the index / validation / stage-1 batch of 32; then ViT-L/14
@@ -325,6 +342,23 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 50) -> float:
+    """Mean device time of `n` back-to-back calls: the stream is held by a
+    sleep kernel while the host queues them, so no call waits for the
+    host's wrapper work (which the per-call `median_ms` includes)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e7))  # ~10 ms of device clock
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def bound_ms(n_bytes: float, n_flops: float, dtype) -> tuple:
     """(least ms the card could take, 'bytes' or 'operations')."""
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
@@ -367,14 +401,24 @@ def build_kernels(cuda_build) -> None:
                                          "0 bytes spill stores" not in line):
                 phase(f"ptxas {lib.name.split('-')[0]}: {line.strip()} "
                       f"[{entry}]")
-    check_tensor_cores(cuda_build, next(l for l in libs
-                                        if l.name.startswith("long_attention")))
+    for lib in libs:
+        check_tensor_cores(cuda_build, lib)
+
+
+# the tensor-core instantiations (`*_tc_kernel`) each library must hold:
+# long_attention.cu's bf16 forward, dQ and dK/dV at the padded depths 64,
+# 96, 128; short_attention.cu's bf16 forward at the padded depths 64, 128 x
+# 64, 80, 128 rows x causal or not; bank_infonce.cu's split-TF32 coefficient
+# and dQ kernels over float32 and bf16 banks
+TC_KERNELS = {"long_attention": 9, "short_attention": 12, "bank_infonce": 4}
 
 
 def check_tensor_cores(cuda_build, lib) -> None:
-    """The bfloat16 kernels of long_attention.cu (`*_tc_kernel`) run on the
-    tensor cores: each holds HMMA instructions in `cuobjdump -sass` of the
-    built library, and ptxas spilled nothing in any of them."""
+    """The tensor-core kernels of `lib` (`*_tc_kernel`, as many as
+    TC_KERNELS says) run on the tensor cores: each holds HMMA instructions
+    (bf16 m16n8k16 and TF32 m16n8k8 alike) in `cuobjdump -sass` of the built
+    library, and ptxas spilled nothing in any of them."""
+    want = TC_KERNELS.get(lib.name.split("-")[0], 0)
     spills, entry = {}, None
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -394,9 +438,9 @@ def check_tensor_cores(cuda_build, lib) -> None:
         elif fn and "HMMA" in line:
             hmma[fn] += 1
     tc = sorted(f for f in hmma if "_tc_kernel" in f)
-    assert len(tc) == 9, tc
+    assert len(tc) == want, (lib.name, tc)
     for f in tc:
-        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", f)[:48]
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", f)[:56]
         assert hmma[f] > 0 and spills.get(f), (f, hmma[f], spills.get(f))
         phase(f"sass {name}: {hmma[f]} HMMA instructions, no spills")
 
@@ -407,41 +451,96 @@ def sdpa(q, k, v, causal):
         q[None], k[None], v[None], is_causal=causal, scale=1.0)[0]
 
 
+def short_rate(rec, shape) -> None:
+    """Achieved TFLOP/s of the two counted products and the share of the
+    bound, from the device time of back-to-back launches."""
+    bh, s, d = shape["bh"], shape["s"], shape["d"]
+    pairs = s * (s + 1) // 2 if shape["causal"] else s * s
+    rec["tflops"] = 2 * 2 * pairs * d * bh / rec["device_ms"] / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+
+
 def check_attention_fwd(ak, device, card):
     """Phase 3a: short_attention against its plain version, per shape and
-    dtype; returns one record per comparison."""
+    dtype, timed at the main paths' shapes (per call, and as the device
+    time of back-to-back launches, beside SDPA's two times); then, untimed,
+    the edges of the bf16 tensor-core kernel (SHORT_EDGE_*) and BH past the
+    resident blocks (SHORT_RAGGED), with two launches giving the same bits.
+    Returns one record per comparison."""
     g = torch.Generator(device=device).manual_seed(0)
     records = []
+
+    def compare(shape, dtype, tol):
+        bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=device,
+                               dtype=dtype) for _ in range(3))
+        q = q * d ** -0.5
+        with torch.inference_mode():
+            got = ak.short_attention(q, k, v, causal)
+            again = ak.short_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), "not repeatable"
+            want = ak.short_attention_reference(q, k, v, causal)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=tol, rtol=tol)
+        err = (got.float() - want.float()).abs().max().item()
+        b_ms, b_by = attention_bound(shape, dtype, 4, 2)
+        rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
+                   causal=causal, dtype=dtype_name(dtype), rtol=tol, atol=tol,
+                   route=ak.short_forward_route(dtype, d, True),
+                   max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+        records.append(rec)
+        return rec, (q, k, v)
+
     for shape in (VISION, TEXT, TRAIN_TEXT, FLAGSHIP_TEXT,
                   FLAGSHIP_EVAL_TEXT):
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-            bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
-            q, k, v = (torch.randn(bh, s, d, generator=g, device=device,
-                                   dtype=dtype) for _ in range(3))
-            q = q * d ** -0.5
+            rec, (q, k, v) = compare(shape, dtype, tol)
+            causal = shape["causal"]
             with torch.inference_mode():
-                got = ak.short_attention(q, k, v, causal)
-                torch.cuda.synchronize()
-                want = ak.short_attention_reference(q, k, v, causal)
-                torch.testing.assert_close(got.float(), want.float(),
-                                           atol=tol, rtol=tol)
-                err = (got.float() - want.float()).abs().max().item()
-                ms = median_ms(lambda: ak.short_attention(q, k, v, causal))
-                plain_ms = median_ms(
+                rec["ms"] = median_ms(
+                    lambda: ak.short_attention(q, k, v, causal))
+                rec["plain_ms"] = median_ms(
                     lambda: ak.short_attention_reference(q, k, v, causal))
-                library_ms = median_ms(lambda: sdpa(q, k, v, causal))
-            b_ms, b_by = attention_bound(shape, dtype, 4, 2)
-            rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
-                       causal=causal, dtype=dtype_name(dtype), rtol=tol,
-                       atol=tol,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-            records.append(rec)
+                rec["library_ms"] = median_ms(lambda: sdpa(q, k, v, causal))
+                rec["device_ms"] = device_ms(
+                    lambda: ak.short_attention(q, k, v, causal))
+                rec["library_device_ms"] = device_ms(
+                    lambda: sdpa(q, k, v, causal))
+            short_rate(rec, shape)
             phase(f"kernel short_attention {rec['tower']} {rec['shape']} "
-                  f"causal={causal} {rec['dtype']}: max_abs_err={err:.3e} "
-                  f"(atol=rtol={tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, library (SDPA) {library_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms by {b_by} [{card}]")
+                  f"causal={causal} {rec['dtype']} ({rec['route']}): "
+                  f"max_abs_err={rec['max_abs_err']:.3e} (atol=rtol={tol}), "
+                  f"repeatable; kernel {rec['ms']:.4f} ms a call, "
+                  f"{rec['device_ms']:.4f} ms of device time back to back "
+                  f"({rec['tflops']:.1f} TFLOP/s, "
+                  f"{100 * rec['bound_share']:.1f}% of the bound), plain "
+                  f"{rec['plain_ms']:.4f} ms, library (SDPA) "
+                  f"{rec['library_ms']:.4f} ms a call, "
+                  f"{rec['library_device_ms']:.4f} back to back, bound "
+                  f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} [{card}]")
+    worst = {}
+    for s in SHORT_EDGE_S:
+        for d in SHORT_EDGE_D:
+            for causal in (False, True):
+                for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                                   (torch.float32, F32_TOL)):
+                    edge = dict(name=f"edge-s{s}-d{d}", bh=SHORT_EDGE_BH,
+                                s=s, d=d, causal=causal)
+                    rec, _ = compare(edge, dtype, tol)
+                    worst[rec["dtype"]] = max(worst.get(rec["dtype"], 0.0),
+                                              rec["max_abs_err"])
+    for shape in SHORT_RAGGED:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                           (torch.float32, F32_TOL)):
+            rec, _ = compare(shape, dtype, tol)
+            worst[rec["dtype"]] = max(worst[rec["dtype"]], rec["max_abs_err"])
+    ragged = ", ".join(f"{r['name']} {(r['bh'], r['s'], r['d'])}"
+                       for r in SHORT_RAGGED)
+    phase(f"kernel short_attention edges: S in {SHORT_EDGE_S} x D in "
+          f"{SHORT_EDGE_D} x causal or not at BH={SHORT_EDGE_BH}, and "
+          f"{ragged}: all within tolerance and repeatable, max_abs_err bf16 "
+          f"{worst['bfloat16']:.3e}, float32 {worst['float32']:.3e} [{card}]")
     return records
 
 
@@ -665,38 +764,81 @@ def check_bank_case(bk, q, bank, labels, card, time_it=True):
     # bytes: the query, the bank, the labels and the statistics, each once
     f_ms, f_by = bound_ms(b * d * 4 + f["bank_bytes"] + b * 4 + 4 * b * 4 + 8,
                           2 * b * m * d, torch.float32)
-    b_ms, b_by = bound_ms(2 * b * d * 4 + f["bank_bytes"] + b * 4 + 2 * b * 4
-                          + 4, 4 * b * m * d, torch.float32)
+    bwd_bytes = 2 * b * d * 4 + f["bank_bytes"] + b * 4 + 2 * b * 4 + 4
+    # the function's 4·B·M·D in float32 FMAs: the bound the CUDA-core
+    # design's readings were held to, printed beside
+    fma_ms, fma_by = bound_ms(bwd_bytes, 4 * b * m * d, torch.float32)
+    b_ms, b_by = fma_ms, fma_by
+    route = "cuda_cores"
+    if not isinstance(bank, bk.QuantBank):
+        # the split-TF32 route: 3 products each of 2·B·M·D (2 over a bf16
+        # bank, exact in TF32) in the dQ kernel and, from D = 256 on, in the
+        # coefficient kernel (below, float32 FMAs), and the coefficient
+        # scratch written and read once; the two kernels' least times add
+        plan = bk.dense_bwd_plan(b, m, d, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        n_split = 3 if bank.dtype == torch.float32 else 2
+        coef_bytes = 2 * 4 * plan.coef_shape[0] * plan.coef_shape[1]
+        tc_ops = n_split * 2 * b * m * d * (2 if plan.tc_logits else 1)
+        fma_ops = 0 if plan.tc_logits else 2 * b * m * d
+        t_ops = (tc_ops / PEAK_FLOPS["tf32"]
+                 + fma_ops / PEAK_FLOPS[torch.float32]) * 1e3
+        t_bytes = (bwd_bytes + coef_bytes) / HBM_BYTES_S * 1e3
+        b_ms, b_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+        route = "tensor_cores" if plan.tc_logits else "cuda_cores+tensor_cores"
     fwd = dict(common, rtol=BANK_RTOL, atol=BANK_RTOL, max_abs_err=fwd_err,
-               max_err_over_tol=fwd_share, bound_ms=f_ms, bound_by=f_by)
+               max_err_over_tol=fwd_share, bound_ms=f_ms, bound_by=f_by,
+               route="cuda_cores")
     bwd = dict(common, rtol=BANK_RTOL, atol=BANK_DQ_ATOL, max_abs_err=bwd_err,
-               max_err_over_tol=bwd_share, bound_ms=b_ms, bound_by=b_by)
+               max_err_over_tol=bwd_share, bound_ms=b_ms, bound_by=b_by,
+               fma_bound_ms=fma_ms, route=route)
     if time_it:
         ce = torch.nn.functional.cross_entropy
         fwd["ms"] = median_ms(lambda: f["fwd"](q, bank, labels, TAU))
+        fwd["device_ms"] = device_ms(lambda: f["fwd"](q, bank, labels, TAU),
+                                     n=20)
         fwd["plain_ms"] = median_ms(
             lambda: f["stats_ref"](q, bank, labels, TAU))
         fwd["library_ms"] = median_ms(
             lambda: ce(q @ f["dense"]().T / TAU, labels))
+        fwd["library_device_ms"] = device_ms(
+            lambda: ce(q @ f["dense"]().T / TAU, labels), n=20)
         bwd["ms"] = median_ms(lambda: f["bwd"](
             q, bank, labels, TAU, stats[0], stats[1], gout))
+        bwd["device_ms"] = device_ms(lambda: f["bwd"](
+            q, bank, labels, TAU, stats[0], stats[1], gout), n=20)
         bwd["plain_ms"] = median_ms(lambda: f["bwd_ref"](
             q, bank, labels, TAU, want[0], want[1], gout))
         leaf = q.clone().requires_grad_()
         lib_loss = ce(leaf @ f["dense"]().T / TAU, labels)
         bwd["library_ms"] = median_ms(lambda: torch.autograd.grad(
             lib_loss, leaf, retain_graph=True))
+        bwd["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
+            lib_loss, leaf, retain_graph=True), n=20)
+        # the function's operations (2·B·M·D forward, 4·B·M·D backward) a
+        # second of device time, and the share of the bound
+        for rec, n_ops in ((fwd, 2 * b * m * d), (bwd, 4 * b * m * d)):
+            rec["tflops"] = n_ops / rec["device_ms"] / 1e9
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
     for name, rec in zip(f["names"], (fwd, bwd)):
-        times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        times = (f"kernel {rec['ms']:.4f} ms a call, "
+                 f"{rec['device_ms']:.4f} ms of device time back to back "
+                 f"({rec['tflops']:.1f} TFLOP/s of the function's operations, "
+                 f"{100 * rec['bound_share']:.1f}% of the bound), plain "
+                 f"{rec['plain_ms']:.4f} ms, "
                  f"library ({f['library']}"
                  f"{' backward' if name.endswith('bwd') else ''}) "
-                 f"{rec['library_ms']:.4f} ms, " if time_it else "")
-        phase(f"kernel {name} {rec['shape']} bank {rec['dtype']}: "
-              f"max_abs_err={rec['max_abs_err']:.3e}, "
+                 f"{rec['library_ms']:.4f} ms a call, "
+                 f"{rec['library_device_ms']:.4f} back to back, "
+                 if time_it else "")
+        fma = (f" (float32-FMA bound {rec['fma_bound_ms']:.5f} ms)"
+               if rec["route"] != "cuda_cores" else "")
+        phase(f"kernel {name} {rec['shape']} bank {rec['dtype']} "
+              f"({rec['route']}): max_abs_err={rec['max_abs_err']:.3e}, "
               f"{rec['max_err_over_tol']:.3f} of the tolerance "
               f"(atol={rec['atol']} + rtol={rec['rtol']}·|plain|), "
               f"repeatable; {times}bound {rec['bound_ms']:.5f} ms by "
-              f"{rec['bound_by']} [{card}]")
+              f"{rec['bound_by']}{fma} [{card}]")
     return fwd, bwd
 
 

@@ -23,43 +23,69 @@
 // The 128 scales of a bank tile are read once into shared memory beside the
 // values; a bank row past M gets scale 0 and its scale is never read.
 //
-// Q is (B, D) float32; the bank is (M, D) float32, bfloat16 or int8 and is
-// widened to float32 before the product, as the TPU kernels do, so both
-// products run as float32 FMAs on the CUDA cores. D % 16 == 0. The backward
-// keeps a 64 x W accumulator tile of dQ in registers, W <= 512: a wider D is
-// cut into equal slices of W columns along a third grid axis, and each
-// slice's CTA recomputes the full-depth logits tile (which needs all of D)
-// and accumulates only its columns of dQ. That costs one more logits product
-// per extra slice, and keeps the register budget and the order of every sum.
-// Rows past B and bank rows past M are masked in the kernel: nothing is
-// padded outside.
+// Q is (B, D) float32; the bank is (M, D) float32, bfloat16 or int8, D % 16
+// == 0. Rows past B and bank rows past M are masked in the kernels: nothing
+// is padded outside. No atomics anywhere: every sum has a fixed order, so
+// results are run-to-run identical for a given split plan. The merge and
+// the reduce of the splits are split_merge.cuh's, shared with
+// max_query_infonce.cu.
 //
-// What bounds it: 2·B·M·D operations per product against (B + M)·D values
-// read, i.e. ~128-256 operations per bank byte at B = 256: the float32 FMA
-// rate bounds it, not memory, once the bank tile is reused from shared
-// memory. The TPU grid walked the bank axis in order for each block of rows
-// (two blocks at B = 256); here the bank axis is split across CTAs so that
-// every SM has work:
-//   - grid = (bank splits, 64-row tiles of Q[, slices of dQ's columns in the
-//     backward]); a CTA walks its split in
-//     tiles of 128 bank rows; each logits tile is a register-blocked product
-//     (4 x 8 per thread, depth chunks of 16 staged transposed in shared
-//     memory);
-//   - forward: each thread keeps online-softmax statistics for its 4 rows
-//     over its own columns; at the end of the split the 16 threads that
-//     share a row merge with xor shuffles, and one float4 (mx, se, pos, el)
-//     per (split, row) goes to scratch. A one-block merge kernel combines
-//     the splits in index order, writes the four statistics, the loss and
-//     dtau_unit (tree reduction over rows in a fixed order);
-//   - backward: the coefficient tile (P - onehot)·g goes to shared memory
-//     and the second product accumulates a 64 x W tile of dQ in registers
-//     (4 x 32 per thread at W = 512), streaming the same bank tile in chunks
-//     of 8 rows;
-//     each split writes its partial dQ to scratch and a reduce kernel sums
-//     the splits in index order.
-// No atomics: every sum has a fixed order, so results are run-to-run
-// identical for a given split plan. The merge and the reduce are
-// split_merge.cuh's, shared with max_query_infonce.cu.
+// What bounds them: 2·B·M·D operations per product against (B + M)·D values
+// read, ~128-256 operations per bank byte at B = 256, so the operations, not
+// memory, once a bank tile is reused from shared memory. The TPU grid walked
+// the bank axis in order for each block of rows (two blocks at B = 256);
+// here the bank axis is split across CTAs so that every SM has work.
+//
+// Forward, every bank (CUDA cores): the bank is widened to float32 and the
+// product runs as float32 FMAs, as the TPU kernels do. grid = (bank splits,
+// 64-row tiles of Q); a CTA walks its split in tiles of 128 bank rows, each
+// logits tile a register-blocked product (`logits_tile`: 4 x 8 per thread,
+// depth chunks of 16 staged transposed in shared memory); each thread keeps
+// online-softmax statistics for its 4 rows over its own columns, the 16
+// threads of a row merge with xor shuffles, one float4 (mx, se, pos, el) per
+// (split, row) goes to scratch, and a one-block merge kernel combines the
+// splits in index order and writes the statistics, the loss and dtau_unit.
+//
+// Backward over a dense bank (float32 or bf16; the tensor cores). Float32
+// FMAs cap the CUDA-core design near the library's SGEMMs (67 TFLOP/s peak
+// against 4·B·M·D), so both products run on the tensor cores in split TF32
+// (`mma.sync.m16n8k8`, float32 accumulate; `mma_sync.cuh`): each float32
+// operand x = hi + lo, both TF32, and a product is lo·hi + hi·lo + hi·hi,
+// which keeps about float32's accuracy (the dropped lo·lo and lo's own
+// truncation are below 2^-21 relative); a bf16 bank is exact in TF32, so
+// its lo is zero and two products run. The tensor cores add partial sums
+// to their accumulator rounding toward zero: each 32-deep stage's products
+// go to a zeroed tile that is added to the running sum in float32, so the
+// long sums round to nearest as FMAs do. Bound at D = 640, B = 256,
+// M = 65,536 over a float32 bank: 3 x 4·B·M·D = 128.8 GFLOP at the TF32
+// peak (495 TFLOP/s), 0.26 ms, against 0.09 ms of bytes (the bank, Q and
+// the coefficient scratch written and read once). Two kernels, no logits
+// tile formed twice:
+//   (a) `bank_infonce_coef_tc_kernel`: per (64 query rows, 128 bank rows),
+//       the logits over the full depth through a three-stage `cp.async` ring
+//       of 32-deep chunks, then C = (exp(l - mx)/se - onehot)·g written as
+//       float32 into a (B, ceil(M/128)·128) scratch, zero past M;
+//   (b) `bank_infonce_dq_tc_kernel`: dQ = C · bank. B x D is only
+//       ceil(B/64) x ceil(D/128) output tiles (20 at B = 256, D = 640), so
+//       the bank axis is split across CTAs until the card holds two an SM;
+//       each split walks its bank rows in 32-row stages through the same
+//       kind of ring and writes its partial dQ to scratch, and the reduce
+//       sums the splits in index order.
+//   8 warps a CTA as 2 x 4 warp tiles of 32 x 32; fragment reads are free of
+//   bank conflicts by the row strides (kTcLdA, coef_ld_bank, kTcLdBankT).
+//   Below D = 256 (`tc_logits` off; no model's embedding is so narrow) the
+//   logits of (a) run as float32 FMAs (`bank_infonce_coef_kernel`): unit
+//   rows of few dimensions have logits up to 1/tau, where a product summed
+//   in any other order than the plain version's misses the tolerance.
+//
+// Backward over an int8 bank (CUDA cores): the coefficient tile (P -
+// onehot)·g·s goes to shared memory and the second product accumulates a
+// 64 x W tile of dQ in registers (4 x 32 per thread at W = 512), streaming
+// the same bank tile in chunks of 8 rows; a wider D is cut into equal
+// slices of W columns along a third grid axis, and each slice's CTA forms
+// the full-depth logits tile again for its columns of dQ (one more logits
+// product per extra slice). Each split writes its partial dQ to scratch and
+// the reduce sums the splits in index order.
 
 #include <cstdint>
 
@@ -67,6 +93,7 @@
 #include <cuda_bf16.h>
 #include <math_constants.h>
 
+#include "mma_sync.cuh"
 #include "split_merge.cuh"
 
 namespace {
@@ -429,6 +456,367 @@ bank_infonce_bwd_kernel(const float* __restrict__ q, const T* __restrict__ bank,
   }
 }
 
+// ===========================================================================
+// Backward over a dense bank: two tensor-core products in split TF32
+// ===========================================================================
+
+using namespace mma_sync;  // cp.async, TF32 split and mma.sync
+
+constexpr int kTcThreads = 256;  // 8 warps as 2 (rows) x 4 (columns) of 32 x 32
+constexpr int kTcRows = 64;      // query rows a CTA owns, both kernels
+constexpr int kTcCols = 128;     // bank rows (coefficient kernel) / dQ columns (dQ kernel)
+constexpr int kTcDepth = 32;     // depth of a ring stage
+constexpr int kTcStages = 3;     // ring stages: two in flight while one is multiplied
+constexpr int kTcLdA = kTcDepth + 4;   // Q and C tiles, float: lanes read 4g + t, no conflict
+constexpr int kTcLdBankT = kTcCols + 8;  // the dQ kernel's bank tile: lanes read 8t + g
+
+// the coefficient kernel's bank tile, rows of depth: float 4g + t, bf16
+// words 20g + t/2; rows stay multiples of 16 bytes for cp.async
+template <typename T>
+__host__ __device__ constexpr int coef_ld_bank() {
+  return sizeof(T) == 4 ? kTcDepth + 4 : kTcDepth + 8;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// One k8 step of a warp's 32 x 32 tile: part[mi][ni] (16 x 8 each) +=
+// A (rows 16mi.., 8 deep) * B (8 deep, columns 8ni..), from float values in
+// the m16n8k8 fragment layout (av[mi] = a0..a3, bv[ni] = b0, b1). Each
+// operand is split as x = hi + lo (TF32 each) and the product is
+// lo·hi + hi·lo + hi·hi, the small terms first; lo·lo (2^-22 relative) is
+// dropped. kExactB: B's values are exact in TF32 (a bf16 bank), so its lo is
+// zero and two products run.
+template <bool kExactB>
+__device__ __forceinline__ void mma_step_3xtf32(float (&part)[2][4][4], const float (&av)[2][4],
+                                                const float (&bv)[4][2]) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(av[mi][i], ah[mi][i], al[mi][i]);
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    uint32_t bh[2], bl[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (kExactB)
+        bh[j] = __float_as_uint(bv[ni][j]);
+      else
+        split_tf32(bv[ni][j], bh[j], bl[j]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      mma1688_tf32(part[mi][ni], al[mi], bh[0], bh[1]);
+      if (!kExactB) mma1688_tf32(part[mi][ni], ah[mi], bl[0], bl[1]);
+      mma1688_tf32(part[mi][ni], ah[mi], bh[0], bh[1]);
+    }
+  }
+}
+
+// The tensor cores add a product's partial sums to their accumulator
+// rounding toward zero, a bias that grows with the number of additions: each
+// 32-deep stage's products go to a zeroed tile (`part`), which is then added
+// to the running sum in float32, to nearest, as FMAs round.
+__device__ __forceinline__ void zero_tile(float (&part)[2][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[mi][ni][i] = 0.f;
+}
+
+__device__ __forceinline__ void add_tile(float (&acc)[2][4][4], const float (&part)[2][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
+}
+
+// The m16n8k8 A fragments of a warp's 32 rows [row0, row0 + 32), depths
+// [k8, k8 + 8), from a float tile of row stride kTcLdA: per 16 rows one
+// `ldmatrix` of four 8 x 4 tiles, rows 0-7 | 8-15 x depths 0-3 | 4-7.
+__device__ __forceinline__ void a_frags_tf32(float (&av)[2][4], const float* a, int row0, int k8,
+                                             int lane) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    uint32_t r[4];
+    ldsm_x4(r, a + (row0 + 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8) * kTcLdA + k8 +
+                   (lane >> 4) * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[mi][i] = __uint_as_float(r[i]);
+  }
+}
+
+template <typename T>
+constexpr size_t coef_smem_bytes() {
+  return size_t(kTcStages) *
+         (kTcRows * kTcLdA * sizeof(float) + kTcCols * coef_ld_bank<T>() * sizeof(T));
+}
+
+template <typename T>
+constexpr size_t dq_smem_bytes() {
+  return size_t(kTcStages) *
+         (kTcRows * kTcLdA * sizeof(float) + kTcDepth * kTcLdBankT * sizeof(T));
+}
+
+// (a) C[row][col] = (exp(l - mx)/se - onehot(label))·g for a 64-row tile of
+// Q and a 128-row tile of the bank, l = (Q·bankᵀ)/tau over the full depth
+// in a cp.async ring of 32-deep stages. C is (B, ldc) float32, ldc = the
+// bank's tiles x 128: the columns past M get 0, rows past B are not written.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ bank,
+                            const int* __restrict__ labels, const float* __restrict__ mx,
+                            const float* __restrict__ se, const float* __restrict__ gout,
+                            float tau, int B, int M, int D, int ldc, float* __restrict__ coef) {
+  constexpr int kLdB = coef_ld_bank<T>();
+  constexpr int kPer = 16 / sizeof(T);         // elements a 16-byte copy
+  constexpr int kCopiesB = kTcDepth / kPer;    // copies a bank row of a stage
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);                      // stages of (kTcRows, kTcLdA)
+  T* Bs = reinterpret_cast<T*>(As + kTcStages * kTcRows * kTcLdA);  // stages of (kTcCols, kLdB)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp >> 2), wn = 32 * (warp & 3);
+  const int row0 = blockIdx.x * kTcRows, col0 = blockIdx.y * kTcCols;
+  const int n_chunks = (D + kTcDepth - 1) / kTcDepth;
+
+  // depth chunk kc of the Q tile and the bank tile into its stage; rows past
+  // B or M and depths past D zero-filled
+  auto fetch = [&](int kc) {
+    if (kc < n_chunks) {
+      const int st = kc % kTcStages, k0 = kc * kTcDepth;
+      float* a = As + st * kTcRows * kTcLdA;
+      T* b = Bs + st * kTcCols * kLdB;
+      for (int i = tid; i < kTcRows * (kTcDepth / 4); i += kTcThreads) {
+        const int r = i / (kTcDepth / 4), c = (i % (kTcDepth / 4)) * 4;
+        const bool valid = row0 + r < B && k0 + c < D;
+        cp_async16(a + r * kTcLdA + c, q + (valid ? size_t(row0 + r) * D + k0 + c : 0), valid);
+      }
+      for (int i = tid; i < kTcCols * kCopiesB; i += kTcThreads) {
+        const int r = i / kCopiesB, c = (i % kCopiesB) * kPer;
+        const bool valid = col0 + r < M && k0 + c < D;
+        cp_async16(b + r * kLdB + c, bank + (valid ? size_t(col0 + r) * D + k0 + c : 0), valid);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
+  for (int kc = 0; kc < kTcStages - 1; ++kc) fetch(kc);
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // chunk kc is in; every warp is done with chunk kc - 1's stage
+    fetch(kc + kTcStages - 1);
+    const float* a = As + (kc % kTcStages) * kTcRows * kTcLdA;
+    const T* b = Bs + (kc % kTcStages) * kTcCols * kLdB;
+    float part[2][4][4];
+    zero_tile(part);
+#pragma unroll
+    for (int k8 = 0; k8 < kTcDepth; k8 += 8) {
+      float av[2][4], bv[4][2];
+      a_frags_tf32(av, a, wm, k8, lane);
+      if constexpr (sizeof(T) == 4) {  // B(k, n) = bank row n, depth k: n8 tiles in pairs
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4(r, reinterpret_cast<const float*>(b) +
+                         (wn + 16 * np + (lane & 7) + (lane >> 4) * 8) * kLdB + k8 +
+                         ((lane >> 3) & 1) * 4);
+          bv[2 * np][0] = __uint_as_float(r[0]);
+          bv[2 * np][1] = __uint_as_float(r[1]);
+          bv[2 * np + 1][0] = __uint_as_float(r[2]);
+          bv[2 * np + 1][1] = __uint_as_float(r[3]);
+        }
+      } else {  // bf16: one value a load, widened
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const T* br = b + (wn + 8 * ni + g) * kLdB + k8 + t;
+          bv[ni][0] = to_float(br[0]);
+          bv[ni][1] = to_float(br[4]);
+        }
+      }
+      mma_step_3xtf32<sizeof(T) == 2>(part, av, bv);
+    }
+    add_tile(acc, part);
+  }
+
+  // the coefficient, in the order of roundings of the CUDA-core kernel
+  const float gs = gout[0] / (float(B) * tau);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wm + 16 * mi + g + 8 * h;
+      if (row >= B) continue;
+      const float rmx = mx[row], rse = se[row];
+      const int lab = labels[row];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = col0 + wn + 8 * ni + 2 * t;
+        float c2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = col + e < M ? expf(acc[mi][ni][2 * h + e] / tau - rmx) / rse : 0.f;
+          if (col + e == lab) p -= 1.f;
+          c2[e] = p * gs;
+        }
+        *reinterpret_cast<float2*>(coef + size_t(row) * ldc + col) = make_float2(c2[0], c2[1]);
+      }
+    }
+}
+
+// (a') The same coefficient with the logits tile on the CUDA cores
+// (`logits_tile`: float32 FMAs in depth order), for shallow banks (the
+// wrapper's plan picks it below D = 256; no model's embedding is that
+// narrow). There the rows' logits are large (|l| ~ 1/(sqrt(D) tau)) and one
+// float32 rounding of l moves P by more than the checks allow against a
+// plain version whose logits come from a float32 product in depth order;
+// a product in any other order, split TF32 or exactly rounded, does not
+// hold them. The dQ product stays on the tensor cores.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+bank_infonce_coef_kernel(const float* __restrict__ q, const T* __restrict__ bank,
+                         const int* __restrict__ labels, const float* __restrict__ mx,
+                         const float* __restrict__ se, const float* __restrict__ gout,
+                         float tau, int B, int M, int D, int ldc, float* __restrict__ coef) {
+  __shared__ __align__(16) float As[kBK * kLdA];
+  __shared__ __align__(16) float Bs[kBK * kLdB];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.x * kTileR, col0 = blockIdx.y * kTileC;
+  float acc[4][8];
+  logits_tile<T>(q, bank, row0, col0, B, M, D, As, Bs, acc);
+  const float gs = gout[0] / (float(B) * tau);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = row0 + ty * 4 + a;
+    if (row >= B) continue;
+    const float rmx = mx[row], rse = se[row];
+    const int lab = labels[row];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // columns tile_col(tx, 4j .. 4j + 3)
+      const int col = col0 + tile_col(tx, 4 * j);
+      float c4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = col + e < M ? expf(acc[a][4 * j + e] / tau - rmx) / rse : 0.f;
+        if (col + e == lab) p -= 1.f;
+        c4[e] = p * gs;
+      }
+      *reinterpret_cast<float4*>(coef + size_t(row) * ldc + col) =
+          make_float4(c4[0], c4[1], c4[2], c4[3]);
+    }
+  }
+}
+
+// (b) dq_part[split] = C[:, split's bank rows] · bank[split's bank rows, :]
+// for a 64-row x 128-column tile of dQ: a split walks its bank tiles in
+// 32-row stages of C and of the bank through a cp.async ring.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+bank_infonce_dq_tc_kernel(const float* __restrict__ coef, const T* __restrict__ bank, int B,
+                          int M, int D, int ldc, int tiles_per_split,
+                          float* __restrict__ dq_part) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kCopiesB = kTcCols / kPer;  // copies a bank row of a stage
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);                      // stages of (kTcRows, kTcLdA)
+  T* Bs = reinterpret_cast<T*>(As + kTcStages * kTcRows * kTcLdA);  // (kTcDepth, kTcLdBankT)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp >> 2), wn = 32 * (warp & 3);
+  const int row0 = blockIdx.x * kTcRows, c0 = blockIdx.y * kTcCols;
+  const int n_tiles = (M + kTcCols - 1) / kTcCols;
+  const int tile_begin = blockIdx.z * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
+  const int m_begin = tile_begin * kTcCols;
+  const int n_chunks = (tile_end - tile_begin) * (kTcCols / kTcDepth);
+
+  // bank rows [m0, m0 + 32) of C's columns and of the bank into stage kc;
+  // rows past B or M and columns past D zero-filled
+  auto fetch = [&](int kc) {
+    if (kc < n_chunks) {
+      const int st = kc % kTcStages, m0 = m_begin + kc * kTcDepth;
+      float* a = As + st * kTcRows * kTcLdA;
+      T* b = Bs + st * kTcDepth * kTcLdBankT;
+      for (int i = tid; i < kTcRows * (kTcDepth / 4); i += kTcThreads) {
+        const int r = i / (kTcDepth / 4), c = (i % (kTcDepth / 4)) * 4;
+        const bool valid = row0 + r < B;
+        cp_async16(a + r * kTcLdA + c, coef + (valid ? size_t(row0 + r) * ldc + m0 + c : 0),
+                   valid);
+      }
+      for (int i = tid; i < kTcDepth * kCopiesB; i += kTcThreads) {
+        const int r = i / kCopiesB, c = (i % kCopiesB) * kPer;
+        const bool valid = m0 + r < M && c0 + c < D;
+        cp_async16(b + r * kTcLdBankT + c, bank + (valid ? size_t(m0 + r) * D + c0 + c : 0),
+                   valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
+  for (int kc = 0; kc < kTcStages - 1; ++kc) fetch(kc);
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();
+    fetch(kc + kTcStages - 1);
+    const float* a = As + (kc % kTcStages) * kTcRows * kTcLdA;
+    const T* b = Bs + (kc % kTcStages) * kTcDepth * kTcLdBankT;
+    float part[2][4][4];
+    zero_tile(part);
+    // float32 (B split too): two steps at a time, or ptxas spills at 128
+    // registers
+#pragma unroll (sizeof(T) == 4 ? 2 : 4)
+    for (int k8 = 0; k8 < kTcDepth; k8 += 8) {
+      float av[2][4], bv[4][2];
+      a_frags_tf32(av, a, wm, k8, lane);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {  // B(k, n) = bank row k, column n
+        const T* br = b + (k8 + t) * kTcLdBankT + wn + 8 * ni + g;
+        bv[ni][0] = to_float(br[0]);
+        bv[ni][1] = to_float(br[4 * kTcLdBankT]);
+      }
+      mma_step_3xtf32<sizeof(T) == 2>(part, av, bv);
+    }
+    add_tile(acc, part);
+  }
+
+  float* out = dq_part + size_t(blockIdx.z) * B * D;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wm + 16 * mi + g + 8 * h;
+      if (row >= B) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = c0 + wn + 8 * ni + 2 * t;
+        if (col < D)
+          *reinterpret_cast<float2*>(out + size_t(row) * D + col) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+}
+
 bool plan_ok(int B, int M, int D, int tiles_per_split, int n_splits) {
   if (B <= 0 || M <= 0 || D <= 0 || D % 16 != 0 || tiles_per_split <= 0 || n_splits <= 0)
     return false;
@@ -476,6 +864,55 @@ cudaError_t launch_bwd(const void* q, const void* bank, const void* scales, cons
   return split_merge::launch_dq_reduce<bank_infonce_split>(dq_part, n_splits, B, D, dq, st);
 }
 
+// The dense backward: coefficient kernel, dQ kernel over the splits of the
+// bank, then the reduce of the splits in index order.
+template <typename T>
+cudaError_t launch_bwd_tc(const void* q, const void* bank, const void* labels, const void* mx,
+                          const void* se, const void* gout, float tau, int B, int M, int D,
+                          int tiles_per_split, int n_splits, bool tc_logits, void* coef,
+                          void* dq_part, void* dq, cudaStream_t st) {
+  static_assert(kTcRows == kTileR && kTcCols == kTileC, "both coefficient kernels tile alike");
+  const int n_tiles = (M + kTcCols - 1) / kTcCols;
+  if (n_tiles > 65535) return cudaErrorInvalidValue;  // grid.y of the coefficient kernel
+  const int ldc = n_tiles * kTcCols;
+  auto coef_kernel = bank_infonce_coef_tc_kernel<T>;
+  auto dq_kernel = bank_infonce_dq_tc_kernel<T>;
+  // the kernels' shared-memory limit, set once (the first caller's result)
+  static const cudaError_t smem_err = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        coef_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(coef_smem_bytes<T>()));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(dq_smem_bytes<T>()));
+  }();
+  if (smem_err != cudaSuccess) return smem_err;
+  cudaError_t err;
+  const int row_tiles = (B + kTcRows - 1) / kTcRows;
+  // row tiles side by side, so the CTAs that read one bank tile run together
+  const dim3 coef_grid(row_tiles, n_tiles);
+  if (tc_logits)
+    coef_kernel<<<coef_grid, kTcThreads, coef_smem_bytes<T>(), st>>>(
+        static_cast<const float*>(q), static_cast<const T*>(bank),
+        static_cast<const int*>(labels), static_cast<const float*>(mx),
+        static_cast<const float*>(se), static_cast<const float*>(gout), tau, B, M, D, ldc,
+        static_cast<float*>(coef));
+  else
+    bank_infonce_coef_kernel<T><<<coef_grid, kThreads, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const T*>(bank),
+        static_cast<const int*>(labels), static_cast<const float*>(mx),
+        static_cast<const float*>(se), static_cast<const float*>(gout), tau, B, M, D, ldc,
+        static_cast<float*>(coef));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<dim3(row_tiles, (D + kTcCols - 1) / kTcCols, n_splits), kTcThreads,
+              dq_smem_bytes<T>(), st>>>(static_cast<const float*>(coef),
+                                        static_cast<const T*>(bank), B, M, D, ldc,
+                                        tiles_per_split, static_cast<float*>(dq_part));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return split_merge::launch_dq_reduce<bank_infonce_split>(dq_part, n_splits, B, D, dq, st);
+}
+
 }  // namespace
 
 // Every entry point returns a cudaError_t (0 on success); argument errors
@@ -483,10 +920,13 @@ cudaError_t launch_bwd(const void* q, const void* bank, const void* scales, cons
 // 1 = bfloat16. q, mx, se, pos, el, dq are float32; labels int32; part is
 // (n_splits, B) float4 scratch; out2 = (loss, dtau_unit); dq_part is
 // (n_splits, B, D) float32 scratch. The bank's splits are
-// [i*tiles_per_split, (i+1)*tiles_per_split) tiles of 128 rows. d_slice is
-// the backward's slice of dQ columns per CTA: a multiple of 64, at most 512;
-// ceil(D / d_slice) slices cover D. The q8 entry points take the int8 values
-// (M, D) and the float32 scales (M,).
+// [i*tiles_per_split, (i+1)*tiles_per_split) tiles of 128 rows; the dense
+// backward splits the dQ product so, takes coef, (B, ceil(M/128)*128)
+// float32 scratch for the coefficient, and tc_logits: 1 forms the logits on
+// the tensor cores, 0 on the CUDA cores. The q8 backward's d_slice is its
+// slice of dQ columns per CTA: a multiple of 64, at most 512; ceil(D /
+// d_slice) slices cover D. The q8 entry points take the int8 values (M, D)
+// and the float32 scales (M,).
 extern "C" int bank_infonce_fwd(const void* q, const void* bank, const void* labels, float tau,
                                 int B, int M, int D, int bank_dtype, int tiles_per_split,
                                 int n_splits, void* part, void* mx, void* se, void* pos,
@@ -505,16 +945,17 @@ extern "C" int bank_infonce_fwd(const void* q, const void* bank, const void* lab
 extern "C" int bank_infonce_bwd(const void* q, const void* bank, const void* labels,
                                 const void* mx, const void* se, const void* gout, float tau,
                                 int B, int M, int D, int bank_dtype, int tiles_per_split,
-                                int n_splits, int d_slice, void* dq_part, void* dq,
-                                void* stream) {
+                                int n_splits, int tc_logits, void* coef, void* dq_part,
+                                void* dq, void* stream) {
   if (!plan_ok(B, M, D, tiles_per_split, n_splits)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bank_dtype == 0)
-    return launch_bwd<float>(q, bank, nullptr, labels, mx, se, gout, tau, B, M, D,
-                             tiles_per_split, n_splits, d_slice, dq_part, dq, st);
+    return launch_bwd_tc<float>(q, bank, labels, mx, se, gout, tau, B, M, D, tiles_per_split,
+                                n_splits, tc_logits != 0, coef, dq_part, dq, st);
   if (bank_dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, bank, nullptr, labels, mx, se, gout, tau, B, M, D,
-                                     tiles_per_split, n_splits, d_slice, dq_part, dq, st);
+    return launch_bwd_tc<__nv_bfloat16>(q, bank, labels, mx, se, gout, tau, B, M, D,
+                                        tiles_per_split, n_splits, tc_logits != 0, coef,
+                                        dq_part, dq, st);
   return cudaErrorInvalidValue;
 }
 

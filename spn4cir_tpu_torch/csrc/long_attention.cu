@@ -29,7 +29,8 @@
 //
 // bfloat16: the tensor cores (`*_tc_kernel`s). `mma.sync.m16n8k16` (bf16 in,
 // float32 accumulate), operands from shared memory by `ldmatrix`, tiles
-// brought in by `cp.async`, all as inline PTX.
+// brought in by `cp.async`, all as inline PTX (`mma_sync.cuh`, shared with
+// short_attention.cu).
 //   - One block of 4 warps per (slice, tile of 64 query rows) in the forward
 //     and in the dQ kernel, per (slice, tile of 64 keys) in the dK/dV
 //     kernel; a warp owns 16 rows (keys), and the forward keeps its Q
@@ -91,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -528,7 +531,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 // bfloat16: the tensor cores
 // ===========================================================================
 
-using bf16 = __nv_bfloat16;
+using namespace mma_sync;  // bf16, cp.async, ldmatrix, mma.sync, fragments
 
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -537,82 +540,6 @@ constexpr int kTcKeys = 64;             // keys per ring stage (forward, dQ)
 constexpr int kTcQRows = 32;            // query rows per ring stage (dK/dV)
 constexpr int kStages = 2;              // ring stages: kStages - 1 tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// until at most n of this thread's copy groups are still in flight
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Fragment addresses for a warp's lane. A 16 x 16 A operand at (row0, col0)
-// of a row-major tile (rows = the product's rows): lane l points at row
-// l & 15, column (l >> 4) * 8. A pair of n8 B operands (16 keys x 16 depth)
-// from a tile whose rows are the product's columns (K for q k^T): key
-// (l & 7) + (l >> 4) * 8, depth ((l >> 3) & 1) * 8; registers b0, b1 of the
-// first n8 tile, then of the second. The same from a tile whose rows are
-// the product's depth (V for P v, by `.trans`): row (l & 7) + ((l >> 3) & 1)
-// * 8, column (l >> 4) * 8.
-template <int ld>
-__device__ __forceinline__ const bf16* a_frag(const bf16* t, int row0, int col0, int lane) {
-  return t + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8;
-}
-
-template <int ld>
-__device__ __forceinline__ const bf16* b_frag(const bf16* t, int key0, int col0, int lane) {
-  return t + (key0 + (lane & 7) + (lane >> 4) * 8) * ld + col0 + ((lane >> 3) & 1) * 8;
-}
-
-template <int ld>
-__device__ __forceinline__ const bf16* bt_frag(const bf16* t, int row0, int col0, int lane) {
-  return t + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + col0 + (lane >> 4) * 8;
-}
 
 // The block's 16-byte copies of rows of a slice's (S, D) operand into a tile
 // of row stride ld: this thread copies chunk c of rows r, r + step, ...

@@ -14,16 +14,46 @@
 // PyTorch version do); P*V accumulates in float32; the output is stored in
 // the input type.
 //
-// What bounds it: at the serving shapes (vision S=50, text S=77, D=64) each
-// slice is two tiny products (S x S x D) plus a softmax over S values, a few
-// hundred thousand FLOPs against ~25-40 KB of q/k/v. The TPU version packed
-// several heads into one block-diagonal GEMM to fill its matrix unit; here
-// the products run on the CUDA cores from shared memory, so the kernel is
-// bound by latency, shared-memory traffic per FMA and occupancy (slices in
-// flight), not by the tensor-core rate. One query row per warp would make
-// two shared-memory loads per FMA; the register blocking below cuts that.
+// What bounds the forward: at the serving and training shapes (vision S=50,
+// text S=77, D=64) each slice is two small products (S x S x D) around a
+// softmax over S values: at the flagship text shape (2560, 77, 64) causal,
+// 1.97 GFLOP against 100.9 MB of q, k, v, o in bfloat16, so the bytes bound
+// it (0.030 ms at 3.35 TB/s; the bf16 tensor-core rate would take 0.002).
+// The TPU version packed several heads into one block-diagonal product to
+// fill its matrix unit. Two routes here, chosen by the caller
+// (`short_forward_route` in ops/attention_kernels.py):
 //
-// Design:
+// bfloat16 with D % 8 == 0: the tensor cores (`short_attention_fwd_tc_kernel`),
+// built to keep the bytes moving:
+//   - a slice fits a block whole: its q, k, v are copied once into shared
+//     memory as bf16 by 16-byte `cp.async` (rows past S zero-filled by the
+//     copy's source size, the pad columns [D, kD) zeroed once), and
+//     `ldmatrix` (`.trans` for V) feeds `mma.sync.m16n8k16` (bf16 in,
+//     float32 accumulate; `mma_sync.cuh`, shared with long_attention.cu);
+//   - each block walks several slices (as many blocks as the card holds at
+//     once, slice blockIdx.x, + gridDim.x, ...) through a two-stage ring:
+//     the next slice's copies are in flight while this one is multiplied;
+//   - one warp per 16 query rows, the slice padded to kNS steps of 16 rows
+//     (4 for S <= 64, 5 for S <= 80, else 8) and the depth to kD = 64 or
+//     128: every loop count is a compile-time constant (run-time bounds
+//     turned unrolled steps into branches in #2 and #3);
+//   - the whole row of logits stays in registers (at most 16 n-tiles of 8),
+//     so the softmax is exact in one pass: row max and sum across the quad
+//     by `__shfl_xor_sync`, no online rescaling; P is normalised, rounded to
+//     bf16 in registers (the TPU kernel's `p.astype(q.dtype)`) and, since
+//     the accumulator layout of m16n8k16 is the A layout of the next
+//     product, multiplied by V directly;
+//   - causal slices skip the key steps wholly above a row group's diagonal
+//     in both products and mask the diagonal step; masked P entries are
+//     exact zeros.
+//   2 depths x 3 row counts x causal or not = 12 instantiations. Sources
+//   must start on a 16-byte boundary; the entry point refuses others.
+//
+// float32, and bfloat16 at any other D: the CUDA cores. TF32 would keep
+// about three decimal digits where the float32 check asks for 1e-5. The
+// products run from shared memory as float32 FMAs; one query row per warp
+// would make two shared-memory loads per FMA, so the register blocking
+// below cuts that:
 //   - one block per (slice, tile of kTileQ query rows); grid.x = slice so
 //     that BH can exceed 65535, grid.y = row tile;
 //   - K (transposed, (D, S)) and V ((S, D)) of the slice are staged in
@@ -41,12 +71,17 @@
 // Shared memory: D4*S + S*D + kWarps*kRows*(D4 + S) floats, D4 = D rounded
 // up to 4 (S*D too, for alignment); 160 KB at S=D=128, so sizes above 48 KB
 // are enabled with cudaFuncSetAttribute.
+//
+// Every sum has a fixed order and no atomics are used: two launches give
+// the same bits, on either route.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -271,6 +306,221 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
                                                static_cast<const T*>(v), static_cast<T*>(o), s, d,
                                                vec);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Forward, bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using namespace mma_sync;  // bf16, cp.async, ldmatrix, mma.sync, fragments
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// kNS: 16-row steps a slice is padded to, queries and keys alike (4 for
+// S <= 64, 5 for S <= 80, else 8); one warp per step of query rows.
+template <int kD, int kNS>
+constexpr size_t tc_smem_bytes() {
+  return size_t(2) * 3 * 16 * kNS * (kD + 8) * sizeof(bf16);  // 2 stages of q, k, v
+}
+
+template <int kD, int kNS, bool kCausal>
+__global__ void __launch_bounds__(32 * kNS)
+short_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, bf16* __restrict__ o, int bh, int s,
+                              int d) {
+  constexpr int kS = 16 * kNS, ld = kD + 8, kThreads = 32 * kNS;
+  constexpr int kNK = kD / 16, kNO = kD / 8, kTile = kS * ld;
+  extern __shared__ uint4 smem_tc[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_tc);  // 2 stages of (q, k, v), each (kS, ld)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;  // the warp's 16 query rows
+  const int r0 = row0 + g, r1 = r0 + 8;
+  const bool active = row0 < s;
+
+  // the pad columns [d, kD) of every row of both stages, once: cp.async
+  // never writes there
+  const int pad_chunks = (kD - d) / 8;
+  for (int idx = threadIdx.x; idx < 2 * 3 * kS * pad_chunks; idx += kThreads) {
+    const int r = idx / pad_chunks, c = d + (idx - r * pad_chunks) * 8;
+    *reinterpret_cast<uint4*>(ring + r * ld + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // one slice's q, k, v rows [0, kS) into stage st, 16 bytes a copy; rows
+  // past s zero-filled by the copy's source size
+  const int row_chunks = d / 8;
+  auto fetch = [&](int slice, int st) {
+    if (slice < bh) {
+      const size_t base = size_t(slice) * s * d;
+      bf16* dst = ring + st * 3 * kTile;
+      for (int idx = threadIdx.x; idx < kS * row_chunks; idx += kThreads) {
+        const int r = idx / row_chunks, c = (idx - r * row_chunks) * 8;
+        const bool valid = r < s;
+        const size_t src = base + size_t(valid ? r : 0) * d + c;
+        cp_async16(dst + r * ld + c, q + src, valid);
+        cp_async16(dst + kTile + r * ld + c, k + src, valid);
+        cp_async16(dst + 2 * kTile + r * ld + c, v + src, valid);
+      }
+    }
+    cp_async_commit();  // an empty group past the last slice keeps the count
+  };
+
+  fetch(blockIdx.x, 0);
+  int st = 0;
+  for (int slice = blockIdx.x; slice < bh; slice += gridDim.x, st ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this slice is in; every warp is done with the other stage
+    fetch(slice + gridDim.x, st ^ 1);
+    if (!active) continue;
+    const bf16* qs = ring + st * 3 * kTile;
+    const bf16* ks = qs + kTile;
+    const bf16* vs = ks + kTile;
+
+    // logits of the warp's rows: every key step, or (causal) the steps up to
+    // and including the diagonal one, p <= warp
+    float sc[2 * kNS][4];
+#pragma unroll
+    for (int n = 0; n < 2 * kNS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kNK; ++kk) {
+      uint32_t qf[4];
+      ldsm_x4(qf, a_frag<ld>(qs, row0, 16 * kk, lane));
+#pragma unroll
+      for (int p = 0; p < kNS; ++p) {
+        if (kCausal && p > warp) break;
+        uint32_t b[4];
+        ldsm_x4(b, b_frag<ld>(ks, 16 * p, 16 * kk, lane));
+        mma16816(sc[2 * p], qf, b[0], b[1]);
+        mma16816(sc[2 * p + 1], qf, b[2], b[3]);
+      }
+    }
+
+    // the whole row is in registers: an exact softmax in one pass. Keys past
+    // s and (causal) past the row get probability 0; every row keeps key 0.
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < 2 * kNS; ++n) {
+      if (kCausal && n / 2 > warp) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * n + 2 * t + e;
+        if (j >= s || (kCausal && j > r0)) sc[n][e] = -CUDART_INF_F;
+        if (j >= s || (kCausal && j > r1)) sc[n][e + 2] = -CUDART_INF_F;
+      }
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a quad share a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float ml0 = mx0 * kLog2e, ml1 = mx1 * kLog2e;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2 * kNS; ++n) {
+      if (kCausal && n / 2 > warp) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = exp2f(fmaf(sc[n][i], kLog2e, i < 2 ? -ml0 : -ml1));
+      sum0 += sc[n][0] + sc[n][1];
+      sum1 += sc[n][2] + sc[n][3];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    }
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    // P normalised, then rounded to bf16 in registers: the A fragments of P V
+    uint32_t pf[kNS][4];
+#pragma unroll
+    for (int p = 0; p < kNS; ++p) {
+      if (kCausal && p > warp) break;
+      pf[p][0] = pack_bf16(sc[2 * p][0] * inv0, sc[2 * p][1] * inv0);
+      pf[p][1] = pack_bf16(sc[2 * p][2] * inv1, sc[2 * p][3] * inv1);
+      pf[p][2] = pack_bf16(sc[2 * p + 1][0] * inv0, sc[2 * p + 1][1] * inv0);
+      pf[p][3] = pack_bf16(sc[2 * p + 1][2] * inv1, sc[2 * p + 1][3] * inv1);
+    }
+
+    float acc[kNO][4];
+#pragma unroll
+    for (int n = 0; n < kNO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+    for (int p = 0; p < kNS; ++p) {
+      if (kCausal && p > warp) break;
+#pragma unroll
+      for (int np = 0; np < kNO / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, bt_frag<ld>(vs, 16 * p, 16 * np, lane));
+        mma16816(acc[2 * np], pf[p], b[0], b[1]);
+        mma16816(acc[2 * np + 1], pf[p], b[2], b[3]);
+      }
+    }
+
+    bf16* out = o + size_t(slice) * s * d;
+#pragma unroll
+    for (int n = 0; n < kNO; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col >= d) break;
+      if (r0 < s)
+        *reinterpret_cast<__nv_bfloat162*>(out + size_t(r0) * d + col) =
+            __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+      if (r1 < s)
+        *reinterpret_cast<__nv_bfloat162*>(out + size_t(r1) * d + col) =
+            __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    }
+  }
+}
+
+// A grid of as many blocks as the card holds at once (at most one per
+// slice); each block walks its slices blockIdx.x, + gridDim.x, ...
+template <int kD, int kNS, bool kCausal>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                      int d, cudaStream_t stream) {
+  constexpr size_t bytes = tc_smem_bytes<kD, kNS>();
+  constexpr int threads = 32 * kNS;
+  auto kernel = short_attention_fwd_tc_kernel<kD, kNS, kCausal>;
+  // the shared-memory limit and the blocks the card holds at once, found
+  // once (on the first caller's device)
+  struct Resident {
+    cudaError_t err;
+    int blocks;
+  };
+  static const Resident resident = [&] {
+    Resident r{cudaSuccess, 0};
+    int device = 0, sms = 0, per_sm = 0;
+    if (bytes > 48 * 1024 &&
+        (r.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      int(bytes))) != cudaSuccess)
+      return r;
+    if ((r.err = cudaGetDevice(&device)) != cudaSuccess) return r;
+    if ((r.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+        cudaSuccess)
+      return r;
+    r.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+    r.blocks = sms * (per_sm > 0 ? per_sm : 1);
+    return r;
+  }();
+  if (resident.err != cudaSuccess) return resident.err;
+  const int blocks = bh < resident.blocks ? bh : resident.blocks;
+  kernel<<<blocks, threads, bytes, stream>>>(static_cast<const bf16*>(q),
+                                             static_cast<const bf16*>(k),
+                                             static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                                             bh, s, d);
+  return cudaGetLastError();
+}
+
+template <bool kCausal>
+cudaError_t launch_tc_depth(const void* q, const void* k, const void* v, void* o, int bh,
+                            int s, int d, cudaStream_t stream) {
+  if (d <= 64) {
+    if (s <= 64) return launch_tc<64, 4, kCausal>(q, k, v, o, bh, s, d, stream);
+    if (s <= 80) return launch_tc<64, 5, kCausal>(q, k, v, o, bh, s, d, stream);
+    return launch_tc<64, 8, kCausal>(q, k, v, o, bh, s, d, stream);
+  }
+  if (s <= 64) return launch_tc<128, 4, kCausal>(q, k, v, o, bh, s, d, stream);
+  if (s <= 80) return launch_tc<128, 5, kCausal>(q, k, v, o, bh, s, d, stream);
+  return launch_tc<128, 8, kCausal>(q, k, v, o, bh, s, d, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,13 +769,22 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
-// argument errors return cudaErrorInvalidValue without launching.
+// dtype: 0 = float32, 1 = bfloat16. tensor_cores: 1 runs a bfloat16
+// input on the tensor cores (D % 8 == 0 and q, k, v on a 16-byte boundary,
+// else cudaErrorInvalidValue), 0 on the CUDA cores. Returns a cudaError_t (0
+// on success); argument errors return cudaErrorInvalidValue without
+// launching.
 extern "C" int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int bh, int s, int d, int dtype, int causal,
-                                   void* stream) {
+                                   int tensor_cores, void* stream) {
   if (bh <= 0 || s <= 0 || s > kMaxS || d <= 0 || d > kMaxD) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (dtype != 1 || d % 8 != 0 || !(aligned16(q) && aligned16(k) && aligned16(v)))
+      return cudaErrorInvalidValue;
+    return causal ? launch_tc_depth<true>(q, k, v, o, bh, s, d, st)
+                  : launch_tc_depth<false>(q, k, v, o, bh, s, d, st);
+  }
   if (dtype == 0) {
     return causal ? launch<float, true>(q, k, v, o, bh, s, d, st)
                   : launch<float, false>(q, k, v, o, bh, s, d, st);

@@ -32,7 +32,11 @@ runs on the tensor cores and needs its tensors to start on a 16-byte
 boundary (as every fresh allocation does), float32 on the CUDA cores.
 
 `attention_route` is the one place that decides which of the three routes
-(short kernel, long kernel, plain tensor code) a self-attention takes.
+(short kernel, long kernel, plain tensor code) a self-attention takes, and
+`short_forward_route` which of the short forward's two kernels a CUDA
+input launches: bfloat16 with head_dim % 8 == 0 runs on the tensor cores
+and needs its tensors to start on a 16-byte boundary; float32, and
+bfloat16 at any other head_dim, run on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -121,6 +125,24 @@ def attention_route(s: int, d: int, causal: bool, masked: bool,
     return "short" if kernel_takes(s, d) else "long"
 
 
+def short_forward_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """Which kernel `short_attention` launches for CUDA (BH, S, D) inputs of
+    `dtype`: "tensor_cores" for bfloat16 with D % 8 == 0 (`aligned`: q, k
+    and v start on a 16-byte boundary, as `cp.async` needs; ValueError
+    otherwise), "cuda_cores" for float32 (TF32 would not hold the float32
+    tolerance) and for bfloat16 with D % 8 != 0."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"short_attention takes float32 or bfloat16; got "
+                         f"{dtype}")
+    if dtype != torch.bfloat16 or d % 8:
+        return "cuda_cores"
+    if not aligned:
+        raise ValueError("short_attention's bfloat16 tensor-core kernel "
+                         "takes tensors whose data starts on a 16-byte "
+                         "boundary")
+    return "tensor_cores"
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from spn4cir_tpu_torch.ops.cuda_build import build_library
@@ -129,7 +151,7 @@ def _library() -> ctypes.CDLL:
                                         ["short_attention.cu"])))
     fn = lib.short_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn = lib.short_attention_bwd
     fn.restype = ctypes.c_int
@@ -162,15 +184,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_fwd(q, k, v, causal: bool) -> torch.Tensor:
+    bh, s, d = q.shape
+    route = short_forward_route(
+        q.dtype, d, not any(t.data_ptr() % 16 for t in (q, k, v)))
     lib = _library()
     out = torch.empty_like(q)
-    bh, s, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.short_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       out.data_ptr(), bh, s, d,
                                       _DTYPE_CODES[q.dtype], int(causal),
-                                      stream)
+                                      int(route == "tensor_cores"), stream)
     if err != 0:
         raise RuntimeError(f"short_attention launch failed with CUDA error "
                            f"{err} (BH={bh}, S={s}, D={d}, {q.dtype})")

@@ -29,7 +29,7 @@ from spn4cir_tpu_torch.ops.attention_kernels import (
     long_attention, long_attention_bwd, long_attention_bwd_reference,
     long_attention_fwd, long_attention_reference, short_attention,
     short_attention_bwd, short_attention_bwd_reference,
-    short_attention_reference)
+    short_attention_reference, short_forward_route)
 
 
 @pytest.fixture
@@ -171,6 +171,35 @@ def test_bank_infonce_kernels_match_plain_versions_on_card(cuda_device, b, m,
     loss2, _, _ = bk.bank_infonce_fwd(q, bank, labels, tau)
     dq2 = bk.bank_infonce_bwd(q, bank, labels, tau, stats[0], stats[1], gout)
     assert torch.equal(loss, loss2) and torch.equal(dq, dq2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,d", [(33, 1000, 240), (33, 1000, 256),
+                                   (256, 4097, 768), (5, 300, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_bank_backward_takes_either_logits_route_on_card(cuda_device, b,
+                                                               m, d, dtype):
+    """The dense backward forms its logits in split TF32 on the tensor cores
+    from D = 256 on and in float32 FMAs below; the dQ product runs in split
+    TF32 at every D. Either way dQ holds the bank tolerance against the
+    plain version, the wrapper counts one launch, and a second call gives
+    the same bits."""
+    q, bank, labels = _bank_case(cuda_device, b, m, d, dtype, seed=3)
+    tau = 0.02
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert bk.dense_bwd_plan(b, m, d, sms).tc_logits == (d >= 256)
+    stats = bk.bank_infonce_stats_reference(q, bank, labels, tau)
+    gout = torch.tensor(1.5, device=cuda_device)
+    before = bk.bank_infonce_bwd.launches
+    dq = bk.bank_infonce_bwd(q, bank, labels, tau, stats[0], stats[1], gout)
+    dq2 = bk.bank_infonce_bwd(q, bank, labels, tau, stats[0], stats[1], gout)
+    torch.cuda.synchronize()
+    assert bk.bank_infonce_bwd.launches == before + 2
+    assert torch.equal(dq, dq2)
+    torch.testing.assert_close(
+        dq, bk.bank_infonce_bwd_reference(q, bank, labels, tau, stats[0],
+                                          stats[1], gout),
+        atol=1e-6, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -371,6 +400,78 @@ def test_long_attention_takes_every_head_dim_on_card(cuda_device, dtype, tol,
         for a, b in zip(got, long_attention_bwd_reference(q, k, v, do)):
             torch.testing.assert_close(a.float(), b.float(), atol=btol,
                                        rtol=btol, msg=f"D={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 50, 77, 128])
+@pytest.mark.parametrize("d", [8, 64, 72, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_short_attention_tensor_core_edges_on_card(cuda_device, s, d, causal):
+    """bf16 short attention on the tensor cores at the edges of its padding
+    (slices padded to 64, 80 or 128 rows, head dims to 64 or 128), within
+    2e-2 of the plain version; two launches give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(s * 1000 + d)
+    q, k, v = (torch.randn(5, s, d, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q = q * d ** -0.5
+    assert short_forward_route(q.dtype, d, True) == "tensor_cores"
+    with torch.inference_mode():
+        got = short_attention(q, k, v, causal)
+        again = short_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        want = short_attention_reference(q, k, v, causal)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,causal", [(1001, 77, True), (1001, 50, False),
+                                         (1, 77, True), (397, 128, True)])
+def test_short_attention_walks_more_slices_than_blocks_on_card(cuda_device, bh,
+                                                               s, causal):
+    """The tensor-core forward launches at most as many blocks as the card
+    holds at once, each walking its slices through a two-stage ring: a BH
+    past that, and a single slice, come out as the plain version does."""
+    g = torch.Generator(device=cuda_device).manual_seed(bh)
+    q, k, v = (torch.randn(bh, s, 64, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q = q * 0.125
+    before = short_attention.launches
+    with torch.inference_mode():
+        got = short_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        want = short_attention_reference(q, k, v, causal)
+    assert short_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_short_attention_bf16_refuses_a_misaligned_tensor(cuda_device):
+    """The tensor-core forward copies with 16-byte cp.async: a bf16 tensor
+    whose data starts off a 16-byte boundary is refused, never sent to the
+    plain version; at a head dim that is no multiple of 8 the CUDA-core
+    kernel takes it."""
+    for d, refused in ((64, True), (12, False)):
+        flat = torch.randn(3 * 77 * d + 1, device=cuda_device).to(
+            torch.bfloat16)
+        odd = flat[1:].view(3, 77, d)
+        ok = torch.randn(3, 77, d, device=cuda_device).to(torch.bfloat16)
+        assert odd.data_ptr() % 16
+        before = short_attention.launches
+        if refused:
+            with pytest.raises(ValueError, match="16-byte"):
+                short_attention(odd, ok, ok, True)
+            assert short_attention.launches == before
+        else:
+            with torch.inference_mode():
+                got = short_attention(odd, ok, ok, True)
+            assert short_attention.launches == before + 1
+            torch.testing.assert_close(
+                got.float(), short_attention_reference(odd, ok, ok,
+                                                       True).float(),
+                atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,63 @@
+"""Which kernel the short-sequence attention forward launches on the card.
+
+`short_forward_route` is the one place that decides it, from the dtype, the
+head dim and the tensors' alignment: bfloat16 with head_dim % 8 == 0 runs
+on the tensor cores (`short_attention_fwd_tc_kernel` in
+csrc/short_attention.cu, which copies rows with 16-byte `cp.async` and so
+refuses a tensor off a 16-byte boundary); float32 (TF32 would not hold the
+float32 tolerance of 1e-5) and bfloat16 at any other head_dim run on the
+CUDA cores. The kernels themselves run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py); on the CPU the wrapper takes the
+plain version whatever the route would be.
+"""
+
+import pytest
+import torch
+
+from spn4cir_tpu_torch.ops import attention_kernels as ak
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 64, 72, 88, 128])
+def test_bf16_at_a_multiple_of_8_runs_on_the_tensor_cores(d):
+    assert ak.short_forward_route(torch.bfloat16, d, True) == "tensor_cores"
+
+
+@pytest.mark.parametrize("d", [1, 12, 20, 63, 100, 127])
+def test_bf16_at_other_head_dims_runs_on_the_cuda_cores(d):
+    assert ak.short_forward_route(torch.bfloat16, d, True) == "cuda_cores"
+    # the CUDA-core kernel loads scalars where a row is off 16 bytes
+    assert ak.short_forward_route(torch.bfloat16, d, False) == "cuda_cores"
+
+
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 12])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_float32_always_runs_on_the_cuda_cores(d, aligned):
+    assert ak.short_forward_route(torch.float32, d, aligned) == "cuda_cores"
+
+
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_misaligned_bf16_for_the_tensor_cores_is_refused(d):
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ak.short_forward_route(torch.bfloat16, d, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_other_dtypes_have_no_route(dtype):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ak.short_forward_route(dtype, 64, True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cpu_tensors_off_16_bytes_take_the_plain_version(causal, rng):
+    """The alignment rule is the tensor-core kernel's: a bf16 CPU tensor
+    whose data starts off a 16-byte boundary still runs the plain version,
+    and counts no launch."""
+    base = torch.from_numpy(rng.randn(3 * 17 * 64 + 1).astype("float32")).to(
+        torch.bfloat16)
+    q, k, v = (base[1:].reshape(3, 17, 64) for _ in range(3))
+    assert q.data_ptr() % 16
+    before = ak.short_attention.launches
+    got = ak.short_attention(q, k, v, causal)
+    assert ak.short_attention.launches == before
+    torch.testing.assert_close(got, ak.short_attention_reference(q, k, v,
+                                                                 causal))
