@@ -7,9 +7,10 @@ Each turn is a process of its own, run from that checkout with its own
 `chip_smoke.py`: the ViT-B/32 bf16 gallery encode (one resident batch of
 256, median of per-call CUDA-event timings, as phase 4 of the smoke times
 it), then phase 7 of the smoke, `train_epoch` at the recipe's 65,536-row
-bank for ViT-B/32 over a bf16 bank and RN50x4 over a float32 bank (ms/step
-without the profiler, then a profiler window: device busy, idle share,
-device ms per step by kernel group). Every line is tagged A1, B1, B2 or A2.
+bank for ViT-B/32 over a bf16 bank and RN50x4 over a float32 and an int8
+bank (ms/step without the profiler, then a profiler window: device busy,
+idle share, device ms per step by kernel group; the int8 bank's backward
+runs only in the last). Every line is tagged A1, B1, B2 or A2.
 Exits non-zero, printing nothing measured, where no GPU is found.
 """
 
@@ -59,7 +60,8 @@ def one_turn(root: str, tag: str) -> None:
     torch.cuda.empty_cache()
     cs.drive_training_recipe(ak, bk, tmp, card, "ViT-B/32", ("bfloat16",))
     torch.cuda.empty_cache()
-    cs.drive_training_recipe(ak, bk, tmp, card, cs.FLAGSHIP, ("float32",))
+    cs.drive_training_recipe(ak, bk, tmp, card, cs.FLAGSHIP,
+                             ("float32", "int8"))
 
 
 def main() -> int:

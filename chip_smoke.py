@@ -9,18 +9,20 @@ non-zero exit):
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
      per source, started together; the tensor-core kernels (bf16 long and
-     short attention, the split-TF32 bank backward) must hold HMMA
-     instructions and spill nothing;
+     short attention, forward and backward, the split-TF32 bank backward
+     over float32, bf16 and int8 banks) must hold HMMA instructions and
+     spill nothing;
   3. kernels: each of the twelve kernels against its plain PyTorch version
      on the card at the shapes of the serving, training, flagship, blip and
      blip2 paths (short attention in bfloat16 and float32 at the ViT-B/32
      towers' slices and at RN50x4's 10-head text tower; the bank InfoNCE
      over float32, bfloat16 and int8 banks at D = 512, 640 and 768, with a
-     ragged case each; the short attention also at the edges of its
-     tensor-core kernel, S = 1..128 x D = 8..128, causal and not, and at a
-     BH past the blocks the card holds; #1 and the bank kernels timed per
-     call and as the device time of back-to-back launches, with TFLOP/s and
-     the share of the bound; the long attention, forward and backward, at
+     ragged case each and a shallow one; the short attention, forward and
+     backward, also at the edges of its tensor-core kernels, S = 1..128 x
+     D = 8..128, causal and not, and at a BH past the blocks the card
+     holds; #1, #2 and the bank kernels timed per call and as the device
+     time of back-to-back launches, with TFLOP/s and the share of the
+     bound; the long attention, forward and backward, at
      BLIP's
      (1536, 577, 64) and (384, 577, 64), at EVA-g's extraction slice
      (512, 257, 88) and (256, 257, 88), at ViT-L/14's and ViT-B/16's
@@ -407,10 +409,10 @@ def build_kernels(cuda_build) -> None:
 
 # the tensor-core instantiations (`*_tc_kernel`) each library must hold:
 # long_attention.cu's bf16 forward, dQ and dK/dV at the padded depths 64,
-# 96, 128; short_attention.cu's bf16 forward at the padded depths 64, 128 x
-# 64, 80, 128 rows x causal or not; bank_infonce.cu's split-TF32 coefficient
-# and dQ kernels over float32 and bf16 banks
-TC_KERNELS = {"long_attention": 9, "short_attention": 12, "bank_infonce": 4}
+# 96, 128; short_attention.cu's bf16 forward and backward, each at the
+# padded depths 64, 128 x 64, 80, 128 rows x causal or not; bank_infonce.cu's
+# split-TF32 coefficient and dQ kernels over float32, bf16 and int8 banks
+TC_KERNELS = {"long_attention": 9, "short_attention": 24, "bank_infonce": 6}
 
 
 def check_tensor_cores(cuda_build, lib) -> None:
@@ -451,12 +453,13 @@ def sdpa(q, k, v, causal):
         q[None], k[None], v[None], is_causal=causal, scale=1.0)[0]
 
 
-def short_rate(rec, shape) -> None:
-    """Achieved TFLOP/s of the two counted products and the share of the
-    bound, from the device time of back-to-back launches."""
+def short_rate(rec, shape, n_products: int = 2) -> None:
+    """Achieved TFLOP/s of the counted products (2 forward, 5 backward) and
+    the share of the bound, from the device time of back-to-back
+    launches."""
     bh, s, d = shape["bh"], shape["s"], shape["d"]
     pairs = s * (s + 1) // 2 if shape["causal"] else s * s
-    rec["tflops"] = 2 * 2 * pairs * d * bh / rec["device_ms"] / 1e9
+    rec["tflops"] = n_products * 2 * pairs * d * bh / rec["device_ms"] / 1e9
     rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
 
 
@@ -487,7 +490,7 @@ def check_attention_fwd(ak, device, card):
         b_ms, b_by = attention_bound(shape, dtype, 4, 2)
         rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
                    causal=causal, dtype=dtype_name(dtype), rtol=tol, atol=tol,
-                   route=ak.short_forward_route(dtype, d, True),
+                   route=ak.short_route(dtype, d, True),
                    max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
         records.append(rec)
         return rec, (q, k, v)
@@ -546,56 +549,98 @@ def check_attention_fwd(ak, device, card):
 
 def check_attention_bwd(ak, device, card):
     """Phase 3b: short_attention_bwd against the plain backward and against
-    float32 autograd through the plain forward."""
+    float32 autograd through the plain forward, two launches giving the same
+    bits; timed at the main paths' shapes (per call, and as the device time
+    of back-to-back launches, beside SDPA's backward read both ways); then,
+    untimed, the edges of the bf16 tensor-core kernel (SHORT_EDGE_*) and BH
+    past the resident blocks (SHORT_RAGGED). Returns one record per
+    comparison."""
     g = torch.Generator(device=device).manual_seed(1)
     records = []
+
+    def compare(shape, dtype, tol):
+        bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
+        q, k, v, do = (torch.randn(bh, s, d, generator=g, device=device,
+                                   dtype=dtype) for _ in range(4))
+        q = q * d ** -0.5
+        got = ak.short_attention_bwd(q, k, v, do, causal)
+        again = ak.short_attention_bwd(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        want = ak.short_attention_bwd_reference(q, k, v, do, causal)
+        # autograd through the plain forward, in float32 on the same
+        # values: in bf16 it would round dP = dO·vᵀ (values up to ~40) to
+        # bf16 on the way back, which alone moves 2 of 12.6 million
+        # elements of the 10-head shape by 0.067
+        exact = [t.to(torch.float32, copy=True).requires_grad_()
+                 for t in (q, k, v)]
+        auto = torch.autograd.grad(
+            ak.short_attention_reference(*exact, causal), exact, do.float())
+        del exact
+        err = 0.0
+        for a, a2, b, c in zip(got, again, want, auto):
+            assert torch.equal(a, a2), "not repeatable"
+            torch.testing.assert_close(a.float(), b.float(), atol=tol,
+                                       rtol=tol)
+            torch.testing.assert_close(a.float(), c.float(), atol=tol,
+                                       rtol=tol)
+            err = max(err, (a.float() - b.float()).abs().max().item())
+        b_ms, b_by = attention_bound(shape, dtype, 7, 5)
+        rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
+                   causal=causal, dtype=dtype_name(dtype), rtol=tol, atol=tol,
+                   route=ak.short_route(dtype, d, True), max_abs_err=err,
+                   bound_ms=b_ms, bound_by=b_by)
+        records.append(rec)
+        return rec, (q, k, v, do)
+
     for shape in (TRAIN_TEXT, VISION, FLAGSHIP_TEXT):
         for dtype, tol in ((torch.bfloat16, BWD_BF16_TOL),
                            (torch.float32, BWD_F32_TOL)):
-            bh, s, d, causal = shape["bh"], shape["s"], shape["d"], shape["causal"]
-            q, k, v, do = (torch.randn(bh, s, d, generator=g, device=device,
-                                       dtype=dtype) for _ in range(4))
-            q = q * d ** -0.5
-            got = ak.short_attention_bwd(q, k, v, do, causal)
-            torch.cuda.synchronize()
-            want = ak.short_attention_bwd_reference(q, k, v, do, causal)
-            # autograd through the plain forward, in float32 on the same
-            # values: in bf16 it would round dP = dO·vᵀ (values up to ~40)
-            # to bf16 on the way back, which alone moves 2 of 12.6 million
-            # elements of the 10-head shape by 0.067
-            exact = [t.to(torch.float32, copy=True).requires_grad_()
-                     for t in (q, k, v)]
-            auto = torch.autograd.grad(
-                ak.short_attention_reference(*exact, causal), exact,
-                do.float())
-            del exact
-            err = 0.0
-            for a, b, c in zip(got, want, auto):
-                torch.testing.assert_close(a.float(), b.float(), atol=tol,
-                                           rtol=tol)
-                torch.testing.assert_close(a.float(), c.float(), atol=tol,
-                                           rtol=tol)
-                err = max(err, (a.float() - b.float()).abs().max().item())
-            ms = median_ms(lambda: ak.short_attention_bwd(q, k, v, do, causal))
-            plain_ms = median_ms(
+            rec, (q, k, v, do) = compare(shape, dtype, tol)
+            causal = shape["causal"]
+            rec["ms"] = median_ms(
+                lambda: ak.short_attention_bwd(q, k, v, do, causal))
+            rec["device_ms"] = device_ms(
+                lambda: ak.short_attention_bwd(q, k, v, do, causal))
+            rec["plain_ms"] = median_ms(
                 lambda: ak.short_attention_bwd_reference(q, k, v, do, causal))
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             lib_out = sdpa(*leaves, causal)
-            library_ms = median_ms(lambda: torch.autograd.grad(
+            rec["library_ms"] = median_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, do, retain_graph=True))
-            b_ms, b_by = attention_bound(shape, dtype, 7, 5)
-            rec = dict(shape=f"({bh}, {s}, {d})", tower=shape["name"],
-                       causal=causal, dtype=dtype_name(dtype), rtol=tol,
-                       atol=tol,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-            records.append(rec)
+            rec["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True))
+            del leaves, lib_out
+            short_rate(rec, shape, 5)
             phase(f"kernel short_attention_bwd {rec['tower']} {rec['shape']} "
-                  f"causal={causal} {rec['dtype']}: max_abs_err={err:.3e} vs "
-                  f"plain backward, also within atol=rtol={tol} of float32 "
-                  f"autograd through the plain forward; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, library (SDPA backward) "
-                  f"{library_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} [{card}]")
+                  f"causal={causal} {rec['dtype']} ({rec['route']}): "
+                  f"max_abs_err={rec['max_abs_err']:.3e} vs plain backward, "
+                  f"also within atol=rtol={tol} of float32 autograd through "
+                  f"the plain forward, repeatable; kernel {rec['ms']:.4f} ms "
+                  f"a call, {rec['device_ms']:.4f} ms of device time back to "
+                  f"back ({rec['tflops']:.1f} TFLOP/s, "
+                  f"{100 * rec['bound_share']:.1f}% of the bound), plain "
+                  f"{rec['plain_ms']:.4f} ms, library (SDPA backward) "
+                  f"{rec['library_ms']:.4f} ms a call, "
+                  f"{rec['library_device_ms']:.4f} back to back, bound "
+                  f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} [{card}]")
+    worst = {}
+    edges = [dict(name=f"edge-s{s}-d{d}", bh=SHORT_EDGE_BH, s=s, d=d,
+                  causal=causal)
+             for s in SHORT_EDGE_S for d in SHORT_EDGE_D
+             for causal in (False, True)]
+    for shape in edges + list(SHORT_RAGGED):
+        for dtype, tol in ((torch.bfloat16, BWD_BF16_TOL),
+                           (torch.float32, BWD_F32_TOL)):
+            rec, _ = compare(shape, dtype, tol)
+            worst[rec["dtype"]] = max(worst.get(rec["dtype"], 0.0),
+                                      rec["max_abs_err"])
+    ragged = ", ".join(f"{r['name']} {(r['bh'], r['s'], r['d'])}"
+                       for r in SHORT_RAGGED)
+    phase(f"kernel short_attention_bwd edges: S in {SHORT_EDGE_S} x D in "
+          f"{SHORT_EDGE_D} x causal or not at BH={SHORT_EDGE_BH}, and "
+          f"{ragged}: all within tolerance of the plain backward and of "
+          f"float32 autograd, repeatable, max_abs_err bf16 "
+          f"{worst['bfloat16']:.3e}, float32 {worst['float32']:.3e} [{card}]")
     return records
 
 
@@ -768,24 +813,22 @@ def check_bank_case(bk, q, bank, labels, card, time_it=True):
     # the function's 4·B·M·D in float32 FMAs: the bound the CUDA-core
     # design's readings were held to, printed beside
     fma_ms, fma_by = bound_ms(bwd_bytes, 4 * b * m * d, torch.float32)
-    b_ms, b_by = fma_ms, fma_by
-    route = "cuda_cores"
-    if not isinstance(bank, bk.QuantBank):
-        # the split-TF32 route: 3 products each of 2·B·M·D (2 over a bf16
-        # bank, exact in TF32) in the dQ kernel and, from D = 256 on, in the
-        # coefficient kernel (below, float32 FMAs), and the coefficient
-        # scratch written and read once; the two kernels' least times add
-        plan = bk.dense_bwd_plan(b, m, d, torch.cuda.get_device_properties(
-            q.device).multi_processor_count)
-        n_split = 3 if bank.dtype == torch.float32 else 2
-        coef_bytes = 2 * 4 * plan.coef_shape[0] * plan.coef_shape[1]
-        tc_ops = n_split * 2 * b * m * d * (2 if plan.tc_logits else 1)
-        fma_ops = 0 if plan.tc_logits else 2 * b * m * d
-        t_ops = (tc_ops / PEAK_FLOPS["tf32"]
-                 + fma_ops / PEAK_FLOPS[torch.float32]) * 1e3
-        t_bytes = (bwd_bytes + coef_bytes) / HBM_BYTES_S * 1e3
-        b_ms, b_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-        route = "tensor_cores" if plan.tc_logits else "cuda_cores+tensor_cores"
+    # the split-TF32 route, every bank: 3 products each of 2·B·M·D (2 over
+    # a bf16 bank or int8 values, exact in TF32) in the dQ kernel and, from
+    # D = 256 on, in the coefficient kernel (below, float32 FMAs), and the
+    # coefficient scratch written and read once; the two kernels' least
+    # times add
+    plan = bk.bwd_plan(b, m, d, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    n_split = 3 if bank.dtype == torch.float32 else 2
+    coef_bytes = 2 * 4 * plan.coef_shape[0] * plan.coef_shape[1]
+    tc_ops = n_split * 2 * b * m * d * (2 if plan.tc_logits else 1)
+    fma_ops = 0 if plan.tc_logits else 2 * b * m * d
+    t_ops = (tc_ops / PEAK_FLOPS["tf32"]
+             + fma_ops / PEAK_FLOPS[torch.float32]) * 1e3
+    t_bytes = (bwd_bytes + coef_bytes) / HBM_BYTES_S * 1e3
+    b_ms, b_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    route = "tensor_cores" if plan.tc_logits else "cuda_cores+tensor_cores"
     fwd = dict(common, rtol=BANK_RTOL, atol=BANK_RTOL, max_abs_err=fwd_err,
                max_err_over_tol=fwd_share, bound_ms=f_ms, bound_by=f_by,
                route="cuda_cores")
@@ -876,10 +919,11 @@ def check_bank(bk, device, card):
     bank32 = unit_rows(RECIPE_BANK, BLIP_DIM, g, device)
     run(q, bank32, torch.randint(0, RECIPE_BANK, (BLIP_BATCH,), generator=g,
                                  device=device))
-    # row and bank counts that are no multiple of a tile; the scales of the
-    # int8 bank are a view into a buffer whose tail is NaN
+    # row and bank counts that are no multiple of a tile, and a shallow bank
+    # (the backward's logits on the CUDA cores); the scales of the int8 bank
+    # are a view into a buffer whose tail is NaN
     for b, m, d in ((5, 2049, BANK_DIM), (5, 2049, FLAGSHIP_DIM),
-                    (70, 4001, 768)):
+                    (70, 4001, 768), (33, 1000, 240)):
         q = unit_rows(b, d, g, device)
         bank32 = unit_rows(m, d, g, device)
         labels = torch.randint(0, m, (b,), generator=g, device=device)

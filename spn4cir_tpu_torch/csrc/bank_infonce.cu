@@ -20,8 +20,7 @@
 //     logits = ((Q · i8ᵀ) · s) / tau
 //     dQ     = ((P - onehot) · g · s) · i8
 //
-// The 128 scales of a bank tile are read once into shared memory beside the
-// values; a bank row past M gets scale 0 and its scale is never read.
+// A bank row past M gets scale 0 and its scale is never read.
 //
 // Q is (B, D) float32; the bank is (M, D) float32, bfloat16 or int8, D % 16
 // == 0. Rows past B and bank rows past M are masked in the kernels: nothing
@@ -40,31 +39,35 @@
 // product runs as float32 FMAs, as the TPU kernels do. grid = (bank splits,
 // 64-row tiles of Q); a CTA walks its split in tiles of 128 bank rows, each
 // logits tile a register-blocked product (`logits_tile`: 4 x 8 per thread,
-// depth chunks of 16 staged transposed in shared memory); each thread keeps
-// online-softmax statistics for its 4 rows over its own columns, the 16
-// threads of a row merge with xor shuffles, one float4 (mx, se, pos, el) per
-// (split, row) goes to scratch, and a one-block merge kernel combines the
-// splits in index order and writes the statistics, the loss and dtau_unit.
+// depth chunks of 16 staged transposed in shared memory; an int8 tile's 128
+// scales beside it in shared memory); each thread keeps online-softmax
+// statistics for its 4 rows over its own columns, the 16 threads of a row
+// merge with xor shuffles, one float4 (mx, se, pos, el) per (split, row)
+// goes to scratch, and a one-block merge kernel combines the splits in
+// index order and writes the statistics, the loss and dtau_unit.
 //
-// Backward over a dense bank (float32 or bf16; the tensor cores). Float32
-// FMAs cap the CUDA-core design near the library's SGEMMs (67 TFLOP/s peak
-// against 4·B·M·D), so both products run on the tensor cores in split TF32
-// (`mma.sync.m16n8k8`, float32 accumulate; `mma_sync.cuh`): each float32
-// operand x = hi + lo, both TF32, and a product is lo·hi + hi·lo + hi·hi,
-// which keeps about float32's accuracy (the dropped lo·lo and lo's own
-// truncation are below 2^-21 relative); a bf16 bank is exact in TF32, so
-// its lo is zero and two products run. The tensor cores add partial sums
-// to their accumulator rounding toward zero: each 32-deep stage's products
-// go to a zeroed tile that is added to the running sum in float32, so the
-// long sums round to nearest as FMAs do. Bound at D = 640, B = 256,
-// M = 65,536 over a float32 bank: 3 x 4·B·M·D = 128.8 GFLOP at the TF32
-// peak (495 TFLOP/s), 0.26 ms, against 0.09 ms of bytes (the bank, Q and
-// the coefficient scratch written and read once). Two kernels, no logits
-// tile formed twice:
+// Backward, every bank (float32, bf16, int8; one design, the tensor cores).
+// Float32 FMAs cap a CUDA-core design near the library's SGEMMs (67 TFLOP/s
+// peak against 4·B·M·D), so both products run on the tensor cores in split
+// TF32 (`mma.sync.m16n8k8`, float32 accumulate; `mma_sync.cuh`): each
+// float32 operand x = hi + lo, both TF32, and a product is lo·hi + hi·lo +
+// hi·hi, which keeps about float32's accuracy (the dropped lo·lo and lo's
+// own truncation are below 2^-21 relative). A bf16 bank is exact in TF32,
+// and so are int8 values (7 bits against TF32's 11), so their lo is zero
+// and two products run; over an int8 bank the scale enters the logits
+// column and the coefficient (above), never the products. The tensor cores
+// add partial sums to their accumulator rounding toward zero: each 32-deep
+// stage's products go to a zeroed tile that is added to the running sum in
+// float32, so the long sums round to nearest as FMAs do. Bound at D = 640,
+// B = 256, M = 65,536: 3 x 4·B·M·D = 128.8 GFLOP at the TF32 peak (495
+// TFLOP/s) over a float32 bank, 0.26 ms, and 2 x 4·B·M·D, 0.17 ms, over a
+// bf16 or int8 one, against 0.09 ms of bytes (the bank, Q and the
+// coefficient scratch written and read once). Two kernels, no logits tile
+// formed twice:
 //   (a) `bank_infonce_coef_tc_kernel`: per (64 query rows, 128 bank rows),
 //       the logits over the full depth through a three-stage `cp.async` ring
-//       of 32-deep chunks, then C = (exp(l - mx)/se - onehot)·g written as
-//       float32 into a (B, ceil(M/128)·128) scratch, zero past M;
+//       of 32-deep chunks, then C = (exp(l - mx)/se - onehot)·g (int8: ·s)
+//       written as float32 into a (B, ceil(M/128)·128) scratch, zero past M;
 //   (b) `bank_infonce_dq_tc_kernel`: dQ = C · bank. B x D is only
 //       ceil(B/64) x ceil(D/128) output tiles (20 at B = 256, D = 640), so
 //       the bank axis is split across CTAs until the card holds two an SM;
@@ -72,20 +75,12 @@
 //       kind of ring and writes its partial dQ to scratch, and the reduce
 //       sums the splits in index order.
 //   8 warps a CTA as 2 x 4 warp tiles of 32 x 32; fragment reads are free of
-//   bank conflicts by the row strides (kTcLdA, coef_ld_bank, kTcLdBankT).
+//   bank conflicts by the row strides (kTcLdA, coef_ld_bank, dq_ld_bank),
+//   one bank value a load, widened to float32.
 //   Below D = 256 (`tc_logits` off; no model's embedding is so narrow) the
 //   logits of (a) run as float32 FMAs (`bank_infonce_coef_kernel`): unit
 //   rows of few dimensions have logits up to 1/tau, where a product summed
 //   in any other order than the plain version's misses the tolerance.
-//
-// Backward over an int8 bank (CUDA cores): the coefficient tile (P -
-// onehot)·g·s goes to shared memory and the second product accumulates a
-// 64 x W tile of dQ in registers (4 x 32 per thread at W = 512), streaming
-// the same bank tile in chunks of 8 rows; a wider D is cut into equal
-// slices of W columns along a third grid axis, and each slice's CTA forms
-// the full-depth logits tile again for its columns of dQ (one more logits
-// product per extra slice). Each split writes its partial dQ to scratch and
-// the reduce sums the splits in index order.
 
 #include <cstdint>
 
@@ -105,8 +100,6 @@ constexpr int kThreads = split_merge::kThreads;
 constexpr int kTileR = 64;    // query rows per CTA
 constexpr int kTileC = 128;   // bank rows per logits tile
 constexpr int kBK = 16;       // depth chunk of the logits product
-constexpr int kBK2 = 8;       // bank rows per chunk of the dQ product
-constexpr int kSliceD = 512;  // backward: widest slice of dQ columns per CTA
 constexpr int kLdA = kTileR + 4;
 constexpr int kLdB = kTileC + 4;
 
@@ -114,12 +107,6 @@ __device__ __forceinline__ void widen8(const uint4& w, float* out) {
   const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
-}
-
-__device__ __forceinline__ void widen16(const uint4& w, float* out) {
-  const int8_t* e = reinterpret_cast<const int8_t*>(&w);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = float(e[i]);
 }
 
 // The scales of one 128-row bank tile into `ss`; rows past M get 0.
@@ -303,161 +290,8 @@ bank_infonce_fwd_kernel(const float* __restrict__ q, const T* __restrict__ bank,
   }
 }
 
-constexpr size_t kBwdSmemFloats = size_t(kBK) * kLdA + size_t(kBK) * kLdB +
-                                  size_t(kTileC) * kLdA + size_t(kBK2) * kSliceD +
-                                  2 * size_t(kTileC);
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-bank_infonce_bwd_kernel(const float* __restrict__ q, const T* __restrict__ bank,
-                        const float* __restrict__ scales, const int* __restrict__ labels,
-                        const float* __restrict__ mx, const float* __restrict__ se,
-                        const float* __restrict__ gout, float tau, int B, int M, int D,
-                        int tiles_per_split, int W, float* __restrict__ dq_part) {
-  constexpr bool kQuant = sizeof(T) == 1;
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);   // (kBK, kLdA)
-  float* Bs = As + kBK * kLdA;                    // (kBK, kLdB)
-  float* Ps = Bs + kBK * kLdB;                    // (kTileC, kLdA): coefficient, transposed
-  float* B2 = Ps + kTileC * kLdA;                 // (kBK2, W): bank rows of the dQ product
-  float* Ss = B2 + kBK2 * kSliceD;                // (2, kTileC): int8 scales, by tile parity
-  const int d0 = blockIdx.z * W;                  // this CTA's slice of dQ: [d0, d0 + W)
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * kTileR;
-  const int n_tiles = (M + kTileC - 1) / kTileC;
-  const int tile_begin = blockIdx.x * tiles_per_split;
-  const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
-  const float g = gout[0] / (float(B) * tau);
-
-  float rmx[4], rse[4];
-  int lab[4];
-  bool live[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = row0 + ty * 4 + a;
-    live[a] = row < B;
-    rmx[a] = live[a] ? mx[row] : 0.f;
-    rse[a] = live[a] ? se[row] : 1.f;
-    lab[a] = live[a] ? labels[row] : -1;
-  }
-
-  // dacc[a][4*j + e] accumulates dQ[row0 + ty*4 + a][d0 + 64*j + tx*4 + e]
-  float dacc[4][32];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 32; ++c) dacc[a][c] = 0.f;
-
-  float acc[4][8];
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int col0 = tile * kTileC;
-    const float* ss = Ss + ((tile - tile_begin) & 1) * kTileC;
-    if constexpr (kQuant) stage_scales(scales, col0, M, Ss + ((tile - tile_begin) & 1) * kTileC);
-    logits_tile<T>(q, bank, row0, col0, B, M, D, As, Bs, acc);  // its barriers publish ss
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int c = tile_col(tx, b);
-      const int col = col0 + c;
-      float sc = 1.f;
-      if constexpr (kQuant) sc = ss[c];
-      float coef[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        float lg = acc[a][b];
-        if constexpr (kQuant) lg *= sc;
-        float p = col < M ? expf(lg / tau - rmx[a]) / rse[a] : 0.f;
-        if (col == lab[a]) p -= 1.f;
-        coef[a] = live[a] ? p * g : 0.f;
-        if constexpr (kQuant) coef[a] *= sc;
-      }
-      *reinterpret_cast<float4*>(Ps + c * kLdA + ty * 4) =
-          make_float4(coef[0], coef[1], coef[2], coef[3]);
-    }
-    __syncthreads();
-
-    for (int m0 = 0; m0 < kTileC; m0 += kBK2) {
-      // columns [d0, d0 + W) of 8 bank rows; W % 64 == 0 and D % 16 == 0,
-      // so a 4-, 8- or 16-wide load that starts below D ends at or below it
-      if constexpr (sizeof(T) == 4) {
-        const int n4 = kBK2 * W / 4;
-        for (int i = tid; i < n4; i += kThreads) {
-          const int m = (i * 4) / W, dl = (i * 4) - m * W;
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (col0 + m0 + m < M && d0 + dl < D)
-            v = *reinterpret_cast<const float4*>(
-                reinterpret_cast<const float*>(bank) + size_t(col0 + m0 + m) * D + d0 + dl);
-          *reinterpret_cast<float4*>(B2 + m * W + dl) = v;
-        }
-      } else if constexpr (sizeof(T) == 2) {
-        const int n8 = kBK2 * W / 8;
-        for (int i = tid; i < n8; i += kThreads) {
-          const int m = (i * 8) / W, dl = (i * 8) - m * W;
-          float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-          if (col0 + m0 + m < M && d0 + dl < D)
-            widen8(*reinterpret_cast<const uint4*>(bank + size_t(col0 + m0 + m) * D + d0 + dl),
-                   v);
-          *reinterpret_cast<float4*>(B2 + m * W + dl) = make_float4(v[0], v[1], v[2], v[3]);
-          *reinterpret_cast<float4*>(B2 + m * W + dl + 4) = make_float4(v[4], v[5], v[6], v[7]);
-        }
-      } else {
-        const int n16 = kBK2 * W / 16;
-        for (int i = tid; i < n16; i += kThreads) {
-          const int m = (i * 16) / W, dl = (i * 16) - m * W;
-          float v[16];
-#pragma unroll
-          for (int e = 0; e < 16; ++e) v[e] = 0.f;
-          if (col0 + m0 + m < M && d0 + dl < D)
-            widen16(*reinterpret_cast<const uint4*>(bank + size_t(col0 + m0 + m) * D + d0 + dl),
-                    v);
-#pragma unroll
-          for (int e = 0; e < 16; e += 4)
-            *reinterpret_cast<float4*>(B2 + m * W + dl + e) =
-                make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < kBK2; ++m) {
-        const float4 p4 = *reinterpret_cast<const float4*>(Ps + (m0 + m) * kLdA + ty * 4);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int dl = 64 * j + tx * 4;
-          if (dl < W && d0 + dl < D) {
-            const float4 b4 = *reinterpret_cast<const float4*>(B2 + m * W + dl);
-#pragma unroll
-            for (int a = 0; a < 4; ++a) {
-              dacc[a][4 * j + 0] = fmaf(pv[a], b4.x, dacc[a][4 * j + 0]);
-              dacc[a][4 * j + 1] = fmaf(pv[a], b4.y, dacc[a][4 * j + 1]);
-              dacc[a][4 * j + 2] = fmaf(pv[a], b4.z, dacc[a][4 * j + 2]);
-              dacc[a][4 * j + 3] = fmaf(pv[a], b4.w, dacc[a][4 * j + 3]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = row0 + ty * 4 + a;
-    if (!live[a]) continue;
-    float* out = dq_part + (size_t(blockIdx.x) * B + row) * D;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int dl = 64 * j + tx * 4;
-      if (dl < W && d0 + dl < D)
-        *reinterpret_cast<float4*>(out + d0 + dl) = make_float4(
-            dacc[a][4 * j + 0], dacc[a][4 * j + 1], dacc[a][4 * j + 2], dacc[a][4 * j + 3]);
-    }
-  }
-}
-
 // ===========================================================================
-// Backward over a dense bank: two tensor-core products in split TF32
+// Backward, every bank: two tensor-core products in split TF32
 // ===========================================================================
 
 using namespace mma_sync;  // cp.async, TF32 split and mma.sync
@@ -468,25 +302,33 @@ constexpr int kTcCols = 128;     // bank rows (coefficient kernel) / dQ columns 
 constexpr int kTcDepth = 32;     // depth of a ring stage
 constexpr int kTcStages = 3;     // ring stages: two in flight while one is multiplied
 constexpr int kTcLdA = kTcDepth + 4;   // Q and C tiles, float: lanes read 4g + t, no conflict
-constexpr int kTcLdBankT = kTcCols + 8;  // the dQ kernel's bank tile: lanes read 8t + g
 
-// the coefficient kernel's bank tile, rows of depth: float 4g + t, bf16
-// words 20g + t/2; rows stay multiples of 16 bytes for cp.async
+// Row strides of the bank tiles, in elements; rows stay multiples of 16
+// bytes for cp.async. The coefficient kernel's tile has rows of depth:
+// lanes read words float 36g + t, bf16 20g + t/2, int8 12g (the four t of a
+// row share a word). The dQ kernel's tile has rows of bank rows (depth of
+// its product): float 136t + g, bf16 68t + g/2, int8 36t + g/4.
 template <typename T>
 __host__ __device__ constexpr int coef_ld_bank() {
-  return sizeof(T) == 4 ? kTcDepth + 4 : kTcDepth + 8;
+  return sizeof(T) == 4 ? kTcDepth + 4 : (sizeof(T) == 2 ? kTcDepth + 8 : kTcDepth + 16);
+}
+
+template <typename T>
+__host__ __device__ constexpr int dq_ld_bank() {
+  return sizeof(T) == 1 ? kTcCols + 16 : kTcCols + 8;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return float(x); }
 
 // One k8 step of a warp's 32 x 32 tile: part[mi][ni] (16 x 8 each) +=
 // A (rows 16mi.., 8 deep) * B (8 deep, columns 8ni..), from float values in
 // the m16n8k8 fragment layout (av[mi] = a0..a3, bv[ni] = b0, b1). Each
 // operand is split as x = hi + lo (TF32 each) and the product is
 // lo·hi + hi·lo + hi·hi, the small terms first; lo·lo (2^-22 relative) is
-// dropped. kExactB: B's values are exact in TF32 (a bf16 bank), so its lo is
-// zero and two products run.
+// dropped. kExactB: B's values are exact in TF32 (a bf16 bank, or int8 values
+// of at most 7 bits), so its lo is zero and two products run.
 template <bool kExactB>
 __device__ __forceinline__ void mma_step_3xtf32(float (&part)[2][4][4], const float (&av)[2][4],
                                                 const float (&bv)[4][2]) {
@@ -560,19 +402,43 @@ constexpr size_t coef_smem_bytes() {
 template <typename T>
 constexpr size_t dq_smem_bytes() {
   return size_t(kTcStages) *
-         (kTcRows * kTcLdA * sizeof(float) + kTcDepth * kTcLdBankT * sizeof(T));
+         (kTcRows * kTcLdA * sizeof(float) + kTcDepth * dq_ld_bank<T>() * sizeof(T));
+}
+
+// The coefficient of one accumulator value: acc = (Q·bankᵀ)[row][col] over
+// the full depth, sc the column's int8 scale (1 over a dense bank). In the
+// order of roundings of the TPU kernels: l = acc·s/tau, then
+// (exp(l - mx)/se - onehot)·g·s; a column past M gets 0.
+template <bool kQuant>
+__device__ __forceinline__ float coefficient(float acc, float sc, int col, int M, int lab,
+                                             float tau, float rmx, float rse, float gs) {
+  if (kQuant) acc *= sc;
+  float p = col < M ? expf(acc / tau - rmx) / rse : 0.f;
+  if (col == lab) p -= 1.f;
+  p *= gs;
+  return kQuant ? p * sc : p;
+}
+
+// The int8 scale of column col of the bank, 0 past M (never read there).
+template <bool kQuant>
+__device__ __forceinline__ float column_scale(const float* __restrict__ scales, int col, int M) {
+  if (!kQuant) return 1.f;
+  return col < M ? scales[col] : 0.f;
 }
 
 // (a) C[row][col] = (exp(l - mx)/se - onehot(label))·g for a 64-row tile of
 // Q and a 128-row tile of the bank, l = (Q·bankᵀ)/tau over the full depth
-// in a cp.async ring of 32-deep stages. C is (B, ldc) float32, ldc = the
-// bank's tiles x 128: the columns past M get 0, rows past B are not written.
+// in a cp.async ring of 32-deep stages (int8: l = (Q·i8ᵀ)·s/tau and C·s).
+// C is (B, ldc) float32, ldc = the bank's tiles x 128: the columns past M
+// get 0, rows past B are not written.
 template <typename T>
 __global__ void __launch_bounds__(kTcThreads, 2)
 bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ bank,
-                            const int* __restrict__ labels, const float* __restrict__ mx,
-                            const float* __restrict__ se, const float* __restrict__ gout,
-                            float tau, int B, int M, int D, int ldc, float* __restrict__ coef) {
+                            const float* __restrict__ scales, const int* __restrict__ labels,
+                            const float* __restrict__ mx, const float* __restrict__ se,
+                            const float* __restrict__ gout, float tau, int B, int M, int D,
+                            int ldc, float* __restrict__ coef) {
+  constexpr bool kQuant = sizeof(T) == 1;
   constexpr int kLdB = coef_ld_bank<T>();
   constexpr int kPer = 16 / sizeof(T);         // elements a 16-byte copy
   constexpr int kCopiesB = kTcDepth / kPer;    // copies a bank row of a stage
@@ -639,7 +505,7 @@ bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ b
           bv[2 * np + 1][0] = __uint_as_float(r[2]);
           bv[2 * np + 1][1] = __uint_as_float(r[3]);
         }
-      } else {  // bf16: one value a load, widened
+      } else {  // bf16, int8: one value a load, widened
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
           const T* br = b + (wn + 8 * ni + g) * kLdB + k8 + t;
@@ -647,13 +513,18 @@ bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ b
           bv[ni][1] = to_float(br[4]);
         }
       }
-      mma_step_3xtf32<sizeof(T) == 2>(part, av, bv);
+      mma_step_3xtf32<(sizeof(T) < 4)>(part, av, bv);
     }
     add_tile(acc, part);
   }
 
-  // the coefficient, in the order of roundings of the CUDA-core kernel
   const float gs = gout[0] / (float(B) * tau);
+  float sc[4][2];  // this thread's columns' scales, read once
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      sc[ni][e] = column_scale<kQuant>(scales, col0 + wn + 8 * ni + 2 * t + e, M);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -665,14 +536,10 @@ bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ b
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int col = col0 + wn + 8 * ni + 2 * t;
-        float c2[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float p = col + e < M ? expf(acc[mi][ni][2 * h + e] / tau - rmx) / rse : 0.f;
-          if (col + e == lab) p -= 1.f;
-          c2[e] = p * gs;
-        }
-        *reinterpret_cast<float2*>(coef + size_t(row) * ldc + col) = make_float2(c2[0], c2[1]);
+        *reinterpret_cast<float2*>(coef + size_t(row) * ldc + col) = make_float2(
+            coefficient<kQuant>(acc[mi][ni][2 * h], sc[ni][0], col, M, lab, tau, rmx, rse, gs),
+            coefficient<kQuant>(acc[mi][ni][2 * h + 1], sc[ni][1], col + 1, M, lab, tau, rmx,
+                                rse, gs));
       }
     }
 }
@@ -688,9 +555,11 @@ bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ b
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 bank_infonce_coef_kernel(const float* __restrict__ q, const T* __restrict__ bank,
-                         const int* __restrict__ labels, const float* __restrict__ mx,
-                         const float* __restrict__ se, const float* __restrict__ gout,
-                         float tau, int B, int M, int D, int ldc, float* __restrict__ coef) {
+                         const float* __restrict__ scales, const int* __restrict__ labels,
+                         const float* __restrict__ mx, const float* __restrict__ se,
+                         const float* __restrict__ gout, float tau, int B, int M, int D, int ldc,
+                         float* __restrict__ coef) {
+  constexpr bool kQuant = sizeof(T) == 1;
   __shared__ __align__(16) float As[kBK * kLdA];
   __shared__ __align__(16) float Bs[kBK * kLdB];
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -698,6 +567,9 @@ bank_infonce_coef_kernel(const float* __restrict__ q, const T* __restrict__ bank
   float acc[4][8];
   logits_tile<T>(q, bank, row0, col0, B, M, D, As, Bs, acc);
   const float gs = gout[0] / (float(B) * tau);
+  float sc[8];  // this thread's columns' scales, read once
+#pragma unroll
+  for (int b = 0; b < 8; ++b) sc[b] = column_scale<kQuant>(scales, col0 + tile_col(tx, b), M);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = row0 + ty * 4 + a;
@@ -709,11 +581,9 @@ bank_infonce_coef_kernel(const float* __restrict__ q, const T* __restrict__ bank
       const int col = col0 + tile_col(tx, 4 * j);
       float c4[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = col + e < M ? expf(acc[a][4 * j + e] / tau - rmx) / rse : 0.f;
-        if (col + e == lab) p -= 1.f;
-        c4[e] = p * gs;
-      }
+      for (int e = 0; e < 4; ++e)
+        c4[e] = coefficient<kQuant>(acc[a][4 * j + e], sc[4 * j + e], col + e, M, lab, tau, rmx,
+                                    rse, gs);
       *reinterpret_cast<float4*>(coef + size_t(row) * ldc + col) =
           make_float4(c4[0], c4[1], c4[2], c4[3]);
     }
@@ -728,11 +598,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 bank_infonce_dq_tc_kernel(const float* __restrict__ coef, const T* __restrict__ bank, int B,
                           int M, int D, int ldc, int tiles_per_split,
                           float* __restrict__ dq_part) {
+  constexpr int kLdB = dq_ld_bank<T>();
   constexpr int kPer = 16 / sizeof(T);
   constexpr int kCopiesB = kTcCols / kPer;  // copies a bank row of a stage
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);                      // stages of (kTcRows, kTcLdA)
-  T* Bs = reinterpret_cast<T*>(As + kTcStages * kTcRows * kTcLdA);  // (kTcDepth, kTcLdBankT)
+  T* Bs = reinterpret_cast<T*>(As + kTcStages * kTcRows * kTcLdA);  // stages of (kTcDepth, kLdB)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -750,7 +621,7 @@ bank_infonce_dq_tc_kernel(const float* __restrict__ coef, const T* __restrict__ 
     if (kc < n_chunks) {
       const int st = kc % kTcStages, m0 = m_begin + kc * kTcDepth;
       float* a = As + st * kTcRows * kTcLdA;
-      T* b = Bs + st * kTcDepth * kTcLdBankT;
+      T* b = Bs + st * kTcDepth * kLdB;
       for (int i = tid; i < kTcRows * (kTcDepth / 4); i += kTcThreads) {
         const int r = i / (kTcDepth / 4), c = (i % (kTcDepth / 4)) * 4;
         const bool valid = row0 + r < B;
@@ -760,8 +631,7 @@ bank_infonce_dq_tc_kernel(const float* __restrict__ coef, const T* __restrict__ 
       for (int i = tid; i < kTcDepth * kCopiesB; i += kTcThreads) {
         const int r = i / kCopiesB, c = (i % kCopiesB) * kPer;
         const bool valid = m0 + r < M && c0 + c < D;
-        cp_async16(b + r * kTcLdBankT + c, bank + (valid ? size_t(m0 + r) * D + c0 + c : 0),
-                   valid);
+        cp_async16(b + r * kLdB + c, bank + (valid ? size_t(m0 + r) * D + c0 + c : 0), valid);
       }
     }
     cp_async_commit();
@@ -780,7 +650,7 @@ bank_infonce_dq_tc_kernel(const float* __restrict__ coef, const T* __restrict__ 
     __syncthreads();
     fetch(kc + kTcStages - 1);
     const float* a = As + (kc % kTcStages) * kTcRows * kTcLdA;
-    const T* b = Bs + (kc % kTcStages) * kTcDepth * kTcLdBankT;
+    const T* b = Bs + (kc % kTcStages) * kTcDepth * kLdB;
     float part[2][4][4];
     zero_tile(part);
     // float32 (B split too): two steps at a time, or ptxas spills at 128
@@ -791,11 +661,11 @@ bank_infonce_dq_tc_kernel(const float* __restrict__ coef, const T* __restrict__ 
       a_frags_tf32(av, a, wm, k8, lane);
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {  // B(k, n) = bank row k, column n
-        const T* br = b + (k8 + t) * kTcLdBankT + wn + 8 * ni + g;
+        const T* br = b + (k8 + t) * kLdB + wn + 8 * ni + g;
         bv[ni][0] = to_float(br[0]);
-        bv[ni][1] = to_float(br[4 * kTcLdBankT]);
+        bv[ni][1] = to_float(br[4 * kLdB]);
       }
-      mma_step_3xtf32<sizeof(T) == 2>(part, av, bv);
+      mma_step_3xtf32<(sizeof(T) < 4)>(part, av, bv);
     }
     add_tile(acc, part);
   }
@@ -841,36 +711,14 @@ cudaError_t launch_fwd(const void* q, const void* bank, const void* scales, cons
                                                        out2, st);
 }
 
+// The backward over any bank: coefficient kernel, dQ kernel over the splits
+// of the bank, then the reduce of the splits in index order. scales: the
+// int8 bank's, nullptr over a dense one.
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* bank, const void* scales, const void* labels,
-                       const void* mx, const void* se, const void* gout, float tau, int B,
-                       int M, int D, int tiles_per_split, int n_splits, int d_slice,
+                       const void* mx, const void* se, const void* gout, float tau, int B, int M,
+                       int D, int tiles_per_split, int n_splits, bool tc_logits, void* coef,
                        void* dq_part, void* dq, cudaStream_t st) {
-  if (d_slice <= 0 || d_slice > kSliceD || d_slice % 64 != 0) return cudaErrorInvalidValue;
-  const size_t bytes = kBwdSmemFloats * sizeof(float);
-  auto kernel = bank_infonce_bwd_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid(n_splits, (B + kTileR - 1) / kTileR, (D + d_slice - 1) / d_slice);
-  kernel<<<grid, kThreads, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const T*>(bank),
-      static_cast<const float*>(scales), static_cast<const int*>(labels),
-      static_cast<const float*>(mx), static_cast<const float*>(se),
-      static_cast<const float*>(gout), tau, B, M, D, tiles_per_split, d_slice,
-      static_cast<float*>(dq_part));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return split_merge::launch_dq_reduce<bank_infonce_split>(dq_part, n_splits, B, D, dq, st);
-}
-
-// The dense backward: coefficient kernel, dQ kernel over the splits of the
-// bank, then the reduce of the splits in index order.
-template <typename T>
-cudaError_t launch_bwd_tc(const void* q, const void* bank, const void* labels, const void* mx,
-                          const void* se, const void* gout, float tau, int B, int M, int D,
-                          int tiles_per_split, int n_splits, bool tc_logits, void* coef,
-                          void* dq_part, void* dq, cudaStream_t st) {
   static_assert(kTcRows == kTileR && kTcCols == kTileC, "both coefficient kernels tile alike");
   const int n_tiles = (M + kTcCols - 1) / kTcCols;
   if (n_tiles > 65535) return cudaErrorInvalidValue;  // grid.y of the coefficient kernel
@@ -893,15 +741,15 @@ cudaError_t launch_bwd_tc(const void* q, const void* bank, const void* labels, c
   if (tc_logits)
     coef_kernel<<<coef_grid, kTcThreads, coef_smem_bytes<T>(), st>>>(
         static_cast<const float*>(q), static_cast<const T*>(bank),
-        static_cast<const int*>(labels), static_cast<const float*>(mx),
-        static_cast<const float*>(se), static_cast<const float*>(gout), tau, B, M, D, ldc,
-        static_cast<float*>(coef));
+        static_cast<const float*>(scales), static_cast<const int*>(labels),
+        static_cast<const float*>(mx), static_cast<const float*>(se),
+        static_cast<const float*>(gout), tau, B, M, D, ldc, static_cast<float*>(coef));
   else
     bank_infonce_coef_kernel<T><<<coef_grid, kThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const T*>(bank),
-        static_cast<const int*>(labels), static_cast<const float*>(mx),
-        static_cast<const float*>(se), static_cast<const float*>(gout), tau, B, M, D, ldc,
-        static_cast<float*>(coef));
+        static_cast<const float*>(scales), static_cast<const int*>(labels),
+        static_cast<const float*>(mx), static_cast<const float*>(se),
+        static_cast<const float*>(gout), tau, B, M, D, ldc, static_cast<float*>(coef));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq_kernel<<<dim3(row_tiles, (D + kTcCols - 1) / kTcCols, n_splits), kTcThreads,
@@ -920,13 +768,11 @@ cudaError_t launch_bwd_tc(const void* q, const void* bank, const void* labels, c
 // 1 = bfloat16. q, mx, se, pos, el, dq are float32; labels int32; part is
 // (n_splits, B) float4 scratch; out2 = (loss, dtau_unit); dq_part is
 // (n_splits, B, D) float32 scratch. The bank's splits are
-// [i*tiles_per_split, (i+1)*tiles_per_split) tiles of 128 rows; the dense
-// backward splits the dQ product so, takes coef, (B, ceil(M/128)*128)
+// [i*tiles_per_split, (i+1)*tiles_per_split) tiles of 128 rows; the
+// backwards split the dQ product so, take coef, (B, ceil(M/128)*128)
 // float32 scratch for the coefficient, and tc_logits: 1 forms the logits on
-// the tensor cores, 0 on the CUDA cores. The q8 backward's d_slice is its
-// slice of dQ columns per CTA: a multiple of 64, at most 512; ceil(D /
-// d_slice) slices cover D. The q8 entry points take the int8 values (M, D)
-// and the float32 scales (M,).
+// the tensor cores, 0 on the CUDA cores. The q8 entry points take the int8
+// values (M, D) and the float32 scales (M,).
 extern "C" int bank_infonce_fwd(const void* q, const void* bank, const void* labels, float tau,
                                 int B, int M, int D, int bank_dtype, int tiles_per_split,
                                 int n_splits, void* part, void* mx, void* se, void* pos,
@@ -950,12 +796,12 @@ extern "C" int bank_infonce_bwd(const void* q, const void* bank, const void* lab
   if (!plan_ok(B, M, D, tiles_per_split, n_splits)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bank_dtype == 0)
-    return launch_bwd_tc<float>(q, bank, labels, mx, se, gout, tau, B, M, D, tiles_per_split,
-                                n_splits, tc_logits != 0, coef, dq_part, dq, st);
+    return launch_bwd<float>(q, bank, nullptr, labels, mx, se, gout, tau, B, M, D,
+                             tiles_per_split, n_splits, tc_logits != 0, coef, dq_part, dq, st);
   if (bank_dtype == 1)
-    return launch_bwd_tc<__nv_bfloat16>(q, bank, labels, mx, se, gout, tau, B, M, D,
-                                        tiles_per_split, n_splits, tc_logits != 0, coef,
-                                        dq_part, dq, st);
+    return launch_bwd<__nv_bfloat16>(q, bank, nullptr, labels, mx, se, gout, tau, B, M, D,
+                                     tiles_per_split, n_splits, tc_logits != 0, coef, dq_part,
+                                     dq, st);
   return cudaErrorInvalidValue;
 }
 
@@ -971,10 +817,10 @@ extern "C" int bank_infonce_q8_fwd(const void* q, const void* values, const void
 extern "C" int bank_infonce_q8_bwd(const void* q, const void* values, const void* scales,
                                    const void* labels, const void* mx, const void* se,
                                    const void* gout, float tau, int B, int M, int D,
-                                   int tiles_per_split, int n_splits, int d_slice,
+                                   int tiles_per_split, int n_splits, int tc_logits, void* coef,
                                    void* dq_part, void* dq, void* stream) {
   if (!plan_ok(B, M, D, tiles_per_split, n_splits)) return cudaErrorInvalidValue;
   return launch_bwd<int8_t>(q, values, scales, labels, mx, se, gout, tau, B, M, D,
-                            tiles_per_split, n_splits, d_slice, dq_part, dq,
+                            tiles_per_split, n_splits, tc_logits != 0, coef, dq_part, dq,
                             static_cast<cudaStream_t>(stream));
 }

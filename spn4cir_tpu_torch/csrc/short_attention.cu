@@ -472,6 +472,31 @@ short_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict
   }
 }
 
+// The shared-memory limit of a tensor-core kernel, set, and the blocks of it
+// the card holds at once: a launcher finds them once (on the first caller's
+// device) and keeps them in a static of its own.
+struct Resident {
+  cudaError_t err;
+  int blocks;
+};
+
+template <typename Kernel>
+Resident find_resident(Kernel kernel, int threads, size_t bytes) {
+  Resident r{cudaSuccess, 0};
+  int device = 0, sms = 0, per_sm = 0;
+  if (bytes > 48 * 1024 &&
+      (r.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    int(bytes))) != cudaSuccess)
+    return r;
+  if ((r.err = cudaGetDevice(&device)) != cudaSuccess) return r;
+  if ((r.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return r;
+  r.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  r.blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return r;
+}
+
 // A grid of as many blocks as the card holds at once (at most one per
 // slice); each block walks its slices blockIdx.x, + gridDim.x, ...
 template <int kD, int kNS, bool kCausal>
@@ -480,27 +505,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   constexpr size_t bytes = tc_smem_bytes<kD, kNS>();
   constexpr int threads = 32 * kNS;
   auto kernel = short_attention_fwd_tc_kernel<kD, kNS, kCausal>;
-  // the shared-memory limit and the blocks the card holds at once, found
-  // once (on the first caller's device)
-  struct Resident {
-    cudaError_t err;
-    int blocks;
-  };
-  static const Resident resident = [&] {
-    Resident r{cudaSuccess, 0};
-    int device = 0, sms = 0, per_sm = 0;
-    if (bytes > 48 * 1024 &&
-        (r.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      int(bytes))) != cudaSuccess)
-      return r;
-    if ((r.err = cudaGetDevice(&device)) != cudaSuccess) return r;
-    if ((r.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-        cudaSuccess)
-      return r;
-    r.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
-    r.blocks = sms * (per_sm > 0 ? per_sm : 1);
-    return r;
-  }();
+  static const Resident resident = find_resident(kernel, threads, bytes);
   if (resident.err != cudaSuccess) return resident.err;
   const int blocks = bh < resident.blocks ? bh : resident.blocks;
   kernel<<<blocks, threads, bytes, stream>>>(static_cast<const bf16*>(q),
@@ -534,15 +539,48 @@ cudaError_t launch_tc_depth(const void* q, const void* k, const void* v, void* o
 //     dQ = dSb·K         dK = dSbᵀ·Q
 //
 // Pb and dSb are P and dS rounded to the input type before their products
-// (as the TPU kernel does); every product accumulates in float32; outputs
-// are stored in the input type. dO arrives in the input type.
+// (as the TPU kernel does); rowsum(dP ∘ P) comes from the float32 P; every
+// product accumulates in float32; outputs are stored in the input type. dO
+// arrives in the input type.
 //
-// What bounds it: five S x S x D products per slice, ~3.8 MFLOP at S=77,
-// D=64 against ~70 KB of q/k/v/dO/dq/dk/dv traffic: operations, on the
-// CUDA cores, fed from shared memory. dK and dV sum over query rows, so one
-// block owns a whole slice and no sum crosses blocks. Every shape the
-// forward takes (S, D <= 128) has to fit one block's shared memory, so no
-// more than two (S, D) operands are resident at a time:
+// What bounds it: five S x S x D products per slice against seven (S, D)
+// tensors moved (q, k, v, dO in, dq, dk, dv out). At the flagship text shape
+// (2560, 77, 64) causal in bf16 that is 4.92 GFLOP against 176.6 MB: the
+// bytes bound it (0.053 ms at 3.35 TB/s; the bf16 tensor cores would take
+// 0.005 ms), but only on the tensor cores: as float32 FMAs on the CUDA cores
+// the five products took 0.72 ms (~7 TFLOP/s). dK and dV sum over query
+// rows, so one block owns a whole slice and no sum crosses blocks. Two
+// routes, chosen by the caller (`short_route` in ops/attention_kernels.py):
+//
+// bfloat16 with D % 8 == 0: the tensor cores (`short_attention_bwd_tc_kernel`),
+// built from the forward's pieces:
+//   - a block walks whole slices (as many blocks as the card holds at once);
+//     q, k, v and dO are copied once each as bf16 by 16-byte `cp.async`
+//     (rows past S zero-filled, the pad columns [D, kD) zeroed once); the
+//     next slice's k and v are in flight while this one's phase 2 runs, and
+//     the other blocks of the SM (three at S = 77) cover the rest;
+//   - phase 1, a warp per 16 query rows: the row's logits (q kᵀ) and dP
+//     (dO vᵀ) by `mma.sync.m16n8k16` from `ldmatrix` fragments, an exact
+//     one-pass softmax in registers (the forward's), delta = rowsum(dP ∘ P)
+//     across the quad by `__shfl_xor_sync`, dS in place of dP; Pb and dSb go
+//     to two shared (S, S) bf16 tiles, and dQ = dSb·K takes the warp's own
+//     dSb rows back from their tile by `ldmatrix` (held in registers beside
+//     P and dP, they spilled at 80 rows, causal);
+//   - phase 2, after one barrier, a warp per 16 keys: dV = Pbᵀ·dO and dK =
+//     dSbᵀ·Q, the A fragments of Pbᵀ and dSbᵀ by `ldmatrix.trans` from the
+//     shared tiles, dO and q by `.trans` as the B side; every sum runs over
+//     the query rows in step order;
+//   - causal slices skip the key steps above a row group's diagonal in
+//     phase 1 and the query steps above a key group's diagonal in phase 2;
+//     masked P and dS entries are exact zeros;
+//   - rows padded to kNS steps of 16 (64 / 80 / 128) and the depth to kD =
+//     64 / 128 as template parameters, so every loop count is a compile-time
+//     constant: 12 instantiations. Shared memory 4·kS·(kD + 8) + 2·kS·(kS +
+//     8) bf16: 72.5 KB at S = 77, D = 64 (three blocks an SM), 204 KB at S =
+//     D = 128 (one).
+//
+// float32, and bfloat16 at any other D: the CUDA cores (TF32 would miss the
+// float32 check of 1e-4), from shared memory as float32 FMAs:
 //   - two operand buffers of float32 with an odd row stride (D + 1), so that
 //     both row-wise and column-wise reads are free of bank conflicts, hold
 //     (q, k), then (dO, v), then (k, q); one (S, S + 1) float32 buffer holds
@@ -558,13 +596,12 @@ cudaError_t launch_tc_depth(const void* q, const void* k, const void* v, void* o
 //     columns tx + 16b for a, b < kMT. kMT is a template parameter chosen
 //     from max(S, D) (4 up to 64, 5 up to 80, else 8): with the tile counts
 //     known at compile time no instruction slot goes to a multiply-add that
-//     is predicated off (at S=77 a fixed 8 x 8 tile spent 64 slots per depth
-//     step on 25 useful ones, and the instruction rate bounded the kernel);
+//     is predicated off;
 //   - causal slices skip the 16 x 16 blocks above the diagonal in the two
 //     S x S products and bound the reduction range in the other three;
 //     masked entries of P are exact zeros, so they add nothing to
 //     rowsum(dP ∘ P) and their dS is zero: no row reads above its diagonal.
-// Each sum runs in a fixed order.
+// Each sum runs in a fixed order on either route.
 
 constexpr int kBwdThreads = 256;
 constexpr int kKUnroll = 4;  // depth steps in flight per thread in block_gemm
@@ -767,6 +804,304 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return launch_bwd_tiles<T, kCausal, 8>(q, k, v, dout, dq, dk, dv, bh, s, d, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Backward, bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int kD, int kNS>
+constexpr size_t bwd_tc_smem_bytes() {
+  return size_t(4) * 16 * kNS * (kD + 8) * sizeof(bf16) +       // q, k, v, dO
+         size_t(2) * 16 * kNS * (16 * kNS + 8) * sizeof(bf16);  // Pb, dSb
+}
+
+// Blocks an SM must hold, for the register budget: as many as shared memory
+// admits (228 KB an SM, 1 KB of it reserved a block), but never fewer than
+// 128 registers a thread.
+template <int kD, int kNS>
+constexpr int bwd_tc_min_blocks() {
+  constexpr int by_smem = int(233472 / (bwd_tc_smem_bytes<kD, kNS>() + 1024));
+  constexpr int by_regs = 65536 / (128 * 32 * kNS);
+  return by_smem < by_regs ? (by_smem > 0 ? by_smem : 1) : by_regs;
+}
+
+template <int kD, int kNS, bool kCausal>
+__global__ void __launch_bounds__(32 * kNS, bwd_tc_min_blocks<kD, kNS>())
+short_attention_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                              bf16* __restrict__ dq, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, int bh, int s, int d) {
+  constexpr int kS = 16 * kNS, ld = kD + 8, lp = kS + 8, kThreads = 32 * kNS;
+  constexpr int kNK = kD / 16, kNO = kD / 8, kTile = kS * ld;
+  extern __shared__ uint4 smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // (kS, ld) each: q, k, v, dO
+  bf16* ks = qs + kTile;
+  bf16* vs = ks + kTile;
+  bf16* dos = vs + kTile;
+  bf16* ps = dos + kTile;    // (kS, lp): Pb
+  bf16* dss = ps + kS * lp;  // (kS, lp): dSb
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // phase 1: the warp's 16 query rows; phase 2: its 16 keys
+  const int row0 = 16 * warp;
+  const int r0 = row0 + g, r1 = r0 + 8;
+  const bool active = row0 < s;
+
+  // the pad columns [d, kD) of the four operand tiles, and the Pb / dSb rows
+  // of a warp past s (phase 2 reads them as zeros), once: nothing else
+  // writes there
+  const int pad_chunks = (kD - d) / 8;
+  for (int idx = threadIdx.x; idx < 4 * kS * pad_chunks; idx += kThreads) {
+    const int r = idx / pad_chunks, c = d + (idx - r * pad_chunks) * 8;
+    *reinterpret_cast<uint4*>(qs + r * ld + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (!active)
+    for (int idx = lane; idx < 16 * (kS / 8); idx += 32) {
+      const int r = row0 + idx / (kS / 8), c = (idx % (kS / 8)) * 8;
+      *reinterpret_cast<uint4*>(ps + r * lp + c) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dss + r * lp + c) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  // rows [0, kS) of two of a slice's tensors into their tiles, 16 bytes a
+  // copy; rows past s zero-filled by the copy's source size
+  const int row_chunks = d / 8;
+  auto fetch2 = [&](int slice, const bf16* x, bf16* xs, const bf16* y, bf16* ys) {
+    if (slice < bh) {
+      const size_t base = size_t(slice) * s * d;
+      for (int idx = threadIdx.x; idx < kS * row_chunks; idx += kThreads) {
+        const int r = idx / row_chunks, c = (idx - r * row_chunks) * 8;
+        const bool valid = r < s;
+        const size_t src = base + size_t(valid ? r : 0) * d + c;
+        cp_async16(xs + r * ld + c, x + src, valid);
+        cp_async16(ys + r * ld + c, y + src, valid);
+      }
+    }
+    cp_async_commit();  // an empty group past the last slice keeps the count
+  };
+
+  fetch2(blockIdx.x, q, qs, dout, dos);
+  fetch2(blockIdx.x, k, ks, v, vs);
+  for (int slice = blockIdx.x; slice < bh; slice += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // this slice is in; every warp is done with the last
+    const size_t base = size_t(slice) * s * d;
+
+    // ---- phase 1: the warp's query rows ----
+    if (active) {
+      // logits and dP of the warp's rows: every key step, or (causal) the
+      // steps up to and including the diagonal one, p <= warp
+      float sc[2 * kNS][4], dp[2 * kNS][4];
+#pragma unroll
+      for (int n = 0; n < 2 * kNS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kNK; ++kk) {
+        uint32_t qf[4], df[4];
+        ldsm_x4(qf, a_frag<ld>(qs, row0, 16 * kk, lane));
+        ldsm_x4(df, a_frag<ld>(dos, row0, 16 * kk, lane));
+#pragma unroll
+        for (int p = 0; p < kNS; ++p) {
+          if (kCausal && p > warp) break;
+          uint32_t b[4];
+          ldsm_x4(b, b_frag<ld>(ks, 16 * p, 16 * kk, lane));
+          mma16816(sc[2 * p], qf, b[0], b[1]);
+          mma16816(sc[2 * p + 1], qf, b[2], b[3]);
+          ldsm_x4(b, b_frag<ld>(vs, 16 * p, 16 * kk, lane));
+          mma16816(dp[2 * p], df, b[0], b[1]);
+          mma16816(dp[2 * p + 1], df, b[2], b[3]);
+        }
+      }
+
+      // P: the forward's exact one-pass softmax. Keys past s and (causal)
+      // past the row get probability 0; every row keeps key 0.
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int n = 0; n < 2 * kNS; ++n) {
+        if (kCausal && n / 2 > warp) break;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * n + 2 * t + e;
+          if (j >= s || (kCausal && j > r0)) sc[n][e] = -CUDART_INF_F;
+          if (j >= s || (kCausal && j > r1)) sc[n][e + 2] = -CUDART_INF_F;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a quad share a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float ml0 = mx0 * kLog2e, ml1 = mx1 * kLog2e;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2 * kNS; ++n) {
+        if (kCausal && n / 2 > warp) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          sc[n][i] = exp2f(fmaf(sc[n][i], kLog2e, i < 2 ? -ml0 : -ml1));
+        sum0 += sc[n][0] + sc[n][1];
+        sum1 += sc[n][2] + sc[n][3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+
+      // P normalised in float32; delta = rowsum(dP ∘ P) from it, across the
+      // quad; Pb to its shared tile
+      float dl0 = 0.f, dl1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2 * kNS; ++n) {
+        if (kCausal && n / 2 > warp) break;
+        sc[n][0] *= inv0;
+        sc[n][1] *= inv0;
+        sc[n][2] *= inv1;
+        sc[n][3] *= inv1;
+        dl0 = fmaf(dp[n][0], sc[n][0], fmaf(dp[n][1], sc[n][1], dl0));
+        dl1 = fmaf(dp[n][2], sc[n][2], fmaf(dp[n][3], sc[n][3], dl1));
+        const int col = 8 * n + 2 * t;
+        *reinterpret_cast<uint32_t*>(ps + r0 * lp + col) = pack_bf16(sc[n][0], sc[n][1]);
+        *reinterpret_cast<uint32_t*>(ps + r1 * lp + col) = pack_bf16(sc[n][2], sc[n][3]);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        dl0 += __shfl_xor_sync(0xffffffffu, dl0, off);
+        dl1 += __shfl_xor_sync(0xffffffffu, dl1, off);
+      }
+
+      // dS = P ∘ (dP - delta), rounded to bf16, to the dSb tile
+#pragma unroll
+      for (int n = 0; n < 2 * kNS; ++n) {
+        if (kCausal && n / 2 > warp) break;
+        const int col = 8 * n + 2 * t;
+        *reinterpret_cast<uint32_t*>(dss + r0 * lp + col) =
+            pack_bf16(sc[n][0] * (dp[n][0] - dl0), sc[n][1] * (dp[n][1] - dl0));
+        *reinterpret_cast<uint32_t*>(dss + r1 * lp + col) =
+            pack_bf16(sc[n][2] * (dp[n][2] - dl1), sc[n][3] * (dp[n][3] - dl1));
+      }
+      __syncwarp();  // the warp's dSb rows are whole
+
+      // dQ = dSb K, dSb's A fragments read back from the tile (held in
+      // registers beside P and dP they spilled at 80 rows, causal) and K's
+      // rows as this product's depth (`.trans`)
+      float acc[kNO][4];
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+      for (int p = 0; p < kNS; ++p) {
+        if (kCausal && p > warp) break;
+        uint32_t a[4];
+        ldsm_x4(a, a_frag<lp>(dss, row0, 16 * p, lane));
+#pragma unroll
+        for (int np = 0; np < kNO / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, bt_frag<ld>(ks, 16 * p, 16 * np, lane));
+          mma16816(acc[2 * np], a, b[0], b[1]);
+          mma16816(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (col >= d) break;
+        if (r0 < s)
+          *reinterpret_cast<__nv_bfloat162*>(dq + base + size_t(r0) * d + col) =
+              __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+        if (r1 < s)
+          *reinterpret_cast<__nv_bfloat162*>(dq + base + size_t(r1) * d + col) =
+              __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+      }
+    }
+    __syncthreads();  // Pb and dSb are whole; k and v are read no more
+    fetch2(slice + gridDim.x, k, ks, v, vs);
+
+    // ---- phase 2: the warp's keys ----
+    if (active) {
+      // dV = Pbᵀ dO and dK = dSbᵀ q over the query steps p, or (causal) the
+      // steps from the diagonal one on, p >= warp
+      float adv[kNO][4], adk[kNO][4];
+#pragma unroll
+      for (int n = 0; n < kNO; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) adv[n][i] = adk[n][i] = 0.f;
+#pragma unroll
+      for (int p = 0; p < kNS; ++p) {
+        if (kCausal && p < warp) continue;
+        // the A fragments of Pbᵀ and dSbᵀ (keys row0.., queries 16p..): the
+        // shared tiles' 16 x 16 blocks at (16p, row0), transposed
+        uint32_t pa[4], sa[4];
+        ldsm_x4_trans(pa, b_frag<lp>(ps, 16 * p, row0, lane));
+        ldsm_x4_trans(sa, b_frag<lp>(dss, 16 * p, row0, lane));
+#pragma unroll
+        for (int np = 0; np < kNO / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, bt_frag<ld>(dos, 16 * p, 16 * np, lane));
+          mma16816(adv[2 * np], pa, b[0], b[1]);
+          mma16816(adv[2 * np + 1], pa, b[2], b[3]);
+          ldsm_x4_trans(b, bt_frag<ld>(qs, 16 * p, 16 * np, lane));
+          mma16816(adk[2 * np], sa, b[0], b[1]);
+          mma16816(adk[2 * np + 1], sa, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (col >= d) break;
+        if (r0 < s) {
+          *reinterpret_cast<__nv_bfloat162*>(dv + base + size_t(r0) * d + col) =
+              __floats2bfloat162_rn(adv[n][0], adv[n][1]);
+          *reinterpret_cast<__nv_bfloat162*>(dk + base + size_t(r0) * d + col) =
+              __floats2bfloat162_rn(adk[n][0], adk[n][1]);
+        }
+        if (r1 < s) {
+          *reinterpret_cast<__nv_bfloat162*>(dv + base + size_t(r1) * d + col) =
+              __floats2bfloat162_rn(adv[n][2], adv[n][3]);
+          *reinterpret_cast<__nv_bfloat162*>(dk + base + size_t(r1) * d + col) =
+              __floats2bfloat162_rn(adk[n][2], adk[n][3]);
+        }
+      }
+    }
+    __syncthreads();  // q and dO are read no more
+    fetch2(slice + gridDim.x, q, qs, dout, dos);
+  }
+}
+
+// As the forward: as many blocks as the card holds at once, each walking
+// its slices blockIdx.x, + gridDim.x, ...
+template <int kD, int kNS, bool kCausal>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* dout,
+                          void* dq, void* dk, void* dv, int bh, int s, int d,
+                          cudaStream_t stream) {
+  constexpr size_t bytes = bwd_tc_smem_bytes<kD, kNS>();
+  constexpr int threads = 32 * kNS;
+  auto kernel = short_attention_bwd_tc_kernel<kD, kNS, kCausal>;
+  static const Resident resident = find_resident(kernel, threads, bytes);
+  if (resident.err != cudaSuccess) return resident.err;
+  const int blocks = bh < resident.blocks ? bh : resident.blocks;
+  kernel<<<blocks, threads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), bh, s, d);
+  return cudaGetLastError();
+}
+
+template <bool kCausal>
+cudaError_t launch_bwd_tc_depth(const void* q, const void* k, const void* v, const void* dout,
+                                void* dq, void* dk, void* dv, int bh, int s, int d,
+                                cudaStream_t st) {
+  if (d <= 64) {
+    if (s <= 64) return launch_bwd_tc<64, 4, kCausal>(q, k, v, dout, dq, dk, dv, bh, s, d, st);
+    if (s <= 80) return launch_bwd_tc<64, 5, kCausal>(q, k, v, dout, dq, dk, dv, bh, s, d, st);
+    return launch_bwd_tc<64, 8, kCausal>(q, k, v, dout, dq, dk, dv, bh, s, d, st);
+  }
+  if (s <= 64) return launch_bwd_tc<128, 4, kCausal>(q, k, v, dout, dq, dk, dv, bh, s, d, st);
+  if (s <= 80) return launch_bwd_tc<128, 5, kCausal>(q, k, v, dout, dq, dk, dv, bh, s, d, st);
+  return launch_bwd_tc<128, 8, kCausal>(q, k, v, dout, dq, dk, dv, bh, s, d, st);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. tensor_cores: 1 runs a bfloat16
@@ -798,12 +1133,21 @@ extern "C" int short_attention_fwd(const void* q, const void* k, const void* v, 
 
 // Backward of short_attention_fwd: dq, dk, dv from q, k, v and dout, all
 // (BH, S, D) contiguous in one dtype, for every shape the forward takes.
-// Same codes and return value as above.
+// Same codes and return value as above; tensor_cores asks dout, too, to
+// start on a 16-byte boundary.
 extern "C" int short_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, void* dq, void* dk, void* dv, int bh,
-                                   int s, int d, int dtype, int causal, void* stream) {
+                                   int s, int d, int dtype, int causal, int tensor_cores,
+                                   void* stream) {
   if (bh <= 0 || s <= 0 || s > kMaxS || d <= 0 || d > kMaxD) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (dtype != 1 || d % 8 != 0 ||
+        !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)))
+      return cudaErrorInvalidValue;
+    return causal ? launch_bwd_tc_depth<true>(q, k, v, dout, dq, dk, dv, bh, s, d, st)
+                  : launch_bwd_tc_depth<false>(q, k, v, dout, dq, dk, dv, bh, s, d, st);
+  }
   if (dtype == 0) {
     return causal ? launch_bwd<float, true>(q, k, v, dout, dq, dk, dv, bh, s, d, st)
                   : launch_bwd<float, false>(q, k, v, dout, dq, dk, dv, bh, s, d, st);

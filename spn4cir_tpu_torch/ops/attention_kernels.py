@@ -33,10 +33,11 @@ boundary (as every fresh allocation does), float32 on the CUDA cores.
 
 `attention_route` is the one place that decides which of the three routes
 (short kernel, long kernel, plain tensor code) a self-attention takes, and
-`short_forward_route` which of the short forward's two kernels a CUDA
-input launches: bfloat16 with head_dim % 8 == 0 runs on the tensor cores
-and needs its tensors to start on a 16-byte boundary; float32, and
-bfloat16 at any other head_dim, run on the CUDA cores.
+`short_route` which of the two kernels the short forward and the short
+backward each launch for a CUDA input: bfloat16 with head_dim % 8 == 0 runs
+on the tensor cores and needs its tensors (the backward's dout too) to
+start on a 16-byte boundary; float32, and bfloat16 at any other head_dim,
+run on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -125,10 +126,11 @@ def attention_route(s: int, d: int, causal: bool, masked: bool,
     return "short" if kernel_takes(s, d) else "long"
 
 
-def short_forward_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """Which kernel `short_attention` launches for CUDA (BH, S, D) inputs of
-    `dtype`: "tensor_cores" for bfloat16 with D % 8 == 0 (`aligned`: q, k
-    and v start on a 16-byte boundary, as `cp.async` needs; ValueError
+def short_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """Which kernel `short_attention`'s forward and `short_attention_bwd`
+    launch for CUDA (BH, S, D) inputs of `dtype`: "tensor_cores" for
+    bfloat16 with D % 8 == 0 (`aligned`: q, k, v and, for the backward,
+    dout start on a 16-byte boundary, as `cp.async` needs; ValueError
     otherwise), "cuda_cores" for float32 (TF32 would not hold the float32
     tolerance) and for bfloat16 with D % 8 != 0."""
     if dtype not in _DTYPE_CODES:
@@ -137,10 +139,17 @@ def short_forward_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
     if dtype != torch.bfloat16 or d % 8:
         return "cuda_cores"
     if not aligned:
-        raise ValueError("short_attention's bfloat16 tensor-core kernel "
-                         "takes tensors whose data starts on a 16-byte "
+        raise ValueError("short_attention's bfloat16 tensor-core kernels "
+                         "take tensors whose data starts on a 16-byte "
                          "boundary")
     return "tensor_cores"
+
+
+def _tensor_route(*ts: torch.Tensor) -> str:
+    """`short_route` for the tensors a short kernel reads: q, k, v and, for
+    the backward, dout; all share the first one's dtype and head dim."""
+    return short_route(ts[0].dtype, ts[0].shape[-1],
+                       not any(t.data_ptr() % 16 for t in ts))
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,7 +164,7 @@ def _library() -> ctypes.CDLL:
                    + [ctypes.c_void_p])
     fn = lib.short_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     return lib
 
@@ -185,8 +194,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_fwd(q, k, v, causal: bool) -> torch.Tensor:
     bh, s, d = q.shape
-    route = short_forward_route(
-        q.dtype, d, not any(t.data_ptr() % 16 for t in (q, k, v)))
+    route = _tensor_route(q, k, v)
     lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -204,16 +212,20 @@ def _launch_fwd(q, k, v, causal: bool) -> torch.Tensor:
 
 def short_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, causal: bool = False):
-    """(dq, dk, dv) for CUDA tensors through the backward kernel; `dout`
-    must already have q's dtype and shape and be contiguous."""
+    """(dq, dk, dv) for CUDA tensors through the backward kernel that
+    `short_route` picks; `dout` must already have q's dtype and shape and be
+    contiguous. Every argument is checked before the device: a bf16 dout
+    off a 16-byte boundary is refused for the tensor cores wherever it
+    lies."""
     _check(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"short_attention_bwd launches a CUDA kernel; the "
-                         f"tensors lie on {q.device}")
     if (dout.shape != q.shape or dout.dtype != q.dtype
             or dout.device != q.device or not dout.is_contiguous()):
         raise ValueError("dout must match q in shape, dtype and device and "
                          "be contiguous")
+    route = _tensor_route(q, k, v, dout)
+    if q.device.type != "cuda":
+        raise ValueError(f"short_attention_bwd launches a CUDA kernel; the "
+                         f"tensors lie on {q.device}")
     bh, s, d = q.shape
     lib = _library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
@@ -222,7 +234,8 @@ def short_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.short_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
-            _DTYPE_CODES[q.dtype], int(causal), stream)
+            _DTYPE_CODES[q.dtype], int(causal), int(route == "tensor_cores"),
+            stream)
     if err != 0:
         raise RuntimeError(f"short_attention_bwd launch failed with CUDA "
                            f"error {err} (BH={bh}, S={s}, D={d}, {q.dtype})")

@@ -29,15 +29,15 @@ Routes:
 
 Gradients: dquery and dtau are exact; the bank is a frozen feature cache in
 stage 2 and gets none. The bfloat16 bank is widened to float32 before the
-product in the kernels and in the plain version alike. The dense backward
-is two kernels on the tensor cores in split TF32 (each float32 operand as
-a sum of two TF32 values, three products; two over a bfloat16 bank, which
-TF32 holds exactly): the coefficient (P - onehot)·g over the full depth
-into a (B, M) float32 scratch, then dQ = coefficient · bank split over the
-bank axis and summed in index order (`dense_bwd_plan`; below D = 256 the
-coefficient's logits run on the CUDA cores). The int8 backward
-keeps a dQ tile of at most 512 columns in registers; a wider D (640, 768)
-is cut into equal slices along a grid axis (`dq_slices`).
+product in the kernels and in the plain version alike. The backward has one
+design for all three bank types: two kernels on the tensor cores in split
+TF32 (each float32 operand as a sum of two TF32 values, three products; two
+over a bfloat16 bank or int8 values, which TF32 holds exactly): the
+coefficient (P - onehot)·g (·s over an int8 bank) over the full depth into
+a (B, M) float32 scratch, then dQ = coefficient · bank split over the bank
+axis and summed in index order (`bwd_plan`; below D = 256 the
+coefficient's logits run on the CUDA cores). Its bound is the TF32 peak:
+3 x 4·B·M·D operations over a float32 bank, 2 x over the others.
 
 The JAX package pads the frozen bank once to its kernel's block multiple
 (`PreparedBank` / `prepare_bank`) and caches that relayout beside the bank.
@@ -58,11 +58,10 @@ import torch
 
 TILE_ROWS = 64     # query rows per CTA   (kTileR in csrc/bank_infonce.cu)
 TILE_COLS = 128    # bank rows per tile   (kTileC)
-BWD_SLICE = 512    # widest dQ slice per CTA of the int8 backward (kSliceD)
-DQ_COLS = 128      # dQ columns per CTA of the dense dQ kernel (kTcCols)
+DQ_COLS = 128      # dQ columns per CTA of the backward's dQ kernel (kTcCols)
 DQ_CTAS_PER_SM = 2  # CTAs of that kernel an SM holds (__launch_bounds__)
-# the dense backward forms the logits on the tensor cores from this depth on
-# and on the CUDA cores below it (see `dense_bwd_plan`)
+# the backward forms the logits on the tensor cores from this depth on and
+# on the CUDA cores below it (see `bwd_plan`)
 TC_LOGITS_MIN_D = 256
 
 _BANK_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -213,7 +212,7 @@ def _library() -> ctypes.CDLL:
             (lib.bank_infonce_q8_fwd,
              [ptr] * 4 + [f32] + [i32] * 5 + [ptr] * 7),
             (lib.bank_infonce_q8_bwd,
-             [ptr] * 7 + [f32] + [i32] * 6 + [ptr] * 3)):
+             [ptr] * 7 + [f32] + [i32] * 6 + [ptr] * 4)):
         fn.restype = i32
         fn.argtypes = argtypes
     return lib
@@ -232,11 +231,11 @@ def split_plan(m: int, b: int, sm_count: int, ctas_per_sm: int,
     return tiles_per_split, -(-tiles // tiles_per_split)
 
 
-class DenseBwdPlan(NamedTuple):
-    """The dense backward's grid and scratch: the dQ product's bank splits
-    (`tiles_per_split` tiles of 128 rows each, `n_splits` of them), whether
-    the logits run on the tensor cores (`tc_logits`), the coefficient
-    scratch (B, ceil(M/128)*128) and the per-split partial dQ
+class BwdPlan(NamedTuple):
+    """The backward's grid and scratch, any bank type: the dQ product's
+    bank splits (`tiles_per_split` tiles of 128 rows each, `n_splits` of
+    them), whether the logits run on the tensor cores (`tc_logits`), the
+    coefficient scratch (B, ceil(M/128)*128) and the per-split partial dQ
     (n_splits, B, D), both float32."""
 
     tiles_per_split: int
@@ -246,33 +245,24 @@ class DenseBwdPlan(NamedTuple):
     dq_part_shape: Tuple[int, int, int]
 
 
-def dense_bwd_plan(b: int, m: int, d: int, sm_count: int) -> DenseBwdPlan:
-    """Plan of the dense-bank backward. The coefficient kernel takes one CTA
+def bwd_plan(b: int, m: int, d: int, sm_count: int) -> BwdPlan:
+    """Plan of the backward over a dense or an int8 bank (the bank's type
+    changes neither grid nor scratch). The coefficient kernel takes one CTA
     per (64 query rows, 128 bank rows) tile and forms the logits in split
     TF32 on the tensor cores when D >= `TC_LOGITS_MIN_D` (every model's
     embedding: 256..1024), else in float32 FMAs on the CUDA cores: a
     shallow bank of unit rows has logits up to 1/tau, and there a product
     summed in another order than the plain version's misses dQ's
     tolerance (an exactly rounded product does too). The dQ kernel (split
-    TF32 at every D) has only ceil(B/64) x ceil(D/128) output tiles (20 at B=256,
-    D=640), so it splits the bank axis until the card holds
+    TF32 at every D) has only ceil(B/64) x ceil(D/128) output tiles (20 at
+    B=256, D=640), so it splits the bank axis until the card holds
     `DQ_CTAS_PER_SM` CTAs an SM, and the splits are summed in index order.
     A pure function of its arguments, so the order of every sum is fixed
     for a given device."""
     tps, n_splits = split_plan(m, b, sm_count, DQ_CTAS_PER_SM,
                                -(-d // DQ_COLS))
-    return DenseBwdPlan(tps, n_splits, d >= TC_LOGITS_MIN_D,
-                        (b, -(-m // TILE_COLS) * TILE_COLS), (n_splits, b, d))
-
-
-def dq_slices(d: int) -> Tuple[int, int]:
-    """(n_slices, width) of the int8 backward's grid axis over dQ's
-    columns: the fewest equal slices of at most `BWD_SLICE` columns, the
-    width rounded up to the 64 columns that one pass of a CTA's threads
-    covers."""
-    n = -(-d // BWD_SLICE)
-    width = -(-(-(-d // n)) // 64) * 64
-    return -(-d // width), width
+    return BwdPlan(tps, n_splits, d >= TC_LOGITS_MIN_D,
+                   (b, -(-m // TILE_COLS) * TILE_COLS), (n_splits, b, d))
 
 
 def _check(query: torch.Tensor, bank, labels: torch.Tensor) -> None:
@@ -368,19 +358,9 @@ def _launch_bwd(query: torch.Tensor, bank, labels: torch.Tensor, tau: float,
     m = bank.shape[0]
     dev = query.device
     f32 = dict(device=dev, dtype=torch.float32)
-    if isinstance(bank, QuantBank):
-        # the int8 backward: one kernel, dQ's columns in slices
-        n_slices, width = dq_slices(d)
-        tps, n_splits = split_plan(m, b, _sm_count(dev), 1, n_slices)
-        dq_part = torch.empty(n_splits, b, d, **f32)
-        scratch = (width, dq_part.data_ptr())
-    else:
-        # the dense backward: coefficient and dQ kernels in split TF32
-        plan = dense_bwd_plan(b, m, d, _sm_count(dev))
-        tps, n_splits = plan.tiles_per_split, plan.n_splits
-        coef = torch.empty(plan.coef_shape, **f32)
-        dq_part = torch.empty(plan.dq_part_shape, **f32)
-        scratch = (int(plan.tc_logits), coef.data_ptr(), dq_part.data_ptr())
+    plan = bwd_plan(b, m, d, _sm_count(dev))
+    coef = torch.empty(plan.coef_shape, **f32)
+    dq_part = torch.empty(plan.dq_part_shape, **f32)
     labels32 = labels.to(torch.int32).contiguous()
     mx = mx.float().contiguous()
     se = se.float().contiguous()
@@ -391,7 +371,9 @@ def _launch_bwd(query: torch.Tensor, bank, labels: torch.Tensor, tau: float,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(query.data_ptr(), *bank_ptrs, labels32.data_ptr(),
                  mx.data_ptr(), se.data_ptr(), gout.data_ptr(), float(tau), b,
-                 m, d, *code, tps, n_splits, *scratch, dq.data_ptr(), stream)
+                 m, d, *code, plan.tiles_per_split, plan.n_splits,
+                 int(plan.tc_logits), coef.data_ptr(), dq_part.data_ptr(),
+                 dq.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed with CUDA error "
                            f"{err} (B={b}, M={m}, D={d}, {bank.dtype})")

@@ -29,7 +29,7 @@ from spn4cir_tpu_torch.ops.attention_kernels import (
     long_attention, long_attention_bwd, long_attention_bwd_reference,
     long_attention_fwd, long_attention_reference, short_attention,
     short_attention_bwd, short_attention_bwd_reference,
-    short_attention_reference, short_forward_route)
+    short_attention_reference, short_route)
 
 
 @pytest.fixture
@@ -62,25 +62,42 @@ def test_kernel_matches_plain_version_on_card(cuda_device, bh, s, d, causal,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# the edges of the bf16 tensor-core kernels (slices padded to 64, 80 or 128
+# rows, head dims to 64 or 128), at a BH that is no multiple of anything and
+# at one past the blocks the card holds at once
+SHORT_EDGES = [(bh, s, d, causal) for bh in (5, 1001)
+               for s in (1, 15, 16, 17, 50, 77, 128) for d in (8, 64, 72, 128)
+               for causal in (False, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,s,d,causal", [
     (2048, 77, 64, True), (3072, 50, 64, False), (3, 29, 16, True),
     (5, 17, 40, False), (2, 117, 64, True), (2, 128, 64, True),
-    (3, 128, 128, False), (3, 128, 128, True), (2, 96, 128, True)])
+    (3, 128, 128, False), (3, 128, 128, True), (2, 96, 128, True)]
+    + SHORT_EDGES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
 def test_backward_kernel_matches_plain_version_on_card(cuda_device, bh, s, d,
                                                        causal, dtype, tol):
+    """bf16 at a head dim % 8 == 0 on the tensor cores, the rest on the
+    CUDA cores: within the tolerance of the plain backward, one launch
+    counted, and a second launch gives the same bits."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v, do = (torch.randn(bh, s, d, generator=g, device=cuda_device,
                                dtype=dtype) for _ in range(4))
     q = q * d ** -0.5
+    assert short_route(dtype, d, True) == (
+        "tensor_cores" if dtype == torch.bfloat16 and d % 8 == 0
+        else "cuda_cores")
     before = short_attention_bwd.launches
     got = short_attention_bwd(q, k, v, do, causal)
     torch.cuda.synchronize()
     assert short_attention_bwd.launches == before + 1
+    again = short_attention_bwd(q, k, v, do, causal)
     want = short_attention_bwd_reference(q, k, v, do, causal)
-    for a, b in zip(got, want):
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
 
 
@@ -176,29 +193,37 @@ def test_bank_infonce_kernels_match_plain_versions_on_card(cuda_device, b, m,
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,m,d", [(33, 1000, 240), (33, 1000, 256),
                                    (256, 4097, 768), (5, 300, 512)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_dense_bank_backward_takes_either_logits_route_on_card(cuda_device, b,
                                                                m, d, dtype):
-    """The dense backward forms its logits in split TF32 on the tensor cores
-    from D = 256 on and in float32 FMAs below; the dQ product runs in split
-    TF32 at every D. Either way dQ holds the bank tolerance against the
-    plain version, the wrapper counts one launch, and a second call gives
-    the same bits."""
-    q, bank, labels = _bank_case(cuda_device, b, m, d, dtype, seed=3)
+    """The backward, over a dense or an int8 bank (a QuantBank of the same
+    rows, through `bank_infonce_q8_bwd`), forms its logits in split TF32 on
+    the tensor cores from D = 256 on and in float32 FMAs below; the dQ
+    product runs in split TF32 at every D. Either way dQ holds the bank
+    tolerance against the plain version, the wrapper counts one launch, and
+    a second call gives the same bits."""
+    quant = dtype == torch.int8
+    q, bank, labels = _bank_case(cuda_device, b, m, d,
+                                 torch.float32 if quant else dtype, seed=3)
+    if quant:
+        bank = bk.quantize_bank(bank)
+        bwd, ref = bk.bank_infonce_q8_bwd, bk.bank_infonce_q8_bwd_reference
+        stats = bk.bank_infonce_q8_stats_reference(q, bank, labels, 0.02)
+    else:
+        bwd, ref = bk.bank_infonce_bwd, bk.bank_infonce_bwd_reference
+        stats = bk.bank_infonce_stats_reference(q, bank, labels, 0.02)
     tau = 0.02
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert bk.dense_bwd_plan(b, m, d, sms).tc_logits == (d >= 256)
-    stats = bk.bank_infonce_stats_reference(q, bank, labels, tau)
+    assert bk.bwd_plan(b, m, d, sms).tc_logits == (d >= 256)
     gout = torch.tensor(1.5, device=cuda_device)
-    before = bk.bank_infonce_bwd.launches
-    dq = bk.bank_infonce_bwd(q, bank, labels, tau, stats[0], stats[1], gout)
-    dq2 = bk.bank_infonce_bwd(q, bank, labels, tau, stats[0], stats[1], gout)
+    before = bwd.launches
+    dq = bwd(q, bank, labels, tau, stats[0], stats[1], gout)
+    dq2 = bwd(q, bank, labels, tau, stats[0], stats[1], gout)
     torch.cuda.synchronize()
-    assert bk.bank_infonce_bwd.launches == before + 2
+    assert bwd.launches == before + 2
     assert torch.equal(dq, dq2)
     torch.testing.assert_close(
-        dq, bk.bank_infonce_bwd_reference(q, bank, labels, tau, stats[0],
-                                          stats[1], gout),
+        dq, ref(q, bank, labels, tau, stats[0], stats[1], gout),
         atol=1e-6, rtol=1e-4)
 
 
@@ -414,7 +439,7 @@ def test_short_attention_tensor_core_edges_on_card(cuda_device, s, d, causal):
     q, k, v = (torch.randn(5, s, d, generator=g, device=cuda_device,
                            dtype=torch.bfloat16) for _ in range(3))
     q = q * d ** -0.5
-    assert short_forward_route(q.dtype, d, True) == "tensor_cores"
+    assert short_route(q.dtype, d, True) == "tensor_cores"
     with torch.inference_mode():
         got = short_attention(q, k, v, causal)
         again = short_attention(q, k, v, causal)

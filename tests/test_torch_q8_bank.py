@@ -168,16 +168,6 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(values, scales, msg):
                                torch.zeros(4).long(), 0.1)
 
 
-@pytest.mark.parametrize("d,want", [
-    (16, (1, 64)), (512, (1, 512)), (640, (2, 320)), (768, (2, 384)),
-    (1024, (2, 512)), (1040, (3, 384)), (528, (2, 320))])
-def test_dq_slices_cover_every_width_the_forward_takes(d, want):
-    n, width = bk.dq_slices(d)
-    assert (n, width) == want
-    assert width % 64 == 0 and width <= bk.BWD_SLICE
-    assert n * width >= d > (n - 1) * width
-
-
 @pytest.mark.parametrize("m,b,sms,slices", [
     (65536, 256, 132, 2), (2049, 5, 132, 2), (65536, 256, 132, 3),
     (300, 3, 132, 4)])

@@ -1,6 +1,7 @@
-"""The dense-bank InfoNCE backward's split-TF32 arithmetic, emulated in
-numpy, against float64 and against the JAX package's Pallas kernel; and the
-backward's plan (grid, scratch, route of the logits).
+"""The bank InfoNCE backward's split-TF32 arithmetic, over a dense and over
+an int8 bank, emulated in numpy, against float64 and against the JAX
+package's Pallas kernels; and the backward's plan (grid, scratch, route of
+the logits), which is the same for every bank type.
 
 The CUDA kernels (`bank_infonce_coef_tc_kernel`, `bank_infonce_dq_tc_kernel`
 in csrc/bank_infonce.cu) run only on the card (tests/test_torch_cuda.py,
@@ -8,11 +9,13 @@ chip_smoke.py). Their arithmetic is emulated here as they do it: each
 float32 operand is split into hi = x rounded to TF32 (half a TF32 unit added
 to the bits, the low 13 bits masked) and lo = x - hi, which the tensor core
 reads with its low 13 bits masked; the product of one 8-deep step is
-lo·hi + hi·lo + hi·hi (lo·hi + hi·hi over a bf16 bank, exact in TF32);
-a 32-deep stage of those is summed exactly (float64), rounded once to
-float32 and added to the float32 accumulator; the coefficient
-(exp(l/tau - mx)/se - onehot)·g is formed in float32; the dQ product runs per split of the bank's 128-row
-tiles (`dense_bwd_plan`) and the splits are summed in index order.
+lo·hi + hi·lo + hi·hi (lo·hi + hi·hi over a bf16 bank or int8 values,
+both exact in TF32); a 32-deep stage of those is summed exactly (float64),
+rounded once to float32 and added to the float32 accumulator; the
+coefficient (exp(l/tau - mx)/se - onehot)·g is formed in float32, over an
+int8 bank from l = acc·s/tau and multiplied by s after; the dQ product runs
+per split of the bank's 128-row tiles (`bwd_plan`) and the splits are
+summed in index order.
 
 Tolerances: those of the kernels on the card (chip_smoke.py BANK_RTOL,
 BANK_DQ_ATOL): the emulated dQ within atol 1e-6 + rtol 1e-4 of float64,
@@ -24,12 +27,15 @@ of the bound from float64, on opposite sides). The split's own residual is
 below 2^-21 relative.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from spn4cir_tpu.ops import bank_kernels as jbk
 from spn4cir_tpu.ops.bank_kernels import bank_infonce_pallas
 from spn4cir_tpu_torch.ops import bank_kernels as bk
 
@@ -70,15 +76,21 @@ def mma_3xtf32(a, b, exact_b, stage=32):
     return acc
 
 
-def emulate_backward(q, bank, exact_b, labels, tau, mx, se, gout, plan):
-    """dQ of the dense backward as the split-TF32 kernels compute it."""
+def emulate_backward(q, bank, exact_b, labels, tau, mx, se, gout, plan,
+                     scales=None):
+    """dQ of the backward as the split-TF32 kernels compute it; `scales`:
+    an int8 bank's, with `bank` its values as float32."""
     b, m = q.shape[0], bank.shape[0]
     logits = mma_3xtf32(q, bank.T, exact_b)
+    if scales is not None:
+        logits = (logits * scales[None, :]).astype(np.float32)
     tau32 = np.float32(tau)
     p = (np.exp((logits / tau32).astype(np.float32) - mx[:, None])
          .astype(np.float32) / se[:, None]).astype(np.float32)
     p[np.arange(b), labels] -= np.float32(1.0)
     coef = (p * np.float32(gout / (b * tau))).astype(np.float32)
+    if scales is not None:
+        coef = (coef * scales[None, :]).astype(np.float32)
     rows = plan.tiles_per_split * bk.TILE_COLS
     dq = np.zeros((b, q.shape[1]), np.float32)
     for i in range(plan.n_splits):
@@ -89,13 +101,15 @@ def emulate_backward(q, bank, exact_b, labels, tau, mx, se, gout, plan):
     return dq
 
 
-def float64_backward(q, bank, labels, tau, mx, se, gout):
-    """The backward's formula in float64 from the same saved (mx, se)."""
+def float64_backward(q, bank, labels, tau, mx, se, gout, scales=None):
+    """The backward's formula in float64 from the same saved (mx, se);
+    `scales`: an int8 bank's, with `bank` its values."""
     b = q.shape[0]
-    logits = q.astype(np.float64) @ bank.astype(np.float64).T / tau
+    s = np.ones(bank.shape[0]) if scales is None else scales.astype(np.float64)
+    logits = q.astype(np.float64) @ bank.astype(np.float64).T * s / tau
     p = np.exp(logits - mx[:, None].astype(np.float64)) / se[:, None]
     p[np.arange(b), labels] -= 1.0
-    return (p * (gout / (b * tau))) @ bank.astype(np.float64)
+    return (p * (gout / (b * tau)) * s) @ bank.astype(np.float64)
 
 
 def _norm(x):
@@ -113,6 +127,20 @@ def _case(rng, b, m, d, dtype):
         torch.from_numpy(q), torch.from_numpy(bank), torch.from_numpy(labels),
         tau))
     return q, bank, labels, tau, mx, se
+
+
+def _q8_case(rng, b, m, d):
+    """A unit-row bank quantized as `quantize_bank` does: (q, values as
+    float32, scales, labels, tau, mx, se), the statistics from the plain
+    int8 forward."""
+    q = _norm(rng.randn(b, d))
+    qbank = bk.quantize_bank(torch.from_numpy(_norm(rng.randn(m, d))))
+    labels = rng.randint(0, m, size=b).astype(np.int64)
+    tau = 0.02
+    mx, se, _, _ = (t.numpy() for t in bk.bank_infonce_q8_stats_reference(
+        torch.from_numpy(q), qbank, torch.from_numpy(labels), tau))
+    return (q, qbank.values.numpy().astype(np.float32), qbank.scales.numpy(),
+            labels, tau, mx, se)
 
 
 @pytest.mark.parametrize("x_scale", [1e-30, 1e-3, 1.0, 3e4])
@@ -137,13 +165,46 @@ def test_bf16_values_are_exact_in_tf32(rng):
     assert not lo.any()
 
 
+def test_int8_values_are_exact_in_tf32():
+    """An int8 bank needs no lo either: every value of -128..127 has at most
+    7 significant bits, TF32 holds 11."""
+    x = np.arange(-128, 128).astype(np.float32)
+    hi, lo = split(x)
+    np.testing.assert_array_equal(hi, x)
+    assert not lo.any()
+
+
+@pytest.mark.parametrize("b,m,d", [(8, 300, 256), (5, 1100, 512),
+                                   (16, 700, 640), (32, 1100, 768)])
+def test_split_tf32_int8_backward_matches_float64_and_pallas(b, m, d, rng):
+    """The int8 backward runs the dense kernels' two products on the raw
+    values (exact in TF32: two products each), the scale on the logits
+    column and on the coefficient; dQ holds the bank tolerance against
+    float64 and against `bank_infonce_q8_pallas` in interpret mode."""
+    q, vals, scales, labels, tau, mx, se = _q8_case(rng, b, m, d)
+    plan = bk.bwd_plan(b, m, d, sm_count=16)
+    assert plan.tc_logits and plan.n_splits > 1
+    got = emulate_backward(q, vals, True, labels, tau, mx, se, 1.0, plan,
+                           scales)
+    want = float64_backward(q, vals, labels, tau, mx, se, 1.0, scales)
+    np.testing.assert_allclose(got, want, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
+    jqb = jbk.QuantBank(jnp.asarray(vals.astype(np.int8)),
+                        jnp.asarray(scales))
+    dq = np.asarray(jax.grad(lambda q_: jbk.bank_infonce_q8_pallas(
+        q_, jqb, jnp.asarray(labels), jnp.float32(tau), 8, 128))(
+        jnp.asarray(q)))
+    np.testing.assert_allclose(dq, want, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
+    np.testing.assert_allclose(got, dq, atol=2 * BANK_DQ_ATOL,
+                               rtol=2 * BANK_RTOL)
+
+
 @pytest.mark.parametrize("b,m,d", [(8, 300, 256), (5, 1100, 512),
                                    (16, 700, 640), (32, 1100, 768)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_tf32_backward_matches_float64_and_pallas(b, m, d, dtype, rng):
     q, bank, labels, tau, mx, se = _case(rng, b, m, d, dtype)
     # a small card, so that the bank is cut into several splits
-    plan = bk.dense_bwd_plan(b, m, d, sm_count=16)
+    plan = bk.bwd_plan(b, m, d, sm_count=16)
     assert plan.tc_logits and plan.n_splits > 1
     got = emulate_backward(q, bank, dtype == "bfloat16", labels, tau, mx, se,
                            1.0, plan)
@@ -174,13 +235,28 @@ def test_split_tf32_dq_product_holds_at_shallow_depths(d, rng):
     np.testing.assert_allclose(got, want, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
 
 
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_split_tf32_int8_dq_product_holds_at_shallow_depths(d, rng):
+    """The same over int8 values (exact in TF32, two products), from a
+    coefficient that carries the scales, as the int8 backward's does."""
+    b, m = 9, 1000
+    qbank = bk.quantize_bank(torch.from_numpy(_norm(rng.randn(m, d))))
+    vals = qbank.values.numpy().astype(np.float32)
+    coef = (rng.rand(b, m) * 1e-3).astype(np.float32)
+    coef[np.arange(b), rng.randint(0, m, size=b)] -= np.float32(1.0)
+    coef = (coef * qbank.scales.numpy()[None, :]).astype(np.float32)
+    got = mma_3xtf32(coef, vals, True)
+    want = coef.astype(np.float64) @ vals.astype(np.float64)
+    np.testing.assert_allclose(got, want, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
+
+
 @pytest.mark.parametrize("b,m,d", [(256, 65536, 640), (256, 65536, 512),
                                    (128, 65536, 256), (5, 2049, 512),
                                    (70, 4001, 768), (9, 130, 16),
                                    (1, 1, 16), (3, 300, 1040)])
 @pytest.mark.parametrize("sms", [1, 132])
 def test_dense_bwd_plan_covers_the_bank_with_no_empty_split(b, m, d, sms):
-    plan = bk.dense_bwd_plan(b, m, d, sms)
+    plan = bk.bwd_plan(b, m, d, sms)
     tiles = -(-m // bk.TILE_COLS)
     assert plan.tiles_per_split * plan.n_splits >= tiles
     assert plan.tiles_per_split * (plan.n_splits - 1) < tiles
@@ -192,10 +268,52 @@ def test_dense_bwd_plan_covers_the_bank_with_no_empty_split(b, m, d, sms):
     assert plan.tc_logits == (d >= bk.TC_LOGITS_MIN_D)
 
 
+@pytest.mark.parametrize("b,m,d", [(256, 65536, 640), (256, 65536, 512),
+                                   (5, 2049, 640), (70, 4001, 768),
+                                   (9, 130, 16)])
+def test_int8_bank_takes_the_dense_plan(b, m, d):
+    """One plan for every bank type: a QuantBank's (M, D) gives the grid,
+    the scratch and the logits route that the same dense bank gets."""
+    bank = torch.zeros(m, d)
+    qbank = bk.quantize_bank(bank)
+    assert tuple(qbank.shape) == tuple(bank.shape) == (m, d)
+    dense = bk.bwd_plan(b, *bank.shape, 132)
+    quant = bk.bwd_plan(b, *qbank.shape, 132)
+    assert quant == dense
+    assert quant.coef_shape == (b, -(-m // bk.TILE_COLS) * bk.TILE_COLS)
+    assert quant.dq_part_shape == (quant.n_splits, b, d)
+    assert quant.tc_logits == (d >= bk.TC_LOGITS_MIN_D)
+
+
+def test_both_backward_entry_points_take_the_plans_scratch(monkeypatch):
+    """`bank_infonce_q8_bwd`'s C signature is `bank_infonce_bwd`'s with the
+    scales' pointer for the dtype code: both take (tiles_per_split,
+    n_splits, tc_logits) and the coefficient and partial-dQ scratch."""
+    from spn4cir_tpu_torch.ops import cuda_build
+
+    class Lib:
+        def __init__(self, path):
+            for name in ("bank_infonce_fwd", "bank_infonce_bwd",
+                         "bank_infonce_q8_fwd", "bank_infonce_q8_bwd"):
+                setattr(self, name, type("Fn", (), {})())
+
+    monkeypatch.setattr(cuda_build, "build_library", lambda *a: "unbuilt.so")
+    monkeypatch.setattr(ctypes, "CDLL", Lib)
+    lib = bk._library.__wrapped__()
+    dense = lib.bank_infonce_bwd.argtypes
+    quant = lib.bank_infonce_q8_bwd.argtypes
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # q, bank | values, scales, labels, mx, se, gout; tau; B, M, D
+    # (dense: the dtype code), tiles_per_split, n_splits, tc_logits;
+    # coef, dq_part, dq, stream
+    assert dense == [ptr] * 6 + [f32] + [i32] * 7 + [ptr] * 4
+    assert quant == [ptr] * 7 + [f32] + [i32] * 6 + [ptr] * 4
+
+
 def test_dense_bwd_plan_fills_the_card_at_the_recipe_shapes():
     """B=256 x D=640 is 4 x 5 output tiles of the dQ kernel: the bank axis
     is split until the card holds two CTAs an SM."""
-    plan = bk.dense_bwd_plan(256, 65536, 640, 132)
+    plan = bk.bwd_plan(256, 65536, 640, 132)
     assert (plan.tiles_per_split, plan.n_splits) == (40, 13)
     assert 4 * 5 * plan.n_splits <= 2 * 132
     scratch = 4 * (np.prod(plan.coef_shape) + np.prod(plan.dq_part_shape))
