@@ -411,8 +411,9 @@ def build_kernels(cuda_build) -> None:
 # long_attention.cu's bf16 forward, dQ and dK/dV at the padded depths 64,
 # 96, 128; short_attention.cu's bf16 forward and backward, each at the
 # padded depths 64, 128 x 64, 80, 128 rows x causal or not; bank_infonce.cu's
-# split-TF32 coefficient and dQ kernels over float32, bf16 and int8 banks
-TC_KERNELS = {"long_attention": 9, "short_attention": 24, "bank_infonce": 6}
+# split-TF32 forward, coefficient and dQ kernels over float32, bf16 and int8
+# banks
+TC_KERNELS = {"long_attention": 9, "short_attention": 24, "bank_infonce": 9}
 
 
 def check_tensor_cores(cuda_build, lib) -> None:
@@ -805,10 +806,18 @@ def check_bank_case(bk, q, bank, labels, card, time_it=True):
                     zip((*stats, loss), (*want, want_loss)))
     bwd_share = over_tol(dq, want_dq, BANK_DQ_ATOL)
     common = dict(shape=f"B={b}, M={m}, D={d}", dtype=dtype_name(bank.dtype))
-    # float32 products (the bank is widened), so the float32 peak applies;
-    # bytes: the query, the bank, the labels and the statistics, each once
-    f_ms, f_by = bound_ms(b * d * 4 + f["bank_bytes"] + b * 4 + 4 * b * 4 + 8,
-                          2 * b * m * d, torch.float32)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    # bytes: the query, the bank, the labels and the statistics, each once;
+    # the forward's route from its plan: from D = 256 on split TF32 on the
+    # tensor cores, 3 products of 2·B·M·D (2 over a bf16 bank or int8
+    # values) at the TF32 peak, below float32 FMAs at the float32 peak (the
+    # bound the CUDA-core design was held to, printed beside the other)
+    fwd_tc = bk.fwd_plan(b, m, d, sms).tc_logits
+    n_split = 3 if bank.dtype == torch.float32 else 2
+    fwd_bytes = b * d * 4 + f["bank_bytes"] + b * 4 + 4 * b * 4 + 8
+    f_fma_ms, f_fma_by = bound_ms(fwd_bytes, 2 * b * m * d, torch.float32)
+    f_ms, f_by = (bound_ms(fwd_bytes, n_split * 2 * b * m * d, "tf32")
+                  if fwd_tc else (f_fma_ms, f_fma_by))
     bwd_bytes = 2 * b * d * 4 + f["bank_bytes"] + b * 4 + 2 * b * 4 + 4
     # the function's 4·B·M·D in float32 FMAs: the bound the CUDA-core
     # design's readings were held to, printed beside
@@ -818,9 +827,7 @@ def check_bank_case(bk, q, bank, labels, card, time_it=True):
     # D = 256 on, in the coefficient kernel (below, float32 FMAs), and the
     # coefficient scratch written and read once; the two kernels' least
     # times add
-    plan = bk.bwd_plan(b, m, d, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
-    n_split = 3 if bank.dtype == torch.float32 else 2
+    plan = bk.bwd_plan(b, m, d, sms)
     coef_bytes = 2 * 4 * plan.coef_shape[0] * plan.coef_shape[1]
     tc_ops = n_split * 2 * b * m * d * (2 if plan.tc_logits else 1)
     fma_ops = 0 if plan.tc_logits else 2 * b * m * d
@@ -831,7 +838,8 @@ def check_bank_case(bk, q, bank, labels, card, time_it=True):
     route = "tensor_cores" if plan.tc_logits else "cuda_cores+tensor_cores"
     fwd = dict(common, rtol=BANK_RTOL, atol=BANK_RTOL, max_abs_err=fwd_err,
                max_err_over_tol=fwd_share, bound_ms=f_ms, bound_by=f_by,
-               route="cuda_cores")
+               fma_bound_ms=f_fma_ms,
+               route="tensor_cores" if fwd_tc else "cuda_cores")
     bwd = dict(common, rtol=BANK_RTOL, atol=BANK_DQ_ATOL, max_abs_err=bwd_err,
                max_err_over_tol=bwd_share, bound_ms=b_ms, bound_by=b_by,
                fma_bound_ms=fma_ms, route=route)
@@ -920,8 +928,8 @@ def check_bank(bk, device, card):
     run(q, bank32, torch.randint(0, RECIPE_BANK, (BLIP_BATCH,), generator=g,
                                  device=device))
     # row and bank counts that are no multiple of a tile, and a shallow bank
-    # (the backward's logits on the CUDA cores); the scales of the int8 bank
-    # are a view into a buffer whose tail is NaN
+    # (D = 240: the forward's and the backward's logits on the CUDA cores);
+    # the scales of the int8 bank are a view into a buffer whose tail is NaN
     for b, m, d in ((5, 2049, BANK_DIM), (5, 2049, FLAGSHIP_DIM),
                     (70, 4001, 768), (33, 1000, 240)):
         q = unit_rows(b, d, g, device)
@@ -2809,14 +2817,22 @@ def decode_attention_case(da, q, k, v, li, bias, ks, vs, card, time_it=True):
         with torch.no_grad():
             rec["ms"] = median_ms(lambda: da.decode_attention(
                 q, k, v, li, bias, ks, vs))
+            rec["device_ms"] = device_ms(lambda: da.decode_attention(
+                q, k, v, li, bias, ks, vs))
             rec["plain_ms"] = median_ms(
                 lambda: da.decode_attention_reference(q, k, v, li, bias, ks,
                                                       vs), reps=10)
             rec["library_ms"] = median_ms(library, reps=10)
-    times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-             f"library (SDPA at query length 1"
+            rec["library_device_ms"] = device_ms(library, n=20)
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    times = (f"kernel {rec['ms']:.4f} ms a call, {rec['device_ms']:.4f} ms "
+             f"of device time back to back "
+             f"({100 * rec['bound_share']:.1f}% of the bound), plain "
+             f"{rec['plain_ms']:.4f} ms, library (SDPA at query length 1"
              f"{', int8 dequantized first' if quant else ''}) "
-             f"{rec['library_ms']:.4f} ms, " if time_it else "")
+             f"{rec['library_ms']:.4f} ms a call, "
+             f"{rec['library_device_ms']:.4f} back to back, "
+             if time_it else "")
     phase(f"kernel decode_attention {rec['shape']} cache {rec['dtype']}: "
           f"max_abs_err={rec['max_abs_err']:.3e}, "
           f"{rec['max_err_over_tol']:.3f} of the tolerance (atol={tol} + "
@@ -2902,16 +2918,29 @@ def quant_matmul_case(qm, x, values, scales, w_bf16, card, time_it=True):
                                  ).max().item(), bound_ms=b_ms, bound_by=b_by)
     if time_it:
         xb = x.to(torch.bfloat16)
+
+        def library():
+            return (x @ values.to(x.dtype)) * scales.to(x.dtype)
+
         rec["ms"] = median_ms(lambda: qm.quant_matmul(x, values, scales))
+        rec["device_ms"] = device_ms(lambda: qm.quant_matmul(x, values,
+                                                             scales))
         rec["plain_ms"] = median_ms(
             lambda: qm.quant_matmul_reference(x, values, scales), reps=10)
-        rec["library_ms"] = median_ms(
-            lambda: (x @ values.to(x.dtype)) * scales.to(x.dtype), reps=10)
+        rec["library_ms"] = median_ms(library, reps=10)
+        rec["library_device_ms"] = device_ms(library, n=20)
         rec["library_bf16_ms"] = median_ms(lambda: xb @ w_bf16, reps=10)
-    times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-             f"library (x @ values.to(x.dtype) * scales, the JAX package's "
-             f"dequant-after-matmul) {rec['library_ms']:.4f} ms, bf16 cuBLAS "
-             f"on the dense weight {rec['library_bf16_ms']:.4f} ms, "
+        rec["library_bf16_device_ms"] = device_ms(lambda: xb @ w_bf16)
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    times = (f"kernel {rec['ms']:.4f} ms a call, {rec['device_ms']:.4f} ms "
+             f"of device time back to back "
+             f"({100 * rec['bound_share']:.1f}% of the bound), plain "
+             f"{rec['plain_ms']:.4f} ms, library (x @ values.to(x.dtype) * "
+             f"scales, the JAX package's dequant-after-matmul) "
+             f"{rec['library_ms']:.4f} ms a call, "
+             f"{rec['library_device_ms']:.4f} back to back, bf16 cuBLAS on "
+             f"the dense weight {rec['library_bf16_ms']:.4f} ms a call, "
+             f"{rec['library_bf16_device_ms']:.4f} back to back, "
              if time_it else "")
     phase(f"kernel quant_matmul {rec['shape']} x {rec['dtype']}: "
           f"max_abs_err={rec['max_abs_err']:.3e}, "

@@ -35,16 +35,33 @@
 // the bank axis in order for each block of rows (two blocks at B = 256);
 // here the bank axis is split across CTAs so that every SM has work.
 //
-// Forward, every bank (CUDA cores): the bank is widened to float32 and the
-// product runs as float32 FMAs, as the TPU kernels do. grid = (bank splits,
-// 64-row tiles of Q); a CTA walks its split in tiles of 128 bank rows, each
-// logits tile a register-blocked product (`logits_tile`: 4 x 8 per thread,
-// depth chunks of 16 staged transposed in shared memory; an int8 tile's 128
-// scales beside it in shared memory); each thread keeps online-softmax
-// statistics for its 4 rows over its own columns, the 16 threads of a row
-// merge with xor shuffles, one float4 (mx, se, pos, el) per (split, row)
-// goes to scratch, and a one-block merge kernel combines the splits in
-// index order and writes the statistics, the loss and dtau_unit.
+// Forward, every bank (float32, bf16, int8; one template a route). From
+// D = 256 on (`tc_logits`, the backward's rule) the logits tile is formed by
+// the backward's split-TF32 mainloop (`logits_tile_tc`; the split is set out
+// under Backward), so the forward and the coefficient kernel form
+// bit-identical logits and P = exp(l - mx)/se in the backward sums to 1
+// against the forward's own statistics: `bank_infonce_fwd_tc_kernel`, grid =
+// (64-row tiles of Q, bank splits), a CTA walks its split's 128-row bank
+// tiles through one three-stage cp.async ring that runs on across tile
+// boundaries (the next tile's first chunks load while this tile's epilogue
+// runs); per tile each thread folds its 4 rows x 8 columns into running (mx,
+// se, el, pos) kept in shared memory (its own slots: no barrier, no
+// registers held across the mainloop); once per split the four t lanes of a
+// row merge by xor shuffles and the four column warps in warp order through
+// shared memory. Bound at
+// D = 640, B = 256, M = 65,536: 3 x 2·B·M·D = 64.4 GFLOP at the TF32 peak
+// over a float32 bank, 0.13 ms, 2 x over a bf16 or int8 one, 0.087 ms.
+// Below D = 256 the bank is widened to float32 and the product runs as
+// float32 FMAs, as the TPU kernels do (`bank_infonce_fwd_kernel`): grid =
+// (bank splits, 64-row tiles of Q); a CTA walks its split in tiles of 128
+// bank rows, each logits tile a register-blocked product (`logits_tile`:
+// 4 x 8 per thread, depth chunks of 16 staged transposed in shared memory;
+// an int8 tile's 128 scales beside it in shared memory); each thread keeps
+// online-softmax statistics for its 4 rows over its own columns, the 16
+// threads of a row merge with xor shuffles. Either route writes one float4
+// (mx, se, pos, el) per (split, row) to scratch, and a one-block merge
+// kernel combines the splits in index order and writes the statistics, the
+// loss and dtau_unit.
 //
 // Backward, every bank (float32, bf16, int8; one design, the tensor cores).
 // Float32 FMAs cap a CUDA-core design near the library's SGEMMs (67 TFLOP/s
@@ -74,9 +91,10 @@
 //       each split walks its bank rows in 32-row stages through the same
 //       kind of ring and writes its partial dQ to scratch, and the reduce
 //       sums the splits in index order.
-//   8 warps a CTA as 2 x 4 warp tiles of 32 x 32; fragment reads are free of
-//   bank conflicts by the row strides (kTcLdA, coef_ld_bank, dq_ld_bank),
-//   one bank value a load, widened to float32.
+//   8 warps a CTA as 2 x 4 warp tiles of 32 x 32 (both kernels and the
+//   tensor-core forward); fragment reads are free of bank conflicts by the
+//   row strides (kTcLdA, coef_ld_bank, dq_ld_bank), one bank value a load,
+//   widened to float32.
 //   Below D = 256 (`tc_logits` off; no model's embedding is so narrow) the
 //   logits of (a) run as float32 FMAs (`bank_infonce_coef_kernel`): unit
 //   rows of few dimensions have logits up to 1/tau, where a product summed
@@ -426,62 +444,50 @@ __device__ __forceinline__ float column_scale(const float* __restrict__ scales, 
   return col < M ? scales[col] : 0.f;
 }
 
-// (a) C[row][col] = (exp(l - mx)/se - onehot(label))·g for a 64-row tile of
-// Q and a 128-row tile of the bank, l = (Q·bankᵀ)/tau over the full depth
-// in a cp.async ring of 32-deep stages (int8: l = (Q·i8ᵀ)·s/tau and C·s).
-// C is (B, ldc) float32, ldc = the bank's tiles x 128: the columns past M
-// get 0, rows past B are not written.
+// Depth chunk k0 of the Q tile (rows row0..) and of the bank tile (rows
+// col0..) into ring stage st: rows past B or M and depths past D
+// zero-filled. One cp.async per 16 bytes; the caller commits the group.
 template <typename T>
-__global__ void __launch_bounds__(kTcThreads, 2)
-bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ bank,
-                            const float* __restrict__ scales, const int* __restrict__ labels,
-                            const float* __restrict__ mx, const float* __restrict__ se,
-                            const float* __restrict__ gout, float tau, int B, int M, int D,
-                            int ldc, float* __restrict__ coef) {
-  constexpr bool kQuant = sizeof(T) == 1;
+__device__ __forceinline__ void fetch_logits_chunk(float* As, T* Bs, const float* __restrict__ q,
+                                                   const T* __restrict__ bank, int row0, int col0,
+                                                   int k0, int st, int B, int M, int D) {
   constexpr int kLdB = coef_ld_bank<T>();
-  constexpr int kPer = 16 / sizeof(T);         // elements a 16-byte copy
-  constexpr int kCopiesB = kTcDepth / kPer;    // copies a bank row of a stage
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);                      // stages of (kTcRows, kTcLdA)
-  T* Bs = reinterpret_cast<T*>(As + kTcStages * kTcRows * kTcLdA);  // stages of (kTcCols, kLdB)
+  constexpr int kPer = 16 / sizeof(T);       // elements a 16-byte copy
+  constexpr int kCopiesB = kTcDepth / kPer;  // copies a bank row of a stage
+  const int tid = threadIdx.x;
+  float* a = As + st * kTcRows * kTcLdA;
+  T* b = Bs + st * kTcCols * kLdB;
+  for (int i = tid; i < kTcRows * (kTcDepth / 4); i += kTcThreads) {
+    const int r = i / (kTcDepth / 4), c = (i % (kTcDepth / 4)) * 4;
+    const bool valid = row0 + r < B && k0 + c < D;
+    cp_async16(a + r * kTcLdA + c, q + (valid ? size_t(row0 + r) * D + k0 + c : 0), valid);
+  }
+  for (int i = tid; i < kTcCols * kCopiesB; i += kTcThreads) {
+    const int r = i / kCopiesB, c = (i % kCopiesB) * kPer;
+    const bool valid = col0 + r < M && k0 + c < D;
+    cp_async16(b + r * kLdB + c, bank + (valid ? size_t(col0 + r) * D + k0 + c : 0), valid);
+  }
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// The logits tile of the coefficient kernel and of the tensor-core forward,
+// one mainloop, so both form bit-identical logits: acc (this warp's 32 x 32
+// of a 64-row x 128-column tile, m16n8k8 accumulator layout) = Q·bankᵀ over
+// the full depth, from the ring's chunks [kc0, kc0 + n_chunks), chunk kc in
+// stage kc % kTcStages. fetch(kc) loads chunk kc into its stage and commits
+// one cp.async group (an empty one past the caller's last chunk). The caller
+// has issued the chunks up to kc0 + kTcStages - 2; on return those up to
+// kc0 + n_chunks + kTcStages - 2 are issued, so a caller that walks several
+// tiles has the next tile's first chunks in flight during its epilogue.
+template <typename T, typename Fetch>
+__device__ __forceinline__ void logits_tile_tc(const float* As, const T* Bs, int kc0,
+                                               int n_chunks, const Fetch& fetch,
+                                               float (&acc)[2][4][4]) {
+  constexpr int kLdB = coef_ld_bank<T>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = 32 * (warp >> 2), wn = 32 * (warp & 3);
-  const int row0 = blockIdx.x * kTcRows, col0 = blockIdx.y * kTcCols;
-  const int n_chunks = (D + kTcDepth - 1) / kTcDepth;
-
-  // depth chunk kc of the Q tile and the bank tile into its stage; rows past
-  // B or M and depths past D zero-filled
-  auto fetch = [&](int kc) {
-    if (kc < n_chunks) {
-      const int st = kc % kTcStages, k0 = kc * kTcDepth;
-      float* a = As + st * kTcRows * kTcLdA;
-      T* b = Bs + st * kTcCols * kLdB;
-      for (int i = tid; i < kTcRows * (kTcDepth / 4); i += kTcThreads) {
-        const int r = i / (kTcDepth / 4), c = (i % (kTcDepth / 4)) * 4;
-        const bool valid = row0 + r < B && k0 + c < D;
-        cp_async16(a + r * kTcLdA + c, q + (valid ? size_t(row0 + r) * D + k0 + c : 0), valid);
-      }
-      for (int i = tid; i < kTcCols * kCopiesB; i += kTcThreads) {
-        const int r = i / kCopiesB, c = (i % kCopiesB) * kPer;
-        const bool valid = col0 + r < M && k0 + c < D;
-        cp_async16(b + r * kLdB + c, bank + (valid ? size_t(col0 + r) * D + k0 + c : 0), valid);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.f;
-  for (int kc = 0; kc < kTcStages - 1; ++kc) fetch(kc);
-  for (int kc = 0; kc < n_chunks; ++kc) {
+  zero_tile(acc);
+  for (int kc = kc0; kc < kc0 + n_chunks; ++kc) {
     cp_async_wait<kTcStages - 2>();
     __syncthreads();  // chunk kc is in; every warp is done with chunk kc - 1's stage
     fetch(kc + kTcStages - 1);
@@ -517,6 +523,39 @@ bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ b
     }
     add_tile(acc, part);
   }
+}
+
+// (a) C[row][col] = (exp(l - mx)/se - onehot(label))·g for a 64-row tile of
+// Q and a 128-row tile of the bank, l = (Q·bankᵀ)/tau over the full depth
+// in a cp.async ring of 32-deep stages (int8: l = (Q·i8ᵀ)·s/tau and C·s).
+// C is (B, ldc) float32, ldc = the bank's tiles x 128: the columns past M
+// get 0, rows past B are not written.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ bank,
+                            const float* __restrict__ scales, const int* __restrict__ labels,
+                            const float* __restrict__ mx, const float* __restrict__ se,
+                            const float* __restrict__ gout, float tau, int B, int M, int D,
+                            int ldc, float* __restrict__ coef) {
+  constexpr bool kQuant = sizeof(T) == 1;
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);                      // stages of (kTcRows, kTcLdA)
+  T* Bs = reinterpret_cast<T*>(As + kTcStages * kTcRows * kTcLdA);  // stages of (kTcCols, kLdB)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp >> 2), wn = 32 * (warp & 3);
+  const int row0 = blockIdx.x * kTcRows, col0 = blockIdx.y * kTcCols;
+  const int n_chunks = (D + kTcDepth - 1) / kTcDepth;
+
+  auto fetch = [&](int kc) {
+    if (kc < n_chunks)
+      fetch_logits_chunk<T>(As, Bs, q, bank, row0, col0, kc * kTcDepth, kc % kTcStages, B, M, D);
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int kc = 0; kc < kTcStages - 1; ++kc) fetch(kc);
+  float acc[2][4][4];
+  logits_tile_tc<T>(As, Bs, 0, n_chunks, fetch, acc);
 
   const float gs = gout[0] / (float(B) * tau);
   float sc[4][2];  // this thread's columns' scales, read once
@@ -542,6 +581,149 @@ bank_infonce_coef_tc_kernel(const float* __restrict__ q, const T* __restrict__ b
                                 rse, gs));
       }
     }
+}
+
+// The tensor-core forward's shared memory beyond the ring: each thread's
+// running (mx, se, el, pos) of its 4 rows, (16, kTcThreads) float; the
+// column warps' merged statistics, (4, kTcRows) float4; the tile's labels.
+constexpr int kFwdStats = 16;
+
+template <typename T>
+constexpr size_t fwd_tc_smem_bytes() {
+  return coef_smem_bytes<T>() + size_t(kFwdStats) * kTcThreads * sizeof(float) +
+         4 * kTcRows * sizeof(float4) + kTcRows * sizeof(int);
+}
+
+// Forward statistics from the split-TF32 logits (D >= 256): per (64-row tile
+// of Q, split of the bank) one float4 (mx, se, pos, el) a row over the
+// split's bank tiles, l = acc/tau (int8: acc·s/tau), columns past M masked.
+// The ring runs on across the split's tiles: chunk kc is depth chunk
+// kc % n_chunks of tile tile_begin + kc / n_chunks.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+bank_infonce_fwd_tc_kernel(const float* __restrict__ q, const T* __restrict__ bank,
+                           const float* __restrict__ scales, const int* __restrict__ labels,
+                           float tau, int B, int M, int D, int tiles_per_split,
+                           float4* __restrict__ part) {
+  constexpr bool kQuant = sizeof(T) == 1;
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);                      // stages of (kTcRows, kTcLdA)
+  T* Bs = reinterpret_cast<T*>(As + kTcStages * kTcRows * kTcLdA);  // stages of (kTcCols, kLdB)
+  float* stats = reinterpret_cast<float*>(Bs + kTcStages * kTcCols * coef_ld_bank<T>());
+  float4* red = reinterpret_cast<float4*>(stats + kFwdStats * kTcThreads);
+  int* lab_s = reinterpret_cast<int*>(red + 4 * kTcRows);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp >> 2), wn = 32 * (warp & 3);
+  const int row0 = blockIdx.x * kTcRows;
+  const int n_tiles = (M + kTcCols - 1) / kTcCols;
+  const int tile_begin = blockIdx.y * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
+  const int n_chunks = (D + kTcDepth - 1) / kTcDepth;
+  const int n_ring = (tile_end - tile_begin) * n_chunks;
+
+  auto fetch = [&](int kc) {
+    if (kc < n_ring)
+      fetch_logits_chunk<T>(As, Bs, q, bank, row0, (tile_begin + kc / n_chunks) * kTcCols,
+                            (kc % n_chunks) * kTcDepth, kc % kTcStages, B, M, D);
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int kc = 0; kc < kTcStages - 1; ++kc) fetch(kc);
+
+  // stats[(4r + k) * kTcThreads + tid]: k = 0 mx, 1 se, 2 el, 3 pos of this
+  // thread's row r = 2mi + h (tile row wm + 16mi + 8h + g); lab_s is
+  // published by the mainloop's first barrier
+  if (tid < kTcRows) lab_s[tid] = row0 + tid < B ? labels[row0 + tid] : -1;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    stats[(4 * r + 0) * kTcThreads + tid] = -CUDART_INF_F;
+#pragma unroll
+    for (int k = 1; k < 4; ++k) stats[(4 * r + k) * kTcThreads + tid] = 0.f;
+  }
+
+  for (int tile = tile_begin; tile < tile_end; ++tile) {
+    float acc[2][4][4];
+    logits_tile_tc<T>(As, Bs, (tile - tile_begin) * n_chunks, n_chunks, fetch, acc);
+    const int col0 = tile * kTcCols + wn + 2 * t;  // this thread's first column
+    float sc[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sc[ni][e] = column_scale<kQuant>(scales, col0 + 8 * ni + e, M);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* rs = stats + 4 * (2 * mi + h) * kTcThreads + tid;
+        const int lab = lab_s[wm + 16 * mi + 8 * h + g];
+        float l[8];
+        float tmax = -CUDART_INF_F, pos = rs[3 * kTcThreads];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = col0 + 8 * ni + e;
+            float a = acc[mi][ni][2 * h + e];
+            if (kQuant) a *= sc[ni][e];
+            l[2 * ni + e] = a / tau;
+            if (col < M) {
+              tmax = fmaxf(tmax, l[2 * ni + e]);
+              if (col == lab) pos += l[2 * ni + e];
+            }
+          }
+        rs[3 * kTcThreads] = pos;
+        if (tmax > -CUDART_INF_F) {
+          const float m0 = rs[0];
+          const float nm = fmaxf(m0, tmax);
+          const float scale = expf(m0 - nm);
+          float s = 0.f, el = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (col0 + 8 * (j >> 1) + (j & 1) < M) {
+              const float p = expf(l[j] - nm);
+              s += p;
+              el = fmaf(p, l[j], el);
+            }
+          }
+          rs[0] = nm;
+          rs[kTcThreads] = rs[kTcThreads] * scale + s;
+          rs[2 * kTcThreads] = rs[2 * kTcThreads] * scale + el;
+        }
+      }
+  }
+
+  // the four t lanes of a row (xor 1, then 2), then the four column warps
+  // of a row in warp order; only empty cp.async groups are left
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float* rs = stats + 4 * r * kTcThreads + tid;
+    float m = rs[0], s = rs[kTcThreads], e = rs[2 * kTcThreads], p = rs[3 * kTcThreads];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, m, off);
+      const float os = __shfl_xor_sync(0xffffffffu, s, off);
+      const float oe = __shfl_xor_sync(0xffffffffu, e, off);
+      const float op = __shfl_xor_sync(0xffffffffu, p, off);
+      merge_stats(m, s, e, om, os, oe);
+      p += op;
+    }
+    if (t == 0)
+      red[(warp & 3) * kTcRows + wm + 16 * (r >> 1) + 8 * (r & 1) + g] = make_float4(m, s, p, e);
+  }
+  __syncthreads();
+  if (tid < kTcRows && row0 + tid < B) {
+    const float4 v = red[tid];
+    float m = v.x, s = v.y, p = v.z, e = v.w;
+#pragma unroll
+    for (int wc = 1; wc < 4; ++wc) {
+      const float4 o = red[wc * kTcRows + tid];
+      merge_stats(m, s, e, o.x, o.y, o.w);
+      p += o.z;
+    }
+    part[size_t(blockIdx.y) * B + row0 + tid] = make_float4(m, s, p, e);
+  }
 }
 
 // (a') The same coefficient with the logits tile on the CUDA cores
@@ -695,16 +877,35 @@ bool plan_ok(int B, int M, int D, int tiles_per_split, int n_splits) {
          static_cast<long long>(tiles_per_split) * (n_splits - 1) < n_tiles;
 }
 
+// The forward over any bank: the statistics kernel of the route over the
+// splits of the bank, then the merge of the splits in index order. scales:
+// the int8 bank's, nullptr over a dense one.
 template <typename T>
 cudaError_t launch_fwd(const void* q, const void* bank, const void* scales, const void* labels,
                        float tau, int B, int M, int D, int tiles_per_split, int n_splits,
-                       void* part, void* mx, void* se, void* pos, void* el, void* out2,
-                       cudaStream_t st) {
-  dim3 grid(n_splits, (B + kTileR - 1) / kTileR);
-  bank_infonce_fwd_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const T*>(bank),
-      static_cast<const float*>(scales), static_cast<const int*>(labels), tau, B, M, D,
-      tiles_per_split, static_cast<float4*>(part));
+                       bool tc_logits, void* part, void* mx, void* se, void* pos, void* el,
+                       void* out2, cudaStream_t st) {
+  static_assert(kTcRows == kTileR && kTcCols == kTileC, "both forward kernels tile alike");
+  const int row_tiles = (B + kTileR - 1) / kTileR;
+  if (tc_logits) {
+    if (n_splits > 65535) return cudaErrorInvalidValue;  // grid.y
+    auto kernel = bank_infonce_fwd_tc_kernel<T>;
+    // the kernel's shared-memory limit, set once (the first caller's result)
+    static const cudaError_t smem_err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(fwd_tc_smem_bytes<T>()));
+    if (smem_err != cudaSuccess) return smem_err;
+    // row tiles side by side, so the CTAs that read one bank tile run together
+    kernel<<<dim3(row_tiles, n_splits), kTcThreads, fwd_tc_smem_bytes<T>(), st>>>(
+        static_cast<const float*>(q), static_cast<const T*>(bank),
+        static_cast<const float*>(scales), static_cast<const int*>(labels), tau, B, M, D,
+        tiles_per_split, static_cast<float4*>(part));
+  } else {
+    if (row_tiles > 65535) return cudaErrorInvalidValue;  // grid.y
+    bank_infonce_fwd_kernel<T><<<dim3(n_splits, row_tiles), kThreads, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const T*>(bank),
+        static_cast<const float*>(scales), static_cast<const int*>(labels), tau, B, M, D,
+        tiles_per_split, static_cast<float4*>(part));
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return split_merge::launch_merge<bank_infonce_split>(part, n_splits, B, tau, mx, se, pos, el,
@@ -768,23 +969,24 @@ cudaError_t launch_bwd(const void* q, const void* bank, const void* scales, cons
 // 1 = bfloat16. q, mx, se, pos, el, dq are float32; labels int32; part is
 // (n_splits, B) float4 scratch; out2 = (loss, dtau_unit); dq_part is
 // (n_splits, B, D) float32 scratch. The bank's splits are
-// [i*tiles_per_split, (i+1)*tiles_per_split) tiles of 128 rows; the
-// backwards split the dQ product so, take coef, (B, ceil(M/128)*128)
-// float32 scratch for the coefficient, and tc_logits: 1 forms the logits on
-// the tensor cores, 0 on the CUDA cores. The q8 entry points take the int8
-// values (M, D) and the float32 scales (M,).
+// [i*tiles_per_split, (i+1)*tiles_per_split) tiles of 128 rows: the
+// forwards' statistics and the backwards' dQ product are split so;
+// tc_logits: 1 forms the logits on the tensor cores, 0 on the CUDA cores;
+// the backwards take coef, (B, ceil(M/128)*128) float32 scratch for the
+// coefficient. The q8 entry points take the int8 values (M, D) and the
+// float32 scales (M,).
 extern "C" int bank_infonce_fwd(const void* q, const void* bank, const void* labels, float tau,
                                 int B, int M, int D, int bank_dtype, int tiles_per_split,
-                                int n_splits, void* part, void* mx, void* se, void* pos,
-                                void* el, void* out2, void* stream) {
+                                int n_splits, int tc_logits, void* part, void* mx, void* se,
+                                void* pos, void* el, void* out2, void* stream) {
   if (!plan_ok(B, M, D, tiles_per_split, n_splits)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bank_dtype == 0)
     return launch_fwd<float>(q, bank, nullptr, labels, tau, B, M, D, tiles_per_split, n_splits,
-                             part, mx, se, pos, el, out2, st);
+                             tc_logits != 0, part, mx, se, pos, el, out2, st);
   if (bank_dtype == 1)
     return launch_fwd<__nv_bfloat16>(q, bank, nullptr, labels, tau, B, M, D, tiles_per_split,
-                                     n_splits, part, mx, se, pos, el, out2, st);
+                                     n_splits, tc_logits != 0, part, mx, se, pos, el, out2, st);
   return cudaErrorInvalidValue;
 }
 
@@ -807,11 +1009,13 @@ extern "C" int bank_infonce_bwd(const void* q, const void* bank, const void* lab
 
 extern "C" int bank_infonce_q8_fwd(const void* q, const void* values, const void* scales,
                                    const void* labels, float tau, int B, int M, int D,
-                                   int tiles_per_split, int n_splits, void* part, void* mx,
-                                   void* se, void* pos, void* el, void* out2, void* stream) {
+                                   int tiles_per_split, int n_splits, int tc_logits, void* part,
+                                   void* mx, void* se, void* pos, void* el, void* out2,
+                                   void* stream) {
   if (!plan_ok(B, M, D, tiles_per_split, n_splits)) return cudaErrorInvalidValue;
   return launch_fwd<int8_t>(q, values, scales, labels, tau, B, M, D, tiles_per_split, n_splits,
-                            part, mx, se, pos, el, out2, static_cast<cudaStream_t>(stream));
+                            tc_logits != 0, part, mx, se, pos, el, out2,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bank_infonce_q8_bwd(const void* q, const void* values, const void* scales,

@@ -29,15 +29,19 @@ Routes:
 
 Gradients: dquery and dtau are exact; the bank is a frozen feature cache in
 stage 2 and gets none. The bfloat16 bank is widened to float32 before the
-product in the kernels and in the plain version alike. The backward has one
-design for all three bank types: two kernels on the tensor cores in split
-TF32 (each float32 operand as a sum of two TF32 values, three products; two
-over a bfloat16 bank or int8 values, which TF32 holds exactly): the
-coefficient (P - onehot)·g (·s over an int8 bank) over the full depth into
-a (B, M) float32 scratch, then dQ = coefficient · bank split over the bank
-axis and summed in index order (`bwd_plan`; below D = 256 the
-coefficient's logits run on the CUDA cores). Its bound is the TF32 peak:
-3 x 4·B·M·D operations over a float32 bank, 2 x over the others.
+product in the kernels and in the plain version alike. Every product of
+the kernels from D = 256 on runs on the tensor cores in split TF32 (each
+float32 operand as a sum of two TF32 values, three products; two over a
+bfloat16 bank or int8 values, which TF32 holds exactly), one design for
+all three bank types; below D = 256 the logits run as float32 FMAs on the
+CUDA cores. The forward (`fwd_plan`) folds its split's logits tiles into
+running statistics; its bound is the TF32 peak at 3 x 2·B·M·D operations
+over a float32 bank, 2 x over the others. The backward (`bwd_plan`) forms
+the coefficient (P - onehot)·g (·s over an int8 bank) over the full depth
+into a (B, M) float32 scratch, then dQ = coefficient · bank split over the
+bank axis and summed in index order; its bound is 3 x 4·B·M·D, 2 x over
+the others. The forward and the coefficient share one logits mainloop, so
+both form bit-identical logits.
 
 The JAX package pads the frozen bank once to its kernel's block multiple
 (`PreparedBank` / `prepare_bank`) and caches that relayout beside the bank.
@@ -60,8 +64,9 @@ TILE_ROWS = 64     # query rows per CTA   (kTileR in csrc/bank_infonce.cu)
 TILE_COLS = 128    # bank rows per tile   (kTileC)
 DQ_COLS = 128      # dQ columns per CTA of the backward's dQ kernel (kTcCols)
 DQ_CTAS_PER_SM = 2  # CTAs of that kernel an SM holds (__launch_bounds__)
-# the backward forms the logits on the tensor cores from this depth on and
-# on the CUDA cores below it (see `bwd_plan`)
+FWD_CTAS_PER_SM = 2  # CTAs of either forward kernel an SM holds
+# the forward and the backward form the logits on the tensor cores from this
+# depth on and on the CUDA cores below it (see `fwd_plan`, `bwd_plan`)
 TC_LOGITS_MIN_D = 256
 
 _BANK_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -207,10 +212,10 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library("bank_infonce", ["bank_infonce.cu"])))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, argtypes in (
-            (lib.bank_infonce_fwd, [ptr] * 3 + [f32] + [i32] * 6 + [ptr] * 7),
+            (lib.bank_infonce_fwd, [ptr] * 3 + [f32] + [i32] * 7 + [ptr] * 7),
             (lib.bank_infonce_bwd, [ptr] * 6 + [f32] + [i32] * 7 + [ptr] * 4),
             (lib.bank_infonce_q8_fwd,
-             [ptr] * 4 + [f32] + [i32] * 5 + [ptr] * 7),
+             [ptr] * 4 + [f32] + [i32] * 6 + [ptr] * 7),
             (lib.bank_infonce_q8_bwd,
              [ptr] * 7 + [f32] + [i32] * 6 + [ptr] * 4)):
         fn.restype = i32
@@ -229,6 +234,31 @@ def split_plan(m: int, b: int, sm_count: int, ctas_per_sm: int,
     want = max(1, (sm_count * ctas_per_sm) // row_tiles)
     tiles_per_split = -(-tiles // want)
     return tiles_per_split, -(-tiles // tiles_per_split)
+
+
+class FwdPlan(NamedTuple):
+    """The forward's grid, any bank type: the bank splits
+    (`tiles_per_split` tiles of 128 rows each, `n_splits` of them; the
+    statistics scratch is (n_splits, B) float4) and whether the logits run
+    on the tensor cores (`tc_logits`)."""
+
+    tiles_per_split: int
+    n_splits: int
+    tc_logits: bool
+
+
+def fwd_plan(b: int, m: int, d: int, sm_count: int) -> FwdPlan:
+    """Plan of the forward over a dense or an int8 bank (the bank's type
+    changes nothing). One CTA per (64 query rows, bank split); the splits
+    are cut so that the card holds `FWD_CTAS_PER_SM` CTAs an SM, which both
+    routes' kernels do (256 threads at 128 registers; the tensor-core
+    kernel's ring and statistics take 101 KB of shared memory over a
+    float32 bank). The logits run on the tensor cores by the backward's
+    rule (`bwd_plan`: D >= `TC_LOGITS_MIN_D`), so the forward and the
+    backward always form them by the same route. A pure function of its
+    arguments, so the order of every sum is fixed for a given device."""
+    tps, n_splits = split_plan(m, b, sm_count, FWD_CTAS_PER_SM)
+    return FwdPlan(tps, n_splits, d >= TC_LOGITS_MIN_D)
 
 
 class BwdPlan(NamedTuple):
@@ -326,16 +356,17 @@ def _launch_fwd(query: torch.Tensor, bank, labels: torch.Tensor, tau: float
     b, d = query.shape
     m = bank.shape[0]
     dev = query.device
-    tps, n_splits = split_plan(m, b, _sm_count(dev), 2)
+    plan = fwd_plan(b, m, d, _sm_count(dev))
     labels32 = labels.to(torch.int32).contiguous()
-    part = torch.empty(n_splits, b, 4, device=dev, dtype=torch.float32)
+    part = torch.empty(plan.n_splits, b, 4, device=dev, dtype=torch.float32)
     stats = torch.empty(4, b, device=dev, dtype=torch.float32)
     out2 = torch.empty(2, device=dev, dtype=torch.float32)
     wrapper, fn, bank_ptrs, code = _bank_args(lib, bank, "fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(query.data_ptr(), *bank_ptrs, labels32.data_ptr(),
-                 float(tau), b, m, d, *code, tps, n_splits, part.data_ptr(),
+                 float(tau), b, m, d, *code, plan.tiles_per_split,
+                 plan.n_splits, int(plan.tc_logits), part.data_ptr(),
                  stats[0].data_ptr(), stats[1].data_ptr(),
                  stats[2].data_ptr(), stats[3].data_ptr(), out2.data_ptr(),
                  stream)

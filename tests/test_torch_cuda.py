@@ -158,12 +158,19 @@ def _bank_case(device, b, m, d, dtype, seed=0):
                                    (5, 2049, 512), (9, 130, 16),
                                    (64, 128, 64), (70, 4000, 256),
                                    (256, 65536, 640), (5, 2049, 640),
-                                   (70, 4001, 768), (3, 300, 1040)])
+                                   (70, 4001, 768), (3, 300, 1040),
+                                   (33, 1000, 240)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bank_infonce_kernels_match_plain_versions_on_card(cuda_device, b, m,
                                                            d, dtype):
+    """Kernels 5 and 6 against their plain versions; the forward forms its
+    logits on the tensor cores from D = 256 on and on the CUDA cores below
+    (D = 240, 64, 16), by the backward's rule."""
     q, bank, labels = _bank_case(cuda_device, b, m, d, dtype)
     tau = 0.02
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert bk.fwd_plan(b, m, d, sms).tc_logits == (d >= 256) == \
+        bk.bwd_plan(b, m, d, sms).tc_logits
     before = (bk.bank_infonce_fwd.launches, bk.bank_infonce_bwd.launches)
     loss, stats, dtau = bk.bank_infonce_fwd(q, bank, labels, tau)
     gout = torch.tensor(1.5, device=cuda_device)
@@ -252,11 +259,13 @@ def test_bank_infonce_autograd_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,m,d", [(256, 65536, 640), (5, 2049, 512),
                                    (9, 130, 16), (70, 4001, 768),
-                                   (64, 128, 64), (3, 300, 1040)])
+                                   (64, 128, 64), (3, 300, 1040),
+                                   (33, 1000, 240)])
 def test_int8_bank_kernels_match_plain_versions_on_card(cuda_device, b, m, d):
     """Kernels 7 and 8 against their plain versions (scales after the
     product), the tail of the scale buffer poisoned behind a view: rows past
-    M must contribute nothing."""
+    M must contribute nothing. Both forward routes: the tensor cores from
+    D = 256 on, the CUDA cores below."""
     q, bank, labels = _bank_case(cuda_device, b, m, d, torch.float32)
     full = bk.quantize_bank(bank)
     scales = torch.full((m + 200,), float("nan"), device=cuda_device)

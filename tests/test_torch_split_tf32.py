@@ -1,10 +1,11 @@
-"""The bank InfoNCE backward's split-TF32 arithmetic, over a dense and over
-an int8 bank, emulated in numpy, against float64 and against the JAX
-package's Pallas kernels; and the backward's plan (grid, scratch, route of
-the logits), which is the same for every bank type.
+"""The bank InfoNCE forward's and backward's split-TF32 arithmetic, over a
+dense and over an int8 bank, emulated in numpy, against float64 and against
+the JAX package's Pallas kernels; and the two plans (grid, scratch, route of
+the logits), which are the same for every bank type.
 
-The CUDA kernels (`bank_infonce_coef_tc_kernel`, `bank_infonce_dq_tc_kernel`
-in csrc/bank_infonce.cu) run only on the card (tests/test_torch_cuda.py,
+The CUDA kernels (`bank_infonce_fwd_tc_kernel`, `bank_infonce_coef_tc_kernel`,
+`bank_infonce_dq_tc_kernel` in csrc/bank_infonce.cu) run only on the card
+(tests/test_torch_cuda.py,
 chip_smoke.py). Their arithmetic is emulated here as they do it: each
 float32 operand is split into hi = x rounded to TF32 (half a TF32 unit added
 to the bits, the low 13 bits masked) and lo = x - hi, which the tensor core
@@ -15,7 +16,12 @@ rounded once to float32 and added to the float32 accumulator; the
 coefficient (exp(l/tau - mx)/se - onehot)·g is formed in float32, over an
 int8 bank from l = acc·s/tau and multiplied by s after; the dQ product runs
 per split of the bank's 128-row tiles (`bwd_plan`) and the splits are
-summed in index order.
+summed in index order. The forward forms the same logits, l = acc/tau (int8:
+acc·s/tau), and folds them into running (mx, se, el, pos) in the kernel's
+order: per bank tile, each thread over its 8 columns of the tile (lane t of
+column warp w owns columns 32w + 8n + 2t + e); then, once per split, the
+four lanes of a row merged (t xor 1, then xor 2), the four column warps in
+order, and the splits of `fwd_plan` in index order.
 
 Tolerances: those of the kernels on the card (chip_smoke.py BANK_RTOL,
 BANK_DQ_ATOL): the emulated dQ within atol 1e-6 + rtol 1e-4 of float64,
@@ -23,8 +29,10 @@ and so is the Pallas kernel run in interpret mode (as
 tests/test_bank_kernel.py runs it), a float32 computation in another
 order; the two are then within twice that of each other, which is what is
 asserted between them (at B = 5 or 8 with tau = 0.02 each lies up to ~0.6
-of the bound from float64, on opposite sides). The split's own residual is
-below 2^-21 relative.
+of the bound from float64, on opposite sides). The forward's statistics and
+loss hold those of the smoke's phase 3c (atol = rtol = 1e-4), dtau_unit
+1e-3 absolute, against float64 and against the Pallas forward. The split's
+own residual is below 2^-21 relative.
 """
 
 import ctypes
@@ -101,6 +109,95 @@ def emulate_backward(q, bank, exact_b, labels, tau, mx, se, gout, plan,
     return dq
 
 
+def _merge(a, b):
+    """split_merge::merge_stats of two (mx, se, el) partials, per row, in
+    float32: (mx, se, el) of a, then b."""
+    (m, s, e), (om, os_, oe) = a, b
+    nm = np.maximum(m, om)
+    with np.errstate(invalid="ignore"):
+        sa = np.where(nm == -np.inf, 0, np.exp(m - nm)).astype(np.float32)
+        sb = np.where(nm == -np.inf, 0, np.exp(om - nm)).astype(np.float32)
+    keep = nm == -np.inf  # both sides empty: a is kept as it is
+    s2 = np.where(keep, s, (s * sa + os_ * sb).astype(np.float32))
+    e2 = np.where(keep, e, (e * sa + oe * sb).astype(np.float32))
+    return np.where(keep, m, nm), s2, e2
+
+
+def emulate_forward(q, bank, exact_b, labels, tau, plan, scales=None):
+    """(mx, se, pos, el, loss, dtau_unit) of the forward as the split-TF32
+    kernel computes them; `scales`: an int8 bank's, with `bank` its values
+    as float32."""
+    b, m = q.shape[0], bank.shape[0]
+    f32 = np.float32
+    acc = mma_3xtf32(q, bank.T, exact_b)
+    if scales is not None:
+        acc = (acc * scales[None, :]).astype(f32)
+    logits = (acc / f32(tau)).astype(f32)
+    n_tiles = -(-m // bk.TILE_COLS)
+    assert (plan.n_splits - 1) * plan.tiles_per_split < n_tiles \
+        <= plan.n_splits * plan.tiles_per_split
+    mx = np.full(b, -np.inf, f32)
+    se, el, pos = (np.zeros(b, f32) for _ in range(3))
+    for sp in range(plan.n_splits):
+        tiles = range(sp * plan.tiles_per_split,
+                      min((sp + 1) * plan.tiles_per_split, n_tiles))
+        warps = []
+        for w in range(4):
+            lanes = []
+            for t in range(4):
+                lm = np.full(b, -np.inf, f32)
+                ls, le, lp = (np.zeros(b, f32) for _ in range(3))
+                for tile in tiles:
+                    cols = [tile * bk.TILE_COLS + 32 * w + 8 * n + 2 * t + e
+                            for n in range(4) for e in range(2)]
+                    valid = [c for c in cols if c < m]
+                    if not valid:
+                        continue
+                    lv = logits[:, valid]
+                    for c in valid:
+                        lp = np.where(labels == c, (lp + logits[:, c])
+                                      .astype(f32), lp)
+                    nm = np.maximum(lm, lv.max(axis=1))
+                    scale = np.exp(lm - nm).astype(f32)
+                    s_, e_ = np.zeros(b, f32), np.zeros(b, f32)
+                    for j in range(lv.shape[1]):
+                        p = np.exp(lv[:, j] - nm).astype(f32)
+                        s_ = (s_ + p).astype(f32)
+                        e_ = (p.astype(np.float64) * lv[:, j] + e_).astype(f32)
+                    ls = (ls * scale + s_).astype(f32)
+                    le = (le * scale + e_).astype(f32)
+                    lm = nm
+                lanes.append((lm, ls, le, lp))
+            merged = []
+            for a, c in ((0, 1), (2, 3)):
+                st = _merge(lanes[a][:3], lanes[c][:3])
+                merged.append((*st, (lanes[a][3] + lanes[c][3]).astype(f32)))
+            st = _merge(merged[0][:3], merged[1][:3])
+            warps.append((*st, (merged[0][3] + merged[1][3]).astype(f32)))
+        wm_, ws, we, wp = warps[0]
+        for o in warps[1:]:
+            wm_, ws, we = _merge((wm_, ws, we), o[:3])
+            wp = (wp + o[3]).astype(f32)
+        mx, se, el = _merge((mx, se, el), (wm_, ws, we))
+        pos = (pos + wp).astype(f32)
+    loss = np.mean((np.log(se) + mx - pos).astype(f32), dtype=np.float32)
+    dtau = np.mean(((pos - el / se) / f32(tau)).astype(f32), dtype=np.float32)
+    return mx, se, pos, el, loss, dtau
+
+
+def float64_forward(q, bank, labels, tau, scales=None):
+    """(mx, se, pos, el, loss, dtau_unit) in float64; `scales`: an int8
+    bank's, with `bank` its values."""
+    s = np.ones(bank.shape[0]) if scales is None else scales.astype(np.float64)
+    logits = q.astype(np.float64) @ bank.astype(np.float64).T * s / tau
+    mx = logits.max(axis=1)
+    p = np.exp(logits - mx[:, None])
+    se, el = p.sum(axis=1), (p * logits).sum(axis=1)
+    pos = logits[np.arange(q.shape[0]), labels]
+    return (mx, se, pos, el, np.mean(np.log(se) + mx - pos),
+            np.mean((pos - el / se) / tau))
+
+
 def float64_backward(q, bank, labels, tau, mx, se, gout, scales=None):
     """The backward's formula in float64 from the same saved (mx, se);
     `scales`: an int8 bank's, with `bank` its values."""
@@ -172,6 +269,74 @@ def test_int8_values_are_exact_in_tf32():
     hi, lo = split(x)
     np.testing.assert_array_equal(hi, x)
     assert not lo.any()
+
+
+def _assert_forward(got, want, what):
+    """The smoke's forward tolerances: atol = rtol = 1e-4 on the four
+    statistics and the loss, 1e-3 absolute on dtau_unit."""
+    names = ("mx", "se", "pos", "el", "loss", "dtau_unit")
+    for name, g_, w_ in zip(names[:5], got[:5], want[:5]):
+        np.testing.assert_allclose(g_, w_, atol=BANK_RTOL, rtol=BANK_RTOL,
+                                   err_msg=f"{name} against {what}")
+    np.testing.assert_allclose(got[5], want[5], atol=10 * BANK_RTOL, rtol=0,
+                               err_msg=f"dtau_unit against {what}")
+
+
+FWD_CASES = [(8, 300, 256), (5, 1100, 512), (16, 700, 640)]
+
+
+@pytest.mark.parametrize("b,m,d", FWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_split_tf32_forward_matches_float64_and_pallas(b, m, d, dtype, rng):
+    """The tensor-core forward's statistics (split-TF32 logits, the online
+    statistics folded per tile and merged lanes, warps, splits in the
+    kernel's order) hold the smoke's tolerances against float64 and against
+    the JAX package's Pallas forward in interpret mode, over a float32, a
+    bf16 and an int8 bank."""
+    # a one-SM card, so that the bank is cut into splits of several tiles
+    plan = bk.fwd_plan(b, m, d, sm_count=1)
+    assert plan.tc_logits and plan.n_splits > 1 and plan.tiles_per_split > 1
+    if dtype == "int8":
+        q, vals, scales, labels, tau, _, _ = _q8_case(rng, b, m, d)
+        got = emulate_forward(q, vals, True, labels, tau, plan, scales)
+        want = float64_forward(q, vals, labels, tau, scales)
+        jqb = jbk.QuantBank(jnp.asarray(vals.astype(np.int8)),
+                            jnp.asarray(scales))
+        loss, res = jbk._q8_fwd_for_vjp(jnp.asarray(q), jqb,
+                                        jnp.asarray(labels), jnp.float32(tau),
+                                        8, 128)
+    else:
+        q, bank, labels, tau, _, _ = _case(rng, b, m, d, dtype)
+        got = emulate_forward(q, bank, dtype == "bfloat16", labels, tau, plan)
+        want = float64_forward(q, bank, labels, tau)
+        jbank = jnp.asarray(bank)
+        if dtype == "bfloat16":
+            jbank = jbank.astype(jnp.bfloat16)
+        loss, res = jbk._fwd_for_vjp(jnp.asarray(q), jbank,
+                                     jnp.asarray(labels), jnp.float32(tau),
+                                     8, 128)
+    mx, se, pos, el = (np.asarray(x) for x in res[4:8])
+    pallas = (mx, se, pos, el, np.asarray(loss),
+              np.mean((pos - el / se) / np.float32(tau)))
+    _assert_forward(got, want, "float64")
+    _assert_forward(pallas, want, "float64 (Pallas)")
+    _assert_forward(got, pallas, "the Pallas forward")
+
+
+@pytest.mark.parametrize("d", [256, 512, 640])
+def test_forward_and_coefficient_share_the_logits(d, rng):
+    """The backward's P = exp(l - mx)/se from the forward's own statistics
+    sums to 1 over the bank for every row: the coefficient kernel forms the
+    forward's logits bit for bit (one mainloop), here one emulation."""
+    b, m = 6, 1100
+    q, bank, labels, tau, _, _ = _case(rng, b, m, d, "float32")
+    plan = bk.fwd_plan(b, m, d, sm_count=1)
+    mx, se, _, _, _, _ = emulate_forward(q, bank, False, labels, tau, plan)
+    logits = (mma_3xtf32(q, bank.T, False) / np.float32(tau)).astype(
+        np.float32)
+    p = np.exp(logits - mx[:, None]).astype(np.float32) / se[:, None]
+    np.testing.assert_allclose(p.sum(axis=1), 1.0, rtol=1e-5)
+    assert (logits.max(axis=1) == mx).all()
 
 
 @pytest.mark.parametrize("b,m,d", [(8, 300, 256), (5, 1100, 512),
@@ -285,10 +450,63 @@ def test_int8_bank_takes_the_dense_plan(b, m, d):
     assert quant.tc_logits == (d >= bk.TC_LOGITS_MIN_D)
 
 
-def test_both_backward_entry_points_take_the_plans_scratch(monkeypatch):
-    """`bank_infonce_q8_bwd`'s C signature is `bank_infonce_bwd`'s with the
-    scales' pointer for the dtype code: both take (tiles_per_split,
-    n_splits, tc_logits) and the coefficient and partial-dQ scratch."""
+@pytest.mark.parametrize("b,m,d", [(256, 65536, 640), (256, 65536, 512),
+                                   (128, 65536, 256), (5, 2049, 512),
+                                   (70, 4001, 768), (33, 1000, 240),
+                                   (9, 130, 16), (1, 1, 16), (3, 300, 1040)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fwd_plan_covers_the_bank_with_no_empty_split(b, m, d, sms):
+    """The forward's splits cover the bank's tiles, none of them empty; the
+    logits route is the backward's rule."""
+    plan = bk.fwd_plan(b, m, d, sms)
+    tiles = -(-m // bk.TILE_COLS)
+    assert plan.tiles_per_split * plan.n_splits >= tiles
+    assert plan.tiles_per_split * (plan.n_splits - 1) < tiles
+    assert (plan.tiles_per_split, plan.n_splits) == bk.split_plan(
+        m, b, sms, bk.FWD_CTAS_PER_SM)
+    assert plan.tc_logits == (d >= bk.TC_LOGITS_MIN_D)
+    assert plan.tc_logits == bk.bwd_plan(b, m, d, sms).tc_logits
+
+
+@pytest.mark.parametrize("b,m,d", [(256, 65536, 640), (256, 65536, 512),
+                                   (5, 2049, 640), (33, 1000, 240),
+                                   (9, 130, 16)])
+def test_int8_bank_takes_the_dense_fwd_plan(b, m, d):
+    bank = torch.zeros(m, d)
+    qbank = bk.quantize_bank(bank)
+    assert bk.fwd_plan(b, *qbank.shape, 132) == bk.fwd_plan(b, *bank.shape,
+                                                            132)
+
+
+def test_fwd_plan_fills_the_card_at_the_recipe_shapes():
+    """B=256 is 4 row tiles: 64 splits of 8 bank tiles, 256 CTAs on the 264
+    that 132 SMs hold at two each; the four CTAs of one split sit side by
+    side in the grid."""
+    plan = bk.fwd_plan(256, 65536, 640, 132)
+    assert plan == bk.FwdPlan(8, 64, True)
+    assert 4 * plan.n_splits <= 2 * 132
+    assert bk.fwd_plan(128, 65536, 256, 132) == bk.FwdPlan(4, 128, True)
+
+
+# q, bank | values, scales, labels; (bwd: mx, se, gout); tau; B, M, D (dense:
+# the dtype code), tiles_per_split, n_splits, tc_logits; the scratch and the
+# outputs (fwd: part, mx, se, pos, el, out2; bwd: coef, dq_part, dq); stream
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRY_POINTS = {
+    "bank_infonce_fwd": [_PTR] * 3 + [_F32] + [_I32] * 7 + [_PTR] * 7,
+    "bank_infonce_q8_fwd": [_PTR] * 4 + [_F32] + [_I32] * 6 + [_PTR] * 7,
+    "bank_infonce_bwd": [_PTR] * 6 + [_F32] + [_I32] * 7 + [_PTR] * 4,
+    "bank_infonce_q8_bwd": [_PTR] * 7 + [_F32] + [_I32] * 6 + [_PTR] * 4,
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_both_backward_entry_points_take_the_plans_scratch(entry,
+                                                           monkeypatch):
+    """Each q8 entry point's C signature is its dense twin's with the
+    scales' pointer for the dtype code; all four take (tiles_per_split,
+    n_splits, tc_logits) of their plan, the forwards the statistics scratch
+    and the backwards the coefficient and partial-dQ scratch."""
     from spn4cir_tpu_torch.ops import cuda_build
 
     class Lib:
@@ -300,14 +518,7 @@ def test_both_backward_entry_points_take_the_plans_scratch(monkeypatch):
     monkeypatch.setattr(cuda_build, "build_library", lambda *a: "unbuilt.so")
     monkeypatch.setattr(ctypes, "CDLL", Lib)
     lib = bk._library.__wrapped__()
-    dense = lib.bank_infonce_bwd.argtypes
-    quant = lib.bank_infonce_q8_bwd.argtypes
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # q, bank | values, scales, labels, mx, se, gout; tau; B, M, D
-    # (dense: the dtype code), tiles_per_split, n_splits, tc_logits;
-    # coef, dq_part, dq, stream
-    assert dense == [ptr] * 6 + [f32] + [i32] * 7 + [ptr] * 4
-    assert quant == [ptr] * 7 + [f32] + [i32] * 6 + [ptr] * 4
+    assert getattr(lib, entry).argtypes == ENTRY_POINTS[entry]
 
 
 def test_dense_bwd_plan_fills_the_card_at_the_recipe_shapes():
