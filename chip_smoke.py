@@ -9,9 +9,9 @@ non-zero exit):
      turns TF32 off for the comparisons;
   2. build: compiles the port's CUDA sources from csrc/ with nvcc, one nvcc
      per source, started together; the tensor-core kernels (bf16 long and
-     short attention, forward and backward, the split-TF32 bank backward
-     over float32, bf16 and int8 banks) must hold HMMA instructions and
-     spill nothing;
+     short attention, forward and backward, the split-TF32 bank kernels
+     over float32, bf16 and int8 banks, the int8-weight product over
+     float32 and bf16 x) must hold HMMA instructions and spill nothing;
   3. kernels: each of the twelve kernels against its plain PyTorch version
      on the card at the shapes of the serving, training, flagship, blip and
      blip2 paths (short attention in bfloat16 and float32 at the ViT-B/32
@@ -130,7 +130,11 @@ Phase 3 ends with 3f: #11 at the 7B's decode shapes (B = 1, 8, 16 over
 1,842 cache rows, B=16 over 1,241; float32, bf16 and int8 caches; a ragged
 B=3, H=4, hd=8, L=37) and #12 at the 7B's four weight shapes (x float32 and
 bf16 at 1, 8, 16 rows; a ragged 5 x 40 x 77), timed beside their plain
-versions, the library call and the bound. Phases 9, 10 and 11 run between
+versions, the library call and the bound, each record with its design, its
+split plan and the blocks or clusters the card holds at once; #3, #4, #9
+and #10 are timed per call and back to back too. Phase 11 prints each
+decode step's device busy, #11's and #12's ms a step and the idle share.
+Phases 9, 10 and 11 run between
 phases 7 and 8. The last three lines are the kernels JSON, the card's name
 and power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -412,8 +416,10 @@ def build_kernels(cuda_build) -> None:
 # 96, 128; short_attention.cu's bf16 forward and backward, each at the
 # padded depths 64, 128 x 64, 80, 128 rows x causal or not; bank_infonce.cu's
 # split-TF32 forward, coefficient and dQ kernels over float32, bf16 and int8
-# banks
-TC_KERNELS = {"long_attention": 9, "short_attention": 24, "bank_infonce": 9}
+# banks; quant_matmul.cu's int8-weight product over float32 and bf16 x at one
+# and two n8 tiles of rows
+TC_KERNELS = {"long_attention": 9, "short_attention": 24, "bank_infonce": 9,
+              "quant_matmul": 4}
 
 
 def check_tensor_cores(cuda_build, lib) -> None:
@@ -711,19 +717,32 @@ def check_long_attention(ak, device, card):
                     brec["plain_ms"] = median_ms(
                         lambda: ak.long_attention_bwd_reference(q, k, v, do),
                         reps=5, warmup=1)
+                    frec["device_ms"] = device_ms(
+                        lambda: ak.long_attention_fwd(q, k, v), n=20)
+                    frec["library_device_ms"] = device_ms(
+                        lambda: sdpa(q, k, v, False), n=20)
+                    brec["device_ms"] = device_ms(lambda: ak.long_attention_bwd(
+                        q, k, v, do, got, lse), n=20)
                 leaves = [t.clone().requires_grad_() for t in (q, k, v)]
                 lib_out = sdpa(*leaves, False)
                 brec["library_ms"] = median_ms(lambda: torch.autograd.grad(
                     lib_out, leaves, do, retain_graph=True), reps=10)
+                brec["library_device_ms"] = device_ms(
+                    lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                retain_graph=True), n=20)
                 del leaves, lib_out
                 # achieved rate of the counted products, share of the bound
                 for r, n_products in ((frec, 2), (brec, 5)):
-                    r["tflops"] = n_products * 2 * bh * s * s * d / r["ms"] / 1e9
-                    r["bound_share"] = r["bound_ms"] / r["ms"]
-                times = [f"kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+                    r["tflops"] = (n_products * 2 * bh * s * s * d
+                                   / r["device_ms"] / 1e9)
+                    r["bound_share"] = r["bound_ms"] / r["device_ms"]
+                times = [f"kernel {r['ms']:.4f} ms a call, "
+                         f"{r['device_ms']:.4f} ms of device time back to "
+                         f"back ({r['tflops']:.1f} TFLOP/s, "
                          f"{100 * r['bound_share']:.1f}% of the bound), plain "
                          f"{r['plain_ms']:.4f} ms, library (SDPA{w}) "
-                         f"{r['library_ms']:.4f} ms, "
+                         f"{r['library_ms']:.4f} ms a call, "
+                         f"{r['library_device_ms']:.4f} back to back, "
                          for r, w in ((frec, ""), (brec, " backward"))]
             fwd_records.append(frec)
             bwd_records.append(brec)
@@ -2334,17 +2353,30 @@ def max_query_case(mk, bk, q, bank, labels, card, time_it=True):
                 lambda: mk.max_query_infonce_bwd_reference(
                     q, bank, labels, BLIP2_TAU, want[0], want[1], gout),
                 reps=5, warmup=1)
+            fwd["device_ms"] = device_ms(lambda: mk.max_query_infonce_fwd(
+                q, bank, labels, BLIP2_TAU), n=10)
+            fwd["library_device_ms"] = device_ms(lambda: library(q), n=10)
+            bwd["device_ms"] = device_ms(lambda: mk.max_query_infonce_bwd(
+                q, bank, labels, BLIP2_TAU, stats[0], stats[1], gout), n=10)
         leaf = q.clone().requires_grad_()
         lib_loss = library(leaf)
         bwd["library_ms"] = median_ms(lambda: torch.autograd.grad(
             lib_loss, leaf, retain_graph=True), reps=5, warmup=1)
+        bwd["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
+            lib_loss, leaf, retain_graph=True), n=10)
         del leaf, lib_loss
+        for rec in (fwd, bwd):
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
     for name, rec in (("max_query_infonce_fwd", fwd),
                       ("max_query_infonce_bwd", bwd)):
-        times = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-                 f"library (einsum + amax + cross_entropy"
-                 f"{' backward' if name.endswith('bwd') else ''}) "
-                 f"{rec['library_ms']:.4f} ms, " if time_it else "")
+        times = (f"kernel {rec['ms']:.4f} ms a call, {rec['device_ms']:.4f} "
+                 f"ms of device time back to back "
+                 f"({100 * rec['bound_share']:.1f}% of the bound), plain "
+                 f"{rec['plain_ms']:.4f} ms, library (einsum + amax + "
+                 f"cross_entropy{' backward' if name.endswith('bwd') else ''}"
+                 f") {rec['library_ms']:.4f} ms a call, "
+                 f"{rec['library_device_ms']:.4f} back to back, "
+                 if time_it else "")
         phase(f"kernel {name} {rec['shape']} bank {rec['dtype']}: "
               f"max_abs_err={rec['max_abs_err']:.3e}, "
               f"{rec['max_err_over_tol']:.3f} of the tolerance "
@@ -2794,11 +2826,21 @@ def decode_attention_case(da, q, k, v, li, bias, ks, vs, card, time_it=True):
                + got.numel() * got.element_size()
                + (2 * b * length * 4 if quant else 0))
     b_ms, b_by = bound_ms(n_bytes, 4 * b * heads * length * hd, torch.float32)
+    index = k.device.index or 0
+    sm, per_sm = da.device_plan_inputs(index, da._CACHE_CODES[k.dtype], hd)
+    rows, n_splits = da.split_plan(length, b * heads, sm)
+    tile = (32 // da.lane_group(hd)) * da.GROUP_ROWS[k.dtype]
     rec = dict(shape=f"B={b}, H={heads}, hd={hd}, L={length}, layer {li} of "
                      f"{n_layers}", dtype=dtype_name(k.dtype), atol=tol,
                rtol=tol, max_abs_err=diff.max().item(),
                max_err_over_tol=(diff / (tol + tol * want.float().abs())
-                                 ).max().item(), bound_ms=b_ms, bound_by=b_by)
+                                 ).max().item(), bound_ms=b_ms, bound_by=b_by,
+               design=f"CUDA cores; {da.WARPS} warps a block, each a "
+                      f"cp.async ring of 3 tiles of {tile} rows; softmax "
+                      f"per tile; splits merged in a cluster",
+               blocks_per_sm=per_sm, plan=dict(
+                   rows_per_split=rows, n_splits=n_splits,
+                   blocks=b * heads * n_splits))
     del want, diff
     if time_it:
         kv_heads = width // hd
@@ -2837,7 +2879,9 @@ def decode_attention_case(da, q, k, v, li, bias, ks, vs, card, time_it=True):
           f"max_abs_err={rec['max_abs_err']:.3e}, "
           f"{rec['max_err_over_tol']:.3f} of the tolerance (atol={tol} + "
           f"rtol={tol}·|plain|), repeatable; {times}bound "
-          f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} [{card}]")
+          f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}; design: "
+          f"{rec['design']}; {per_sm} blocks an SM, {n_splits} split(s) of "
+          f"{rows} rows, {rec['plan']['blocks']} blocks [{card}]")
     return rec
 
 
@@ -2908,14 +2952,28 @@ def quant_matmul_case(qm, x, values, scales, w_bf16, card, time_it=True):
     diff = (got.float() - want.float()).abs()
     rows, d = x.shape
     f = values.shape[1]
-    # bytes: the int8 weight, its scales, x and y, each once; 2·R·D·F
-    # float32 operations on the CUDA cores
+    # bytes: the int8 weight, its scales, x and y, each once; operations:
+    # 2·R·D·F on the bf16 tensor cores, three times over for float32 x (its
+    # three bf16 terms)
+    terms = 3 if x.dtype == torch.float32 else 1
     b_ms, b_by = bound_ms(d * f + 4 * f + rows * (d + f) * x.element_size(),
-                          2 * rows * d * f, torch.float32)
+                          terms * 2 * rows * d * f, torch.bfloat16)
+    clusters = qm.device_plan_inputs(x.device.index or 0,
+                                     qm._X_CODES[x.dtype],
+                                     qm.n_tiles_for(rows))
+    nt, per, n_splits = qm.split_plan(rows, d, f, clusters)
     rec = dict(shape=f"rows={rows}, D={d}, F={f}", dtype=dtype_name(x.dtype),
                atol=tol * scale, rtol=tol, max_abs_err=diff.max().item(),
                max_err_over_tol=(diff / (tol * scale + tol * want.float().abs())
-                                 ).max().item(), bound_ms=b_ms, bound_by=b_by)
+                                 ).max().item(), bound_ms=b_ms, bound_by=b_by,
+               design=f"bf16 tensor cores (mma.sync m16n8k16), {terms} "
+                      f"product(s) a W fragment; {qm.COLS} columns x "
+                      f"{8 * nt} rows a block, a cp.async ring of 4 stages "
+                      f"of {qm.DEPTH} rows; splits of D merged in a cluster",
+               plan=dict(n_tiles=nt, d_per_split=per, n_splits=n_splits,
+                         blocks=n_splits * -(-f // qm.COLS)
+                         * -(-rows // (8 * nt)),
+                         clusters_at_once=clusters[n_splits - 1]))
     if time_it:
         xb = x.to(torch.bfloat16)
 
@@ -2946,7 +3004,10 @@ def quant_matmul_case(qm, x, values, scales, w_bf16, card, time_it=True):
           f"max_abs_err={rec['max_abs_err']:.3e}, "
           f"{rec['max_err_over_tol']:.3f} of the tolerance (rtol={tol} of "
           f"max|plain| + rtol·|plain|), repeatable; {times}bound "
-          f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} [{card}]")
+          f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}; design: "
+          f"{rec['design']}; {n_splits} split(s) of {per} rows of W, "
+          f"{rec['plan']['blocks']} blocks, {rec['plan']['clusters_at_once']}"
+          f" clusters of {n_splits} fit at once [{card}]")
     return rec
 
 
@@ -3112,6 +3173,19 @@ def decode_args(tl, params, cfg, tok, mask, step, device):
     return x, plen + step - 1, mask.sum(1) + step - 1, valid
 
 
+def step_line(path, prof):
+    """The decode step's device summary: busy, #11's and #12's ms a step,
+    idle share (phase 11)."""
+    groups = prof["ms_by_group"]
+    prof["kernel_11_ms"] = groups.get("decode attention (#11)", 0.0)
+    prof["kernel_12_ms"] = groups.get("int8 matmul (#12)", 0.0)
+    return (f"decode step on the device, {path}: busy "
+            f"{prof['busy_ms']:.3f} ms/step, #11 {prof['kernel_11_ms']:.3f} "
+            f"ms/step, #12 {prof['kernel_12_ms']:.3f} ms/step, idle "
+            f"{100 * prof['idle_share']:.1f}% of {prof['step_ms']:.3f} "
+            f"ms/step")
+
+
 def profile_decode(tl, params, cfg, state, args, quant_kernel, tmp, tag):
     """Decode steps timed with CUDA events without the profiler, then a
     profiler window over as many: (ms/step, device busy ms/step, idle share
@@ -3262,6 +3336,8 @@ def drive_rewrite(ak, bk, model, cfg, tok, world, tmp, card):
             "decode attention (#11)", 0.0) / cfg.num_layers
         assert stats["kernel_11_device_ms_per_launch"] > 0, prof
         results[name] = stats
+        phase(step_line(f"bf16 weights, {name} cache, B={LLAMA_BATCH}", prof)
+              + f" [{card}]")
         phase(f"rewrite slice ({name} cache): generate_extended_triplets "
               f"rewrote {REWRITE_PAIRS} CIRR pairs with the 7B (bf16 weights, "
               f"B={LLAMA_BATCH}, {groups_n} groups, {plen}-row prompts, "
@@ -3351,6 +3427,8 @@ def drive_llama_q8(ak, bk, model, cfg, tok, prompts, tmp, card):
         del bstate
         torch.cuda.empty_cache()
         ab = {k: w["step_ms"] for k, w in ways.items()}
+        phase(step_line(f"int8 weights through #12, int8 cache, B={b}",
+                        ways["kernel_12"]) + f" [{card}]")
         kernel_dev = ways["kernel_12"]["ms_by_group"].get("int8 matmul (#12)",
                                                           0.0)
         assert kernel_dev > 0, ways["kernel_12"]

@@ -3,8 +3,10 @@
 // `mma.sync` products in bf16 (m16n8k16) and in TF32 (m16n8k8), and the
 // split of a float32 value into two TF32 values for 3xTF32 products.
 //
-// Used by long_attention.cu and short_attention.cu (bf16 attention) and by
-// bank_infonce.cu (the dense-bank backward in split TF32).
+// Used by long_attention.cu and short_attention.cu (bf16 attention), by
+// bank_infonce.cu (the bank InfoNCE kernels in split TF32), by
+// quant_matmul.cu (int8 weights on bf16 tensor cores) and, for its copies,
+// by decode_attention.cu.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 / k8"), with
 // lane = 4g + t (g = lane >> 2, t = lane & 3):
@@ -37,6 +39,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
@@ -83,6 +90,16 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8, float32) = a * b, the accumulator starting from zero
+__device__ __forceinline__ void mma16816_zero(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 // two floats rounded to bf16 (nearest even), lo in the low half

@@ -11,7 +11,9 @@ with kvh = h // (H / KVH), so grouped-query attention takes the same route.
 `bias` (B, L) float32 carries the causal bound and the left-pad mask. The
 kernel (`csrc/decode_attention.cu`, replacing the TPU `_kernel`) is built
 with nvcc at first use and counts its launches in
-`decode_attention.launches`.
+`decode_attention.launches`; `split_plan` cuts L into as few splits as
+give every SM a block, from the SM count read once a device
+(`device_plan_inputs`).
 
 Routes: on a CUDA tensor `decode_attention` launches the kernel or raises,
 for every head_dim that is a multiple of 8 up to 128, every L and every
@@ -34,7 +36,12 @@ from typing import Optional, Tuple
 import torch
 
 MAX_HEAD_DIM = 128
+MAX_SPLITS = 8        # splits of L: one thread-block cluster (kMaxSplits)
 MIN_SPLIT_ROWS = 64   # splits of L: at most ceil(L / MIN_SPLIT_ROWS)
+WARPS = 8             # warps of a block, each on every 8th tile (kWarps)
+# rows of a lane group in one tile (group_rows): 2 KB of K and V at hd = 128
+# over bf16 and int8, 4 KB over float32
+GROUP_ROWS = {torch.float32: 2, torch.bfloat16: 2, torch.int8: 4}
 
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -99,19 +106,56 @@ def _library() -> ctypes.CDLL:
     lib.decode_attention.restype = i32
     lib.decode_attention.argtypes = (
         [ptr, i32, ptr, ptr, i32, i64, i64, ptr, i64, ptr, ptr, i64]
-        + [i32] * 7 + [ctypes.c_float, ptr, ptr, ptr])
+        + [i32] * 7 + [ctypes.c_float, ptr, ptr])
+    lib.decode_attention_occupancy.restype = i32
+    lib.decode_attention_occupancy.argtypes = [i32, i32,
+                                               ctypes.POINTER(i32)]
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def device_plan_inputs(index: int, cache_code: int, head_dim: int
+                       ) -> Tuple[int, int]:
+    """(SMs, blocks of the kernel an SM holds at once) on CUDA device
+    `index` for a cache type code and head_dim, read once a device from
+    the device's properties and the kernel's occupancy. `split_plan` takes
+    the SMs; the blocks an SM holds are reported beside the kernel's
+    times."""
+    sm = torch.cuda.get_device_properties(index).multi_processor_count
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _library().decode_attention_occupancy(cache_code, head_dim,
+                                                    ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"decode_attention occupancy query failed with "
+                           f"CUDA error {err} ({blocks.value} blocks an SM)")
+    return sm, blocks.value
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lane_group(head_dim: int) -> int:
+    """Lanes of a cache row in the kernel: the power of two >= hd / 8 (a
+    lane holds 8 values of hd)."""
+    g = 1
+    while g * 8 < head_dim:
+        g *= 2
+    return g
+
+
 def split_plan(length: int, pairs: int, sm_count: int) -> Tuple[int, int]:
-    """(rows_per_split, n_splits): cut the cache rows of each (b, h) pair so
-    that pairs x splits is about two blocks per SM, in at most
-    ceil(L / MIN_SPLIT_ROWS) splits. A pure function of its arguments, so
-    the order of every sum is fixed for a given device."""
-    want = max(1, -(-2 * sm_count // pairs))
-    n = max(1, min(want, -(-length // MIN_SPLIT_ROWS)))
-    rows = -(-length // n)
-    return rows, -(-length // rows)
+    """(rows_per_split, n_splits): the fewest splits of each (b, h) pair's
+    cache rows that give every SM a block (pairs x splits >= sm_count), at
+    most MAX_SPLITS and ceil(L / MIN_SPLIT_ROWS). Each split beyond that
+    adds a cluster merge and shortens the blocks, which keep fewer tiles in
+    flight (PERF.md). A pure function of its arguments, so the order of
+    every sum is fixed for a given device."""
+    n = max(1, min(_cdiv(sm_count, pairs), MAX_SPLITS,
+                   _cdiv(length, MIN_SPLIT_ROWS)))
+    rows = _cdiv(length, n)
+    return rows, _cdiv(length, rows)
 
 
 def _check(q, k_cache, v_cache, li, bias, k_scale, v_scale) -> None:
@@ -179,10 +223,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     quant = k_cache.dtype == torch.int8
     out = torch.empty(batch, heads, hd, device=q.device,
                       dtype=torch.float32 if quant else k_cache.dtype)
-    sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    rows, n_splits = split_plan(length, batch * heads, sm)
-    part = (torch.empty(batch, heads, n_splits, hd + 2, device=q.device,
-                        dtype=torch.float32) if n_splits > 1 else out)
+    code = _CACHE_CODES[k_cache.dtype]
+    index = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    rows, n_splits = split_plan(length, batch * heads,
+                                device_plan_inputs(index, code, hd)[0])
     k, v = k_cache[li], v_cache[li]   # views: nothing is copied
     ks = k_scale[li] if quant else None
     vs = v_scale[li] if quant else None
@@ -190,16 +235,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _library().decode_attention(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-            v.data_ptr(), _CACHE_CODES[k_cache.dtype], k.stride(0),
+            v.data_ptr(), code, k.stride(0),
             k.stride(1), bias.data_ptr(), bias.stride(0),
             ks.data_ptr() if quant else None,
             vs.data_ptr() if quant else None, ks.stride(0) if quant else 0,
             batch, heads, width // hd, hd, length, rows, n_splits,
-            hd ** -0.5, out.data_ptr(), part.data_ptr(), stream)
+            hd ** -0.5, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed with CUDA error "
                            f"{err} (B={batch}, H={heads}, hd={hd}, L={length},"
-                           f" {k_cache.dtype})")
+                           f" {k_cache.dtype}, {n_splits} splits of {rows})")
     decode_attention.launches += 1
     return out
 

@@ -6,8 +6,12 @@ Counterpart of `spn4cir_tpu/ops/quant_matmul.py`:
 
 summed in float32, y in x's type, leading dims of x flattened. The kernel
 (`csrc/quant_matmul.cu`, replacing the TPU `_kernel`) streams the int8
-weight once and never forms a float copy of it; it is built with nvcc at
-first use and counts its launches in `quant_matmul.launches`.
+weight once and never forms a float copy of it: it widens the weights in
+registers onto the bf16 tensor cores, float32 x split into three bf16
+terms whose products are exact. It is built with nvcc at first use and
+counts its launches in `quant_matmul.launches`; `split_plan` cuts D into
+as many splits as keep every cluster of splits resident at once, from the
+kernel's cluster occupancy read once a device (`device_plan_inputs`).
 
 Routes: on a CUDA tensor `quant_matmul` launches the kernel or raises; on a
 CPU tensor it runs `quant_matmul_reference`, the plain PyTorch version,
@@ -19,13 +23,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-CHUNK = 128        # the kernel's x chunk along D (kChunk)
-COLS = 256         # columns of a block (kCols)
-MAX_TILE_ROWS = 8  # rows of a block's tile (the largest RT)
+COLS = 256         # columns of W a block (kCols)
+DEPTH = 64         # rows of W a ring stage (kDepth): splits are multiples
+MAX_SPLITS = 16    # splits of D: one thread-block cluster (kMaxSplits)
+TILE_ROWS = 8      # rows of x an n8 tile; a block takes one or two tiles
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,29 +52,59 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.quant_matmul.restype = i32
     lib.quant_matmul.argtypes = ([ptr, i32, ptr, ptr] + [i32] * 6
-                                 + [ptr, ptr, ptr])
+                                 + [ptr, ptr])
+    lib.quant_matmul_clusters.restype = i32
+    lib.quant_matmul_clusters.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def device_plan_inputs(index: int, x_code: int, n_tiles: int
+                       ) -> Tuple[int, ...]:
+    """For n = 1..MAX_SPLITS, the clusters of n blocks of the kernel (for
+    an x type code and n8 tile count) that CUDA device `index` holds at
+    once: read once a device, from the occupancy API."""
+    out = []
+    with torch.cuda.device(index):
+        for n in range(1, MAX_SPLITS + 1):
+            count = ctypes.c_int(0)
+            err = _library().quant_matmul_clusters(x_code, n_tiles, n,
+                                                   ctypes.byref(count))
+            if err != 0:
+                raise RuntimeError(f"quant_matmul cluster occupancy query "
+                                   f"failed with CUDA error {err} (n={n})")
+            out.append(count.value)
+    return tuple(out)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_plan(rows: int, d: int, f: int, sm_count: int
+def n_tiles_for(rows: int) -> int:
+    """n8 tiles of x a block: one up to 8 rows, else two (16 a block)."""
+    return 1 if rows <= TILE_ROWS else 2
+
+
+def split_plan(rows: int, d: int, f: int, clusters: Sequence[int]
                ) -> Tuple[int, int, int]:
-    """(rows_per_tile, d_per_split, n_splits): a row tile of 1, 2, 4 or 8;
-    D cut into splits of whole chunks so that tiles x splits is about two
-    blocks per SM, each split at least two chunks deep. A pure function of
-    its arguments, so the order of every sum is fixed for a given device."""
-    rt = 1
-    while rt < min(rows, MAX_TILE_ROWS):
-        rt *= 2
-    tiles = _cdiv(rows, rt) * _cdiv(f, COLS)
-    n = max(1, min(_cdiv(2 * sm_count, tiles), d // (2 * CHUNK)))
-    if n == 1:
-        return rt, d, 1
-    per = _cdiv(_cdiv(d, n), CHUNK) * CHUNK
-    return rt, per, _cdiv(d, per)
+    """(n_tiles, d_per_split, n_splits): 8·n_tiles rows of x and COLS
+    columns of W a block; D cut into the most splits of whole DEPTH stages,
+    at most len(clusters), whose clusters (one a row and column tile) the
+    card holds all at once: clusters[n - 1] is how many clusters of n
+    blocks fit. More splits shorten each block; one cluster too many runs
+    a second wave (on the H100, 6 splits of 43 tiles took 1.37x the time
+    of 5; PERF.md). A pure function of its arguments, so the order
+    of every sum is fixed for a given device."""
+    nt = n_tiles_for(rows)
+    tiles = _cdiv(rows, TILE_ROWS * nt) * _cdiv(f, COLS)
+    steps = _cdiv(d, DEPTH)
+    best = 1
+    for n in range(2, min(len(clusters), steps) + 1):
+        if tiles <= clusters[n - 1]:
+            best = n
+    per = _cdiv(steps, best) * DEPTH
+    return nt, per, _cdiv(d, per)
 
 
 def _check(x: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
@@ -93,8 +128,6 @@ def _check(x: torch.Tensor, values: torch.Tensor, scales: torch.Tensor
                          f"tensors lie on {x.device}")
     if not (values.is_contiguous() and scales.is_contiguous()):
         raise ValueError("values and scales must be contiguous")
-    if values.shape[1] % 8 == 0 and values.data_ptr() % 8:
-        raise ValueError("values must be 8-byte aligned")
 
 
 def quant_matmul(x: torch.Tensor, values: torch.Tensor,
@@ -111,19 +144,20 @@ def quant_matmul(x: torch.Tensor, values: torch.Tensor,
     y = torch.empty(rows, f, device=x.device, dtype=x.dtype)
     if rows == 0:
         return y.reshape(*lead, f)
-    sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rt, per, n_splits = split_plan(rows, d, f, sm)
-    part = (torch.empty(n_splits, rows, f, device=x.device,
-                        dtype=torch.float32) if n_splits > 1 else y)
+    code = _X_CODES[x.dtype]
+    index = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    nt, per, n_splits = split_plan(
+        rows, d, f, device_plan_inputs(index, code, n_tiles_for(rows)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _library().quant_matmul(
-            x2.data_ptr(), _X_CODES[x.dtype], values.data_ptr(),
-            scales.data_ptr(), rows, d, f, rt, per, n_splits, y.data_ptr(),
-            part.data_ptr(), stream)
+            x2.data_ptr(), code, values.data_ptr(), scales.data_ptr(), rows,
+            d, f, nt, per, n_splits, y.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed with CUDA error {err}"
-                           f" (rows={rows}, D={d}, F={f}, {x.dtype})")
+                           f" (rows={rows}, D={d}, F={f}, {x.dtype}, "
+                           f"{n_splits} splits of {per})")
     quant_matmul.launches += 1
     return y.reshape(*lead, f)
 

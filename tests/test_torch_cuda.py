@@ -751,6 +751,31 @@ def test_decode_attention_matches_plain_version_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,atol,rtol", [
+    ("float32", 1e-5, 1e-5), ("bfloat16", 2e-2, 2e-2), ("int8", 1e-4, 1e-4)])
+def test_decode_attention_masks_across_split_boundaries_on_card(
+        cuda_device, kind, atol, rtol):
+    """#11 where L is cut into 8 splits of 75 rows: batch row 0 masks the
+    whole first split and a run across the boundary at row 150, row 1 a run
+    across the boundary at row 75; the splits merge in their cluster."""
+    from spn4cir_tpu_torch.ops.decode_attn import (
+        decode_attention, decode_attention_reference, split_plan)
+
+    assert split_plan(600, 2 * 4, 132) == (75, 8)
+    q, k, v, bias, ks, vs = _decode_case(cuda_device, 2, 4, 4, 64, 600, 2,
+                                         kind, seed=3)
+    bias[0, :75] = -1e9
+    bias[0, 140:160] = -1e9
+    bias[1, 70:80] = -1e9
+    got = decode_attention(q, k, v, 1, bias, ks, vs)
+    torch.cuda.synchronize()
+    want = decode_attention_reference(q, k, v, 1, bias, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, decode_attention(q, k, v, 1, bias, ks, vs))
+
+
+@pytest.mark.cuda
 def test_decode_attention_refuses_what_it_cannot_take(cuda_device):
     from spn4cir_tpu_torch.ops.decode_attn import decode_attention
 
@@ -770,14 +795,16 @@ def test_decode_attention_refuses_what_it_cannot_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d,f", [
     (1, 4096, 4096), (16, 4096, 11008), (8, 11008, 4096), (16, 4096, 32000),
-    (5, 40, 77), (33, 300, 130), (3, 64, 8)])
+    (5, 40, 77), (33, 300, 130), (3, 64, 8), (16, 11008, 4096),
+    (17, 4096, 11008), (9, 300, 130)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_quant_matmul_matches_plain_version_on_card(cuda_device, rows, d, f,
                                                     dtype, tol):
     """#12 against its plain version at the 7B's decode shapes, ragged ones
-    (F=77 takes the byte loads; 33 rows take five row tiles) and a 3-D x;
-    a second launch gives the same bits."""
+    (F=77 and F=130 take the byte loads, bf16 x at D=300 the value loads;
+    33 rows take three row tiles of 16, 17 rows two, 9 rows one of 16) and
+    a 3-D x; a second launch gives the same bits."""
     from spn4cir_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                     quant_matmul_reference)
 
@@ -800,6 +827,30 @@ def test_quant_matmul_matches_plain_version_on_card(cuda_device, rows, d, f,
     assert three.shape == (2, rows, f)
     assert torch.equal(three.reshape(2 * rows, f),
                        quant_matmul(torch.cat([x, x]), values, scales))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_takes_float32_x_over_nine_decades_on_card(cuda_device):
+    """float32 x whose first row spans |x| = 1e-6 to 1e3: its three bf16
+    terms carry every value exactly, so the tensor-core product holds the
+    float32 tolerance at D = 11,008."""
+    from spn4cir_tpu_torch.ops.quant_matmul import (quant_matmul,
+                                                    quant_matmul_reference)
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    d, f = 11008, 4096
+    x = torch.randn(16, d, generator=g, device=cuda_device)
+    mag = 10.0 ** (torch.rand(d, generator=g, device=cuda_device) * 9 - 6)
+    x[0] = torch.sign(x[0]) * mag
+    values = torch.randint(-127, 128, (d, f), generator=g,
+                           device=cuda_device).to(torch.int8)
+    scales = torch.rand(f, generator=g, device=cuda_device) * 1e-3 + 1e-4
+    got = quant_matmul(x, values, scales)
+    want = quant_matmul_reference(x, values, scales)
+    for row in (got[:1], got):
+        ref = want[:row.shape[0]]
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(row, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.cuda
