@@ -416,10 +416,11 @@ def build_kernels(cuda_build) -> None:
 # 96, 128; short_attention.cu's bf16 forward and backward, each at the
 # padded depths 64, 128 x 64, 80, 128 rows x causal or not; bank_infonce.cu's
 # split-TF32 forward, coefficient and dQ kernels over float32, bf16 and int8
-# banks; quant_matmul.cu's int8-weight product over float32 and bf16 x at one
-# and two n8 tiles of rows
+# banks; max_query_infonce.cu's split-TF32 forward over float32, bf16 and
+# int8 banks; quant_matmul.cu's int8-weight product over float32 and bf16 x
+# at one and two n8 tiles of rows
 TC_KERNELS = {"long_attention": 9, "short_attention": 24, "bank_infonce": 9,
-              "quant_matmul": 4}
+              "max_query_infonce": 3, "quant_matmul": 4}
 
 
 def check_tensor_cores(cuda_build, lib) -> None:
@@ -2273,36 +2274,91 @@ def check_plain_step(layers, bk, card):
         assert np.isfinite(kern_loss)
 
 
+def launched_kernels(fn) -> list:
+    """The names of the CUDA kernels that `fn` launches, in order, from a
+    profiler trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [ev["name"] for ev in sorted(
+        (ev for ev in events
+         if ev.get("ph") == "X" and ev.get("cat") == "kernel"),
+        key=lambda ev: ev["ts"])]
+
+
 def max_query_case(mk, bk, q, bank, labels, card, time_it=True):
     """#9 and #10 against their plain versions on one case (a dense
-    (M, Q, D) bank or a 3-D QuantBank): the four statistics, the loss, dtau
-    and dfeats; a second launch gives the same bits. Returns (fwd, bwd)
-    records."""
+    (M, Q, D) bank or a 3-D QuantBank): the four statistics, the loss, dtau,
+    the residuals (logits, and each routed query a maximum of the plain
+    sims within the tolerance) and dfeats, against the plain backward from
+    the kernel's residuals and against the one that recomputes the sims; a
+    second launch gives the same bits. Timed, the forward runs on the
+    tensor cores (`mq_fwd_tc_kernel`) and the backward only reads the
+    residuals (`mq_routed_bwd_kernel`, no forward kernel), by the profiler's
+    kernel names. Returns (fwd, bwd) records."""
     b, d = q.shape
     quant = isinstance(bank, bk.QuantBank)
     rows = bank.values if quant else bank
     m, nq = rows.shape[:2]
     gout = torch.tensor(1.0, device=q.device)
-    loss, stats, dtau = mk.max_query_infonce_fwd(q, bank, labels, BLIP2_TAU)
-    dq = mk.max_query_infonce_bwd(q, bank, labels, BLIP2_TAU, stats[0],
-                                  stats[1], gout)
+    loss, stats, dtau, res = mk.max_query_infonce_fwd(q, bank, labels,
+                                                      BLIP2_TAU, routing=True)
+    dq = mk.max_query_infonce_bwd(bank, labels, BLIP2_TAU, stats[0],
+                                  stats[1], gout, res)
     torch.cuda.synchronize()
     with torch.no_grad():
         want = mk.max_query_infonce_stats_reference(q, bank, labels, BLIP2_TAU)
         want_loss = mk.max_query_infonce_reference(q, bank, labels, BLIP2_TAU)
         want_dq = mk.max_query_infonce_bwd_reference(
             q, bank, labels, BLIP2_TAU, want[0], want[1], gout)
+        routed_dq = mk.max_query_infonce_routed_bwd_reference(
+            bank, labels, BLIP2_TAU, stats[0], stats[1], gout, res)
+        sims = mk._sims(q, bank)
+        want_l, want_r = mk.max_query_infonce_residuals_reference(
+            q, bank, BLIP2_TAU)
+        # the plain logit at the kernel's routed query: a maximum within the
+        # logits' tolerance wherever the two routes part (a near-tie)
+        at_route = sims.gather(-1, res[1].long()[..., None])[..., 0] / BLIP2_TAU
+        flips = int((res[1] != want_r).sum())
+        del sims
     for got_s, want_s in zip(stats, want):
         torch.testing.assert_close(got_s, want_s, atol=BANK_RTOL,
                                    rtol=BANK_RTOL)
     torch.testing.assert_close(loss, want_loss, atol=BANK_RTOL, rtol=BANK_RTOL)
     torch.testing.assert_close(dtau, bk.dtau_from_stats(want, BLIP2_TAU),
                                atol=10 * BANK_RTOL, rtol=BANK_RTOL)
+    torch.testing.assert_close(res[0], want_l, atol=BANK_RTOL, rtol=BANK_RTOL)
+    torch.testing.assert_close(at_route, want_l, atol=BANK_RTOL,
+                               rtol=BANK_RTOL)
     torch.testing.assert_close(dq, want_dq, atol=BANK_DQ_ATOL, rtol=BANK_RTOL)
-    loss2, _, _ = mk.max_query_infonce_fwd(q, bank, labels, BLIP2_TAU)
-    dq2 = mk.max_query_infonce_bwd(q, bank, labels, BLIP2_TAU, stats[0],
-                                   stats[1], gout)
-    assert torch.equal(loss, loss2) and torch.equal(dq, dq2), "not repeatable"
+    torch.testing.assert_close(dq, routed_dq, atol=BANK_DQ_ATOL,
+                               rtol=BANK_RTOL)
+    loss2, _, _, res2 = mk.max_query_infonce_fwd(q, bank, labels, BLIP2_TAU,
+                                                 routing=True)
+    dq2 = mk.max_query_infonce_bwd(bank, labels, BLIP2_TAU, stats[0],
+                                   stats[1], gout, res)
+    assert torch.equal(loss, loss2) and torch.equal(dq, dq2) and all(
+        torch.equal(a, b_) for a, b_ in zip(res, res2)), "not repeatable"
+    if time_it:  # the timed cases, before any other phase's profiler
+        names = launched_kernels(lambda: mk.max_query_infonce_fwd(
+            q, bank, labels, BLIP2_TAU, routing=True))
+        assert any("mq_fwd_tc_kernel" in n for n in names), names
+        names = launched_kernels(lambda: mk.max_query_infonce_bwd(
+            bank, labels, BLIP2_TAU, stats[0], stats[1], gout, res))
+        assert any("mq_routed_bwd_kernel" in n for n in names), names
+        assert not any("mq_fwd" in n for n in names), names
+    # the distinct routed rows (m, q*) the backward must read
+    seen = torch.zeros(m * nq, dtype=torch.bool, device=q.device)
+    seen[(torch.arange(m, device=q.device)[None, :] * nq
+          + res[1].long()).reshape(-1)] = True
+    routed = int(seen.sum())
+    del seen, res2
     fwd_err = max((a - b_).abs().max().item() for a, b_ in zip(stats, want))
     fwd_err = max(fwd_err, (loss - want_loss).abs().item())
     bwd_err = (dq - want_dq).abs().max().item()
@@ -2315,21 +2371,31 @@ def max_query_case(mk, bk, q, bank, labels, card, time_it=True):
                     zip((*stats, loss), (*want, want_loss)))
     bwd_share = over_tol(dq, want_dq, BANK_DQ_ATOL)
     common = dict(shape=f"B={b}, M={m}, Q={nq}, D={d}",
-                  dtype=dtype_name(bank.dtype))
-    # float32 products (the bank widens exactly); bytes: feats, the bank
-    # (with its scales), the labels, the statistics (the backward: mx, se,
-    # gout in, dfeats out), each once
-    bank_bytes = rows.numel() * rows.element_size() + (
-        4 * bank.scales.numel() if quant else 0)
-    f_ms, f_by = bound_ms(b * d * 4 + bank_bytes + b * 4 + 4 * b * 4 + 8,
-                          2 * b * m * nq * d, torch.float32)
-    b_ms, b_by = bound_ms(2 * b * d * 4 + bank_bytes + b * 4 + 2 * b * 4 + 4,
-                          2 * b * m * nq * d + 2 * b * m * d, torch.float32)
+                  dtype=dtype_name(bank.dtype), routed_rows=routed,
+                  routed_share=routed / (m * nq), route_flips=flips)
+    # bytes: each input read once, each output written once. #9: feats, the
+    # bank (with its scales), the labels; the statistics, loss, dtau and the
+    # (M, B) float32 + int16 residuals written; products: three of
+    # 2·B·M·Q·D, split TF32 at the TF32 peak over a float32 bank, bf16 at
+    # the bf16 peak over a bf16 or int8 one (the routes of the kernel). #10:
+    # the residuals, the distinct routed rows (and their scales), labels,
+    # mx, se, gout read, dfeats written; 2·B·M·D float32 FMAs
+    elem = rows.element_size()
+    bank_bytes = rows.numel() * elem + (4 * bank.scales.numel() if quant
+                                        else 0)
+    res_bytes = m * b * (4 + 2)
+    f_ms, f_by = bound_ms(b * d * 4 + bank_bytes + b * 4 + 4 * b * 4 + 8
+                          + res_bytes, 3 * 2 * b * m * nq * d,
+                          "tf32" if rows.dtype == torch.float32
+                          else torch.bfloat16)
+    b_ms, b_by = bound_ms(res_bytes + routed * (d * elem + (4 if quant else 0))
+                          + b * 4 + 2 * b * 4 + 4 + b * d * 4,
+                          2 * b * m * d, torch.float32)
     fwd = dict(common, rtol=BANK_RTOL, atol=BANK_RTOL, max_abs_err=fwd_err,
                max_err_over_tol=fwd_share, bound_ms=f_ms, bound_by=f_by)
     bwd = dict(common, rtol=BANK_RTOL, atol=BANK_DQ_ATOL, max_abs_err=bwd_err,
                max_err_over_tol=bwd_share, bound_ms=b_ms, bound_by=b_by)
-    del want_dq, dq2
+    del want_dq, routed_dq, dq2, at_route, want_l, want_r
     if time_it:
         ce = torch.nn.functional.cross_entropy
         dense = bank.dequantize if quant else bank.float
@@ -2338,35 +2404,49 @@ def max_query_case(mk, bk, q, bank, labels, card, time_it=True):
             sims = torch.einsum("bd,mqd->bmq", feats, dense())
             return ce(sims.amax(dim=-1) / BLIP2_TAU, labels)
 
+        def pair():
+            _, st, _, r = mk.max_query_infonce_fwd(q, bank, labels, BLIP2_TAU,
+                                                   routing=True)
+            mk.max_query_infonce_bwd(bank, labels, BLIP2_TAU, st[0], st[1],
+                                     gout, r)
+
         with torch.no_grad():
             fwd["ms"] = median_ms(lambda: mk.max_query_infonce_fwd(
-                q, bank, labels, BLIP2_TAU), reps=10)
+                q, bank, labels, BLIP2_TAU, routing=True), reps=10)
             fwd["plain_ms"] = median_ms(
                 lambda: mk.max_query_infonce_stats_reference(
                     q, bank, labels, BLIP2_TAU), reps=5, warmup=1)
             fwd["library_ms"] = median_ms(lambda: library(q), reps=5,
                                           warmup=1)
             bwd["ms"] = median_ms(lambda: mk.max_query_infonce_bwd(
-                q, bank, labels, BLIP2_TAU, stats[0], stats[1], gout),
+                bank, labels, BLIP2_TAU, stats[0], stats[1], gout, res),
                 reps=10)
             bwd["plain_ms"] = median_ms(
                 lambda: mk.max_query_infonce_bwd_reference(
                     q, bank, labels, BLIP2_TAU, want[0], want[1], gout),
                 reps=5, warmup=1)
             fwd["device_ms"] = device_ms(lambda: mk.max_query_infonce_fwd(
-                q, bank, labels, BLIP2_TAU), n=10)
+                q, bank, labels, BLIP2_TAU, routing=True), n=10)
             fwd["library_device_ms"] = device_ms(lambda: library(q), n=10)
             bwd["device_ms"] = device_ms(lambda: mk.max_query_infonce_bwd(
-                q, bank, labels, BLIP2_TAU, stats[0], stats[1], gout), n=10)
+                bank, labels, BLIP2_TAU, stats[0], stats[1], gout, res), n=10)
+            pair_ms = device_ms(pair, n=10)
         leaf = q.clone().requires_grad_()
         lib_loss = library(leaf)
         bwd["library_ms"] = median_ms(lambda: torch.autograd.grad(
             lib_loss, leaf, retain_graph=True), reps=5, warmup=1)
         bwd["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
             lib_loss, leaf, retain_graph=True), n=10)
-        del leaf, lib_loss
+        del lib_loss
+        lib_pair_ms = device_ms(lambda: torch.autograd.grad(
+            library(leaf), leaf), n=10)
+        del leaf
         for rec in (fwd, bwd):
             rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            rec["pair_device_ms"] = pair_ms
+            rec["library_pair_device_ms"] = lib_pair_ms
+    routes = (", tensor-core forward, backward from the residuals"
+              if time_it else "")
     for name, rec in (("max_query_infonce_fwd", fwd),
                       ("max_query_infonce_bwd", bwd)):
         times = (f"kernel {rec['ms']:.4f} ms a call, {rec['device_ms']:.4f} "
@@ -2377,12 +2457,23 @@ def max_query_case(mk, bk, q, bank, labels, card, time_it=True):
                  f") {rec['library_ms']:.4f} ms a call, "
                  f"{rec['library_device_ms']:.4f} back to back, "
                  if time_it else "")
+        kind = ("#9 bound (bytes of the bank and the residuals, three "
+                "tensor-core products)" if name.endswith("fwd") else
+                "#10 bound (residuals, routed rows, dfeats)")
         phase(f"kernel {name} {rec['shape']} bank {rec['dtype']}: "
               f"max_abs_err={rec['max_abs_err']:.3e}, "
               f"{rec['max_err_over_tol']:.3f} of the tolerance "
               f"(atol={rec['atol']} + rtol={rec['rtol']}·|plain|), "
-              f"repeatable; {times}bound {rec['bound_ms']:.5f} ms by "
-              f"{rec['bound_by']} [{card}]")
+              f"repeatable{routes}; {times}{kind} {rec['bound_ms']:.5f} ms by "
+              f"{rec['bound_by']}; {rec['routed_rows']} distinct routed rows "
+              f"({100 * rec['routed_share']:.1f}% of M·Q), "
+              f"{rec['route_flips']} near-tie routes off the plain argmax "
+              f"[{card}]")
+    if time_it:
+        phase(f"pair #9 + #10 {fwd['shape']} bank {fwd['dtype']}: "
+              f"{fwd['pair_device_ms']:.4f} ms of device time back to back, "
+              f"library forward + autograd backward "
+              f"{fwd['library_pair_device_ms']:.4f} ms [{card}]")
     return fwd, bwd
 
 

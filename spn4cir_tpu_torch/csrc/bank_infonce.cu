@@ -312,7 +312,7 @@ bank_infonce_fwd_kernel(const float* __restrict__ q, const T* __restrict__ bank,
 // Backward, every bank: two tensor-core products in split TF32
 // ===========================================================================
 
-using namespace mma_sync;  // cp.async, TF32 split and mma.sync
+using namespace mma_sync;  // cp.async, TF32 split, mma.sync and the split-TF32 step
 
 constexpr int kTcThreads = 256;  // 8 warps as 2 (rows) x 4 (columns) of 32 x 32
 constexpr int kTcRows = 64;      // query rows a CTA owns, both kernels
@@ -339,62 +339,6 @@ __host__ __device__ constexpr int dq_ld_bank() {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return float(x); }
-
-// One k8 step of a warp's 32 x 32 tile: part[mi][ni] (16 x 8 each) +=
-// A (rows 16mi.., 8 deep) * B (8 deep, columns 8ni..), from float values in
-// the m16n8k8 fragment layout (av[mi] = a0..a3, bv[ni] = b0, b1). Each
-// operand is split as x = hi + lo (TF32 each) and the product is
-// lo·hi + hi·lo + hi·hi, the small terms first; lo·lo (2^-22 relative) is
-// dropped. kExactB: B's values are exact in TF32 (a bf16 bank, or int8 values
-// of at most 7 bits), so its lo is zero and two products run.
-template <bool kExactB>
-__device__ __forceinline__ void mma_step_3xtf32(float (&part)[2][4][4], const float (&av)[2][4],
-                                                const float (&bv)[4][2]) {
-  uint32_t ah[2][4], al[2][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(av[mi][i], ah[mi][i], al[mi][i]);
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    uint32_t bh[2], bl[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (kExactB)
-        bh[j] = __float_as_uint(bv[ni][j]);
-      else
-        split_tf32(bv[ni][j], bh[j], bl[j]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      mma1688_tf32(part[mi][ni], al[mi], bh[0], bh[1]);
-      if (!kExactB) mma1688_tf32(part[mi][ni], ah[mi], bl[0], bl[1]);
-      mma1688_tf32(part[mi][ni], ah[mi], bh[0], bh[1]);
-    }
-  }
-}
-
-// The tensor cores add a product's partial sums to their accumulator
-// rounding toward zero, a bias that grows with the number of additions: each
-// 32-deep stage's products go to a zeroed tile (`part`), which is then added
-// to the running sum in float32, to nearest, as FMAs round.
-__device__ __forceinline__ void zero_tile(float (&part)[2][4][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) part[mi][ni][i] = 0.f;
-}
-
-__device__ __forceinline__ void add_tile(float (&acc)[2][4][4], const float (&part)[2][4][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
-}
 
 // The m16n8k8 A fragments of a warp's 32 rows [row0, row0 + 32), depths
 // [k8, k8 + 8), from a float tile of row stride kTcLdA: per 16 rows one

@@ -1,10 +1,12 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a), as inline PTX:
 // `cp.async` copies into shared memory, `ldmatrix` fragment loads,
-// `mma.sync` products in bf16 (m16n8k16) and in TF32 (m16n8k8), and the
-// split of a float32 value into two TF32 values for 3xTF32 products.
+// `mma.sync` products in bf16 (m16n8k16) and in TF32 (m16n8k8), the split of
+// a float32 value into two TF32 values for 3xTF32 products, and a warp's
+// 32 x 32 split-TF32 step with its zeroed partial tiles.
 //
 // Used by long_attention.cu and short_attention.cu (bf16 attention), by
-// bank_infonce.cu (the bank InfoNCE kernels in split TF32), by
+// bank_infonce.cu and max_query_infonce.cu (the InfoNCE kernels in split
+// TF32), by
 // quant_matmul.cu (int8 weights on bf16 tensor cores) and, for its copies,
 // by decode_attention.cu.
 //
@@ -154,6 +156,72 @@ __device__ __forceinline__ void mma1688_tf32(float (&c)[4], const uint32_t (&a)[
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k8 step of a warp's 32 x 32 tile in split TF32 (bank_infonce.cu,
+// max_query_infonce.cu): part[mi][ni] (16 x 8 each) += A (rows 16mi.., 8
+// deep) * B (8 deep, columns 8ni..), A given split as ah + al (TF32 each, the
+// m16n8k8 fragment layout: a0..a3), B as float values (bv[ni] = b0, b1). B is
+// split as x = hi + lo and the product is lo·hi + hi·lo + hi·hi, the small
+// terms first; lo·lo (2^-22 relative) is dropped. kExactB: B's values are
+// exact in TF32 (a bf16 bank, or int8 values of at most 7 bits), so its lo is
+// zero and two products run.
+template <bool kExactB>
+__device__ __forceinline__ void mma_step_split(float (&part)[2][4][4], const uint32_t (&ah)[2][4],
+                                               const uint32_t (&al)[2][4],
+                                               const float (&bv)[4][2]) {
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    uint32_t bh[2], bl[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (kExactB)
+        bh[j] = __float_as_uint(bv[ni][j]);
+      else
+        split_tf32(bv[ni][j], bh[j], bl[j]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      mma1688_tf32(part[mi][ni], al[mi], bh[0], bh[1]);
+      if (!kExactB) mma1688_tf32(part[mi][ni], ah[mi], bl[0], bl[1]);
+      mma1688_tf32(part[mi][ni], ah[mi], bh[0], bh[1]);
+    }
+  }
+}
+
+// The same from float A values in the fragment layout (av[mi] = a0..a3),
+// split here.
+template <bool kExactB>
+__device__ __forceinline__ void mma_step_3xtf32(float (&part)[2][4][4], const float (&av)[2][4],
+                                                const float (&bv)[4][2]) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(av[mi][i], ah[mi][i], al[mi][i]);
+  mma_step_split<kExactB>(part, ah, al, bv);
+}
+
+// The tensor cores add a product's partial sums to their accumulator
+// rounding toward zero, a bias that grows with the number of additions: each
+// 32-deep stage's products go to a zeroed tile (`part`), which is then added
+// to the running sum in float32, to nearest, as FMAs round.
+__device__ __forceinline__ void zero_tile(float (&part)[2][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[mi][ni][i] = 0.f;
+}
+
+__device__ __forceinline__ void add_tile(float (&acc)[2][4][4], const float (&part)[2][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
 }
 
 }  // namespace mma_sync

@@ -7,16 +7,23 @@ Counterpart of `spn4cir_tpu/ops/maxquery_kernels.py`:
     loss   = mean CE(logits, labels)
 
 `max_query_infonce(feats, bank, labels, tau)` never materialises the (B, M,
-Q) sims on the card: the forward kernel (`max_query_infonce_fwd`, replacing
-the TPU `_fwd_kernel`) sweeps the bank with a running max over the queries
-and emits per-row statistics (max, sum-exp, positive logit, Σ exp·logit);
-the backward kernel (`max_query_infonce_bwd`, replacing `_bwd_kernel`)
-recomputes the sims, routes each (b, m) weight to the FIRST query that
-reaches the max and accumulates dfeats. Both take a dense (M, Q, D) float32
-or bfloat16 bank, or an int8 `QuantBank` with (M, Q) scales, where the scale
+Q) sims on the card. The forward kernel (`max_query_infonce_fwd`, replacing
+the TPU `_fwd_kernel`) forms the sims on the tensor cores over the bank as
+its (M·Q, D) matrix (split TF32 over a float32 bank; over a bf16 or int8
+one bf16 products of feats as three exact bf16 terms), takes the max over
+each m's queries and emits per-row statistics (max, sum-exp, positive
+logit, Σ exp·logit); asked for them (`routing=True`, whenever feats needs a
+gradient) it also writes the residuals of the backward: the (B, M) float32
+logits and the (B, M) int16 routed query q*, the FIRST query that reaches
+the max. The backward
+kernel (`max_query_infonce_bwd`, replacing `_bwd_kernel`) recomputes
+nothing: it reads the residuals, gathers only the routed rows bank[m, q*]
+and accumulates dfeats. Both take a dense (M, Q, D) float32 or bfloat16
+bank, or an int8 `QuantBank` with (M, Q) scales, where the scale
 multiplies each sim before the max and 1/tau follows. They live in
 `csrc/max_query_infonce.cu`, are built with nvcc at first use, and count
-their launches in `<wrapper>.launches`.
+their launches in `<wrapper>.launches`; `mq_plan` cuts the m axis into the
+splits of both.
 
 Routes:
   - tensors on a CUDA device: the kernels, through `torch.autograd.Function`;
@@ -40,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,12 +56,17 @@ from spn4cir_tpu_torch.ops.bank_kernels import QuantBank, Stats, Tau
 
 # the kernels' layout, as csrc/max_query_infonce.cu fixes it at compile time
 # (which also asserts that the widest D fits the shared memory)
-CHUNK = 32              # depth of a bank chunk: D % CHUNK == 0 (kBK)
-MAX_DIM = 512           # widest D of the backward's routed sum (kMaxD)
-TILE_ROWS = 32          # feats rows per CTA (kRows)
-TILE_COLS = 256         # bank rows per tile (kCols)
+CHUNK = 32              # D % CHUNK == 0: the products' 32-deep blocks
+MAX_DIM = 512           # widest D (kMaxD)
+TILE_ROWS = 32          # feats rows per CTA, both kernels (kRows)
+TILE_COLS = 256         # rows of the (M·Q, D) bank per forward tile (kCols)
+FWD_CTAS_PER_SM = 1     # the forward's shared memory holds one CTA an SM
+BWD_CTAS_PER_SM = 2
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# (logits (B, M) float32, route (B, M) int16): the forward's residuals
+Residuals = Tuple[torch.Tensor, torch.Tensor]
 
 
 # --------------------------------------------------------------------------
@@ -101,24 +113,47 @@ def max_query_infonce_reference(feats: torch.Tensor, bank,
     return bank_kernels._loss(_max_logits(feats, bank, tau)[0], labels)
 
 
-def max_query_infonce_bwd_reference(feats: torch.Tensor, bank,
-                                    labels: torch.Tensor, tau: Tau,
-                                    mx: torch.Tensor, se: torch.Tensor,
-                                    gout: torch.Tensor) -> torch.Tensor:
-    """Plain version of the backward kernel: w = (P - onehot)·g with P from
-    the saved (mx, se) and g = gout/(B·tau), put at each (b, m)'s first
-    argmax query (times its scale over an int8 bank), then one product
-    with the bank's (M·Q, D) rows."""
+def max_query_infonce_residuals_reference(feats: torch.Tensor, bank,
+                                          tau: Tau) -> Residuals:
+    """The forward kernel's residuals from materialised float32 sims: the
+    (B, M) logits and the (B, M) int16 first argmax query."""
     logits, arg = _max_logits(feats, bank, tau)
-    coef = bank_kernels._coefficient(logits, labels, tau, mx, se, gout)
+    return logits, arg.to(torch.int16)
+
+
+def max_query_infonce_routed_bwd_reference(bank, labels: torch.Tensor,
+                                           tau: Tau, mx: torch.Tensor,
+                                           se: torch.Tensor,
+                                           gout: torch.Tensor,
+                                           residuals: Residuals
+                                           ) -> torch.Tensor:
+    """Plain version of the backward kernel from the forward's residuals:
+    w = (P - onehot)·g with P = exp(logits - mx)/se and g = gout/(B·tau),
+    put at each (b, m)'s routed query (times its scale over an int8 bank),
+    then one product with the bank's (M·Q, D) rows. feats is not needed."""
+    logits, route = residuals
+    coef = bank_kernels._coefficient(logits.float(), labels, tau, mx, se,
+                                     gout)
     b, m = coef.shape
     rows = bank.values if isinstance(bank, QuantBank) else bank
     nq, d = rows.shape[1], rows.shape[2]
     w = torch.zeros(b, m, nq, dtype=torch.float32, device=coef.device)
-    w.scatter_(-1, arg[..., None], coef[..., None])
+    w.scatter_(-1, route.long()[..., None], coef[..., None])
     if isinstance(bank, QuantBank):
         w = w * bank.scales[None]
     return w.reshape(b, m * nq) @ rows.reshape(m * nq, d).float()
+
+
+def max_query_infonce_bwd_reference(feats: torch.Tensor, bank,
+                                    labels: torch.Tensor, tau: Tau,
+                                    mx: torch.Tensor, se: torch.Tensor,
+                                    gout: torch.Tensor) -> torch.Tensor:
+    """The backward from (feats, bank): the sims recomputed, routed at each
+    (b, m)'s first argmax query, then the routed product (the oracle of
+    the residual route)."""
+    return max_query_infonce_routed_bwd_reference(
+        bank, labels, tau, mx, se, gout,
+        max_query_infonce_residuals_reference(feats, bank, tau))
 
 
 # --------------------------------------------------------------------------
@@ -134,36 +169,49 @@ def _library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, argtypes in (
             (lib.max_query_infonce_fwd,
-             [ptr] * 4 + [f32] + [i32] * 7 + [ptr] * 7),
+             [ptr] * 4 + [f32] + [i32] * 7 + [ptr] * 9),
             (lib.max_query_infonce_bwd,
-             [ptr] * 7 + [f32] + [i32] * 7 + [ptr] * 3)):
+             [ptr] * 8 + [f32] + [i32] * 7 + [ptr] * 3)):
         fn.restype = i32
         fn.argtypes = argtypes
     return lib
 
 
-def split_plan(m: int, b: int, sm_count: int) -> Tuple[int, int]:
-    """(tiles_per_split, n_splits): cut the bank's tiles into contiguous
-    splits so that splits x row tiles is about one CTA per SM. A pure
-    function of its arguments, so the order of every sum is fixed for a
-    given device."""
-    tiles = -(-m // TILE_COLS)
-    want = max(1, sm_count // -(-b // TILE_ROWS))
-    tiles_per_split = -(-tiles // want)
-    return tiles_per_split, -(-tiles // tiles_per_split)
+class MqPlan(NamedTuple):
+    """How the kernels cut the m axis (a pure function of the shapes and
+    the SM count, so the order of every sum is fixed for a given device).
+    Forward: tiles of `m_per_tile` whole m's (TILE_COLS // Q; past Q =
+    TILE_COLS one m, its rows over `tiles_per_m` tiles), `n_splits` splits
+    of `m_per_split` m's, a multiple of `m_per_tile`, about
+    FWD_CTAS_PER_SM CTAs an SM with the row tiles. Backward: `bwd_splits`
+    splits of `bwd_m_per_split` m's, about BWD_CTAS_PER_SM an SM."""
+    m_per_tile: int
+    tiles_per_m: int
+    m_per_split: int
+    n_splits: int
+    bwd_m_per_split: int
+    bwd_splits: int
 
 
-def _check(feats: torch.Tensor, bank, labels: torch.Tensor) -> None:
+def mq_plan(b: int, m: int, q: int, sm_count: int) -> MqPlan:
+    mt = TILE_COLS // q if q <= TILE_COLS else 1
+    qt = 1 if q <= TILE_COLS else -(-q // TILE_COLS)
+    row_tiles = -(-b // TILE_ROWS)
+    groups = -(-m // mt)
+    want = max(1, sm_count * FWD_CTAS_PER_SM // row_tiles)
+    per = -(-groups // want)
+    bwd_per = -(-m // max(1, sm_count * BWD_CTAS_PER_SM // row_tiles))
+    return MqPlan(mt, qt, per * mt, -(-groups // per), bwd_per,
+                  -(-m // bwd_per))
+
+
+def _check_bank(bank, device: torch.device) -> None:
+    """The bank's types, shape and layout, on `device`, which is CUDA."""
     quant = isinstance(bank, QuantBank)
     rows = bank.values if quant else bank
-    if feats.dim() != 2 or rows.dim() != 3 or feats.shape[1] != rows.shape[2]:
-        raise ValueError(f"feats (B, D) and bank (M, Q, D) must share D; got "
-                         f"{tuple(feats.shape)}, {tuple(rows.shape)}")
-    if labels.shape != (feats.shape[0],):
-        raise ValueError(f"labels must be (B,) = ({feats.shape[0]},); got "
-                         f"{tuple(labels.shape)}")
-    if feats.dtype != torch.float32:
-        raise ValueError(f"the kernels take float32 feats; got {feats.dtype}")
+    if rows.dim() != 3:
+        raise ValueError(f"the bank must be (M, Q, D); got "
+                         f"{tuple(rows.shape)}")
     if quant:
         if rows.dtype != torch.int8 or bank.scales.dtype != torch.float32:
             raise ValueError(f"a QuantBank holds int8 values and float32 "
@@ -177,20 +225,39 @@ def _check(feats: torch.Tensor, bank, labels: torch.Tensor) -> None:
     elif rows.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the bank must be float32 or bfloat16; got "
                          f"{rows.dtype}")
-    if not (feats.device == rows.device == labels.device):
+    if rows.device != device:
         raise ValueError("feats, bank and labels must lie on one device")
-    if feats.device.type != "cuda":
+    if device.type != "cuda":
         raise ValueError(f"the max-query InfoNCE kernels launch on CUDA; the "
-                         f"tensors lie on {feats.device}")
-    d = feats.shape[1]
+                         f"tensors lie on {device}")
+    d = rows.shape[2]
     if d % CHUNK or d > MAX_DIM:
         raise ValueError(f"the kernels take D % {CHUNK} == 0 and D <= "
                          f"{MAX_DIM}; got D={d}")
     if rows.shape[1] > 32767:
         raise ValueError(f"the kernels take Q <= 32767; got {rows.shape[1]}")
-    if not (feats.is_contiguous() and rows.is_contiguous()):
+    if not rows.is_contiguous():
+        raise ValueError("the bank must be contiguous")
+    if rows.data_ptr() % 16:
+        raise ValueError("the bank must be 16-byte aligned")
+
+
+def _check(feats: torch.Tensor, bank, labels: torch.Tensor) -> None:
+    rows = bank.values if isinstance(bank, QuantBank) else bank
+    if feats.dim() != 2 or rows.dim() != 3 or feats.shape[1] != rows.shape[2]:
+        raise ValueError(f"feats (B, D) and bank (M, Q, D) must share D; got "
+                         f"{tuple(feats.shape)}, {tuple(rows.shape)}")
+    if labels.shape != (feats.shape[0],):
+        raise ValueError(f"labels must be (B,) = ({feats.shape[0]},); got "
+                         f"{tuple(labels.shape)}")
+    if feats.dtype != torch.float32:
+        raise ValueError(f"the kernels take float32 feats; got {feats.dtype}")
+    if labels.device != feats.device:
+        raise ValueError("feats, bank and labels must lie on one device")
+    _check_bank(bank, feats.device)
+    if not feats.is_contiguous():
         raise ValueError("feats and bank must be contiguous")
-    if feats.data_ptr() % 16 or rows.data_ptr() % 16:
+    if feats.data_ptr() % 16:
         raise ValueError("feats and bank must be 16-byte aligned")
 
 
@@ -207,60 +274,94 @@ def _sm_count(device: torch.device) -> int:
 
 
 def max_query_infonce_fwd(feats: torch.Tensor, bank, labels: torch.Tensor,
-                          tau: float) -> Tuple[torch.Tensor, Stats,
-                                               torch.Tensor]:
+                          tau: float, routing: bool = False
+                          ) -> Tuple[torch.Tensor, Stats, torch.Tensor,
+                                     Optional[Residuals]]:
     """Launch the forward kernel on CUDA tensors (a dense (M, Q, D) bank or
-    an int8 QuantBank). Returns (loss, (mx, se, pos, el), dtau_unit): a
-    float32 scalar, four (B,) float32 vectors and the scalar d loss / d tau."""
+    an int8 QuantBank). Returns (loss, (mx, se, pos, el), dtau_unit,
+    residuals): a float32 scalar, four (B,) float32 vectors, the scalar
+    d loss / d tau, and with `routing` the backward's residuals (logits,
+    route), (B, M) views of the kernel's (M, B) float32 and int16 buffers
+    (else None, and the kernel writes none)."""
     _check(feats, bank, labels)
     lib = _library()
     b, d = feats.shape
     values, scales, code, m, nq = _bank_args(bank)
     dev = feats.device
-    tps, n_splits = split_plan(m, b, _sm_count(dev))
+    plan = mq_plan(b, m, nq, _sm_count(dev))
     labels32 = labels.to(torch.int32).contiguous()
-    part = torch.empty(n_splits, b, 4, device=dev, dtype=torch.float32)
+    part = torch.empty(plan.n_splits, b, 4, device=dev, dtype=torch.float32)
     stats = torch.empty(4, b, device=dev, dtype=torch.float32)
     out2 = torch.empty(2, device=dev, dtype=torch.float32)
+    logits_t = route_t = None
+    if routing:
+        logits_t = torch.empty(m, b, device=dev, dtype=torch.float32)
+        route_t = torch.empty(m, b, device=dev, dtype=torch.int16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.max_query_infonce_fwd(
             feats.data_ptr(), values, scales, labels32.data_ptr(), float(tau),
-            b, m, nq, d, code, tps, n_splits,
+            b, m, nq, d, code, plan.m_per_split, plan.n_splits,
             part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            stats[2].data_ptr(), stats[3].data_ptr(), out2.data_ptr(), stream)
+            stats[2].data_ptr(), stats[3].data_ptr(), out2.data_ptr(),
+            None if logits_t is None else logits_t.data_ptr(),
+            None if route_t is None else route_t.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"max_query_infonce_fwd launch failed with CUDA "
                            f"error {err} (B={b}, M={m}, Q={nq}, D={d}, "
                            f"{bank.dtype})")
     max_query_infonce_fwd.launches += 1
-    return out2[0], (stats[0], stats[1], stats[2], stats[3]), out2[1]
+    residuals = None if logits_t is None else (logits_t.t(), route_t.t())
+    return (out2[0], (stats[0], stats[1], stats[2], stats[3]), out2[1],
+            residuals)
 
 
-def max_query_infonce_bwd(feats: torch.Tensor, bank, labels: torch.Tensor,
-                          tau: float, mx: torch.Tensor, se: torch.Tensor,
-                          gout: torch.Tensor) -> torch.Tensor:
+def max_query_infonce_bwd(bank, labels: torch.Tensor, tau: float,
+                          mx: torch.Tensor, se: torch.Tensor,
+                          gout: torch.Tensor,
+                          residuals: Residuals) -> torch.Tensor:
     """Launch the backward kernel on CUDA tensors: dfeats (B, D) float32
-    from the saved (mx, se) and the upstream scalar gradient `gout`."""
-    _check(feats, bank, labels)
+    from the forward's statistics (mx, se), its residuals (logits, route)
+    (B, M) and the upstream scalar gradient `gout`. No sim is recomputed:
+    feats is not an argument."""
+    logits, route = residuals
+    b, m = logits.shape
+    rows = bank.values if isinstance(bank, QuantBank) else bank
+    if rows.dim() != 3 or rows.shape[0] != m or route.shape != (b, m):
+        raise ValueError(f"the residuals must be (B, M) with M the bank's; "
+                         f"got {tuple(logits.shape)}, {tuple(route.shape)}, "
+                         f"bank {tuple(rows.shape)}")
+    if logits.dtype != torch.float32 or route.dtype != torch.int16:
+        raise ValueError(f"the residuals are float32 logits and int16 "
+                         f"routes; got {logits.dtype}, {route.dtype}")
+    if labels.shape != (b,):
+        raise ValueError(f"labels must be (B,) = ({b},); got "
+                         f"{tuple(labels.shape)}")
+    if not (labels.device == logits.device == route.device):
+        raise ValueError("feats, bank and labels must lie on one device")
+    _check_bank(bank, logits.device)
     lib = _library()
-    b, d = feats.shape
-    values, scales, code, m, nq = _bank_args(bank)
-    dev = feats.device
-    tps, n_splits = split_plan(m, b, _sm_count(dev))
+    values, scales, code, _, nq = _bank_args(bank)
+    d = rows.shape[2]
+    dev = logits.device
+    plan = mq_plan(b, m, nq, _sm_count(dev))
     labels32 = labels.to(torch.int32).contiguous()
+    # the kernel reads them (M, B): the forward's own are views of such
+    logits_t = logits.t().contiguous()
+    route_t = route.t().contiguous()
     mx = mx.float().contiguous()
     se = se.float().contiguous()
     gout = gout.float().reshape(1).contiguous()
-    dq_part = torch.empty(n_splits, b, d, device=dev, dtype=torch.float32)
+    dq_part = torch.empty(plan.bwd_splits, b, d, device=dev,
+                          dtype=torch.float32)
     dq = torch.empty(b, d, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.max_query_infonce_bwd(
-            feats.data_ptr(), values, scales, labels32.data_ptr(),
-            mx.data_ptr(), se.data_ptr(), gout.data_ptr(), float(tau), b, m,
-            nq, d, code, tps, n_splits, dq_part.data_ptr(),
-            dq.data_ptr(), stream)
+            values, scales, labels32.data_ptr(), mx.data_ptr(), se.data_ptr(),
+            gout.data_ptr(), logits_t.data_ptr(), route_t.data_ptr(),
+            float(tau), b, m, nq, d, code, plan.bwd_m_per_split,
+            plan.bwd_splits, dq_part.data_ptr(), dq.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"max_query_infonce_bwd launch failed with CUDA "
                            f"error {err} (B={b}, M={m}, Q={nq}, D={d}, "
@@ -277,15 +378,20 @@ class _MaxQueryInfoNCE(torch.autograd.Function):
     """loss = max_query_infonce(feats, bank, labels, tau) through the forward
     and the backward kernel. A QuantBank crosses as (values, scales) and a
     dense bank as (rows, None). `tau` is a float, or a 0-d tensor when its
-    gradient is wanted (its value is read on the host once per call)."""
+    gradient is wanted (its value is read on the host once per call). The
+    forward writes the backward's residuals only when feats needs a
+    gradient."""
 
     @staticmethod
     def forward(ctx, feats, rows, scales, labels, tau):
         tau_value = float(tau)
         bank = rows if scales is None else QuantBank(rows, scales)
-        loss, (mx, se, _, _), dtau_unit = max_query_infonce_fwd(
-            feats, bank, labels, tau_value)
-        ctx.save_for_backward(feats, rows, scales, labels, mx, se, dtau_unit)
+        routing = ctx.needs_input_grad[0]
+        loss, (mx, se, _, _), dtau_unit, residuals = max_query_infonce_fwd(
+            feats, bank, labels, tau_value, routing=routing)
+        logits, route = residuals if routing else (None, None)
+        ctx.save_for_backward(rows, scales, labels, mx, se, dtau_unit, logits,
+                              route)
         ctx.tau_value = tau_value
         ctx.tau_grad = isinstance(tau, torch.Tensor) and tau.requires_grad
         ctx.tau_like = tau if ctx.tau_grad else None
@@ -293,12 +399,14 @@ class _MaxQueryInfoNCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        feats, rows, scales, labels, mx, se, dtau_unit = ctx.saved_tensors
+        rows, scales, labels, mx, se, dtau_unit, logits, route = \
+            ctx.saved_tensors
         dfeats = None
         if ctx.needs_input_grad[0]:
             bank = rows if scales is None else QuantBank(rows, scales)
-            dfeats = max_query_infonce_bwd(feats, bank, labels, ctx.tau_value,
-                                           mx, se, gout.contiguous())
+            dfeats = max_query_infonce_bwd(bank, labels, ctx.tau_value, mx,
+                                           se, gout.contiguous(),
+                                           (logits, route))
         dtau = None
         if ctx.tau_grad:
             dtau = (gout * dtau_unit).to(ctx.tau_like.dtype).to(

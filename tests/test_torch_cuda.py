@@ -598,28 +598,28 @@ def _mq_case(device, b, m, q, d, kind, seed=0):
     return mk, feats, bank, labels
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,m,q", [(32, 65536, 32), (5, 1000, 8), (70, 4001, 3),
-                                   (1, 1, 1), (64, 777, 4)])
-@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
-def test_max_query_kernels_match_plain_versions_on_card(cuda_device, b, m, q,
-                                                        kind):
-    """Statistics, loss, dtau and dfeats of #9 / #10 against the plain
-    versions, at the recipe's shape (B=32: one 32-row tile of feats), ragged
-    ones (B=70: three row tiles, the last one of 6 rows), and a second launch
-    giving the same bits."""
-    mk, feats, bank, labels = _mq_case(cuda_device, b, m, q, 256, kind)
-    tau = 0.05
-    gout = torch.tensor(1.0, device=cuda_device)
-    before = (mk.max_query_infonce_fwd.launches,
-              mk.max_query_infonce_bwd.launches)
-    loss, stats, dtau = mk.max_query_infonce_fwd(feats, bank, labels, tau)
-    dq = mk.max_query_infonce_bwd(feats, bank, labels, tau, stats[0],
-                                  stats[1], gout)
+def _mq_launched(fn):
+    """The names of the CUDA kernels `fn` launches (a profiler trace)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _mq_check(mk, feats, bank, labels, tau, atol_dq=1e-6):
+    """#9 with its residuals and #10 from them against the plain versions:
+    statistics, loss, dtau, the residual logits, each routed query a
+    maximum of the plain sims within the tolerance, and dfeats against the
+    plain backward from the kernel's residuals and against the one that
+    recomputes the sims. Returns the kernels' outputs."""
+    gout = torch.tensor(1.0, device=feats.device)
+    loss, stats, dtau, res = mk.max_query_infonce_fwd(feats, bank, labels,
+                                                      tau, routing=True)
+    dq = mk.max_query_infonce_bwd(bank, labels, tau, stats[0], stats[1],
+                                  gout, res)
     torch.cuda.synchronize()
-    assert (mk.max_query_infonce_fwd.launches,
-            mk.max_query_infonce_bwd.launches) == (before[0] + 1,
-                                                   before[1] + 1)
     want = mk.max_query_infonce_stats_reference(feats, bank, labels, tau)
     for got_s, want_s in zip(stats, want):
         torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
@@ -628,48 +628,143 @@ def test_max_query_kernels_match_plain_versions_on_card(cuda_device, b, m, q,
         atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(dtau, bk.dtau_from_stats(want, tau),
                                atol=1e-3, rtol=1e-4)
-    want_dq = mk.max_query_infonce_bwd_reference(feats, bank, labels, tau,
-                                                 want[0], want[1], gout)
-    torch.testing.assert_close(dq, want_dq, atol=1e-6, rtol=1e-4)
-    loss2, _, _ = mk.max_query_infonce_fwd(feats, bank, labels, tau)
-    dq2 = mk.max_query_infonce_bwd(feats, bank, labels, tau, stats[0],
-                                   stats[1], gout)
-    assert torch.equal(loss, loss2) and torch.equal(dq, dq2)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 64])
-def test_max_query_kernels_take_the_widest_dim_on_card(cuda_device, b):
-    """D=512, the widest the backward's routed sum takes, fits the shared
-    memory at any B: dfeats against the plain version."""
-    mk, feats, bank, labels = _mq_case(cuda_device, b, 700, 4, 512, "bfloat16")
-    tau, gout = 0.05, torch.tensor(1.0, device=cuda_device)
-    want = mk.max_query_infonce_stats_reference(feats, bank, labels, tau)
-    dq = mk.max_query_infonce_bwd(feats, bank, labels, tau, want[0], want[1],
-                                  gout)
+    want_l, _ = mk.max_query_infonce_residuals_reference(feats, bank, tau)
+    assert res[0].shape == res[1].shape == want_l.shape
+    assert res[1].dtype == torch.int16
+    torch.testing.assert_close(res[0], want_l, atol=1e-4, rtol=1e-4)
+    at_route = mk._sims(feats, bank).gather(
+        -1, res[1].long()[..., None])[..., 0] / tau
+    torch.testing.assert_close(at_route, want_l, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(
         dq, mk.max_query_infonce_bwd_reference(feats, bank, labels, tau,
                                                want[0], want[1], gout),
-        atol=1e-6, rtol=1e-4)
+        atol=atol_dq, rtol=1e-4)
+    torch.testing.assert_close(
+        dq, mk.max_query_infonce_routed_bwd_reference(
+            bank, labels, tau, stats[0], stats[1], gout, res),
+        atol=atol_dq, rtol=1e-4)
+    return loss, stats, res, dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,q", [(32, 65536, 32), (5, 1000, 8), (70, 4001, 3),
+                                   (1, 1, 1), (64, 777, 4), (9, 300, 300)])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_max_query_kernels_match_plain_versions_on_card(cuda_device, b, m, q,
+                                                        kind):
+    """Statistics, loss, dtau, residuals and dfeats of #9 / #10 against the
+    plain versions, at the recipe's shape (B=32: one 32-row tile of feats,
+    the register epilogue at Q = 32), ragged ones (B=70: three row tiles,
+    the last one of 6 rows; Q = 3, 4, 8: the staged scan; Q = 300: one m
+    over two tiles, its max carried), and a second launch giving the same
+    bits."""
+    mk, feats, bank, labels = _mq_case(cuda_device, b, m, q, 256, kind)
+    tau = 0.05
+    before = (mk.max_query_infonce_fwd.launches,
+              mk.max_query_infonce_bwd.launches)
+    loss, stats, res, dq = _mq_check(mk, feats, bank, labels, tau)
+    assert (mk.max_query_infonce_fwd.launches,
+            mk.max_query_infonce_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    loss2, _, _, res2 = mk.max_query_infonce_fwd(feats, bank, labels, tau,
+                                                 routing=True)
+    dq2 = mk.max_query_infonce_bwd(bank, labels, tau, stats[0], stats[1],
+                                   torch.tensor(1.0, device=cuda_device), res)
+    assert torch.equal(loss, loss2) and torch.equal(dq, dq2)
+    assert torch.equal(res[0], res2[0]) and torch.equal(res[1], res2[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_max_query_forward_takes_the_tensor_cores_on_card(cuda_device, kind):
+    """At Q = 32, D = 256 the forward runs `mq_fwd_tc_kernel` (split TF32
+    on the tensor cores) and the backward `mq_routed_bwd_kernel` from the
+    residuals: no forward kernel, so no sim is recomputed."""
+    mk, feats, bank, labels = _mq_case(cuda_device, 32, 4099, 32, 256, kind)
+    gout = torch.tensor(1.0, device=cuda_device)
+    out = {}
+
+    def fwd():
+        out["fwd"] = mk.max_query_infonce_fwd(feats, bank, labels, 0.05,
+                                              routing=True)
+    names = _mq_launched(fwd)
+    assert any("mq_fwd_tc_kernel" in n for n in names), names
+    _, stats, _, res = out["fwd"]
+    names = _mq_launched(lambda: mk.max_query_infonce_bwd(
+        bank, labels, 0.05, stats[0], stats[1], gout, res))
+    assert any("mq_routed_bwd_kernel" in n for n in names), names
+    assert not any("mq_fwd" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [5, 32])
+def test_max_query_tie_routes_to_the_first_query_on_card(cuda_device, q):
+    """Two equal query rows of every bank row (1 and 3, query 1 made the
+    largest): their sims tie exactly in the kernel too, and #9 routes every
+    (b, m) to query 1, as the Pallas kernel's `taken` mask does; #10's
+    dfeats is the plain version's."""
+    mk, feats, bank, labels = _mq_case(cuda_device, 6, 513, q, 256,
+                                       "float32")
+    bank[:, 1] = torch.nn.functional.normalize(
+        bank[:, 1] + 3 * feats.sum(0), dim=-1)
+    bank[:, 3] = bank[:, 1]
+    assert (mk._sims(feats, bank).argmax(-1) == 1).all()
+    _, _, res, _ = _mq_check(mk, feats, bank, labels, 0.05)
+    assert (res[1] == 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64, 70])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_max_query_kernels_take_the_widest_dim_on_card(cuda_device, b, kind):
+    """D=512, the widest D (the forward's split feats take 128 KB of
+    shared memory, the backward's float32 stages 64 KB each), at any B:
+    both kernels against the plain versions."""
+    mk, feats, bank, labels = _mq_case(cuda_device, b, 700, 4, 512, kind)
+    _mq_check(mk, feats, bank, labels, 0.05)
+    mk, feats, bank, labels = _mq_case(cuda_device, b, 300, 32, 512, kind)
+    _mq_check(mk, feats, bank, labels, 0.05)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["float32", "int8"])
-def test_max_query_infonce_autograd_on_card(cuda_device, kind):
+def test_max_query_infonce_autograd_on_card(cuda_device, kind, monkeypatch):
     """The autograd Function: dfeats and dtau (a learnable 0-d temperature)
-    against autograd through the plain loss."""
+    against autograd through the plain loss, one backward launch; the
+    forward asks for the residuals only when feats needs a gradient."""
     mk, feats, bank, labels = _mq_case(cuda_device, 32, 3001, 32, 256, kind,
                                        seed=1)
+    asked = []
+    fwd = mk.max_query_infonce_fwd
+
+    def spy(*args, routing=False):
+        asked.append(routing)
+        out = fwd(*args, routing=routing)
+        assert (out[3] is not None) == routing
+        return out
+    # the wrapper counts its launches on whatever the module's name holds
+    spy.launches = fwd.launches
+    monkeypatch.setattr(mk, "max_query_infonce_fwd", spy)
     leaf = feats.clone().requires_grad_()
     tau = torch.tensor(0.05, device=cuda_device, requires_grad=True)
     before = mk.max_query_infonce_bwd.launches
     mk.max_query_infonce(leaf, bank, labels, tau).backward()
     assert mk.max_query_infonce_bwd.launches == before + 1
+    assert asked == [True]
     ref = feats.clone().requires_grad_()
     ref_tau = torch.tensor(0.05, device=cuda_device, requires_grad=True)
     mk.max_query_infonce_reference(ref, bank, labels, ref_tau).backward()
     torch.testing.assert_close(leaf.grad, ref.grad, atol=1e-6, rtol=1e-4)
     torch.testing.assert_close(tau.grad, ref_tau.grad, atol=1e-3, rtol=1e-4)
+    # no gradient wanted: the forward writes no residuals
+    with torch.no_grad():
+        loss = mk.max_query_infonce(feats, bank, labels, tau)
+    torch.testing.assert_close(
+        loss, mk.max_query_infonce_reference(feats, bank, labels, 0.05),
+        atol=1e-4, rtol=1e-4)
+    mk.max_query_infonce(feats, bank, labels, tau).backward()  # dtau only
+    assert asked == [True, False, False]
+    assert mk.max_query_infonce_bwd.launches == before + 1
     # a bf16 feats tensor is widened for the kernels; its gradient comes
     # back in bf16
     half = feats.to(torch.bfloat16).requires_grad_()
@@ -694,6 +789,12 @@ def test_max_query_kernels_refuse_what_they_cannot_take(cuda_device):
                                  0.05)
     with pytest.raises(ValueError, match="one device"):
         mk.max_query_infonce_fwd(feats, bank, labels.cpu(), 0.05)
+    _, stats, _, res = mk.max_query_infonce_fwd(feats, bank, labels, 0.05,
+                                                routing=True)
+    with pytest.raises(ValueError, match="residuals must be"):
+        mk.max_query_infonce_bwd(bank, labels, 0.05, stats[0], stats[1],
+                                 torch.tensor(1.0, device=cuda_device),
+                                 (res[0][:, :5], res[1]))
 
 
 # --------------------------------------------------------------------------

@@ -217,31 +217,40 @@ def test_cpu_route_is_the_plain_version_and_counts_nothing(rng):
                                  torch.from_numpy(bank),
                                  torch.from_numpy(labels), TAU)
     with pytest.raises(ValueError, match="CUDA"):
-        mk.max_query_infonce_bwd(torch.from_numpy(feats),
-                                 torch.from_numpy(bank),
+        mk.max_query_infonce_bwd(torch.from_numpy(bank),
                                  torch.from_numpy(labels), TAU,
                                  torch.zeros(4), torch.ones(4),
-                                 torch.tensor(1.0))
+                                 torch.tensor(1.0),
+                                 mk.max_query_infonce_residuals_reference(
+                                     torch.from_numpy(feats),
+                                     torch.from_numpy(bank), TAU))
 
 
-@pytest.mark.parametrize("b,m", [(1, 1), (5, 1000), (32, 65536), (33, 65536),
-                                 (256, 4001)])
-def test_split_plan_covers_the_bank(b, m):
-    """Every tile of 256 bank rows in exactly one split, no empty split,
-    about one CTA per SM (132 on an H100) counting the 32-row tiles of
-    feats."""
-    tps, n = mk.split_plan(m, b, 132)
-    tiles = -(-m // mk.TILE_COLS)
-    assert tps * n >= tiles > tps * (n - 1)
+@pytest.mark.parametrize("b,m,q", [(1, 1, 1), (5, 1000, 8), (32, 65536, 32),
+                                   (33, 65536, 32), (256, 4001, 32),
+                                   (7, 300, 3), (2, 50, 700)])
+def test_split_plan_covers_the_bank(b, m, q):
+    """`mq_plan` on an H100 (132 SMs): every forward tile of whole m's
+    (256 rows of the (M·Q, D) bank at most) in exactly one split, no empty
+    split, about one CTA per SM counting the 32-row tiles of feats; the
+    backward's splits of m's likewise at two an SM."""
+    plan = mk.mq_plan(b, m, q, 132)
+    tiles = -(-m // plan.m_per_tile) * plan.tiles_per_m
+    per_split = plan.m_per_split // plan.m_per_tile * plan.tiles_per_m
+    assert per_split * plan.n_splits >= tiles > per_split * (plan.n_splits - 1)
     row_tiles = -(-b // mk.TILE_ROWS)
-    assert n * row_tiles <= max(132, row_tiles)
+    assert plan.n_splits * row_tiles <= max(132, row_tiles)
+    assert plan.bwd_m_per_split * plan.bwd_splits >= m \
+        > plan.bwd_m_per_split * (plan.bwd_splits - 1)
+    assert plan.bwd_splits * row_tiles <= max(2 * 132, row_tiles)
     assert (mk.TILE_ROWS, mk.TILE_COLS) == (32, 256)
 
 
 def test_shapes_the_kernels_refuse():
     """Checked before any launch: the bank must be (M, Q, D) sharing feats'
-    D; int8 scales must be (M, Q); and, on CUDA tensors, D must be a
-    multiple of 32 and at most 512."""
+    D; int8 scales must be (M, Q); the backward's residuals (B, M) float32
+    logits and int16 routes over the bank's M; and, on CUDA tensors, D must
+    be a multiple of 32 and at most 512."""
     f = torch.zeros(4, 40)
     lab = torch.zeros(4, dtype=torch.long)
     with pytest.raises(ValueError, match="share D"):
@@ -251,4 +260,15 @@ def test_shapes_the_kernels_refuse():
                                   torch.zeros(3)), lab)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         mk._check(f, torch.zeros(3, 2, 40, dtype=torch.float16), lab)
+    with pytest.raises(ValueError, match="labels must be"):
+        mk._check(f, torch.zeros(3, 2, 40), lab[:3])
+    bank = torch.zeros(3, 2, 40)
+    res = (torch.zeros(4, 3), torch.zeros(4, 3, dtype=torch.int16))
+    with pytest.raises(ValueError, match="residuals must be"):
+        mk.max_query_infonce_bwd(bank, lab, TAU, f[:, 0], f[:, 0],
+                                 torch.tensor(1.0), (res[0][:, :2], res[1]))
+    with pytest.raises(ValueError, match="float32 logits and int16"):
+        mk.max_query_infonce_bwd(bank, lab, TAU, f[:, 0], f[:, 0],
+                                 torch.tensor(1.0),
+                                 (res[0], res[1].long()))
     assert (mk.CHUNK, mk.MAX_DIM) == (32, 512)
