@@ -59,7 +59,9 @@ non-zero exit):
      bank-extraction rate on the device;
   7. recipe scale: `train_epoch` over a synthetic bank of 65,536 unit rows
      at batch 256, for ViT-B/32 (bfloat16 bank) and for RN50x4 (int8 bank,
-     then float32): ms/step, then a profiler window over further steps
+     then float32): the host gather and copy of one batch's refer rows,
+     ms/step over three timed windows of 10 steps (their median and
+     spread), then a profiler window over further steps
      (device busy, idle share, device operations per step, and the device
      time of the bank and attention kernels cut from the step's own trace);
   8. one loss and gradient computed twice in float32, through the kernels
@@ -125,7 +127,34 @@ non-zero exit):
      float32, greedy, B=4: #11 on and off, and #12 on and
      dequant-after-matmul over int8 weights, give the same 50-token
      streams (where they part, the plain path's top-2 margin there must be
-     under the float32 tolerance).
+     under the float32 tolerance);
+ 12. tgcir at full width (CLIP ViT-B/16 at 224: vision 12 x 768, text 12 x
+     512 with 8 heads, embedding 512, plus the token learners, masks and
+     gate; bf16 over float32 weights, random from seed 0) on the flagship
+     slice's 1,024-image tree: `serve_main(backbone_name="tgcir")` with
+     concurrent and sequential /retrieve requests (12 launches of the long
+     attention per encode batch at S=197, 12 short ones per fuse dispatch;
+     8 references re-encoded with plain attention keep their top-1);
+     `train_main("tgcir")` at batch 256 over a float32 bank, then over the
+     same bank cache in int8 (12 + 12 short-attention launches and 1 + 1
+     bank launches a step; the image branch bit-identical, the text branch
+     moved, the first batch's loss lower), `validate_main("tgcir")` and
+     `submission_main("tgcir")` on its checkpoint; phase 7's recipe loop
+     for tgcir: batch 256 against a 65,536 x 512 bank, float32 then int8,
+     with the full 65,536 x 12 x 512 float32 refer bank on the host;
+ 13. the stage-1 ablations and zscir: `cli.train_negtype` (`--wo_bank
+     --neg_type 15`) with ViT-B/32 bf16 at batch 256 for an epoch of the
+     flagship tree (36 + 36 short-attention launches a step: two vision
+     calls and one text call); `cli.train_zs` at full ViT-L/14 width
+     (24 x 1024 vision, 12 x 768 text, every weight training) at batch 48
+     over a tree of generated triplets that replace the human ones (24 +
+     24 long-attention launches at (1536, 257, 64) and 12 + 12 short ones
+     a step), then its step on one resident batch (ms/step, device busy,
+     idle share, launches a step, ms by kernel group).
+Phase 8 also holds one float32 tgcir ViT-B/16 stage-2 loss through the
+kernels against the plain versions, over a dense and an int8 bank. Phase
+3d times #3 and #4 at zscir's stage-1 slice (1536, 257, 64) and tgcir's
+extraction slice (3072, 197, 64) too.
 Phase 3 ends with 3f: #11 at the 7B's decode shapes (B = 1, 8, 16 over
 1,842 cache rows, B=16 over 1,241; float32, bf16 and int8 caches; a ragged
 B=3, H=4, hd=8, L=37) and #12 at the 7B's four weight shapes (x float32 and
@@ -134,7 +163,7 @@ versions, the library call and the bound, each record with its design, its
 split plan and the blocks or clusters the card holds at once; #3, #4, #9
 and #10 are timed per call and back to back too. Phase 11 prints each
 decode step's device busy, #11's and #12's ms a step and the idle share.
-Phases 9, 10 and 11 run between
+Phases 9-13 run between
 phases 7 and 8. The last three lines are the kernels JSON, the card's name
 and power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
@@ -220,7 +249,13 @@ BLIP_EXTRACT = dict(name="blip-extract", bh=128 * 12, s=577, d=64, causal=False)
 BLIP_INDEX = dict(name="blip-index", bh=32 * 12, s=577, d=64, causal=False)
 # EVA ViT-g (16 heads of 88) at blip2's extraction / index batch of 32
 EVA_EXTRACT = dict(name="eva-g-extract", bh=32 * 16, s=257, d=88, causal=False)
-LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT,
+# zscir stage 1: ViT-L/14 at 224 over the 2B = 96 images of a batch of 48;
+# tgcir's ViT-B/16 at 224 over an extraction batch of 256
+ZS_STAGE1 = dict(name="zs-stage1", bh=96 * 16, s=257, d=64, causal=False)
+TGCIR_EXTRACT = dict(name="tgcir-extract", bh=256 * 12, s=197, d=64,
+                     causal=False)
+LONG_TIMED = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT, ZS_STAGE1, TGCIR_EXTRACT)
+LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT, ZS_STAGE1, TGCIR_EXTRACT,
                dict(name="vit-l14", bh=32 * 16, s=257, d=64, causal=False),
                dict(name="eva-g", bh=16 * 16, s=257, d=88, causal=False),
                dict(name="vit-b16", bh=32 * 12, s=197, d=64, causal=False),
@@ -245,7 +280,8 @@ FLAGSHIP_DIM = 640      # RN50x4's embedding; 768 is ViT-L/14's
 FLAGSHIP_IMAGES = 1024  # the flagship slice's own, smaller CIRR tree
 FLAGSHIP_TRAIN = 1024
 RECIPE_BANK = 65536
-RECIPE_STEPS = 6
+RECIPE_WINDOWS = 3
+RECIPE_STEPS = 10
 PROFILE_STEPS = 4
 BLIP_IMAGES = 512       # host refer index 512 x 577 x 768 x 4 B = 0.9 GB
 BLIP_TRAIN = 512
@@ -306,6 +342,13 @@ LLAMA_BF16_LOGIT_TOL = 0.125
 # margin at that step must be under the float32 tolerance (relative to the
 # top logit, at least 1)
 STREAM_MARGIN_TOL = 1e-5
+# phase 13: the negtype ablation on ViT-B/32 (the recipe's RN50x4 cut), and
+# zscir stage 1 at full ViT-L/14 width on a tree of 192 generated triplets
+# (4 steps at the recipe's batch of 48) over 256 images
+NEGTYPE_MODEL = "ViT-B/32"
+ZS_BATCH = 48
+ZS_TRAIN = 192
+ZS_IMAGES = 256
 CAPTIONS = ("make it like number 7 but red", "is darker and has longer sleeves",
             "the dress is shorter with a floral print",
             "change the dog to a cat sitting on the grass")
@@ -656,12 +699,13 @@ def check_long_attention(ak, device, card):
     """Phase 3d: long_attention and long_attention_bwd against their plain
     versions (the backward also against float32 autograd through the plain
     forward), per shape and dtype; two launches must give the same bits;
-    timed at the two blip shapes and EVA-g's extraction slice. Returns
+    timed at the two blip shapes, EVA-g's extraction slice, zscir's stage-1
+    slice and tgcir's extraction slice. Returns
     (forward, backward) records."""
     g = torch.Generator(device=device).manual_seed(11)
     fwd_records, bwd_records = [], []
     for shape in LONG_SHAPES:
-        timed = shape in (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT)
+        timed = shape in LONG_TIMED
         for dtype, tol, btol in ((torch.bfloat16, BF16_TOL, BWD_BF16_TOL),
                                  (torch.float32, F32_TOL, BWD_F32_TOL)):
             bh, s, d = shape["bh"], shape["s"], shape["d"]
@@ -988,6 +1032,38 @@ def pct(values, q: float) -> float:
     return vals[min(len(vals) - 1, int(math.ceil(q * len(vals))) - 1)]
 
 
+def drive_queries(port, names, n_rounds):
+    """`n_rounds` rounds of N_CONCURRENT concurrent /retrieve requests, then
+    N_SEQUENTIAL one at a time, each result checked; returns (per-round
+    client ms, sequential client ms)."""
+    import numpy as np
+
+    name_set = set(names)
+    rng = np.random.RandomState(0)
+    rounds = []
+    for _ in range(n_rounds):
+        picks = rng.choice(len(names), N_CONCURRENT, replace=False)
+        jobs = [(names[i], CAPTIONS[j % len(CAPTIONS)])
+                for j, i in enumerate(picks)]
+        with concurrent.futures.ThreadPoolExecutor(N_CONCURRENT) as pool:
+            futs = [pool.submit(post, port, {"reference_name": n,
+                                             "caption": c, "k": K})
+                    for n, c in jobs]
+            outs = [f.result() for f in futs]
+        for (n, _), (results, _) in zip(jobs, outs):
+            check_results(n, results, name_set)
+        rounds.append([ms for _, ms in outs])
+    sequential = []
+    for j in range(N_SEQUENTIAL):
+        n = names[int(rng.randint(len(names)))]
+        results, ms = post(port, {"reference_name": n,
+                                  "caption": CAPTIONS[j % len(CAPTIONS)],
+                                  "k": K})
+        check_results(n, results, name_set)
+        sequential.append(ms)
+    return rounds, sequential
+
+
 def drive_serving(ak, bk, layers, root, card):
     """Phase 4: the serving CLI end to end, then the checks. Returns the
     launch counts of the run."""
@@ -1012,29 +1088,7 @@ def drive_serving(ak, bk, layers, root, card):
     try:
         index = service.index
         names = list(index.names)
-        name_set = set(names)
-        rng = np.random.RandomState(0)
-        rounds = []
-        for _ in range(2):
-            picks = rng.choice(len(names), N_CONCURRENT, replace=False)
-            jobs = [(names[i], CAPTIONS[j % len(CAPTIONS)])
-                    for j, i in enumerate(picks)]
-            with concurrent.futures.ThreadPoolExecutor(N_CONCURRENT) as pool:
-                futs = [pool.submit(post, port, {"reference_name": n,
-                                                 "caption": c, "k": K})
-                        for n, c in jobs]
-                outs = [f.result() for f in futs]
-            for (n, _), (results, _) in zip(jobs, outs):
-                check_results(n, results, name_set)
-            rounds.append([ms for _, ms in outs])
-        sequential = []
-        for j in range(N_SEQUENTIAL):
-            n = names[int(rng.randint(len(names)))]
-            results, ms = post(port, {"reference_name": n,
-                                      "caption": CAPTIONS[j % len(CAPTIONS)],
-                                      "k": K})
-            check_results(n, results, name_set)
-            sequential.append(ms)
+        rounds, sequential = drive_queries(port, names, 2)
         launches = read_counts(count)
         dispatches = service.metrics()["dispatches"]
     finally:
@@ -1461,79 +1515,121 @@ def device_busy(trace_path: str):
     return busy / 1e3, len(spans), groups
 
 
-def drive_training_recipe(ak, bk, tmp, card, model, bank_dtypes):
-    """Phase 7: `train_epoch` of `model` at the recipe's bank size, once per
-    bank type of `bank_dtypes`: ms/step, then a profiler window whose trace
-    gives the device time of each kernel group within the step."""
+def drive_training_recipe(ak, bk, tmp, card, model, bank_dtypes,
+                          kind="clip"):
+    """Phase 7 (clip) and 12c (tgcir): `train_epoch` of the `kind` backbone
+    at `model` against the recipe's bank size, batch 256, the refer bank
+    (its rows of the backbone's `bank_spec`) on the host. First the host
+    gather and the host-to-device copy of one batch's refer rows alone;
+    then, once per bank type of `bank_dtypes`, ms/step over RECIPE_WINDOWS
+    timed windows of RECIPE_STEPS steps (the median and the spread across
+    the windows) and a profiler window whose trace gives the device time
+    of each kernel group within the step."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from spn4cir_tpu_torch.bank.bank import Bank
-    from spn4cir_tpu_torch.models.clip4cir import ClipCIR
+    from spn4cir_tpu_torch.models.api import build_backbone
     from spn4cir_tpu_torch.train.stage2 import create_train_state, train_epoch
 
     device = torch.device("cuda:0")
-    backbone = ClipCIR(model, tau=TAU, dtype=torch.bfloat16, device=device)
+    backbone = build_backbone(kind, clip_model_name=model, tau=TAU,
+                              dtype=torch.bfloat16, device=device)
     backbone.init_params(torch.Generator().manual_seed(0))
-    dim = backbone.embed_dim
+    spec = backbone.bank_spec()
+    dim, = spec.target_shape
     g = torch.Generator(device=device).manual_seed(4)
     target32 = unit_rows(RECIPE_BANK, dim, g, device)
-    refer = np.random.RandomState(5).randn(RECIPE_BANK, dim).astype(np.float32)
+    # 64 distinct refer rows tiled to the full bank: what a gather costs
+    # does not depend on the values
+    block = torch.randn(64, *spec.refer_shape, generator=g,
+                        device=device).cpu().numpy()
+    refer = np.tile(block, (RECIPE_BANK // 64,) + (1,) * len(spec.refer_shape))
     state = create_train_state(backbone, 2e-5)
-    count = counters(ak, bk)
     layers_n = backbone.cfg.transformer_layers
+    label = f"{kind} {model}"
+
+    def batches(n, seed):
+        return synthetic_batches(n, TRAIN_BATCH, RECIPE_BANK, seed)
 
     def profiled(bank, n_steps, seed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            train_epoch(backbone, state, bank,
-                        synthetic_batches(n_steps, TRAIN_BATCH, RECIPE_BANK,
-                                          seed), log_every=0)
+            train_epoch(backbone, state, bank, batches(n_steps, seed),
+                        log_every=0)
             torch.cuda.synchronize()
         return prof, (time.perf_counter() - t0) * 1e3
 
-    results = {}
+    # the two host stages of one batch's refer rows, alone
+    bank = Bank(refer=refer, target=target32)
+    gather, copy = [], []
+    for raw in batches(5, 5):
+        t0 = time.perf_counter()
+        rows = bank.gather_refer(raw)
+        t1 = time.perf_counter()
+        dev_rows = torch.from_numpy(rows).to(device)
+        torch.cuda.synchronize()
+        copy.append((time.perf_counter() - t1) * 1e3)
+        gather.append((t1 - t0) * 1e3)
+    results = dict(host_gather_ms=statistics.median(gather),
+                   host_to_device_copy_ms=statistics.median(copy),
+                   refer_batch_mb=rows.nbytes / 1e6,
+                   refer_bank_gb=refer.nbytes / 1e9)
+    del dev_rows, rows
+    phase(f"recipe scale, {label}: one batch's refer rows "
+          f"({results['refer_batch_mb']:.1f} MB of a "
+          f"{results['refer_bank_gb']:.2f} GB host bank): host gather "
+          f"{results['host_gather_ms']:.3f} ms, host-to-device copy "
+          f"{results['host_to_device_copy_ms']:.3f} ms [{card}]")
+
     for name in bank_dtypes:
         quant = name == "int8"
         bank = Bank(refer=refer, target=bk.quantize_bank(target32) if quant
                     else target32.to(getattr(torch, name)))
         backbone.train()
-        train_epoch(backbone, state, bank,
-                    synthetic_batches(3, TRAIN_BATCH, RECIPE_BANK, 6),
+        train_epoch(backbone, state, bank, batches(3, 6),
                     log_every=0)                                # warm-up
-        for fn in count.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        _, mean_loss = train_epoch(
-            backbone, state, bank,
-            synthetic_batches(RECIPE_STEPS, TRAIN_BATCH, RECIPE_BANK, 7),
-            log_every=0)
-        end.record()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / RECIPE_STEPS
-        event_ms = start.elapsed_time(end) / RECIPE_STEPS
+        count = zero_counts(ak, bk)
+        windows, walls, losses = [], [], []
+        for w in range(RECIPE_WINDOWS):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            _, mean_loss = train_epoch(backbone, state, bank,
+                                       batches(RECIPE_STEPS, 7 + 100 * w),
+                                       log_every=0)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / RECIPE_STEPS)
+            windows.append(start.elapsed_time(end) / RECIPE_STEPS)
+            losses.append(mean_loss)
+        n_steps = RECIPE_WINDOWS * RECIPE_STEPS
         launches = read_counts(count)
         assert launches == dict(
-            short_attention=layers_n * RECIPE_STEPS,
-            short_attention_bwd=layers_n * RECIPE_STEPS,
-            **NO_LONG, **bank_launches(quant, RECIPE_STEPS)), launches
-        assert math.isfinite(mean_loss), mean_loss
-        phase(f"recipe scale, M={RECIPE_BANK} x {dim} {name} bank, batch "
-              f"{TRAIN_BATCH}, {model} bf16, {RECIPE_STEPS} steps: "
-              f"{event_ms:.3f} ms/step (CUDA events; host clock "
-              f"{wall_ms:.3f}); mean loss {mean_loss:.4f} [{card}]")
+            short_attention=layers_n * n_steps,
+            short_attention_bwd=layers_n * n_steps,
+            **NO_LONG, **bank_launches(quant, n_steps)), launches
+        assert all(math.isfinite(x) for x in losses), losses
+        event_ms = statistics.median(windows)
+        wall_ms = statistics.median(walls)
+        phase(f"recipe scale, M={RECIPE_BANK} x {dim} {name} bank, refer "
+              f"rows {spec.refer_shape}, batch {TRAIN_BATCH}, {label} bf16, "
+              f"{RECIPE_WINDOWS} windows of {RECIPE_STEPS} steps: median "
+              f"{event_ms:.3f} ms/step (CUDA events; windows "
+              f"{[round(x, 3) for x in windows]}, max / min "
+              f"{max(windows) / min(windows):.3f}; host clock median "
+              f"{wall_ms:.3f}); mean losses {[round(x, 4) for x in losses]} "
+              f"[{card}]")
 
         # a profiler window over further steady steps; a first one-step
         # window takes the profiler's start-up cost and is dropped
         profiled(bank, 1, 8)
         prof, window_ms = profiled(bank, PROFILE_STEPS, 9)
-        trace = os.path.join(tmp, f"train_trace_{dim}_{name}.json")
+        trace = os.path.join(tmp, f"train_trace_{kind}_{dim}_{name}.json")
         prof.export_chrome_trace(trace)
         busy_ms, n_ops, groups = device_busy(trace)
         assert n_ops > 0, "the profiler's trace holds no device interval"
@@ -1543,15 +1639,16 @@ def drive_training_recipe(ak, bk, tmp, card, model, bank_dtypes):
         assert bank_ms > 0 and attn_ms > 0, per
         busy_step = busy_ms / PROFILE_STEPS
         results[name] = dict(
-            ms_per_step=event_ms, wall_ms_per_step=wall_ms,
-            mean_loss=mean_loss, profile_steps=PROFILE_STEPS,
+            ms_per_step=event_ms, ms_per_step_windows=windows,
+            wall_ms_per_step=wall_ms, wall_ms_per_step_windows=walls,
+            mean_losses=losses, profile_steps=PROFILE_STEPS,
             window_ms_per_step=window_ms / PROFILE_STEPS,
             busy_ms_per_step=busy_step,
             idle_share_in_window=1 - busy_ms / window_ms,
             idle_share_of_unprofiled_step=1 - busy_step / event_ms,
             device_ops_per_step=n_ops / PROFILE_STEPS,
             ms_per_step_by_group=per)
-        phase(f"profile, {model}, {PROFILE_STEPS} steps at M={RECIPE_BANK} "
+        phase(f"profile, {label}, {PROFILE_STEPS} steps at M={RECIPE_BANK} "
               f"{name} bank: device busy {busy_step:.3f} ms/step in "
               f"{n_ops / PROFILE_STEPS:.0f} device operations per step; idle "
               f"share {100 * (1 - busy_step / event_ms):.1f}% of the "
@@ -1566,10 +1663,12 @@ def drive_training_recipe(ak, bk, tmp, card, model, bank_dtypes):
               f"({100 * attn_ms / busy_step:.1f}%, "
               f"{100 * attn_ms / event_ms:.1f}%); device ms per step by "
               f"group: { {k: round(v, 3) for k, v in per.items()} } [{card}]")
-    phase(f"recipe scale stats {model} " + json.dumps(results))
+    phase(f"recipe scale stats {label} " + json.dumps(results))
 
 
-def blip_argv(root, *extra):
+def bf16_argv(root, *extra):
+    """An entry point's argv on a CIRR tree, bf16 towers, seed 0, the
+    backbone's recipe for the rest; cuda:0 is the default device."""
     return ["--dataset", "cirr", "--data_path", root, "--bf16", "--seed", "0",
             *extra]
 
@@ -1587,83 +1686,16 @@ BLIP2_SERVING = dict(name="blip2", phase="10b", vit=(1408, EVA_LAYERS, 16, 257),
                      text_side="the Q-Former's")
 
 
-def drive_blip_serving(ak, bk, layers, root, card, spec=BLIP_SERVING):
-    """Phases 9a and 10b: the serving CLI over blip4cir or blip24cir (`spec`),
-    then the checks. Returns the launch counts of the run."""
-    import numpy as np
-
-    from spn4cir_tpu_torch.cli.serve import serve_main
+def plain_rescore(name, ak, layers, service, root):
+    """The first 8 gallery images of `service`'s index again, their
+    references re-encoded through the plain attention: the scores of the
+    two routes differ by no more than BLIP_SCORE_NOISE, and each query keeps
+    its top-1 unless its two best were closer than twice that fixed
+    limit."""
     from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_gallery
 
-    name, n_images = spec["name"], spec["n_images"]
-    argv = blip_argv(root, "--batch-size", str(SERVE_BATCH), "--serve_batch",
-                     str(SERVE_BATCH), "--default_k", str(K), "--serve_host",
-                     "127.0.0.1", "--serve_port", "0", "--no-block")
-    count = zero_counts(ak, bk)
-    t0 = time.perf_counter()
-    server, service = serve_main(argv, backbone_name=name)
-    startup_s = time.perf_counter() - t0
-    port = server.server_address[1]
-    try:
-        index = service.index
-        names = list(index.names)
-        name_set = set(names)
-        rng = np.random.RandomState(0)
-        picks = rng.choice(len(names), N_CONCURRENT, replace=False)
-        jobs = [(names[i], CAPTIONS[j % len(CAPTIONS)])
-                for j, i in enumerate(picks)]
-        with concurrent.futures.ThreadPoolExecutor(N_CONCURRENT) as pool:
-            futs = [pool.submit(post, port, {"reference_name": n,
-                                             "caption": c, "k": K})
-                    for n, c in jobs]
-            outs = [f.result() for f in futs]
-        for (n, _), (results, _) in zip(jobs, outs):
-            check_results(n, results, name_set)
-        concurrent_ms = [ms for _, ms in outs]
-        sequential = []
-        for j in range(N_SEQUENTIAL):
-            n = names[int(rng.randint(len(names)))]
-            results, ms = post(port, {"reference_name": n,
-                                      "caption": CAPTIONS[j % len(CAPTIONS)],
-                                      "k": K})
-            check_results(n, results, name_set)
-            sequential.append(ms)
-        launches = read_counts(count)
-        dispatches = service.metrics()["dispatches"]
-    finally:
-        server.shutdown()
-        server.server_close()
-
-    backbone = service.backbone
-    vit = backbone.vit_cfg
-    assert (vit.width, vit.layers, vit.heads, vit.num_tokens) == spec["vit"], vit
-    text_cfg = getattr(backbone, spec["text_cfg"])
-    assert (text_cfg.hidden_size, text_cfg.num_layers,
-            text_cfg.vocab_size) == spec["text"], text_cfg
-    encode_batches = math.ceil(n_images / SERVE_BATCH)
-    want = dict(long_attention=vit.layers * encode_batches,
-                long_attention_bwd=0, **NO_SHORT, **bank_launches(False, 0))
-    phase(f"{name} serving slice: {len(names)} images indexed at "
-          f"{vit.image_size} in {encode_batches} encode batches of "
-          f"{SERVE_BATCH} ({startup_s:.1f} s with the model's construction), "
-          f"{N_CONCURRENT + N_SEQUENTIAL} queries in {dispatches} fuse "
-          f"dispatches; launches {launches} (want {vit.layers} long-attention "
-          f"forwards per encode batch and no other kernel: "
-          f"{spec['text_side']} attention carries padding masks)")
-    assert launches == want, (launches, want)
-
-    target = index.target
-    assert target.shape == (n_images, *spec["target_row"]), target.shape
-    assert index.refer.shape == (n_images, vit.num_tokens, vit.width), \
-        index.refer.shape
-    assert torch.isfinite(target).all() and np.isfinite(index.refer).all()
-    norms = target.float().norm(dim=-1)
-    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-3), norms
-
-    # the first 8 gallery images again, their tokens through the plain
-    # attention: the scores of the two routes differ by no more than
-    # BLIP_SCORE_NOISE, and each query keeps its top-1 unless its two best
-    # were closer than twice that fixed limit
+    backbone, index = service.backbone, service.index
+    target, n_images = index.target, len(index.names)
     classic = CIRDataset("cirr", "val", "classic", service.preprocess, root)
     ids, images = next(iter_gallery(classic, 8, 0))
     dev = backbone.device
@@ -1699,6 +1731,61 @@ def drive_blip_serving(ak, bk, layers, root, card, spec=BLIP_SERVING):
             "top-1 changed"
         assert int(same.sum()) >= 6, same
 
+
+def drive_blip_serving(ak, bk, layers, root, card, spec=BLIP_SERVING):
+    """Phases 9a and 10b: the serving CLI over blip4cir or blip24cir (`spec`),
+    then the checks. Returns the launch counts of the run."""
+    import numpy as np
+
+    from spn4cir_tpu_torch.cli.serve import serve_main
+
+    name, n_images = spec["name"], spec["n_images"]
+    argv = bf16_argv(root, "--batch-size", str(SERVE_BATCH), "--serve_batch",
+                     str(SERVE_BATCH), "--default_k", str(K), "--serve_host",
+                     "127.0.0.1", "--serve_port", "0", "--no-block")
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    server, service = serve_main(argv, backbone_name=name)
+    startup_s = time.perf_counter() - t0
+    port = server.server_address[1]
+    try:
+        index = service.index
+        names = list(index.names)
+        (concurrent_ms,), sequential = drive_queries(port, names, 1)
+        launches = read_counts(count)
+        dispatches = service.metrics()["dispatches"]
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    backbone = service.backbone
+    vit = backbone.vit_cfg
+    assert (vit.width, vit.layers, vit.heads, vit.num_tokens) == spec["vit"], vit
+    text_cfg = getattr(backbone, spec["text_cfg"])
+    assert (text_cfg.hidden_size, text_cfg.num_layers,
+            text_cfg.vocab_size) == spec["text"], text_cfg
+    encode_batches = math.ceil(n_images / SERVE_BATCH)
+    want = dict(long_attention=vit.layers * encode_batches,
+                long_attention_bwd=0, **NO_SHORT, **bank_launches(False, 0))
+    phase(f"{name} serving slice: {len(names)} images indexed at "
+          f"{vit.image_size} in {encode_batches} encode batches of "
+          f"{SERVE_BATCH} ({startup_s:.1f} s with the model's construction), "
+          f"{N_CONCURRENT + N_SEQUENTIAL} queries in {dispatches} fuse "
+          f"dispatches; launches {launches} (want {vit.layers} long-attention "
+          f"forwards per encode batch and no other kernel: "
+          f"{spec['text_side']} attention carries padding masks)")
+    assert launches == want, (launches, want)
+
+    target = index.target
+    assert target.shape == (n_images, *spec["target_row"]), target.shape
+    assert index.refer.shape == (n_images, vit.num_tokens, vit.width), \
+        index.refer.shape
+    assert torch.isfinite(target).all() and np.isfinite(index.refer).all()
+    norms = target.float().norm(dim=-1)
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-3), norms
+
+    plain_rescore(name, ak, layers, service, root)
+
     stats = dict(startup_s=startup_s, dispatches=dispatches,
                  concurrent_p50_ms=statistics.median(concurrent_ms),
                  concurrent_p99_ms=pct(concurrent_ms, 0.99),
@@ -1715,7 +1802,7 @@ def drive_blip_serving(ak, bk, layers, root, card, spec=BLIP_SERVING):
     return launches
 
 
-def blip_sides(common, argv, name="blip"):
+def fresh_sides(common, argv, name="blip"):
     """(args, a fresh `name` backbone with the weights `train_main` started
     from)."""
     from spn4cir_tpu_torch.utils.seeding import seed_everything
@@ -1746,7 +1833,7 @@ def drive_blip_training(ak, bk, root, tmp, card):
     from spn4cir_tpu_torch.models.convert import load_blip_checkpoint
 
     out = os.path.join(tmp, "blip_run")
-    argv = blip_argv(root, "--batch-size", str(BLIP_BATCH), "--num-epochs",
+    argv = bf16_argv(root, "--batch-size", str(BLIP_BATCH), "--num-epochs",
                      "1", "--learning-rate", BLIP_LR, "--output_path", out)
     count = zero_counts(ak, bk)
     tee = Tee(sys.stdout)
@@ -1759,10 +1846,10 @@ def drive_blip_training(ak, bk, root, tmp, card):
     steps = BLIP_TRAIN // BLIP_BATCH
     assert len(losses) == steps == 4, (len(losses), steps)
 
-    args, fresh = blip_sides(common, argv)
+    args, fresh = fresh_sides(common, argv)
     assert args.tau == BLIP_TAU and args.clip_model_name == "RN50x4"
     ckpt = os.path.join(out, "best.pt")
-    _, trained = blip_sides(common, argv)
+    _, trained = fresh_sides(common, argv)
     trained.model.load_state_dict(load_blip_checkpoint(ckpt))
     layers_n = trained.vit_cfg.layers
 
@@ -1835,7 +1922,7 @@ def drive_blip_training(ak, bk, root, tmp, card):
     torch.cuda.empty_cache()
 
     # validate_main and submission_main on the checkpoint
-    eval_argv = blip_argv(root, "--model_path", ckpt)
+    eval_argv = bf16_argv(root, "--model_path", ckpt)
     count = zero_counts(ak, bk)
     with contextlib.redirect_stdout(io.StringIO()):
         results = validate.validate_main("blip", eval_argv)
@@ -1889,7 +1976,7 @@ def drive_blip_stage1(ak, bk, root, tmp, card):
     runs = {}
     for ckpt_flag in ((), ("--grad_ckpt",)):
         out = os.path.join(tmp, f"blip_stage1{'_ckpt' if ckpt_flag else ''}")
-        argv = blip_argv(root, "--batch-size", str(BLIP_S1_BATCH),
+        argv = bf16_argv(root, "--batch-size", str(BLIP_S1_BATCH),
                          "--num-epochs", "1", "--learning-rate", BLIP_LR,
                          "--output_path", out, "--wo_bank", *ckpt_flag)
         count = zero_counts(ak, bk)
@@ -1930,8 +2017,8 @@ def drive_blip_stage1(ak, bk, root, tmp, card):
     assert abs(first - first_ckpt) <= 1e-6 * abs(first), (first, first_ckpt)
 
     argv, out, losses = runs[False]
-    args, fresh = blip_sides(common, argv)
-    _, trained = blip_sides(common, argv)
+    args, fresh = fresh_sides(common, argv)
+    _, trained = fresh_sides(common, argv)
     trained.model.load_state_dict(
         load_blip_checkpoint(os.path.join(out, "best.pt")))
     for name in ("visual_encoder.blocks.0.attn.qkv.weight",
@@ -2220,28 +2307,37 @@ def check_blip_plain_step(layers, card):
     assert all(r < 10 * STEP_TOL for r in rel), rel
 
 
-def check_plain_step(layers, bk, card):
-    """Phase 8: one float32 loss and its gradients through the kernels and
-    through the plain versions, same weights and batch, over a dense bank
-    and over the same bank quantized to int8."""
-    import numpy as np
+CLIP_PROBE = ("text_projection", "transformer.resblocks.0.attn.in_proj_weight",
+              "transformer.resblocks.11.mlp.c_fc.weight",
+              "token_embedding.weight")
+TGCIR_PROBE = ("clip.text_projection",
+               "clip.transformer.resblocks.0.attn.in_proj_weight",
+               "text_fc.weight", "tokenlearn_text.attn.weight",
+               "masks_text.weight", "s_remain.fc1.weight")
 
-    from spn4cir_tpu_torch.models.clip4cir import ClipCIR
+
+def check_plain_step(layers, bk, card, kind="clip", model="ViT-B/32",
+                     probe=CLIP_PROBE, seed=9):
+    """Phase 8: one float32 stage-2 loss of the `kind` backbone and its
+    gradients through the kernels and through the plain versions, same
+    weights and batch, over a dense bank and over the same bank quantized
+    to int8; `probe` names the parameters whose gradients are held."""
+    from spn4cir_tpu_torch.models.api import build_backbone
     from spn4cir_tpu_torch.train.stage2 import create_train_state
 
     device = torch.device("cuda:0")
-    backbone = ClipCIR("ViT-B/32", tau=TAU, dtype=torch.float32, device=device)
+    backbone = build_backbone(kind, clip_model_name=model, tau=TAU,
+                              dtype=torch.float32, device=device)
     backbone.init_params(torch.Generator().manual_seed(0))
     create_train_state(backbone, 2e-5)      # freezes what stage 2 freezes
-    g = torch.Generator(device=device).manual_seed(9)
+    spec = backbone.bank_spec()
+    g = torch.Generator(device=device).manual_seed(seed)
     m, b = 4099, 64
-    bank = unit_rows(m, BANK_DIM, g, device)
-    refer = torch.randn(b, BANK_DIM, generator=g, device=device)
+    bank = unit_rows(m, spec.target_shape[0], g, device)
+    refer = torch.randn(b, *spec.refer_shape, generator=g, device=device)
     labels = torch.randint(0, m, (b,), generator=g, device=device)
-    raw = next(synthetic_batches(1, b, m, 10))
+    raw = next(synthetic_batches(1, b, m, seed + 1))
     text_ids = torch.from_numpy(backbone.tokenize(raw["captions"])).to(device)
-    probe = ("text_projection", "transformer.resblocks.0.attn.in_proj_weight",
-             "transformer.resblocks.11.mlp.c_fc.weight", "token_embedding.weight")
 
     def run(plain: bool, target):
         backbone.zero_grad(set_to_none=True)
@@ -2264,14 +2360,14 @@ def check_plain_step(layers, bk, card):
         layers.set_attention_impl(backbone, "auto")
         rel = [((a - b_).norm() / b_.norm()).item()
                for a, b_ in zip(kern_grads, plain_grads)]
-        phase(f"one float32 ViT-B/32 stage-2 loss (B={b}, M={m}, "
+        phase(f"one float32 {kind} {model} stage-2 loss (B={b}, M={m}, "
               f"{dtype_name(target.dtype)} bank): kernels {kern_loss:.6f}, "
               f"plain versions {plain_loss:.6f} (rtol {STEP_TOL}); relative "
               f"gradient difference of {probe}: {[f'{r:.2e}' for r in rel]} "
               f"(each under {10 * STEP_TOL}) [{card}]")
         assert abs(kern_loss - plain_loss) <= STEP_TOL * abs(plain_loss)
         assert all(r < 10 * STEP_TOL for r in rel), rel
-        assert np.isfinite(kern_loss)
+        assert math.isfinite(kern_loss)
 
 
 def launched_kernels(fn) -> list:
@@ -2538,7 +2634,7 @@ def drive_blip2_training(ak, bk, mk, root, tmp, card):
     from spn4cir_tpu_torch.models.convert import load_blip2_checkpoint
 
     out = os.path.join(tmp, "blip2_run")
-    argv = blip_argv(root, "--batch-size", str(BLIP2_BATCH), "--num-epochs",
+    argv = bf16_argv(root, "--batch-size", str(BLIP2_BATCH), "--num-epochs",
                       "1", "--learning-rate", BLIP2_LR, "--output_path", out)
     count = zero_counts(ak, bk)
     tee = Tee(sys.stdout)
@@ -2551,11 +2647,11 @@ def drive_blip2_training(ak, bk, mk, root, tmp, card):
     steps = BLIP2_TRAIN // BLIP2_BATCH
     assert len(losses) == steps == 8, (len(losses), steps)
 
-    args, fresh = blip_sides(common, argv, "blip2")
+    args, fresh = fresh_sides(common, argv, "blip2")
     assert args.tau == BLIP2_TAU and args.clip_model_name == "pretrain"
     ckpt = os.path.join(out, "best.pt")
     t1 = time.perf_counter()
-    _, trained = blip_sides(common, argv, "blip2")
+    _, trained = fresh_sides(common, argv, "blip2")
     trained.model.load_state_dict(load_blip2_checkpoint(ckpt))
     reload_s = time.perf_counter() - t1
     vit, qf = trained.vit_cfg, trained.q_cfg
@@ -2643,7 +2739,7 @@ def drive_blip2_training(ak, bk, mk, root, tmp, card):
     torch.cuda.empty_cache()
 
     # validate_main and submission_main on the checkpoint
-    eval_argv = blip_argv(root, "--model_path", ckpt)
+    eval_argv = bf16_argv(root, "--model_path", ckpt)
     count = zero_counts(ak, bk)
     with contextlib.redirect_stdout(io.StringIO()):
         results = validate.validate_main("blip2", eval_argv)
@@ -3656,6 +3752,381 @@ def check_llama_streams(tok, prompts, card):
     return report
 
 
+def tgcir_frozen(name: str) -> bool:
+    """The image branch that tgcir's stage 2 freezes, and logit_scale."""
+    return (name.startswith(("clip.visual.", "fc.", "tokenlearn.", "masks."))
+            or name == "clip.logit_scale")
+
+
+def drive_tgcir_serving(ak, bk, layers, root, card):
+    """Phase 12a: `serve_main(backbone_name="tgcir")` at full ViT-B/16 width
+    over the 1,024-image tree, concurrent and sequential /retrieve
+    requests, then the checks. Returns the launch counts of the run."""
+    import numpy as np
+
+    from spn4cir_tpu_torch.cli.serve import serve_main
+
+    argv = bf16_argv(root, "--batch-size", str(ENCODE_BATCH), "--serve_batch",
+                     str(SERVE_BATCH), "--default_k", str(K), "--serve_host",
+                     "127.0.0.1", "--serve_port", "0", "--no-block")
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    server, service = serve_main(argv, backbone_name="tgcir")
+    startup_s = time.perf_counter() - t0
+    port = server.server_address[1]
+    try:
+        index = service.index
+        names = list(index.names)
+        # the first round takes the text side's warm-up
+        rounds, sequential = drive_queries(port, names, 2)
+        launches = read_counts(count)
+        dispatches = service.metrics()["dispatches"]
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    backbone = service.backbone
+    cfg = backbone.cfg
+    assert (cfg.vision_width, cfg.vision_layers, cfg.vision_heads,
+            cfg.vision_patch_size, cfg.image_resolution, cfg.transformer_width,
+            cfg.transformer_layers, cfg.transformer_heads,
+            cfg.embed_dim) == (768, 12, 12, 16, 224, 512, 12, 8, 512), cfg
+    n_images = len(names)
+    encode_batches = math.ceil(n_images / ENCODE_BATCH)
+    want = dict(long_attention=cfg.vision_layers * encode_batches,
+                long_attention_bwd=0,
+                short_attention=cfg.transformer_layers * dispatches,
+                short_attention_bwd=0, **bank_launches(False, 0))
+    phase(f"tgcir serving slice (serve_main, ViT-B/16 bf16 at 224, "
+          f"{sum(p.numel() for p in backbone.parameters()) / 1e6:.1f} M "
+          f"parameters): {n_images} images indexed in {encode_batches} "
+          f"encode batches of {ENCODE_BATCH} ({startup_s:.1f} s with the "
+          f"model's construction), {2 * N_CONCURRENT + N_SEQUENTIAL} queries "
+          f"in {dispatches} fuse dispatches; launches {launches} (want 12 "
+          f"long-attention forwards per encode batch at S=197 and 12 short "
+          f"ones per dispatch: {want})")
+    assert launches == want, (launches, want)
+    target = index.target
+    assert target.shape == (n_images, 512), target.shape
+    assert index.refer.shape == (n_images, 12, 512), index.refer.shape
+    assert torch.isfinite(target).all() and np.isfinite(index.refer).all()
+    norms = target.float().norm(dim=-1)
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-3), norms
+
+    plain_rescore("tgcir", ak, layers, service, root)
+
+    stats = dict(startup_s=startup_s, dispatches=dispatches,
+                 concurrent_round1_p50_ms=statistics.median(rounds[0]),
+                 concurrent_round1_p99_ms=pct(rounds[0], 0.99),
+                 concurrent_p50_ms=statistics.median(rounds[1]),
+                 concurrent_p99_ms=pct(rounds[1], 0.99),
+                 sequential_p50_ms=statistics.median(sequential),
+                 sequential_p99_ms=pct(sequential, 0.99))
+    phase(f"tgcir query latency, {N_CONCURRENT} concurrent (second round; "
+          f"the first: p50 {stats['concurrent_round1_p50_ms']:.2f} ms): p50 "
+          f"{stats['concurrent_p50_ms']:.2f} ms, p99 "
+          f"{stats['concurrent_p99_ms']:.2f} ms; sequential: p50 "
+          f"{stats['sequential_p50_ms']:.2f} ms, p99 "
+          f"{stats['sequential_p99_ms']:.2f} ms [{card}]")
+    phase("tgcir serving slice stats " + json.dumps(stats))
+    return launches
+
+
+def drive_tgcir_training(ak, bk, root, tmp, card, n_gallery):
+    """Phase 12b: `train_main("tgcir")` through its argv at batch 256 over a
+    float32 bank and, from the same bank cache, an int8 one; the checks;
+    then `validate_main("tgcir")` and `submission_main("tgcir")` on the
+    float32 run's checkpoint. Returns the launch counts of the training
+    runs and of the two evaluation entry points."""
+    from spn4cir_tpu_torch.bank.bank import Bank
+    from spn4cir_tpu_torch.cli import common, submission, train, validate
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_bank
+    from spn4cir_tpu_torch.models.convert import load_tgcir_checkpoint
+
+    out = os.path.join(tmp, "tgcir_run")
+    argv = bf16_argv(root, "--batch-size", str(TRAIN_BATCH), "--num-epochs",
+                     "1", "--output_path", out)
+    bank_file = os.path.join(out, "cirr_bank.npz")
+    count = zero_counts(ak, bk)
+    runs = []
+    t0 = time.perf_counter()
+    for extra in ((), ("--bank_dtype", "int8", "--bank_path", bank_file,
+                       "--output_path", out + "_int8")):
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            best = train.train_main("tgcir", argv + list(extra), log_every=1)
+        runs.append((best, logged_losses(tee.buffer_.getvalue())))
+    launches = read_counts(count)
+    train_s = time.perf_counter() - t0
+
+    args, fresh = fresh_sides(common, argv, "tgcir")
+    _, trained = fresh_sides(common, argv, "tgcir")
+    trained.model.load_state_dict(load_tgcir_checkpoint(
+        os.path.join(out, "best.pt")))
+    cfg = trained.cfg
+    preprocess = common.make_transform(trained, args)
+    ds = CIRDataset("cirr", "train", "relative", preprocess, root,
+                    args.dress_types, extend_suffix=trained.extend_suffix,
+                    seed=args.seed, replace_extended=trained.replace_extended)
+    m = ds.num_unique_images
+    steps = len(ds.triplets) // TRAIN_BATCH
+    extract_batches = math.ceil(m / TRAIN_BATCH)
+    gallery_batches = math.ceil(n_gallery / 32)
+    query_batches = math.ceil(N_VAL / 32)
+    assert [len(losses) for _, losses in runs] == [steps, steps] and steps >= 4
+    layers_v, layers_t = cfg.vision_layers, cfg.transformer_layers
+    want = dict(
+        long_attention=layers_v * (extract_batches + 2 * gallery_batches),
+        long_attention_bwd=0,
+        short_attention=2 * layers_t * (steps + query_batches),
+        short_attention_bwd=2 * layers_t * steps,
+        bank_infonce_fwd=steps, bank_infonce_bwd=steps,
+        bank_infonce_q8_fwd=steps, bank_infonce_q8_bwd=steps,
+        max_query_infonce_fwd=0, max_query_infonce_bwd=0, **NO_LLAMA)
+    phase(f"tgcir training slice (train_main, ViT-B/16 bf16, batch "
+          f"{TRAIN_BATCH}): bank of {m} images in {extract_batches} encode "
+          f"batches, {steps} steps over a float32 bank, then {steps} over the "
+          f"same bank cache quantized to int8, a validation over "
+          f"{n_gallery} images after each, {train_s:.1f} s in "
+          f"all; launches {launches} (want 12 short-attention forwards + 12 "
+          f"backwards + 1 + 1 bank launches (#5/#6, then #7/#8) per step, 12 "
+          f"long-attention forwards per encode batch of extraction and "
+          f"validation, 12 short ones per query batch: {want})")
+    assert launches == want, (launches, want)
+    assert os.path.exists(bank_file)
+
+    moved = 0
+    for (name, before), after in zip(fresh.model.state_dict().items(),
+                                     trained.model.state_dict().values()):
+        if tgcir_frozen(name):
+            assert torch.equal(before, after), f"frozen {name} changed"
+        elif not torch.equal(before, after):
+            moved += 1
+    n_train = sum(1 for n in fresh.model.state_dict() if not tgcir_frozen(n))
+    assert moved == n_train, (moved, n_train)
+
+    bank = Bank.load(bank_file, device=trained.device)
+    assert bank.target.shape == (m, 512) and bank.refer.shape == (m, 12, 512)
+    raw = next(iter_train_bank(ds, TRAIN_BATCH, epoch_seed=args.seed))
+    dev = trained.device
+    batch = (torch.from_numpy(bank.gather_refer(raw)).to(dev),
+             torch.from_numpy(trained.tokenize(raw["captions"])).to(dev),
+             bank.target, torch.from_numpy(raw["target_image_id"]).to(dev))
+    with torch.no_grad():
+        before = fresh.stage2_loss(*batch).item()
+        after = trained.stage2_loss(*batch).item()
+    losses = runs[0][1]
+    phase(f"tgcir training slice: per-step losses float32 bank "
+          f"{[round(x, 4) for x in losses]}, int8 bank "
+          f"{[round(x, 4) for x in runs[1][1]]}; first batch before "
+          f"training {before:.4f} (logged {losses[0]:.4f}), after {steps} "
+          f"steps {after:.4f}; best scores {runs[0][0]:.2f} / "
+          f"{runs[1][0]:.2f}; {moved} tensors of the text branch moved, the "
+          f"image branch (clip.visual, fc, tokenlearn, masks) and "
+          f"logit_scale bit-identical [{card}]")
+    assert abs(before - losses[0]) < 1e-3 * abs(before), (before, losses[0])
+    assert after < before, (after, before)
+    del fresh, bank
+
+    ckpt_argv = argv + ["--model_path", os.path.join(out, "best.pt")]
+    count = zero_counts(ak, bk)
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = validate.validate_main("tgcir", ckpt_argv)
+    assert all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in results.values()), results
+    assert results["recall_at50"] > 0.0, results
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = submission.submission_main(
+                "tgcir", ckpt_argv + ["--submission-name", "smoke"])
+        docs = []
+        for path in paths:
+            with open(path) as fh:
+                docs.append(json.load(fh))
+    finally:
+        os.chdir(cwd)
+    eval_launches = read_counts(count)
+    pred, group = docs
+    assert len(pred) - 2 == len(group) - 2 == N_VAL
+    for pid in pred:
+        if pid not in ("version", "metric"):
+            assert len(pred[pid]) == min(50, n_gallery - 1), pid
+            assert len(group[pid]) == 3, pid
+    want = dict(long_attention=2 * layers_v * gallery_batches,
+                long_attention_bwd=0,
+                short_attention=2 * layers_t * query_batches,
+                short_attention_bwd=0, **bank_launches(False, 0))
+    phase(f"tgcir validate_main on best.pt {json.dumps(results)}; "
+          f"submission_main wrote {[os.path.basename(p) for p in paths]}; "
+          f"launches {eval_launches} (want {want})")
+    assert eval_launches == want, (eval_launches, want)
+    return launches, eval_launches
+
+
+def drive_negtype(ak, bk, root, tmp, card, n_gallery):
+    """Phase 13a: `cli.train_negtype` (clip4cir stage 1, `--wo_bank
+    --neg_type 15`) with ViT-B/32 bf16 at batch 256 for an epoch of the
+    tree, then the checks. Returns the launch counts of the run."""
+    from spn4cir_tpu_torch.cli import train_negtype
+    from spn4cir_tpu_torch.data.datasets import CIRDataset
+    from spn4cir_tpu_torch.data.transforms import ImageTransform
+
+    argv = ["--dataset", "cirr", "--data_path", root, "--clip-model-name",
+            NEGTYPE_MODEL, "--bf16", "--seed", "0", "--batch-size",
+            str(TRAIN_BATCH), "--num-epochs", "1",
+            "--output_path", os.path.join(tmp, "negtype_run")]
+    count = zero_counts(ak, bk)
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        best = train_negtype.main(argv, log_every=1)
+    launches = read_counts(count)
+    run_s = time.perf_counter() - t0
+    text = tee.buffer_.getvalue()
+    losses = logged_losses(text)
+    assert "neg_type : 15" in text and "wo_bank : True" in text
+    ds = CIRDataset("cirr", "train", "relative",
+                    ImageTransform("targetpad", 224), root)
+    steps = len(ds.triplets) // TRAIN_BATCH
+    gallery_batches = math.ceil(n_gallery / 32)
+    query_batches = math.ceil(N_VAL / 32)
+    assert len(losses) == steps >= 3, (len(losses), steps)
+    # two vision calls and one text call a step, 12 layers each (ViT-B/32:
+    # S=50; text: S=77, causal)
+    want = dict(short_attention=36 * steps + 12 * (gallery_batches
+                                                   + query_batches),
+                short_attention_bwd=36 * steps, **NO_LONG,
+                **bank_launches(False, 0))
+    phase(f"negtype slice (cli.train_negtype, {NEGTYPE_MODEL} bf16, batch "
+          f"{TRAIN_BATCH}, --wo_bank --neg_type 15; the recipe's RN50x4 cut "
+          f"to ViT-B/32): {steps} steps and a validation over "
+          f"{n_gallery} images in {run_s:.1f} s; per-step losses "
+          f"{[round(x, 4) for x in losses]}; best score {best:.2f}; launches "
+          f"{launches} (want 24 + 12 short-attention forwards and backwards "
+          f"per step, two vision calls and one text call, 12 forwards per "
+          f"validation batch, no bank kernel: {want}) [{card}]")
+    assert launches == want, (launches, want)
+    return launches
+
+
+def drive_zs_stage1(ak, bk, tmp, card):
+    """Phase 13b: `cli.train_zs` (zscir stage 1, `--wo_bank`) at full
+    ViT-L/14 width, batch 48, on a tree whose generated triplets
+    (`cap.rc2.train.extend_zs.json`) replace the human ones; then the step
+    on one resident batch: ms/step, a profiler window, the launches a
+    step. Returns the launch counts of the CLI run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spn4cir_tpu_torch.cli import train_zs
+    from spn4cir_tpu_torch.data.datasets import CIRDataset
+    from spn4cir_tpu_torch.data.transforms import ImageTransform
+    from spn4cir_tpu_torch.models.api import build_backbone
+    from spn4cir_tpu_torch.train.stage1 import (create_stage1_state,
+                                                stage1_train_step)
+
+    make_cirr = load_test_module("fixtures").make_cirr
+    root = make_cirr(os.path.join(tmp, "cirr_zs"), n_images=ZS_IMAGES,
+                     n_train=ZS_TRAIN, n_val=N_VAL, extended=True,
+                     extend_suffix="zs")
+    ds = CIRDataset("cirr", "train", "relative",
+                    ImageTransform("targetpad", 224), root, extend_suffix="zs",
+                    replace_extended=True)
+    assert all(t["captions"][0].startswith("ext cirr") for t in ds.triplets)
+    argv = ["--dataset", "cirr", "--data_path", root, "--bf16", "--seed", "0",
+            "--batch-size", str(ZS_BATCH), "--num-epochs", "1",
+            "--output_path", os.path.join(tmp, "zs_run")]
+    count = zero_counts(ak, bk)
+    torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        best = train_zs.main(argv, log_every=1)
+    launches = read_counts(count)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = tee.buffer_.getvalue()
+    losses = logged_losses(text)
+    assert "clip_model_name : ViT-L/14" in text and "batch_size : 48" in text
+    steps = len(ds.triplets) // ZS_BATCH
+    gallery_batches = math.ceil(ZS_IMAGES / 32)
+    query_batches = math.ceil(N_VAL / 32)
+    assert len(losses) == steps >= 3, (len(losses), steps)
+    # refer and target ride one 2B-batch tower call: 24 layers at S=257
+    want = dict(long_attention=24 * (steps + gallery_batches),
+                long_attention_bwd=24 * steps,
+                short_attention=12 * (steps + query_batches),
+                short_attention_bwd=12 * steps, **bank_launches(False, 0))
+    phase(f"zs stage-1 slice (cli.train_zs, ViT-L/14 bf16 at 224, batch "
+          f"{ZS_BATCH}, every weight training): {steps} steps and a "
+          f"validation over {ZS_IMAGES} images in {run_s:.1f} s, peak "
+          f"device memory {peak_gb:.2f} GiB; per-step losses "
+          f"{[round(x, 4) for x in losses]}; best score {best:.2f}; launches "
+          f"{launches} (want 24 long-attention forwards + 24 backwards at "
+          f"(1536, 257, 64) and 12 + 12 short ones per step, 24 long "
+          f"forwards per gallery batch, 12 short per query batch: {want}) "
+          f"[{card}]")
+    assert launches == want, (launches, want)
+
+    # the step on one resident batch (no image decode)
+    device = torch.device("cuda:0")
+    backbone = build_backbone("zs", clip_model_name="ViT-L/14", tau=0.01,
+                              dtype=torch.bfloat16, device=device)
+    backbone.init_params(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in backbone.parameters())
+    state = create_stage1_state(backbone, 2e-6)
+    g = torch.Generator(device=device).manual_seed(16)
+    batch = {
+        "refer_images": torch.randn(ZS_BATCH, 224, 224, 3, generator=g,
+                                    device=device),
+        "target_images": torch.randn(ZS_BATCH, 224, 224, 3, generator=g,
+                                     device=device),
+        "text_ids": torch.from_numpy(backbone.tokenize(
+            [CAPTIONS[i % len(CAPTIONS)] for i in range(ZS_BATCH)])
+        ).to(device)}
+    backbone.train()
+    stage1_train_step(backbone, state, batch)                    # warm-up
+    count = zero_counts(ak, bk)
+    step_ms = median_ms(lambda: stage1_train_step(backbone, state, batch),
+                        reps=4, warmup=0)
+    per_step = {k: v / 4 for k, v in read_counts(count).items() if v}
+    assert per_step == dict(long_attention=24, long_attention_bwd=24,
+                            short_attention=12, short_attention_bwd=12), \
+        per_step
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        for n in (1, 2):    # the first window takes the profiler's start-up
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    stage1_train_step(backbone, state, batch)
+                torch.cuda.synchronize()
+        trace = os.path.join(trace_dir, "zs_stage1_trace.json")
+        prof.export_chrome_trace(trace)
+        busy_ms, n_ops, groups = device_busy(trace)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    assert n_ops > 0, "the profiler's trace holds no device interval"
+    per = {k: round(v / 2, 3) for k, v in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    assert per.get("attention kernels", 0) > 0, per
+    stats = dict(ms_per_step=step_ms, busy_ms_per_step=busy_ms / 2,
+                 idle_share=1 - busy_ms / 2 / step_ms,
+                 device_ops_per_step=n_ops / 2, launches_per_step=per_step,
+                 parameters=n_params, ms_per_step_by_group=per)
+    phase(f"zs stage-1 step, ViT-L/14 bf16 ({n_params / 1e6:.1f} M "
+          f"parameters, all training), batch {ZS_BATCH}, one resident batch: "
+          f"{step_ms:.3f} ms/step (median of 4, CUDA events); device busy "
+          f"{busy_ms / 2:.3f} ms/step in {n_ops / 2:.0f} device operations, "
+          f"idle share {100 * stats['idle_share']:.1f}%; launches a step "
+          f"{per_step}; device ms per step by group: {per} [{card}]")
+    phase("zs stage-1 stats " + json.dumps(stats))
+    del state, backbone
+    torch.cuda.empty_cache()
+    return launches
+
+
 def pick(records, **want):
     return next(r for r in records
                 if all(r[k] == v for k, v in want.items()))
@@ -3695,6 +4166,12 @@ def kernel_entry(name, replaces, source, launches_by_path, on_paths, records,
 
 def main() -> int:
     t_start = time.perf_counter()
+    laps = {}
+
+    def lap(label):
+        """The seconds since the start at the end of phase `label`."""
+        laps[label] = round(time.perf_counter() - t_start, 1)
+
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this smoke runs "
@@ -3729,6 +4206,7 @@ def main() -> int:
         # phase 2: build
         build_kernels(cuda_build)
 
+        lap("2 (build)")
         # phase 3: kernels against their plain versions
         fwd_records = check_attention_fwd(ak, device, card)
         bwd_records = check_attention_bwd(ak, device, card)
@@ -3739,6 +4217,7 @@ def main() -> int:
         decode_records = check_decode_attention(da, device, card)
         qmm_records = check_quant_matmul(qm, device, card)
 
+        lap("3 (kernels)")
         # one synthetic CIRR tree for the two ViT-B/32 slices, a smaller one
         # for the flagship slice
         make_cirr = load_test_module("fixtures").make_cirr
@@ -3751,9 +4230,11 @@ def main() -> int:
         # phase 4: the serving slice
         serve_launches = drive_serving(ak, bk, layers, root, card)
 
+        lap("4")
         # phase 5: the training slice through its entry point
         train_launches, _, _ = drive_training_cli(ak, bk, root, tmp, card)
 
+        lap("5")
         # phase 6: the flagship recipe through its three entry points
         flagship_launches, argv, trained = drive_training_cli(
             ak, bk, flagship_root, tmp, card, model=FLAGSHIP,
@@ -3763,11 +4244,13 @@ def main() -> int:
         del trained
         torch.cuda.empty_cache()
 
+        lap("6")
         # phase 7: the training loop at the recipe's bank size
         drive_training_recipe(ak, bk, tmp, card, "ViT-B/32", ("bfloat16",))
         drive_training_recipe(ak, bk, tmp, card, FLAGSHIP,
                               ("int8", "float32"))
 
+        lap("7")
         # phase 9: blip4cir through its entry points
         blip_root = make_cirr(os.path.join(tmp, "cirr_blip"),
                               n_images=BLIP_IMAGES, n_train=BLIP_TRAIN,
@@ -3785,6 +4268,7 @@ def main() -> int:
         drive_blip_recipe(ak, bk, tmp, card)
         torch.cuda.empty_cache()
 
+        lap("9")
         # phase 10: blip24cir through its entry points
         blip2_root = make_cirr(os.path.join(tmp, "cirr_blip2"),
                                n_images=BLIP2_IMAGES, n_train=BLIP2_TRAIN,
@@ -3798,6 +4282,7 @@ def main() -> int:
         drive_blip2_recipe(ak, bk, tmp, card)
         torch.cuda.empty_cache()
 
+        lap("10")
         # phase 11: the LLaMA-2 7B rewriter of the datagen pipeline
         from spn4cir_tpu_torch.datagen.llm_rewrite import build_rewrite_prompt
         from spn4cir_tpu_torch.tokenizer.bytelevel import ByteTokenizer
@@ -3819,11 +4304,36 @@ def main() -> int:
         get_cir_data_launches = drive_get_cir_data(ak, bk, world, card)
         check_llama_streams(tok, prompts, card)
 
+        lap("11")
+        # phase 12: tgcir at full ViT-B/16 width through its entry points,
+        # on the flagship slice's tree
+        tgcir_serve_launches = drive_tgcir_serving(ak, bk, layers,
+                                                   flagship_root, card)
+        torch.cuda.empty_cache()
+        tgcir_train_launches, tgcir_eval_launches = drive_tgcir_training(
+            ak, bk, flagship_root, tmp, card, FLAGSHIP_IMAGES)
+        torch.cuda.empty_cache()
+        drive_training_recipe(ak, bk, tmp, card, "ViT-B/16",
+                              ("float32", "int8"), kind="tgcir")
+        torch.cuda.empty_cache()
+
+        lap("12")
+        # phase 13: the negative-type ablation and zscir stage 1
+        negtype_launches = drive_negtype(ak, bk, flagship_root, tmp, card,
+                                         FLAGSHIP_IMAGES)
+        torch.cuda.empty_cache()
+        zs_launches = drive_zs_stage1(ak, bk, tmp, card)
+        torch.cuda.empty_cache()
+
+        lap("13")
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
         check_blip_plain_step(layers, card)
         check_blip2_plain_step(layers, bk, mk, card)
+        check_plain_step(layers, bk, card, kind="tgcir", model="ViT-B/16",
+                         probe=TGCIR_PROBE, seed=14)
 
+        lap("8")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "spn4cir_tpu"))
         assert not bad, f"JAX or the JAX package was imported: {bad}"
@@ -3841,7 +4351,12 @@ def main() -> int:
                                     + blip2_eval_launches[name]),
                     "rewrite": rewrite_launches[name],
                     "llama_q8": q8_launches[name],
-                    "get_cir_data": get_cir_data_launches[name]}
+                    "get_cir_data": get_cir_data_launches[name],
+                    "tgcir_serve": tgcir_serve_launches[name],
+                    "tgcir_train": (tgcir_train_launches[name]
+                                    + tgcir_eval_launches[name]),
+                    "negtype": negtype_launches[name],
+                    "zs_stage1": zs_launches[name]}
 
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
         at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
@@ -3850,7 +4365,8 @@ def main() -> int:
         entries = [kernel_entry(
             "short_attention", jax_ops + "attention_kernels.py:257",
             csrc + "short_attention.cu", by_path("short_attention"),
-            ("serve", "train", "flagship"), fwd_records,
+            ("serve", "train", "flagship", "tgcir_serve", "tgcir_train",
+             "negtype", "zs_stage1"), fwd_records,
             pick(fwd_records, tower="vision", dtype="bfloat16"),
             also=[pick(fwd_records, tower=t, dtype="bfloat16") for t in
                   ("text", "train-text", "flagship-text",
@@ -3858,7 +4374,8 @@ def main() -> int:
         entries.append(kernel_entry(
             "short_attention_bwd", jax_ops + "attention_kernels.py:279",
             csrc + "short_attention.cu", by_path("short_attention_bwd"),
-            ("train", "flagship"), bwd_records,
+            ("train", "flagship", "tgcir_train", "negtype", "zs_stage1"),
+            bwd_records,
             pick(bwd_records, tower="train-text", dtype="bfloat16"),
             also=[pick(bwd_records, tower="flagship-text",
                        dtype="bfloat16")]))
@@ -3867,7 +4384,7 @@ def main() -> int:
             entries.append(kernel_entry(
                 name, f"{jax_ops}bank_kernels.py:{line}",
                 csrc + "bank_infonce.cu", by_path(name),
-                ("train", "blip_train"), recs,
+                ("train", "blip_train", "tgcir_train"), recs,
                 pick(recs, shape=at_bank, dtype="float32"),
                 also=[pick(recs, shape=at_bank, dtype="bfloat16"),
                       pick(recs, shape=at_flag, dtype="float32"),
@@ -3881,15 +4398,16 @@ def main() -> int:
             recs = bank_records[name]
             entries.append(kernel_entry(
                 name, f"{jax_ops}bank_kernels.py:{line}",
-                csrc + "bank_infonce.cu", by_path(name), ("flagship",), recs,
+                csrc + "bank_infonce.cu", by_path(name),
+                ("flagship", "tgcir_train"), recs,
                 pick(recs, shape=at_flag, dtype="int8"),
                 also=[pick(recs, shape=at_bank, dtype="int8")]))
         for name, line, on_paths, recs in (
                 ("long_attention", 74,
                  ("blip_serve", "blip_train", "blip_stage1", "blip2_serve",
-                  "blip2_train"),
+                  "blip2_train", "tgcir_serve", "tgcir_train", "zs_stage1"),
                  long_fwd_records),
-                ("long_attention_bwd", 109, ("blip_stage1",),
+                ("long_attention_bwd", 109, ("blip_stage1", "zs_stage1"),
                  long_bwd_records)):
             entries.append(kernel_entry(
                 name, f"{jax_ops}attention_kernels.py:{line}",
@@ -3899,7 +4417,9 @@ def main() -> int:
                       pick(recs, tower="blip-extract", dtype="float32"),
                       pick(recs, tower="blip-index", dtype="float32"),
                       pick(recs, tower="eva-g-extract", dtype="bfloat16"),
-                      pick(recs, tower="eva-g-extract", dtype="float32")]))
+                      pick(recs, tower="eva-g-extract", dtype="float32"),
+                      pick(recs, tower="zs-stage1", dtype="bfloat16"),
+                      pick(recs, tower="tgcir-extract", dtype="bfloat16")]))
         at_mq = (f"B={BLIP2_BATCH}, M={RECIPE_BANK}, Q={BLIP2_QUERIES}, "
                  f"D={BLIP_DIM}")
         for name, line in (("max_query_infonce_fwd", 72),
@@ -3940,7 +4460,8 @@ def main() -> int:
                                (4096, 32000))
                   if (r, d, f) != (16, 4096, 11008)]))
         assert len(entries) == 12, len(entries)
-        phase(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
+        phase(f"every phase passed in {time.perf_counter() - t_start:.1f} s; "
+              f"seconds since the start at the end of each phase: {laps}")
         print(json.dumps({"kernels": entries}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {

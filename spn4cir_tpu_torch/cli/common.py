@@ -150,20 +150,27 @@ def resolve_device(spec: str) -> torch.device:
 
 
 #: the recipe defaults of each ported backbone (the JAX package keeps them
-#: in its per-backbone entry scripts): clip4cir/train.py, blip4cir/train.py
-#: and blip24cir/train.py
+#: in its per-backbone entry scripts): clip4cir/train.py,
+#: zscir/{train,validate,cirr_test_submission,serve}.py, tgcir/train.py,
+#: blip4cir/train.py and blip24cir/train.py
 CLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.02,
                          default_lr=2e-05, default_bs=256, default_epochs=3)
+ZSCIR_DEFAULTS = dict(default_model="ViT-L/14", default_tau=0.01,
+                      default_lr=2e-06, default_bs=48, default_epochs=10)
+#: zscir's stage 2, the bank fine-tune (zscir/train_bank.py)
+ZSCIR_BANK_DEFAULTS = dict(default_model="ViT-L/14", default_tau=0.02,
+                           default_lr=2e-06, default_bs=128, default_epochs=5)
+TGCIR_DEFAULTS = dict(default_model="ViT-B/16", default_tau=0.02,
+                      default_lr=2e-05, default_bs=256, default_epochs=5)
 BLIP4CIR_DEFAULTS = dict(default_model="RN50x4", default_tau=0.03,
                          default_lr=5e-06, default_bs=128, default_epochs=10)
 BLIP24CIR_DEFAULTS = dict(default_model="pretrain", default_tau=0.05,
                           default_lr=1e-05, default_bs=32, default_epochs=3)
-#: zs is clip4cir's recipe on other checkpoints and loaders
-BACKBONE_DEFAULTS = {"clip": CLIP4CIR_DEFAULTS, "zs": CLIP4CIR_DEFAULTS,
-                     "blip": BLIP4CIR_DEFAULTS, "blip2": BLIP24CIR_DEFAULTS}
-#: the backbones an entry point takes as its first word (zs is reached
-#: through clip4cir's entry points with its own checkpoints)
-FIRST_WORDS = tuple(name for name in BACKBONE_DEFAULTS if name != "zs")
+BACKBONE_DEFAULTS = {"clip": CLIP4CIR_DEFAULTS, "zs": ZSCIR_DEFAULTS,
+                     "tgcir": TGCIR_DEFAULTS, "blip": BLIP4CIR_DEFAULTS,
+                     "blip2": BLIP24CIR_DEFAULTS}
+#: the backbones an entry point takes as its first word
+FIRST_WORDS = tuple(BACKBONE_DEFAULTS)
 
 
 def recipe_defaults(backbone_name: str) -> dict:
@@ -176,9 +183,10 @@ def recipe_defaults(backbone_name: str) -> dict:
 
 
 def backbone_from_argv(argv: list) -> tuple:
-    """`python -m spn4cir_tpu_torch.cli.<entry> [clip|blip|blip2] ...`: an
-    optional first word picks the backbone, and with it the recipe defaults
-    (clip when absent). Returns (backbone name, the remaining argv)."""
+    """`python -m spn4cir_tpu_torch.cli.<entry> [clip|zs|tgcir|blip|blip2]
+    ...`: an optional first word picks the backbone, and with it the recipe
+    defaults (clip when absent). Returns (backbone name, the remaining
+    argv)."""
     if argv and argv[0] in FIRST_WORDS:
         return argv[0], argv[1:]
     return "clip", argv
@@ -186,7 +194,7 @@ def backbone_from_argv(argv: list) -> tuple:
 
 def make_backbone(name: str, args, tokenizer=None) -> CIRBackbone:
     """`tokenizer` overrides the tokenizer the backbone would load (CLIP's
-    BPE for clip / zs, BERT WordPiece for blip and blip2)."""
+    BPE for clip / zs / tgcir, BERT WordPiece for blip and blip2)."""
     if name not in BACKBONE_DEFAULTS:
         raise NotImplementedError(f"the {name} backbone is not ported to "
                                   "PyTorch yet")
@@ -235,9 +243,9 @@ def load_or_init_params(backbone: CIRBackbone, args,
                         generator: torch.Generator) -> CIRBackbone:
     """--model_path loads an OpenAI CLIP / clip4cir `.pt` checkpoint, for
     blip a BLIP / BLIP4CIR `.pth`, for blip2 a LAVIS BLIP-2 / SPRC `.pth`
-    (the port keeps the checkpoints' parameter names); otherwise random
-    weights from `generator`. Returns the backbone, its weights filled in
-    place."""
+    (the port keeps the checkpoints' parameter names), for tgcir a TG-CIR
+    `CIRPlus` `.pt`; otherwise random weights from `generator`. Returns the
+    backbone, its weights filled in place."""
     if not args.model_path:
         backbone.init_params(generator)
         return backbone
@@ -245,8 +253,8 @@ def load_or_init_params(backbone: CIRBackbone, args,
         raise NotImplementedError(
             "the PyTorch port loads .pt/.pth checkpoints; convert a JAX "
             "checkpoint with models.convert.clip_state_dict_from_jax (or "
-            "blip_state_dict_from_jax, blip2_state_dict_from_jax) and "
-            "torch.save")
+            "tgcir_state_dict_from_jax, blip_state_dict_from_jax, "
+            "blip2_state_dict_from_jax) and torch.save")
     from spn4cir_tpu_torch.models import convert
 
     if backbone.name == "blip":
@@ -258,6 +266,8 @@ def load_or_init_params(backbone: CIRBackbone, args,
         sd = convert.load_blip2_checkpoint(
             args.model_path, num_tokens=backbone.vit_cfg.num_tokens)
         sd.setdefault("temp", torch.tensor(float(args.tau)))
+    elif backbone.name == "tgcir":
+        sd = convert.load_tgcir_checkpoint(args.model_path)
     else:
         sd = convert.load_clip_checkpoint(args.model_path)
     backbone.model.load_state_dict(sd)

@@ -1,6 +1,6 @@
 """Training CLI of the PyTorch port: stage 2 ("scaling negatives") of
-clip4cir, blip4cir and blip24cir, and stage 1 (`--wo_bank`) of the first
-two, on one CUDA device.
+clip4cir, zscir, tgcir, blip4cir and blip24cir, and stage 1 (`--wo_bank`)
+of clip4cir, zscir and blip4cir, on one CUDA device.
 
 Counterpart of the single-device branches of `spn4cir_tpu/cli/train.py`.
 Stage 2: build the dataset, run the frozen image tower once over the unique
@@ -8,29 +8,45 @@ train images into a `Bank` (cached `.npz`), then per step gather refer rows
 on the host, tokenize, run the text side, the full-bank InfoNCE and masked
 AdamW. Stage 1 (`--wo_bank`): no bank; every step decodes both images of
 its triplets, runs them through the live image tower and trains every
-weight with the in-batch InfoNCE. Either way: validate every
+weight with the in-batch InfoNCE (or, with `--neg_type`, the
+negative-type ablation's losses). Either way: validate every
 `--validation-frequency` epochs and keep the best checkpoint.
 
     python -m spn4cir_tpu_torch.cli.train --dataset cirr \\
         --data_path cirr_dataset --clip-model-name RN50x4 --bf16 \\
         --bank_dtype int8
+    python -m spn4cir_tpu_torch.cli.train tgcir --dataset cirr \\
+        --data_path cirr_dataset --bf16
+    python -m spn4cir_tpu_torch.cli.train zs --dataset cirr \\
+        --data_path cirr_dataset --bf16 --wo_bank
     python -m spn4cir_tpu_torch.cli.train blip --dataset cirr \\
         --data_path cirr_dataset --bf16 --dropout 0.1
     python -m spn4cir_tpu_torch.cli.train blip2 --dataset cirr \\
         --data_path cirr_dataset --bf16
 
-An optional first word, `clip` (the default), `blip` or `blip2`, picks the
-backbone and its recipe defaults (blip: tau 0.03, learning rate 5e-6, batch
-128, 10 epochs; BLIP base unless `--clip-model-name large`; blip2: tau 0.05,
+An optional first word, `clip` (the default), `zs`, `tgcir`, `blip` or
+`blip2`, picks the backbone and its recipe defaults (zs: ViT-L/14, tau
+0.01, learning rate 2e-6, batch 48, 10 epochs, the generated triplets in
+place of the human ones; tgcir: ViT-B/16, tau 0.02, learning rate 2e-5,
+batch 256, 5 epochs; blip: tau 0.03, learning rate 5e-6, batch 128, 10
+epochs, BLIP base unless `--clip-model-name large`; blip2: tau 0.05,
 learning rate 1e-5, batch 32, 3 epochs, EVA ViT-g + Q-Former unless
-`--clip-model-name test-tiny`). blip and blip2 need the BERT vocabulary:
-`SPN4CIR_BERT_VOCAB` names `bert-base-uncased/vocab.txt`. blip2's bank is
-caption-aware: its refer rows are the fused query states of each (reference
-image, caption) pair, keyed by triplet (by image under `--plus`), and its
-target rows the (32, 256) query features of each image; blip2 has no stage
-1, so `--wo_bank` raises.
+`--clip-model-name test-tiny`). The `train_negtype`, `train_negplus`,
+`train_zs` and `train_zs_bank` modules of this package are the ablation
+and zscir recipes on top of this one. blip and blip2 need the BERT
+vocabulary: `SPN4CIR_BERT_VOCAB` names `bert-base-uncased/vocab.txt`.
+tgcir's refer bank holds each image's (12, 512) token set on the host.
+blip2's bank is caption-aware: its refer rows are the fused query states
+of each (reference image, caption) pair, keyed by triplet (by image under
+`--plus`), and its target rows the (32, 256) query features of each image.
+tgcir and blip2 have no stage 1, so `--wo_bank` raises for them.
 `--grad_ckpt` rematerialises the ViT blocks (and CLIP's transformer blocks)
 in the backward; `--dropout` is MED's train-mode dropout.
+
+`--neg_type` (a 4-bit mask: bit0 refer, bit1 text, bit2 target, bit3 query
+negatives) goes with `--wo_bank` and a CLIP backbone (clip, zs); the JAX
+CLI ignores it in stage 2, the port refuses it there. `--use_cc` reads the
+CC triplets with `--plus` (or for zs, in place of its generated ones).
 
 `--bank_dtype int8` quantizes the target bank (per-row absmax) after it is
 extracted and extended, and the loss runs through the int8 kernels; it
@@ -41,9 +57,9 @@ then keeps only the first `neg_num` of them), cached beside the bank as
 `<bank>_unlabeled.npz`.
 
 Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
-Flags whose path is not ported raise "not yet ported": --neg_type (the
-stage-1 ablation), --use_cc, meshes, --distributed, --device_preprocess,
---loader_procs, --resume / --ckpt_every_steps and --profile_dir.
+Flags whose path is not ported raise "not yet ported": meshes,
+--distributed, --device_preprocess, --loader_procs, --resume /
+--ckpt_every_steps and --profile_dir.
 """
 
 from __future__ import annotations
@@ -61,6 +77,8 @@ from spn4cir_tpu_torch.cli.common import (
     BLIP4CIR_DEFAULTS,
     BLIP24CIR_DEFAULTS,
     CLIP4CIR_DEFAULTS,
+    TGCIR_DEFAULTS,
+    ZSCIR_DEFAULTS,
     backbone_from_argv,
     base_parser,
     finalize_args,
@@ -81,6 +99,7 @@ from spn4cir_tpu_torch.data.datasets import (
 from spn4cir_tpu_torch.eval.metrics import fiq_average
 from spn4cir_tpu_torch.eval.retrieval import (cirr_val_retrieval,
                                               fiq_val_retrieval)
+from spn4cir_tpu_torch.models.api import backbone_class
 from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
 from spn4cir_tpu_torch.train.stage1 import (create_stage1_state,
                                             train_epoch_stage1)
@@ -91,7 +110,7 @@ from spn4cir_tpu_torch.utils.logging import MetricLogger
 from spn4cir_tpu_torch.utils.seeding import seed_everything
 
 __all__ = ["BLIP4CIR_DEFAULTS", "BLIP24CIR_DEFAULTS", "CLIP4CIR_DEFAULTS",
-           "run_validation", "train_main"]
+           "TGCIR_DEFAULTS", "ZSCIR_DEFAULTS", "run_validation", "train_main"]
 
 
 def run_validation(backbone, args, preprocess) -> tuple[float, dict]:
@@ -193,9 +212,20 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
             if is_set:
                 raise SystemExit(f"--wo_bank (stage-1) has no bank: {flag} "
                                  "goes with stage-2 training only")
+    # what the backbone can do is stated on its class
+    cls = backbone_class(backbone_name)
     refuse_unported(args, [
-        ("--neg_type (stage-1 ablation)", args.neg_type),
-        ("--use_cc", args.use_cc),
+        ("--neg_type without --wo_bank (the negtype losses are stage-1 "
+         "losses; the JAX CLI ignores the flag in stage 2)",
+         args.neg_type and not args.wo_bank),
+        (f"--neg_type with {backbone_name} (its JAX backbone has no negtype "
+         "loss)", args.neg_type and not hasattr(cls, "stage1_negtype_loss")),
+        ("--use_cc without --plus (only the extended train set of --plus, "
+         "or zs's generated one, takes the CC triplets)",
+         args.use_cc and not args.plus and not cls.replace_extended),
+        (f"--unlabeled with {backbone_name} (its gallery features are not "
+         "target-bank rows)",
+         args.unlabeled and not cls.gallery_extends_target_bank),
         ("--mesh_data/--mesh_bank/--mesh_model > 1",
          args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
         ("--distributed", args.distributed),
@@ -206,10 +236,14 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
         ("--loss_impl pallas/xla (one route per device here)",
          args.loss_impl != "auto"),
     ])
-    if args.wo_bank and backbone_name == "blip2":
+    if args.neg_type and not 0 < args.neg_type < 16:
+        raise SystemExit("--neg_type is a 4-bit mask, 1-15 (bit0 refer, "
+                         "bit1 text, bit2 target, bit3 query)")
+    if args.wo_bank and not cls.has_stage1:
         raise NotImplementedError(
-            "--wo_bank with blip2: the JAX package's blip2 backbone has no "
-            "stage-1 loss, so there is none to port yet")
+            f"--wo_bank with {backbone_name}: the JAX package's "
+            f"{backbone_name} backbone has no stage-1 loss, so there is none "
+            "to port yet")
     generator = seed_everything(args.seed)
 
     backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
@@ -258,7 +292,8 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
                 backbone, state,
                 iter_train_images(train_ds, args.batch_size, shuffle=True,
                                   epoch_seed=args.seed + epoch),
-                dropout_generator=drop, log_every=log_every, log_fn=log_fn)
+                neg_type=args.neg_type, dropout_generator=drop,
+                log_every=log_every, log_fn=log_fn)
         else:
             state, mean_loss = train_epoch(
                 backbone, state, bank,

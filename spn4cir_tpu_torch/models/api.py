@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +40,12 @@ class CIRBackbone(nn.Module, metaclass=abc.ABCMeta):
     #: `fusion_bank_features(images, text_ids)` over the train triplets, not
     #: from `bank_features(images)` over the unique images
     caption_aware_bank: bool = False
+    #: the backbone has a stage-1 (`--wo_bank`) loss; the JAX package's
+    #: tgcir and blip2 backbones define none
+    has_stage1: bool = True
+    #: `gallery_features` rows have the target bank's row shape, so the
+    #: unlabeled image pool (`--unlabeled`) can extend the target bank
+    gallery_extends_target_bank: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -131,24 +137,32 @@ class CIRBackbone(nn.Module, metaclass=abc.ABCMeta):
         return "visual" not in name.split(".")
 
 
-_REGISTRY: Dict[str, Callable[..., CIRBackbone]] = {}
+_REGISTRY: Dict[str, type] = {}
 
 
 def register_backbone(name: str):
-    def deco(factory):
-        _REGISTRY[name] = factory
-        return factory
+    """Class decorator: `build_backbone(name, **kw)` builds `cls(**kw)`."""
+    def deco(cls):
+        _REGISTRY[name] = cls
+        return cls
     return deco
 
 
-def build_backbone(name: str, **kw) -> CIRBackbone:
+def backbone_class(name: str) -> type:
+    """The class that `build_backbone(name)` builds: its class attributes
+    (`has_stage1`, `replace_extended`, ...) say what the backbone can do
+    before any weight is allocated."""
     if name not in _REGISTRY:  # the modules register their backbones
         import spn4cir_tpu_torch.models.blip24cir  # noqa: F401
         import spn4cir_tpu_torch.models.blip4cir  # noqa: F401
         import spn4cir_tpu_torch.models.clip4cir  # noqa: F401
+        import spn4cir_tpu_torch.models.tgcir  # noqa: F401
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"backbone {name!r} is not ported to PyTorch yet; have "
             f"{sorted(_REGISTRY)}")
-    return _REGISTRY[name](**kw)
+    return _REGISTRY[name]
 
+
+def build_backbone(name: str, **kw) -> CIRBackbone:
+    return backbone_class(name)(**kw)

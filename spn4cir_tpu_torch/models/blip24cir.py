@@ -142,6 +142,7 @@ class Blip2CirModule(nn.Module):
         self.temp.fill_(self.tau_init)
 
 
+@register_backbone("blip2")
 class Blip2CIR(CIRBackbone):
     name = "blip2"
     # the published FIQ eval ranks the FULL gallery for this backbone
@@ -149,6 +150,7 @@ class Blip2CIR(CIRBackbone):
     extend_suffix = "blip2"
     default_transform = "targetpad"
     caption_aware_bank = True
+    has_stage1 = False
 
     def __init__(self, blip2_size: str = "pretrain", tau: float = 0.05,
                  dtype: torch.dtype = torch.float32, device="cpu",
@@ -312,8 +314,3 @@ class Blip2CIR(CIRBackbone):
         if parts[0] == "model":
             parts = parts[1:]
         return bool(parts) and parts[0] in STAGE2_TRAINABLE
-
-
-@register_backbone("blip2")
-def _build_blip2(**kw) -> Blip2CIR:
-    return Blip2CIR(**kw)

@@ -94,6 +94,7 @@ class BlipCirModule(nn.Module):
         self.tau.fill_(self.tau_init)
 
 
+@register_backbone("blip")
 class BlipCIR(CIRBackbone):
     name = "blip"
     # the published FIQ eval ranks the FULL gallery for this backbone (no
@@ -215,8 +216,3 @@ class BlipCIR(CIRBackbone):
     def trainable_filter(self, name: str) -> bool:
         """Stage 2 freezes the ViT and vision_proj."""
         return not ({"visual_encoder", "vision_proj"} & set(name.split(".")))
-
-
-@register_backbone("blip")
-def _build_blip(**kw) -> BlipCIR:
-    return BlipCIR(**kw)

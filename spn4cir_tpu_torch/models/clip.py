@@ -76,6 +76,13 @@ CLIP_CONFIGS = {
         32, 32, 2, 64, 16, context_length=77,
         transformer_width=32, transformer_heads=2, transformer_layers=2,
     ),
+    # tiny tgcir config for tests, the JAX package's: ViT-B/16's widths (the
+    # reference TG-CIR hardcodes fc 768 -> 512 and 512-d tokens) at two
+    # layers and 32 px
+    "test-tgcir": CLIPConfig(
+        512, 32, 2, 768, 16, context_length=77,
+        transformer_width=512, transformer_heads=8, transformer_layers=2,
+    ),
 }
 
 
@@ -96,8 +103,10 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, cfg.embed_dim))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: (B, H, W, 3) normalized float -> (B, embed_dim)."""
+    def forward(self, images: torch.Tensor, return_tokens: bool = False):
+        """images: (B, H, W, 3) normalized float -> (B, embed_dim); with
+        `return_tokens` also the token sequence (B, 1+P, width) after the
+        transformer and before ln_post (tgcir's heads read it)."""
         dt = self.dtype
         b, h, w, c = images.shape
         p = self.cfg.vision_patch_size
@@ -112,7 +121,8 @@ class VisionTransformer(nn.Module):
         cls = self.class_embedding.to(dt).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
         x = self.transformer(self.ln_pre(x))
-        return self.ln_post(x[:, 0, :]) @ self.proj.to(dt)
+        pooled = self.ln_post(x[:, 0, :]) @ self.proj.to(dt)
+        return (pooled, x) if return_tokens else pooled
 
 
 class _BatchNorm(nn.BatchNorm2d):
@@ -269,15 +279,18 @@ class TextTransformer(nn.Module):
         self.ln_final = LayerNorm(tw)
         self.text_projection = nn.Parameter(torch.empty(tw, cfg.embed_dim))
 
-    def encode_text(self, text_ids: torch.Tensor) -> torch.Tensor:
-        """text_ids: (B, context_length) integer ids -> (B, embed_dim)."""
+    def encode_text(self, text_ids: torch.Tensor, return_tokens: bool = False):
+        """text_ids: (B, context_length) integer ids -> (B, embed_dim); with
+        `return_tokens` also every position's state after ln_final,
+        (B, context_length, transformer_width)."""
         dt = self.dtype
         x = F.embedding(text_ids, self.token_embedding.weight).to(dt)
         x = x + self.positional_embedding.to(dt)[: x.shape[1]]
         x = self.ln_final(self.transformer(x))
         eot = text_ids.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-        return pooled @ self.text_projection.to(dt)
+        pooled = pooled @ self.text_projection.to(dt)
+        return (pooled, x) if return_tokens else pooled
 
     def forward(self, text_ids: torch.Tensor) -> torch.Tensor:
         return self.encode_text(text_ids)
@@ -293,7 +306,10 @@ class CLIP(TextTransformer):
         self.visual = tower(cfg, dtype, remat)
         self.logit_scale = nn.Parameter(torch.empty(()))
 
-    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+    def encode_image(self, images: torch.Tensor, return_tokens: bool = False):
+        """`return_tokens` (a ViT tower's): also the token sequence."""
+        if return_tokens:
+            return self.visual(images, return_tokens=True)
         return self.visual(images)
 
     def forward(self, images: torch.Tensor, text_ids: torch.Tensor):

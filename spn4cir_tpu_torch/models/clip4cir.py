@@ -3,7 +3,8 @@
 Counterpart of `spn4cir_tpu/models/clip4cir.py`: encoders, the
 element-wise-sum fusion, tokenization, the stage-2 loss (full-bank InfoNCE
 through `ops/bank_kernels.py`, or sampled negatives) and the stage-1 loss
-(in-batch InfoNCE through the live towers).
+(in-batch InfoNCE through the live towers, and the negative-type
+ablation's four flavors).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from spn4cir_tpu_torch.ops.infonce import l2_normalize
 from spn4cir_tpu_torch.tokenizer.bpe import ClipTokenizer, tokenize
 
 
+@register_backbone("clip")
 class ClipCIR(CIRBackbone):
     name = "clip"
     extend_suffix = "clip"
@@ -100,24 +102,35 @@ class ClipCIR(CIRBackbone):
         query = self.combine(both[:b], self.encode_text(text_ids))
         return infonce.in_batch_infonce(query, target, self.tau)
 
+    def stage1_negtype_loss(self, images_refer: torch.Tensor,
+                            images_target: torch.Tensor,
+                            text_ids: torch.Tensor, neg_type: int = 15
+                            ) -> torch.Tensor:
+        """The negative-type ablation (`--neg_type`): the mean of the
+        flavors of `infonce.negtype_losses` that the bitmask selects (bit0
+        refer, bit1 text, bit2 target, bit3 query). Refer and target go
+        through the tower in two calls, as in the JAX package; the features
+        go to float32 before the losses."""
+        refer = self.encode_image(images_refer).float()
+        target = l2_normalize(self.encode_image(images_target).float())
+        text = self.encode_text(text_ids).float()
+        losses = infonce.negtype_losses(refer, text, target, self.tau)
+        return infonce.combine_negtype(losses, neg_type)
+
     # ---- host helpers ----
     def tokenize(self, texts):
         return tokenize(texts, context_length=self.cfg.context_length,
                         truncate=True, tokenizer=self.tokenizer)
 
 
-@register_backbone("clip")
-def _build_clip_cir(**kw) -> ClipCIR:
-    return ClipCIR(**kw)
-
-
 @register_backbone("zs")
-def _build_zs_cir(clip_model_name: str = "ViT-L/14", tau: float = 0.01,
-                  **kw) -> ClipCIR:
+class ZsCIR(ClipCIR):
     """zscir: the same CLIP architecture with ViT-L/14 defaults; generated
     triplets replace the human train set."""
-    b = ClipCIR(clip_model_name=clip_model_name, tau=tau, **kw)
-    b.name = "zs"
-    b.extend_suffix = "zs"
-    b.replace_extended = True
-    return b
+    name = "zs"
+    extend_suffix = "zs"
+    replace_extended = True
+
+    def __init__(self, clip_model_name: str = "ViT-L/14", tau: float = 0.01,
+                 **kw):
+        super().__init__(clip_model_name=clip_model_name, tau=tau, **kw)

@@ -35,6 +35,13 @@ the projections, `query_tokens`, `prompt_tokens`, `temp`); they invert
 `convert_eva_vit_state_dict`, `convert_qformer_state_dict` and
 `convert_blip2_cir` of the JAX package.
 
+`tgcir_state_dict_from_jax` and `load_tgcir_checkpoint` do the same for
+the tgcir backbone: the JAX `TGCIRModule` tree (its CLIP through
+`clip_state_dict_from_jax`) into the port's names, and a reference TG-CIR
+`CIRPlus` checkpoint, whose S separate token-learner Conv1d(D -> 1) slots
+are stacked into the port's one Linear(D -> S), as the JAX package's
+`convert_tgcir_state_dict` reads it.
+
 `llama_state_dict_from_jax` and `load_llama_checkpoint` do the same for the
 LLaMA of the datagen rewriter, into HF `LlamaForCausalLM`'s names; they
 invert `convert_llama_state_dict` of the JAX package, for a dense tree and
@@ -536,6 +543,75 @@ def load_blip2_checkpoint(path: str, num_tokens: Optional[int] = None
     if num_tokens is not None and "visual_encoder.pos_embed" in sd:
         sd["visual_encoder.pos_embed"] = interpolate_pos_embed(
             sd["visual_encoder.pos_embed"], num_tokens)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# tgcir
+# ---------------------------------------------------------------------------
+
+def _linear_from_jax(sd: Dict[str, torch.Tensor], name: str, node: Mapping
+                     ) -> None:
+    sd[f"{name}.weight"] = _tensor(np.asarray(node["kernel"]).T)
+    sd[f"{name}.bias"] = _tensor(node["bias"])
+
+
+def tgcir_state_dict_from_jax(params_np: Mapping[str, Any], cfg: CLIPConfig
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX `TGCIRModule` params ({'params': ...} or the inner tree, numpy
+    leaves) -> the port's `TGCIRModule` state dict. Dense kernels (in, out)
+    become Linear weights (out, in)."""
+    p = params_np.get("params", params_np)
+    sd = {f"clip.{k}": v
+          for k, v in clip_state_dict_from_jax(p["clip"], cfg).items()}
+    for name in ("fc", "text_fc"):
+        _linear_from_jax(sd, name, p[name])
+    for name in ("tokenlearn", "tokenlearn_text"):
+        _linear_from_jax(sd, f"{name}.attn", p[name]["attn"])
+    for name in ("masks", "masks_text"):
+        sd[f"{name}.weight"] = _tensor(p[name]["masks"])
+    for fc in ("fc1", "fc2"):
+        _linear_from_jax(sd, f"s_remain.{fc}", p["s_remain"][fc])
+    return sd
+
+
+def load_tgcir_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a reference TG-CIR `CIRPlus` checkpoint (or one the port saved)
+    into a float32 state dict for `TGCIRModule`: takes the {'state_dict':
+    sd} wrapper and a `state_dict.` key prefix; `backbone.clip.*`,
+    `backbone.fc`, `backbone.text_fc`, `backbone.masks.weight` and
+    `backbone.masks_text.weight` keep their names less `backbone.`;
+    `s_remain_map.{0,2}` becomes `s_remain.fc{1,2}`; the S token-learner
+    slots `backbone.tokenlearn*.tokenizers.{i}.conv.0.{weight,bias}` are
+    stacked into `tokenlearn*.attn`. The reference's aliased
+    `backbone.image_backbone.*` and its unused `t_remain_map`,
+    `t_replace_map` and `local_weight` are dropped."""
+    obj = _unwrap_checkpoint(path)
+    if any(k.startswith("state_dict.") for k in obj):
+        obj = {k[len("state_dict."):]: v for k, v in obj.items()
+               if k.startswith("state_dict.")}
+    obj = {k: v.detach().to(torch.float32) for k, v in obj.items()
+           if isinstance(v, torch.Tensor)}
+    if not any(k.startswith("backbone.") for k in obj):
+        return obj                                  # the port's own names
+    bb = "backbone."
+    sd = {k[len(bb):]: v for k, v in obj.items()
+          if k.startswith(bb + "clip.")
+          and k[len(bb + "clip."):] not in _METADATA_KEYS}
+    for name in ("fc.weight", "fc.bias", "text_fc.weight", "text_fc.bias",
+                 "masks.weight", "masks_text.weight"):
+        sd[name] = obj[bb + name]
+    for fc, idx in (("fc1", 0), ("fc2", 2)):
+        for leaf in ("weight", "bias"):
+            sd[f"s_remain.{fc}.{leaf}"] = obj[f"s_remain_map.{idx}.{leaf}"]
+    for name in ("tokenlearn", "tokenlearn_text"):
+        slots = sorted({int(k.split(".")[3]) for k in obj
+                        if k.startswith(f"{bb}{name}.tokenizers.")})
+        conv = [f"{bb}{name}.tokenizers.{i}.conv.0" for i in slots]
+        sd[f"{name}.attn.weight"] = torch.stack(
+            [obj[c + ".weight"].reshape(-1) for c in conv])
+        sd[f"{name}.attn.bias"] = torch.stack(
+            [obj[c + ".bias"].reshape(()) for c in conv])
     return sd
 
 

@@ -2,10 +2,13 @@
 
 Counterpart of `spn4cir_tpu/ops/infonce.py` (`cross_entropy`,
 `in_batch_infonce`, `bank_infonce`, `sampled_neg_infonce`, `l2_normalize`,
-`max_query_infonce`, `max_query_scores`). These materialise the logits; they
-are the semantic ground truth that the blocked bank-InfoNCE kernels
-(`ops/bank_kernels.py`, `ops/maxquery_kernels.py`) are tested against, the
-sampled-negatives loss of `--neg_num` and the BLIP-2 retrieval scores.
+`max_query_infonce`, `max_query_scores`, `negtype_losses`,
+`combine_negtype`). These materialise the logits; they are the semantic
+ground truth that the blocked bank-InfoNCE kernels (`ops/bank_kernels.py`,
+`ops/maxquery_kernels.py`) are tested against, the sampled-negatives loss
+of `--neg_num`, the BLIP-2 retrieval scores and the stage-1
+negative-type ablation (which the JAX package, too, computes as einsums
+outside any kernel).
 
 All losses take logits in float32 whatever the input dtype: the operands
 are widened before the product (bfloat16 widens exactly), which is what the
@@ -14,7 +17,7 @@ JAX package's `preferred_element_type=float32` dots compute.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Union
 
 import torch
 
@@ -90,3 +93,43 @@ def max_query_scores(fusion_feats: torch.Tensor, target_bank: torch.Tensor
     sims = torch.einsum("bd,mqd->bmq", fusion_feats.float(),
                         target_bank.float())
     return sims.amax(dim=-1)
+
+
+#: the negative flavors of `negtype_losses` in the order of the mask's bits
+NEGTYPE_ORDER = ("refer", "text", "target", "query")
+
+
+def negtype_losses(refer: torch.Tensor, text: torch.Tensor,
+                   target: torch.Tensor, tau: Tau) -> Dict[str, torch.Tensor]:
+    """The four negative flavors of the negative-type ablation. refer /
+    text: (B, D) raw features; target: (B, D) normalized.
+
+    - 'target': in-batch InfoNCE of normalize(refer_i + text_i) over the
+      targets;
+    - 'query': the reverse direction, target_i over the queries;
+    - 'text': logits[i, j] = <normalize(refer_i + text_j), target_i>;
+    - 'refer': logits[i, j] = <normalize(refer_j + text_i), target_i>;
+    the positive at j == i in each."""
+    labels = torch.arange(refer.shape[0], device=refer.device)
+    query = l2_normalize(refer + text)
+    out = {"target": in_batch_infonce(query, target, tau),
+           "query": in_batch_infonce(target, query, tau)}
+    # (B, B, D) cross combinations: [i, j] = refer_i + text_j
+    cross = l2_normalize(refer[:, None, :] + text[None, :, :]).float()
+    tgt = target.float()
+    out["text"] = cross_entropy(
+        torch.einsum("ijd,id->ij", cross, tgt) / tau, labels)
+    out["refer"] = cross_entropy(
+        torch.einsum("jid,id->ij", cross, tgt) / tau, labels)
+    return out
+
+
+def combine_negtype(losses: Dict[str, torch.Tensor], neg_type: int
+                    ) -> torch.Tensor:
+    """The mean of the losses the 4-bit mask `neg_type` selects (bit0
+    refer, bit1 text, bit2 target, bit3 query)."""
+    picks = [losses[name] for i, name in enumerate(NEGTYPE_ORDER)
+             if neg_type & (1 << i)]
+    if not picks:
+        raise ValueError("neg_type selects no losses")
+    return sum(picks) / len(picks)

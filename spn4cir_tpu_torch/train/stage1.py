@@ -8,9 +8,12 @@ stage 2) moves every weight. Activations may run in bfloat16 over float32
 parameters and optimizer state; `--grad_ckpt` (the backbone's `remat`)
 trades the blocks' activations for a second forward in the backward.
 
-Not ported: the data-sharded step over a device mesh (`sharded_step`), the
-device-side preprocess (`raw_kind`) and the negative-type ablation
-(`neg_type`).
+`neg_type` > 0 selects the negative-type ablation's loss
+(`stage1_negtype_loss`, clip and zs) in place of `stage1_loss`; it runs
+without dropout, as in the JAX CLI.
+
+Not ported: the data-sharded step over a device mesh (`sharded_step`) and
+the device-side preprocess (`raw_kind`).
 """
 
 from __future__ import annotations
@@ -39,19 +42,33 @@ def create_stage1_state(backbone: CIRBackbone, learning_rate: LearningRate,
     return state
 
 
-def stage1_train_step(backbone: CIRBackbone, state: TrainState,
-                      batch: Dict[str, torch.Tensor],
-                      dropout_generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
-    """One optimizer step. batch: refer_images (B, H, W, 3), target_images
-    (B, H, W, 3), text_ids. `dropout_generator` goes to a backbone that
-    takes one (the MED family in `train()` mode). Returns the loss as a
-    detached device scalar."""
-    state.optimizer.zero_grad(set_to_none=True)
+def stage1_loss_fn(backbone: CIRBackbone, batch: Dict[str, torch.Tensor],
+                   neg_type: int = 0,
+                   dropout_generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """The stage-1 loss of one batch: the negtype ablation's when
+    `neg_type` > 0 (no dropout), else the backbone's `stage1_loss`, with
+    `dropout_generator` for a backbone that takes one."""
+    images = (batch["refer_images"], batch["target_images"],
+              batch["text_ids"])
+    if neg_type:
+        return backbone.stage1_negtype_loss(*images, neg_type)
     kw = ({"generator": dropout_generator}
           if dropout_generator is not None else {})
-    loss = backbone.stage1_loss(batch["refer_images"], batch["target_images"],
-                                batch["text_ids"], **kw)
+    return backbone.stage1_loss(*images, **kw)
+
+
+def stage1_train_step(backbone: CIRBackbone, state: TrainState,
+                      batch: Dict[str, torch.Tensor],
+                      dropout_generator: Optional[torch.Generator] = None,
+                      neg_type: int = 0) -> torch.Tensor:
+    """One optimizer step. batch: refer_images (B, H, W, 3), target_images
+    (B, H, W, 3), text_ids. `dropout_generator` goes to a backbone that
+    takes one (the MED family in `train()` mode); `neg_type` picks the
+    ablation's loss (`stage1_loss_fn`). Returns the loss as a detached
+    device scalar."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = stage1_loss_fn(backbone, batch, neg_type, dropout_generator)
     return apply_gradients(state, loss)
 
 
@@ -60,6 +77,7 @@ def train_epoch_stage1(
     state: TrainState,
     batches: Iterator[dict],
     *,
+    neg_type: int = 0,
     dropout_generator: Optional[torch.Generator] = None,
     log_every: int = 50,
     log_fn: Callable[[int, float], None] = lambda step, loss: None,
@@ -81,7 +99,8 @@ def train_epoch_stage1(
             "text_ids": torch.from_numpy(
                 backbone.tokenize(raw["captions"])).to(device),
         }
-        loss = stage1_train_step(backbone, state, batch, dropout_generator)
+        loss = stage1_train_step(backbone, state, batch, dropout_generator,
+                                 neg_type)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         count += 1
         if log_every and step % log_every == 0:

@@ -275,7 +275,7 @@ def test_backbone_surface(sides):
     assert isinstance(tb.model.tau, torch.nn.Parameter)
     assert tb.model.tau.shape == () and abs(tb.model.tau.item() - 0.03) < 1e-7
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_backbone("tgcir")
+        build_backbone("llava")
 
 
 def test_stage2_freeze_mask_equals_jax(sides):

@@ -216,7 +216,7 @@ def test_defaults_and_first_word():
     assert (args.tau, args.learning_rate, args.batch_size,
             args.num_epochs, args.clip_model_name) == (0.05, 1e-5, 32, 3,
                                                        "pretrain")
-    assert common.FIRST_WORDS == ("clip", "blip", "blip2")
+    assert common.FIRST_WORDS == ("clip", "zs", "tgcir", "blip", "blip2")
 
 
 def test_blip2_refuses_a_size_it_does_not_have(cirr_root):

@@ -382,10 +382,12 @@ def test_defaults_are_the_recipes():
     assert common.backbone_from_argv(["clip"]) == ("clip", [])
     assert common.recipe_defaults("blip") is BLIP4CIR_DEFAULTS
     assert common.recipe_defaults("clip") is CLIP4CIR_DEFAULTS
-    assert common.recipe_defaults("zs") is CLIP4CIR_DEFAULTS
+    # zs and tgcir take their own recipes (zscir/train.py, tgcir/train.py)
+    assert common.recipe_defaults("zs") is common.ZSCIR_DEFAULTS
+    assert common.recipe_defaults("tgcir") is common.TGCIR_DEFAULTS
     # an unknown backbone raises before a parser takes another's recipe
-    with pytest.raises(NotImplementedError, match="tgcir"):
-        train_main("tgcir", ["--dataset", "cirr"])
+    with pytest.raises(NotImplementedError, match="llava"):
+        train_main("llava", ["--dataset", "cirr"])
     args = common.base_parser(**BLIP4CIR_DEFAULTS).parse_args(
         ["--dataset", "cirr"])
     assert (args.tau, args.learning_rate, args.batch_size,

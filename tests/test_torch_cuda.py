@@ -349,14 +349,69 @@ def test_towers_kernel_route_matches_plain_route_on_card(cuda_device):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.cuda
+def test_tgcir_stage2_step_takes_the_kernels_on_card(cuda_device):
+    """tgcir at ViT-B/16's widths, two layers a tower, float32: its index
+    encode launches the long attention (S=197) in each vision layer, its
+    stage-2 loss the short attention forward and backward in each text
+    layer and one bank forward and backward; the loss equals the plain
+    route's within the bank tolerance (1e-4 relative), each gradient within
+    2e-3 of its norm (phase 8's bound on the same comparison)."""
+    from spn4cir_tpu_torch.models.tgcir import TgcirCIR
+    from spn4cir_tpu_torch.train.stage2 import create_train_state
+
+    cfg = tclip.CLIPConfig(512, 224, 2, 768, 16, transformer_width=512,
+                           transformer_heads=8, transformer_layers=2)
+    tclip.CLIP_CONFIGS["card-tgcir"] = cfg
+    try:
+        tb = TgcirCIR("card-tgcir", device=cuda_device)
+    finally:
+        del tclip.CLIP_CONFIGS["card-tgcir"]
+    tb.init_params(torch.Generator().manual_seed(0))
+    create_train_state(tb, 2e-5)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    images = torch.randn(3, 224, 224, 3, generator=g, device=cuda_device)
+    before = long_attention.launches
+    with torch.inference_mode():
+        index = tb.index_features(images)
+    assert long_attention.launches == before + 2
+    assert index["refer"].shape == (3, 12, 512)
+    bank = torch.nn.functional.normalize(
+        torch.randn(1000, 512, generator=g, device=cuda_device), dim=-1)
+    refer = torch.randn(8, 12, 512, generator=g, device=cuda_device)
+    labels = torch.randint(0, 1000, (8,), generator=g, device=cuda_device)
+    ids = torch.randint(1, 49000, (8, 77), generator=g, device=cuda_device)
+    ids[:, 30] = 49407                                  # EOT
+    counts = (short_attention, short_attention_bwd, bk.bank_infonce_fwd,
+              bk.bank_infonce_bwd)
+    before = [c.launches for c in counts]
+    loss = tb.stage2_loss(refer, ids, bank, labels)
+    loss.backward()
+    assert [c.launches - b for c, b in zip(counts, before)] == [2, 2, 1, 1]
+    grads = {n: p.grad.clone() for n, p in tb.named_parameters()
+             if p.grad is not None}
+    tb.zero_grad(set_to_none=True)
+    layers.set_attention_impl(tb, "plain")
+    plain = bk.bank_infonce_reference(tb.fuse(refer, ids), bank, labels,
+                                      tb.tau)
+    plain.backward()
+    torch.testing.assert_close(loss, plain, atol=0, rtol=1e-4)
+    assert "model.masks_text.weight" in grads
+    for name, p in tb.named_parameters():
+        if name in grads:
+            rel = (grads[name] - p.grad).norm() / p.grad.norm()
+            assert rel < 2e-3, (name, rel.item())
+
+
 # the long-sequence shapes of the card's smoke run: BLIP's ViT-B/16 at 384
-# (extraction and index batches), ViT-L/14, EVA-g (head_dim 88), ViT-B/16 at
-# 224, a ragged slice; then head_dim 128, one key tile and one key; then the
+# (extraction and index batches), ViT-L/14 (at 32 images, and zscir's stage
+# 1: 96 images, batch 48), EVA-g (head_dim 88), ViT-B/16 at 224, a ragged
+# slice; then head_dim 128, one key tile and one key; then the
 # edges of the bf16 kernels' tiles (64 query rows or keys a block, 64 keys /
 # 32 query rows a ring stage): one partial tile, a one-row query tile and a
 # one-key key tile in one slice, a one-key stage in both walks
 LONG_SHAPES = [(1536, 577, 64), (384, 577, 64), (512, 257, 64),
-               (256, 257, 88), (384, 197, 64), (5, 130, 40), (3, 300, 128),
+               (1536, 257, 64), (256, 257, 88), (384, 197, 64), (5, 130, 40), (3, 300, 128),
                (2, 64, 8), (2, 1, 16), (3, 63, 64), (1, 65, 64),
                (2, 129, 88)]
 

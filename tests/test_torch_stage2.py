@@ -39,6 +39,7 @@ from spn4cir_tpu.ops import bank_kernels as jax_bank_kernels
 from spn4cir_tpu.tokenizer.bpe import tokenize as jax_tokenize
 from spn4cir_tpu.train import stage2 as jstage2
 from spn4cir_tpu_torch.bank.bank import Bank
+from spn4cir_tpu_torch.cli.common import backbone_from_argv
 from spn4cir_tpu_torch.cli.train import train_main
 from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_train_bank
 from spn4cir_tpu_torch.data.transforms import ImageTransform
@@ -467,7 +468,7 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--wo_bank", "--neg_type", "1"], "--neg_type"),
+    (["tgcir", "--wo_bank", "--neg_type", "1"], "--neg_type"),
     (["--neg_type", "1"], "--neg_type"),
     (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
     (["--use_cc"], "--use_cc"),
@@ -488,10 +489,15 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
 ])
 def test_unported_flags_raise_not_yet_ported(flags, match, tok, cirr_root,
                                              tmp_path):
+    """A first word picks another backbone (clip when absent): the negtype
+    ablation is clip's and zs's alone; `--neg_type` without `--wo_bank`
+    and `--use_cc` without `--plus` would have no effect on clip, and are
+    refused as the JAX CLI's other inert flags are."""
+    name, flags = backbone_from_argv(flags)
     argv = ARGV + ["--data_path", cirr_root, "--output_path",
                    str(tmp_path / "run")] + flags
     with pytest.raises(NotImplementedError) as err:
-        train_main("clip", argv, tokenizer=tok)
+        train_main(name, argv, tokenizer=tok)
     assert match in str(err.value) and "not yet ported" in str(err.value)
 
 
