@@ -26,7 +26,8 @@ non-zero exit):
      BLIP's
      (1536, 577, 64) and (384, 577, 64), at EVA-g's extraction slice
      (512, 257, 88) and (256, 257, 88), at ViT-L/14's and ViT-B/16's
-     slices, a ragged one and the edges of its tiles (S = 63, 65, 129),
+     slices (LLaVA's tower over a group of 16: (256, 257, 64), timed), a
+     ragged one and the edges of its tiles (S = 63, 65, 129),
      with each timed record's TFLOP/s and share of its bound; the
      max-over-query InfoNCE at blip2's B=32, M=65,536, Q=32, D=256 over
      float32, bfloat16 and int8 banks and a ragged B=5, M=1,000, Q=8; two
@@ -150,21 +151,48 @@ non-zero exit):
      over a tree of generated triplets that replace the human ones (24 +
      24 long-attention launches at (1536, 257, 64) and 12 + 12 short ones
      a step), then its step on one resident batch (ms/step, device busy,
-     idle share, launches a step, ms by kernel group).
-Phase 8 also holds one float32 tgcir ViT-B/16 stage-2 loss through the
+     idle share, launches a step, ms by kernel group);
+ 14. the captioning stage, LLaVA-v1-7B at full width (CLIP ViT-L/14 at 224,
+     23 blocks through #3; the 1024 -> 4096 projector; LLaMA-7B, random
+     bf16 weights drawn on the card; the byte tokenizer): (a)
+     `datagen.captioner.make_llava_captioner`, `caption_images_batched`
+     with a jsonl sidecar and `write_it_list` over the 32 images of the
+     rewrite tree in 2 groups of 16 (483-row prompts, 64 new tokens: 23
+     launches of #3 per group and 32 x 63 of #11), captions/s, tower ms per
+     batch, prefill ms per group, decode ms/step, a profiler window over
+     decode steps; the sidecar resume (the second group torn off and
+     captioned again, the same captions); the first group's streams
+     against plain attention in the tower and `attn_kernel=False` (where
+     they part, the plain margin within twice the routes' measured logit
+     difference); (b) its batched_fn behind a `CaptionService`, 8
+     concurrent requests with two prompts; (c) `cli.get_cir_data` (phase
+     11c before) rewriting the tree's triplets from that it-list: caption
+     -> rewrite as one chain;
+ 15. BLIP caption base at full width (ViT-B/16 at 384 through #3, the
+     12-layer MED decoder over 30,524 words, float32): `python -m
+     spn4cir_tpu_torch.cli.captioner --mllm blip` through its main() over a
+     64-image synthetic CIRR tree at batch 32, beam 3; again (the resume
+     loads no model); with `--nucleus`; then `cli.serve_mllm --mllm blip
+     --no-block` with 16 concurrent /caption requests (every reply a
+     non-empty string, the requests coalesced);
+ 16. `cli.retrieval` (ViT-L/14 float32, random weights from seed 0) i2i
+     over the 64 images of phase 15's tree and t2i for 4 captions.
+Phase 6 ends with 6b: `cli.validate_case` on the flagship checkpoint and on
+random weights, then `cli.analysis_case` over the two dumps. Phase 8 also holds one float32 tgcir ViT-B/16 stage-2 loss through the
 kernels against the plain versions, over a dense and an int8 bank. Phase
 3d times #3 and #4 at zscir's stage-1 slice (1536, 257, 64) and tgcir's
 extraction slice (3072, 197, 64) too.
 Phase 3 ends with 3f: #11 at the 7B's decode shapes (B = 1, 8, 16 over
 1,842 cache rows, B=16 over 1,241; float32, bf16 and int8 caches; a ragged
-B=3, H=4, hd=8, L=37) and #12 at the 7B's four weight shapes (x float32 and
+B=3, H=4, hd=8, L=37; since PR 14 also LLaVA's 547 rows at B=16) and #12
+at the 7B's four weight shapes (x float32 and
 bf16 at 1, 8, 16 rows; a ragged 5 x 40 x 77), timed beside their plain
 versions, the library call and the bound, each record with its design, its
 split plan and the blocks or clusters the card holds at once; #3, #4, #9
 and #10 are timed per call and back to back too. Phase 11 prints each
 decode step's device busy, #11's and #12's ms a step and the idle share.
 Phases 9-13 run between
-phases 7 and 8. The last three lines are the kernels JSON, the card's name
+phases 7 and 8, phase 14 after 11, phases 15 and 16 after 13. The last three lines are the kernels JSON, the card's name
 and power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
@@ -254,8 +282,12 @@ EVA_EXTRACT = dict(name="eva-g-extract", bh=32 * 16, s=257, d=88, causal=False)
 ZS_STAGE1 = dict(name="zs-stage1", bh=96 * 16, s=257, d=64, causal=False)
 TGCIR_EXTRACT = dict(name="tgcir-extract", bh=256 * 12, s=197, d=64,
                      causal=False)
-LONG_TIMED = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT, ZS_STAGE1, TGCIR_EXTRACT)
+# LLaVA's tower: CLIP ViT-L/14 at 224 (16 heads of 64) over a group of 16
+LLAVA_TOWER = dict(name="llava-tower", bh=16 * 16, s=257, d=64, causal=False)
+LONG_TIMED = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT, ZS_STAGE1, TGCIR_EXTRACT,
+              LLAVA_TOWER)
 LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT, ZS_STAGE1, TGCIR_EXTRACT,
+               LLAVA_TOWER,
                dict(name="vit-l14", bh=32 * 16, s=257, d=64, causal=False),
                dict(name="eva-g", bh=16 * 16, s=257, d=88, causal=False),
                dict(name="vit-b16", bh=32 * 12, s=197, d=64, causal=False),
@@ -342,6 +374,27 @@ LLAMA_BF16_LOGIT_TOL = 0.125
 # margin at that step must be under the float32 tolerance (relative to the
 # top logit, at least 1)
 STREAM_MARGIN_TOL = 1e-5
+# phase 14: LLaVA-v1-7B at full width (CLIP ViT-L/14 at 224, 23 of its 24
+# blocks; LLaMA-7B) captions the 32 images of the rewrite tree in 2 groups of
+# 16 with the default prompt: 227 byte ids + 256 patches = 483 prompt rows,
+# 64 new tokens, so a 547-row cache. The two routes' bf16 logits differ by
+# the roundings of 23 tower and 32 LM layers (0.143 at most over the first
+# group's 64 steps, 0.122 at the prefill, in the first run on the H100):
+# where the kernel and plain streams part, the plain margin must lie within
+# twice the measured difference, and that difference within LLAVA_LOGIT_TOL
+LLAVA_IMAGES = REWRITE_PAIRS
+LLAVA_BATCH = 16
+LLAVA_NEW = 64
+LLAVA_PROMPT = "please briefly describe the image in 10 words"
+LLAVA_PROMPT_IDS = 227
+LLAVA_TOWER_LAYERS = 23
+LLAVA_LEN = LLAVA_PROMPT_IDS + 256 + LLAVA_NEW
+LLAVA_LOGIT_TOL = 0.25
+# phase 15: BLIP caption base through cli.captioner (64 images, batch 32,
+# beam 3) and cli.serve_mllm (16 concurrent requests)
+BLIP_CAPTION_IMAGES = 64
+BLIP_CAPTION_BATCH = 32
+BLIP_SERVE_REQUESTS = 16
 # phase 13: the negtype ablation on ViT-B/32 (the recipe's RN50x4 cut), and
 # zscir stage 1 at full ViT-L/14 width on a tree of 192 generated triplets
 # (4 steps at the recipe's batch of 48) over 256 images
@@ -3103,13 +3156,14 @@ def decode_inputs(b, heads, hd, length, layers, li, kind, generator, device):
 
 def check_decode_attention(da, device, card):
     """Phase 3f, #11: the 7B's decode geometry (32 heads of 128, layer 31 of
-    32) at B = 1, 8, 16 over the CIRR prompts' 1,842 cache rows and at B=16
-    over FIQ's 1,241, each over float32, bf16 and int8 caches, timed; then a
+    32) at B = 1, 8, 16 over the CIRR prompts' 1,842 cache rows, at B=16
+    over FIQ's 1,241 and over LLaVA's 547, each over float32, bf16 and int8
+    caches, timed; then a
     ragged B=3, H=4, hd=8, L=37 (the tiny LM's head_dim) untimed."""
     g = torch.Generator(device=device).manual_seed(21)
     records = []
     shapes = [(bb, LLAMA_LEN_CIRR) for bb in (1, 8, LLAMA_BATCH)]
-    shapes.append((LLAMA_BATCH, LLAMA_LEN_FIQ))
+    shapes += [(LLAMA_BATCH, LLAMA_LEN_FIQ), (LLAVA_BATCH, LLAVA_LEN)]
     for b, length in shapes:
         for kind in ("bfloat16", "float32", "int8"):
             case = decode_inputs(b, 32, 128, length, 32, 31, kind, g, device)
@@ -3650,15 +3704,18 @@ def drive_llama_q8(ak, bk, model, cfg, tok, prompts, tmp, card):
     return total
 
 
-def drive_get_cir_data(ak, bk, world, card):
-    """Phase 11c: `python -m spn4cir_tpu_torch.cli.get_cir_data` through its
-    main(): the tiny LM with random weights (`--llm_backend torch-tiny`, the
-    byte tokenizer, head_dim 8) rewrites the tree's triplets at --llm_batch
-    8 on cuda:0 (the default --device), counted from zero."""
+def drive_get_cir_data(ak, bk, world, card, it_path=None):
+    """Phase 14b (11c before PR 14): `python -m
+    spn4cir_tpu_torch.cli.get_cir_data` through its main(): the tiny LM
+    with random weights (`--llm_backend torch-tiny`, the byte tokenizer,
+    head_dim 8) rewrites the tree's triplets at --llm_batch 8 on cuda:0 (the
+    default --device), counted from zero; `it_path` (the LLaVA captioner's
+    it-list: caption -> rewrite as one chain) replaces the tree's own."""
     from spn4cir_tpu_torch.cli import get_cir_data
     from spn4cir_tpu_torch.models.llama import LlamaConfig
 
-    root, _, _, it_path = world
+    root, _, _, world_it = world
+    it_path = it_path or world_it
     count = zero_counts(ak, bk)
     t0 = time.perf_counter()
     path = get_cir_data.main([
@@ -3678,6 +3735,7 @@ def drive_get_cir_data(ak, bk, world, card):
     assert launches == llama_launches(
         LlamaConfig.tiny().num_layers * (LLAMA_NEW - 1) * groups_n), launches
     phase(f"get_cir_data slice: the CLI wrote {len(written)} triplets with "
+          f"the captions of {os.path.relpath(it_path, root)!r} and "
           f"llm_caption to {os.path.relpath(path, root)} in {wall:.2f} s "
           f"(torch-tiny, --llm_batch 8, cuda:0); #11 launched "
           f"{launches['decode_attention']} times at head_dim 8 [{card}]")
@@ -4127,6 +4185,551 @@ def drive_zs_stage1(ak, bk, tmp, card):
     return launches
 
 
+class CallClock:
+    """Wraps methods of an object (or module) with CUDA events and the host
+    clock around every call: {name: [device ms of each call]}."""
+
+    def __init__(self, owner, names):
+        self.owner, self.names, self.saved, self.calls = owner, names, {}, {}
+
+    def __enter__(self):
+        for name in self.names:
+            self.saved[name] = getattr(self.owner, name)
+            setattr(self.owner, name, self._wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.owner, name, fn)
+
+    def _wrap(self, name, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.calls.setdefault(name, []).append((start, end))
+            return out
+        return wrapper
+
+    def ms(self, name):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.calls.get(name, [])]
+
+
+def llava_launches(groups: int, tower_batches: int) -> dict:
+    """The counts of a LLaVA captioning run: #3 in the tower's 23 blocks per
+    image batch, #11 in the LM's 32 layers per decode step, nothing else."""
+    return dict(llama_launches(32 * (LLAVA_NEW - 1) * groups),
+                long_attention=LLAVA_TOWER_LAYERS * tower_batches)
+
+
+def llava_replay(tl, tv, cap, images, tokens, plain):
+    """Every generate step's float32 logits (LLAVA_NEW, B, vocab) of the
+    LLaVA path teacher-forced with `tokens` (B, LLAVA_NEW): the tower
+    through #3 and the decode attention through #11, or both plain."""
+    from spn4cir_tpu_torch.models.layers import set_attention_impl
+
+    cfg = cap.cfg.llama
+    model = cap.model
+    set_attention_impl(model, "plain" if plain else "auto")
+    try:
+        feats = model.encode_images(images)
+    finally:
+        set_attention_impl(model, "auto")
+    embeds = tv.splice_image_embeds(model.model.embed_tokens.weight,
+                                    cap.prompt_ids(LLAVA_PROMPT), feats)
+    b, plen, _ = embeds.shape
+    state = tl.init_llama_state(cfg, b, plen + LLAVA_NEW,
+                                dtype=torch.bfloat16, device=embeds.device)
+    logits, state = tl.llama_prefill(model, cfg, state, embeds)
+    out = [logits.float()]
+    for i in range(1, LLAVA_NEW):
+        x = tl.embed_tokens(model, tokens[:, i - 1])
+        logits, state = tl.llama_decode_step(model, cfg, state, x,
+                                             plen + i - 1,
+                                             attn_kernel=not plain)
+        out.append(logits.float())
+    return torch.stack(out)
+
+
+def check_llava_streams(tl, tv, cap, images, card):
+    """Phase 14, outside the count: the first group's 64-token streams with
+    the tower through #3 and the decode through #11, against the plain
+    versions of both (plain attention in the tower, `attn_kernel=False`).
+    Where two streams part, the routes' bf16 logits may differ: the plain
+    stream's top-2 margin at that step must be within twice the two routes'
+    largest logit difference at that step (one teacher-forced replay of
+    each route over the plain stream's tokens), and that difference within
+    LLAVA_LOGIT_TOL."""
+    from spn4cir_tpu_torch.models.layers import set_attention_impl
+
+    cfg = cap.cfg.llama
+    eos = cap.tok.eos_token_id
+    streams = {}
+    for plain in (False, True):
+        set_attention_impl(cap.model, "plain" if plain else "auto")
+        try:
+            feats = cap.model.encode_images(images)
+        finally:
+            set_attention_impl(cap.model, "auto")
+        embeds = tv.splice_image_embeds(cap.model.model.embed_tokens.weight,
+                                        cap.prompt_ids(LLAVA_PROMPT), feats)
+        streams[plain] = tl.llama_generate(
+            cap.model, cfg, embeds, eos_id=eos, pad_id=eos,
+            max_new_tokens=LLAVA_NEW, do_sample=True, temperature=0.01,
+            top_p=0.01, cache_dtype=torch.bfloat16,
+            attn_kernel=not plain,
+            generator=torch.Generator(device=images.device).manual_seed(0))
+    kern, plain = streams[False], streams[True]
+    lp = llava_replay(tl, tv, cap, images, plain, True)
+    lk = llava_replay(tl, tv, cap, images, plain, False)
+    diff = (lk - lp).abs().amax(dim=-1)             # (steps, B)
+    parted = []
+    for r in range(kern.shape[0]):
+        where = (kern[r] != plain[r]).nonzero()
+        if not len(where):
+            continue
+        t = int(where[0])
+        # past an EOS both streams are padding: the part must come earlier
+        top = lp[t, r].topk(2).values
+        margin = (top[0] - top[1]).item()
+        d = diff[t, r].item()
+        parted.append(dict(row=r, step=t, margin=margin, logit_diff=d))
+        assert margin <= 2 * d, ("parted above the noise", parted)
+    noise = diff.max().item()
+    phase(f"LLaVA streams, 7B bf16 at full width, the first group "
+          f"(B={kern.shape[0]}, {LLAVA_NEW} tokens): the tower through #3 "
+          f"and the decode through #11 against plain attention in both: "
+          f"{kern.shape[0] - len(parted)} of {kern.shape[0]} streams "
+          f"identical; largest logit difference between the routes over "
+          f"the plain streams {noise:.4f} (tolerance {LLAVA_LOGIT_TOL}), at "
+          f"the prefill {diff[0].max().item():.4f}"
+          f"{'; parted ' + str(parted) if parted else ''} [{card}]")
+    assert noise <= LLAVA_LOGIT_TOL, noise
+    return dict(parted=parted, max_logit_diff=noise)
+
+
+def drive_llava(ak, bk, world, tmp, card):
+    """Phase 14a: LLaVA-v1-7B at full width through
+    `datagen.captioner.make_llava_captioner` (byte tokenizer, random bf16
+    weights from seed 0 on the card), `caption_images_batched` with a
+    jsonl sidecar and `write_it_list`, over the 32 images of the rewrite
+    tree in 2 groups of 16, counted from zero; then the sidecar resume
+    (the second group torn off and captioned again, counted from zero: the
+    same captions), a profiler window over decode steps, and the streams
+    against the plain versions. Returns (launches of the first run, the
+    it-list path, the captioner, its transform, its batched_fn)."""
+    import numpy as np
+    from PIL import Image
+
+    from spn4cir_tpu_torch.datagen import captioner as dc
+    from spn4cir_tpu_torch.models import llama as tl
+    from spn4cir_tpu_torch.models import llava as tv
+    from spn4cir_tpu_torch.tokenizer.bytelevel import ByteTokenizer
+
+    root, ds, _, _ = world
+    device = torch.device("cuda:0")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cap, transform, batched_fn = dc.make_llava_captioner(
+        None, tokenizer=ByteTokenizer(), batch_size=LLAVA_BATCH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = cap.cfg
+    assert (cfg.llama.hidden_size, cfg.llama.num_layers, cfg.vision.width,
+            cfg.vision.effective_layers) == (4096, 32, 1024, 23), cfg
+    n_params = sum(p.numel() for p in cap.model.parameters())
+    ids = cap.prompt_ids(LLAVA_PROMPT)
+    assert len(ids) - 1 == LLAVA_PROMPT_IDS, len(ids)
+    plen = LLAVA_PROMPT_IDS + cfg.vision.num_patches
+    pairs = list(zip(ds.imagenames, ds.imagepaths))
+    assert len(pairs) == LLAVA_IMAGES, len(pairs)
+
+    def images(subset):
+        for name, path in subset:
+            yield name, transform(Image.open(path))
+
+    sidecar = os.path.join(tmp, "llava_it.partial.jsonl")
+    groups = LLAVA_IMAGES // LLAVA_BATCH
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    with StepClock(tl) as clock, CallClock(cap.model,
+                                           ["encode_images"]) as tower:
+        it_list = dc.caption_images_batched(
+            images(pairs), batched_fn, batch_size=LLAVA_BATCH,
+            checkpoint_path=sidecar)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(count)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = llava_launches(groups, groups)
+    assert launches == want, (launches, want)
+    out_root = os.path.join(tmp, "mm_data")
+    path = dc.write_it_list(it_list, "cirr", "llava", 10, out_root=out_root)
+    with open(path) as fh:
+        written = json.load(fh)
+    assert [e["image_id"] for e in written] == [n for n, _ in pairs]
+    assert all(isinstance(e["caption"], str) for e in written)
+    per = clock.groups()
+    assert len(per) == groups and all(g["steps"] == LLAVA_NEW - 1
+                                      for g in per), per
+    tower_ms = tower.ms("encode_images")
+    step_ms = statistics.mean(g["step_ms"] for g in per)
+
+    # the sidecar resume: keep the first group and a torn line, caption the
+    # rest again
+    with open(sidecar) as fh:
+        lines = fh.read().splitlines()
+    assert len(lines) == LLAVA_IMAGES, len(lines)
+    with open(sidecar, "w") as fh:
+        fh.write("\n".join(lines[:LLAVA_BATCH]) + "\n" + lines[-1][:20])
+    done = dc.load_caption_checkpoint(sidecar)
+    assert len(done) == LLAVA_BATCH, len(done)
+    count = zero_counts(ak, bk)
+    resumed = dc.caption_images_batched(
+        images([p for p in pairs if p[0] not in done]), batched_fn,
+        batch_size=LLAVA_BATCH, checkpoint_path=sidecar, already=done)
+    resumed_launches = read_counts(count)
+    assert resumed_launches == llava_launches(1, 1), resumed_launches
+    assert sorted(resumed, key=lambda e: e["image_id"]) == sorted(
+        written, key=lambda e: e["image_id"]), "the resume captioned anew"
+    assert len(dc.load_caption_checkpoint(sidecar)) == LLAVA_IMAGES
+
+    # outside the count: a profiler window over decode steps of the first
+    # group, and the streams against the plain versions
+    batch = torch.from_numpy(np.stack(
+        [transform(Image.open(p)) for _, p in pairs[:LLAVA_BATCH]])).to(device)
+    with torch.inference_mode():
+        feats = cap.model.encode_images(batch)
+        embeds = tv.splice_image_embeds(cap.model.model.embed_tokens.weight,
+                                        ids, feats)
+        state = tl.init_llama_state(cfg.llama, LLAVA_BATCH, LLAVA_LEN,
+                                    dtype=torch.bfloat16, device=device)
+        tl.llama_prefill(cap.model, cfg.llama, state, embeds)
+        x = tl.embed_tokens(cap.model, torch.full(
+            (LLAVA_BATCH,), cap.tok.eos_token_id, device=device))
+        prof = profile_decode(tl, cap.model, cfg.llama, state,
+                              (x, plen, None, None), False, tmp, "llava")
+        del state, feats, embeds
+        torch.cuda.empty_cache()
+        streams = check_llava_streams(tl, tv, cap, batch, card)
+    stats = dict(
+        build_s=build_s, parameters=n_params, wall_s=wall,
+        captions_per_s=LLAVA_IMAGES / wall, tower_ms_per_batch=tower_ms,
+        prefill_ms=[g["prefill_ms"] for g in per],
+        decode_ms_per_step=step_ms,
+        decode_host_ms_per_step=statistics.mean(
+            g["step_host_ms"] for g in per),
+        peak_gb=peak_gb, profile=prof, streams=streams,
+        launches=launches, resumed_launches=resumed_launches)
+    phase(step_line(f"LLaVA-7B bf16, bf16 cache, B={LLAVA_BATCH}, "
+                    f"{LLAVA_LEN}-row cache", prof) + f" [{card}]")
+    phase(f"llava slice: make_llava_captioner built LLaVA-v1-7B ({n_params} "
+          f"parameters, random bf16 LM, float32 tower) in {build_s:.2f} s; "
+          f"caption_images_batched captioned {LLAVA_IMAGES} images (B="
+          f"{LLAVA_BATCH}, {groups} groups, {plen}-row prompts = "
+          f"{LLAVA_PROMPT_IDS} ids + {cfg.vision.num_patches} patches, "
+          f"{LLAVA_NEW} new tokens) in {wall:.2f} s = "
+          f"{stats['captions_per_s']:.2f} captions/s; tower "
+          f"{[round(t, 3) for t in tower_ms]} ms per batch; prefill "
+          f"{[round(g['prefill_ms'], 1) for g in per]} ms per group; decode "
+          f"{step_ms:.3f} ms/step by CUDA events (host clock "
+          f"{stats['decode_host_ms_per_step']:.3f}); peak device memory "
+          f"{peak_gb:.2f} GiB; launches {launches} (want {want}); "
+          f"write_it_list wrote {os.path.relpath(path, tmp)}; the sidecar "
+          f"resume (16 kept, a torn line, 16 captioned again) launched "
+          f"{resumed_launches['long_attention']} #3 and "
+          f"{resumed_launches['decode_attention']} #11 and gave the same "
+          f"captions [{card}]")
+    phase("llava slice stats " + json.dumps(stats))
+    return launches, path, cap, transform, batched_fn
+
+
+def drive_llava_service(ak, bk, cap, transform, batched_fn, card):
+    """Phase 14c: LLaVA's batched_fn behind a `CaptionService`: 8
+    concurrent requests of one image each, half with a per-request prompt,
+    counted from zero. Every reply is a string; the requests coalesce into
+    one captioner call per prompt and window."""
+    import numpy as np
+    from PIL import Image
+
+    from spn4cir_tpu_torch.serve.mllm import CaptionService
+
+    # the service's worker thread keeps its batched_fn for good: hand it one
+    # that lets the 7B go when this phase ends
+    holder = {"fn": batched_fn}
+    svc = CaptionService(
+        lambda images, prompt=None: holder["fn"](images, prompt=prompt),
+        transform, model_name="llava", max_batch=LLAVA_BATCH,
+        max_delay_s=0.2, default_prompt=None)
+    rng = np.random.RandomState(3)
+    imgs = [Image.fromarray((rng.rand(224, 224, 3) * 255).astype(np.uint8))
+            for _ in range(8)]
+    prompts = [None, "what color is the item"] * 4
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(lambda ip: svc.caption([ip[0]], ip[1]),
+                             zip(imgs, prompts)))
+    wall = time.perf_counter() - t0
+    launches = read_counts(count)
+    assert all(len(o) == 1 and isinstance(o[0], str) for o in outs), outs
+    holder.clear()
+    m = svc.metrics()
+    assert m["requests"] == 8 and m["images"] == 8, m
+    assert m["batches_dispatched"] < 8, m
+    n = m["batches_dispatched"]
+    assert launches == llava_launches(n, n), (launches, n)
+    phase(f"llava service: 8 concurrent requests (two prompts) through "
+          f"CaptionService in {wall:.2f} s, {n} captioner calls; /metrics "
+          f"{json.dumps(m)}; launches {launches} [{card}]")
+    return launches
+
+
+def drive_blip_caption(ak, bk, tmp, card):
+    """Phase 15: BLIP caption base at full width through `python -m
+    spn4cir_tpu_torch.cli.captioner --mllm blip` (its main()) over a
+    64-image synthetic CIRR tree, batch 32, beam 3, counted from zero: 12
+    launches of #3 per batch of the ViT at 384 (S=577), the MED decoder's
+    attention plain tensor code; then again (the resume loads no model),
+    and once with --nucleus; then `cli.serve_mllm --mllm blip --no-block`
+    with concurrent /caption requests. Returns (the captioner launches, the
+    serving launches)."""
+    import base64
+
+    import numpy as np
+
+    from PIL import Image
+
+    from spn4cir_tpu_torch.cli import captioner as cli_captioner
+    from spn4cir_tpu_torch.cli import serve_mllm
+    from spn4cir_tpu_torch.models.blip_caption import BlipCaptioner
+
+    root = load_test_module("fixtures").make_cirr(
+        os.path.join(tmp, "cirr_caption"), n_images=BLIP_CAPTION_IMAGES,
+        n_train=8 * BLIP_CAPTION_IMAGES, n_val=8, extended=False)
+    vocab = os.environ["SPN4CIR_BERT_VOCAB"]
+    argv = ["--mllm", "blip", "--blip_size", "base", "--bert_vocab", vocab,
+            "--cir_data", "cirr", "--data_path", root, "--batch_size",
+            str(BLIP_CAPTION_BATCH)]
+    from spn4cir_tpu_torch.models.blip_vit import BlipViTConfig
+
+    vit_layers = BlipViTConfig.base().layers
+    batches = BLIP_CAPTION_IMAGES // BLIP_CAPTION_BATCH
+    want = dict(short_attention=0, short_attention_bwd=0,
+                long_attention=vit_layers * batches, long_attention_bwd=0,
+                **bank_launches(False, 0))
+    cwd = os.getcwd()
+    work = os.path.join(tmp, "caption_cwd")
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)      # the it-list lands under the working directory
+    stats = {}
+    try:
+        for label, extra in (("beam 3", []), ("resume", []),
+                             ("nucleus", ["--nucleus", "--caption_ckpt",
+                                          ""])):
+            count = zero_counts(ak, bk)
+            loads = []
+            real = cli_captioner.make_blip_captioner
+
+            def counted(*a, **k):
+                loads.append(1)
+                return real(*a, **k)
+
+            cli_captioner.make_blip_captioner = counted
+            t0 = time.perf_counter()
+            try:
+                with CallClock(BlipCaptioner, ["encode", "generate_ids"]) \
+                        as clock, contextlib.redirect_stdout(io.StringIO()):
+                    path = cli_captioner.main(argv + extra)
+                    torch.cuda.synchronize()
+            finally:
+                cli_captioner.make_blip_captioner = real
+            wall = time.perf_counter() - t0
+            launches = read_counts(count)
+            with open(path) as fh:
+                written = json.load(fh)
+            assert len(written) == BLIP_CAPTION_IMAGES, len(written)
+            assert all(isinstance(e["caption"], str) for e in written)
+            if label == "resume":
+                assert loads == [] and launches == dict(
+                    want, long_attention=0), (loads, launches)
+            else:
+                assert loads == [1] and launches == want, (loads, launches)
+            enc, gen = clock.ms("encode"), clock.ms("generate_ids")
+            stats[label] = dict(wall_s=wall, launches=launches,
+                                encode_ms=enc, generate_ms=gen,
+                                captions_per_s=BLIP_CAPTION_IMAGES / wall)
+            phase(f"blip caption slice, cli.captioner {label}: wrote "
+                  f"{len(written)} captions to {os.path.relpath(path, work)} "
+                  f"in {wall:.2f} s ({BLIP_CAPTION_IMAGES / wall:.2f} "
+                  f"captions/s; model loads {len(loads)}); ViT encode "
+                  f"{[round(t, 3) for t in enc]} ms, generation "
+                  f"{[round(t, 1) for t in gen]} ms per batch of "
+                  f"{BLIP_CAPTION_BATCH}; launches {launches}; e.g. "
+                  f"{written[0]['caption'][:60]!r} [{card}]")
+        first = stats["beam 3"]["launches"]
+    finally:
+        os.chdir(cwd)
+
+    # the caption service through its entry point
+    rng = np.random.RandomState(5)
+    blobs = []
+    for _ in range(BLIP_SERVE_REQUESTS):
+        buf = io.BytesIO()
+        Image.fromarray((rng.rand(96, 128, 3) * 255).astype(np.uint8)).save(
+            buf, format="PNG")
+        blobs.append(base64.b64encode(buf.getvalue()).decode())
+    with contextlib.redirect_stdout(io.StringIO()):
+        server, service = serve_mllm.main([
+            "--mllm", "blip", "--blip_size", "base", "--bert_vocab", vocab,
+            "--batch_size", "16", "--max_delay_ms", "100", "--port", "0",
+            "--host", "127.0.0.1", "--no-block"])
+    port = server.server_address[1]
+
+    def ask(i):
+        body = ({"image_b64": blobs[i]} if i % 2 else
+                {"images_b64": [blobs[i], blobs[i - 1]]})
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/caption", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        return out, (time.perf_counter() - t0) * 1e3
+
+    try:
+        count = zero_counts(ak, bk)
+        with CallClock(BlipCaptioner, ["encode"]) as clock, \
+                concurrent.futures.ThreadPoolExecutor(
+                    BLIP_SERVE_REQUESTS) as pool:
+            outs = list(pool.map(ask, range(BLIP_SERVE_REQUESTS)))
+        serve_launches = read_counts(count)
+        # a coalesced call may pass the cap by a request's images; the
+        # captioner then runs two device batches
+        device_batches = len(clock.ms("encode"))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics") as r:
+            metrics = json.loads(r.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz") as r:
+            health = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    caps = []
+    for i, (out, _) in enumerate(outs):
+        got = [out["caption"]] if i % 2 else out["captions"]
+        assert len(got) == (1 if i % 2 else 2), out
+        caps.extend(got)
+    assert all(isinstance(c, str) and c for c in caps), caps
+    n_images = len(caps)
+    assert health == {"status": "ok", "model": "blip"}, health
+    assert metrics["requests"] == BLIP_SERVE_REQUESTS, metrics
+    assert metrics["images"] == n_images, metrics
+    assert metrics["batches_dispatched"] < BLIP_SERVE_REQUESTS, metrics
+    assert serve_launches == dict(
+        want, long_attention=vit_layers * device_batches), (
+        serve_launches, metrics, device_batches)
+    ms = [m for _, m in outs]
+    phase(f"blip caption service: {BLIP_SERVE_REQUESTS} concurrent "
+          f"/caption requests ({n_images} images) through cli.serve_mllm: "
+          f"every reply a non-empty string, client p50 {pct(ms, 0.5):.1f} ms,"
+          f" max {max(ms):.1f} ms; /metrics {json.dumps(metrics)}; "
+          f"{device_batches} device batches of 16; launches "
+          f"{serve_launches} [{card}]")
+    phase("blip caption slice stats " + json.dumps(stats))
+    return first, serve_launches
+
+
+def drive_cases(ak, bk, argv, tmp, card):
+    """Phase 6b: `cli.validate_case` on the flagship RN50x4 checkpoint and
+    on random weights of the same recipe, then `cli.analysis_case` over the
+    two dumps, counted from zero: #1 in the text tower's layers (12) per
+    query batch of 32, nothing else."""
+    from spn4cir_tpu_torch.cli import analysis_case
+    from spn4cir_tpu_torch.cli.validate_case import validate_case_main
+
+    from spn4cir_tpu_torch.models.clip import CLIP_CONFIGS
+
+    ckpt = os.path.join(argv[argv.index("--output_path") + 1], "best.pt")
+    text_layers = CLIP_CONFIGS[argv[argv.index("--clip-model-name") + 1]
+                               ].transformer_layers
+    outs = {}
+    count = zero_counts(ak, bk)
+    for label, extra in (("best", ["--model_path", ckpt]), ("random", [])):
+        out = os.path.join(tmp, "cases", f"{label}.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            (summary,) = validate_case_main(
+                "clip", argv + extra + ["--cases_out", out])
+        with open(out) as fh:
+            cases = json.load(fh)
+        assert len(cases) == summary["queries"] > 0, summary
+        assert all(len(c["topk"]) == 10 and c["reference_name"] not in
+                   c["topk"] and 0 <= c["rank"] for c in cases)
+        outs[label] = (out, summary)
+    launches = read_counts(count)
+    want = dict(short_attention=text_layers * 2 * math.ceil(
+                    outs["best"][1]["queries"] / 32),
+                short_attention_bwd=0, **NO_LONG, **bank_launches(True, 0))
+    assert launches == want, (launches, want)
+    with contextlib.redirect_stdout(io.StringIO()):
+        wins = analysis_case.main(["--cases_a", outs["random"][0],
+                                   "--cases_b", outs["best"][0]])
+    phase(f"cases slice: cli.validate_case on best.pt "
+          f"{json.dumps(outs['best'][1])} and on random weights "
+          f"{json.dumps(outs['random'][1])}; cli.analysis_case: {len(wins)} "
+          f"queries where the random model misses the top 10 and best.pt "
+          f"ranks the target first; launches {launches} [{card}]")
+    return launches
+
+
+def drive_retrieval(ak, bk, tmp, card):
+    """Phase 16: `python -m spn4cir_tpu_torch.cli.retrieval` (its main())
+    with ViT-L/14 at full width (random weights from seed 0, float32) over
+    the 64 images of the caption tree: i2i of the gallery against itself,
+    then t2i for 4 captions, each counted from zero: #3 in the 24 vision
+    layers per batch of 32, #1 in the 12 text layers."""
+    from spn4cir_tpu_torch.cli import retrieval as cli_retrieval
+    from spn4cir_tpu_torch.models.clip import CLIP_CONFIGS
+
+    cfg = CLIP_CONFIGS["ViT-L/14"]
+    gallery = os.path.join(tmp, "cirr_caption", "dev")
+    n = len(os.listdir(gallery))
+    batches = math.ceil(n / 32)
+    common = ["--gallery", gallery, "--topk", "5"]
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        top = cli_retrieval.main(common + ["--out_dir",
+                                           os.path.join(tmp, "ret_i2i")])
+    i2i_s = time.perf_counter() - t0
+    i2i = read_counts(count)
+    assert top.shape == (n, 5) and all(i not in top[i] for i in range(n))
+    count = zero_counts(ak, bk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        top_t = cli_retrieval.main(common + [
+            "--text", ",".join(CAPTIONS), "--out_dir",
+            os.path.join(tmp, "ret_t2i")])
+    t2i_s = time.perf_counter() - t0
+    t2i = read_counts(count)
+    assert top_t.shape == (len(CAPTIONS), 5)
+    assert len(os.listdir(os.path.join(tmp, "ret_i2i"))) == n
+    base = dict(short_attention_bwd=0, long_attention_bwd=0,
+                **bank_launches(False, 0))
+    assert i2i == dict(base, short_attention=0,
+                       long_attention=cfg.vision_layers * batches), i2i
+    assert t2i == dict(base, short_attention=cfg.transformer_layers,
+                       long_attention=cfg.vision_layers * batches), t2i
+    phase(f"retrieval slice: cli.retrieval ViT-L/14 float32 i2i over {n} "
+          f"images in {i2i_s:.2f} s (launches {i2i}), t2i for "
+          f"{len(CAPTIONS)} captions in {t2i_s:.2f} s (launches {t2i}); "
+          f"t2i top-5 of the first caption {top_t[0].tolist()} [{card}]")
+    return {k: i2i[k] + t2i[k] for k in i2i}
+
+
 def pick(records, **want):
     return next(r for r in records
                 if all(r[k] == v for k, v in want.items()))
@@ -4241,6 +4844,7 @@ def main() -> int:
             bank_dtype="int8", n_gallery=FLAGSHIP_IMAGES,
             n_train=FLAGSHIP_TRAIN)
         eval_launches = drive_flagship_eval(ak, bk, argv, trained, tmp, card)
+        cases_launches = drive_cases(ak, bk, argv, tmp, card)
         del trained
         torch.cuda.empty_cache()
 
@@ -4301,10 +4905,21 @@ def main() -> int:
                                      card)
         del model7
         torch.cuda.empty_cache()
-        get_cir_data_launches = drive_get_cir_data(ak, bk, world, card)
         check_llama_streams(tok, prompts, card)
 
         lap("11")
+        # phase 14: LLaVA-v1-7B captions the rewrite tree, its batched_fn
+        # behind the caption service, then the it-list into get_cir_data
+        (llava_launches_, llava_it, llava_cap, llava_tf,
+         llava_fn) = drive_llava(ak, bk, world, tmp, card)
+        llava_service_launches = drive_llava_service(
+            ak, bk, llava_cap, llava_tf, llava_fn, card)
+        del llava_cap, llava_fn
+        torch.cuda.empty_cache()
+        get_cir_data_launches = drive_get_cir_data(ak, bk, world, card,
+                                                   it_path=llava_it)
+
+        lap("14")
         # phase 12: tgcir at full ViT-B/16 width through its entry points,
         # on the flagship slice's tree
         tgcir_serve_launches = drive_tgcir_serving(ak, bk, layers,
@@ -4326,6 +4941,16 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         lap("13")
+        # phase 15: BLIP caption base through cli.captioner and
+        # cli.serve_mllm; phase 16: cli.retrieval with ViT-L/14
+        blip_caption_launches, blip_caption_serve_launches = \
+            drive_blip_caption(ak, bk, tmp, card)
+        torch.cuda.empty_cache()
+        lap("15")
+        retrieval_launches = drive_retrieval(ak, bk, tmp, card)
+        torch.cuda.empty_cache()
+
+        lap("16")
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
         check_blip_plain_step(layers, card)
@@ -4356,7 +4981,13 @@ def main() -> int:
                     "tgcir_train": (tgcir_train_launches[name]
                                     + tgcir_eval_launches[name]),
                     "negtype": negtype_launches[name],
-                    "zs_stage1": zs_launches[name]}
+                    "zs_stage1": zs_launches[name],
+                    "cases": cases_launches[name],
+                    "llava": llava_launches_[name],
+                    "llava_service": llava_service_launches[name],
+                    "blip_caption": blip_caption_launches[name],
+                    "blip_caption_serve": blip_caption_serve_launches[name],
+                    "retrieval": retrieval_launches[name]}
 
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
         at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
@@ -4366,7 +4997,7 @@ def main() -> int:
             "short_attention", jax_ops + "attention_kernels.py:257",
             csrc + "short_attention.cu", by_path("short_attention"),
             ("serve", "train", "flagship", "tgcir_serve", "tgcir_train",
-             "negtype", "zs_stage1"), fwd_records,
+             "negtype", "zs_stage1", "cases", "retrieval"), fwd_records,
             pick(fwd_records, tower="vision", dtype="bfloat16"),
             also=[pick(fwd_records, tower=t, dtype="bfloat16") for t in
                   ("text", "train-text", "flagship-text",
@@ -4405,7 +5036,9 @@ def main() -> int:
         for name, line, on_paths, recs in (
                 ("long_attention", 74,
                  ("blip_serve", "blip_train", "blip_stage1", "blip2_serve",
-                  "blip2_train", "tgcir_serve", "tgcir_train", "zs_stage1"),
+                  "blip2_train", "tgcir_serve", "tgcir_train", "zs_stage1",
+                  "llava", "llava_service", "blip_caption",
+                  "blip_caption_serve", "retrieval"),
                  long_fwd_records),
                 ("long_attention_bwd", 109, ("blip_stage1", "zs_stage1"),
                  long_bwd_records)):
@@ -4419,7 +5052,8 @@ def main() -> int:
                       pick(recs, tower="eva-g-extract", dtype="bfloat16"),
                       pick(recs, tower="eva-g-extract", dtype="float32"),
                       pick(recs, tower="zs-stage1", dtype="bfloat16"),
-                      pick(recs, tower="tgcir-extract", dtype="bfloat16")]))
+                      pick(recs, tower="tgcir-extract", dtype="bfloat16"),
+                      pick(recs, tower="llava-tower", dtype="bfloat16")]))
         at_mq = (f"B={BLIP2_BATCH}, M={RECIPE_BANK}, Q={BLIP2_QUERIES}, "
                  f"D={BLIP_DIM}")
         for name, line in (("max_query_infonce_fwd", 72),
@@ -4437,7 +5071,8 @@ def main() -> int:
         entries.append(kernel_entry(
             "decode_attention", jax_ops + "decode_attn.py:97",
             csrc + "decode_attention.cu", by_path("decode_attention"),
-            ("rewrite", "llama_q8", "get_cir_data"), decode_records,
+            ("rewrite", "llama_q8", "get_cir_data", "llava", "llava_service"),
+            decode_records,
             pick(decode_records, shape=at_dec, dtype="bfloat16"),
             also=[pick(decode_records, shape=at_dec, dtype=t)
                   for t in ("float32", "int8")]
@@ -4445,8 +5080,8 @@ def main() -> int:
                 f"B={LLAMA_BATCH}", f"B={b}"), dtype=t)
                for b in (1, 8) for t in ("bfloat16", "int8")]
             + [pick(decode_records, shape=at_dec.replace(
-                f"L={LLAMA_LEN_CIRR}", f"L={LLAMA_LEN_FIQ}"),
-                dtype="bfloat16")]))
+                f"L={LLAMA_LEN_CIRR}", f"L={length}"), dtype="bfloat16")
+               for length in (LLAMA_LEN_FIQ, LLAVA_LEN)]))
         entries.append(kernel_entry(
             "quant_matmul", jax_ops + "quant_matmul.py:54",
             csrc + "quant_matmul.cu", by_path("quant_matmul"), ("llama_q8",),

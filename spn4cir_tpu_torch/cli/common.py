@@ -132,6 +132,13 @@ def finalize_args(args) -> None:
         print("    ", k, ":", v)
 
 
+#: --llm_cache of the LLaMA / LLaVA entry points ('' = the model's default)
+CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "int8": torch.int8}
+#: --attn_kernel: 'auto' follows models/llama.py:DECODE_ATTN_DEFAULT
+ATTN_KERNEL = {"auto": None, "on": True, "off": False}
+
+
 def resolve_device(spec: str) -> torch.device:
     """--device: "N" -> cuda:N, "cpu" -> the CPU. A CUDA device that is not
     there raises; nothing falls back to the CPU."""

@@ -24,17 +24,13 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
+from spn4cir_tpu_torch.cli.common import ATTN_KERNEL, CACHE_DTYPES
 from spn4cir_tpu_torch.data.datasets import CIRDataset
 from spn4cir_tpu_torch.data.transforms import ImageTransform
 from spn4cir_tpu_torch.datagen.generate import (
     generate_cc_triplets, generate_extended_triplets, load_it_list,
     write_cc_triplets, write_extended_triplets)
-
-_CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
-                 "int8": torch.int8}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
@@ -117,8 +113,8 @@ def _rewriter(args, base: str):
         llm_type=int(args.use_llm), tiny=args.llm_backend == "torch-tiny",
         seed=args.seed, batch_size=args.llm_batch,
         prefill_chunk=args.prefill_chunk or None,
-        cache_dtype=_CACHE_DTYPES.get(args.llm_cache),
-        attn_kernel={"auto": None, "on": True, "off": False}[args.attn_kernel],
+        cache_dtype=CACHE_DTYPES.get(args.llm_cache),
+        attn_kernel=ATTN_KERNEL[args.attn_kernel],
         device=args.device)
 
 

@@ -46,6 +46,14 @@ are stacked into the port's one Linear(D -> S), as the JAX package's
 LLaMA of the datagen rewriter, into HF `LlamaForCausalLM`'s names; they
 invert `convert_llama_state_dict` of the JAX package, for a dense tree and
 for an int8 one.
+
+The captioners: `llava_state_dict_from_jax` / `load_llava_checkpoint` carry
+LLaVA-v1 (the JAX `LlavaModule` tree, or an HF `LlavaLlamaForCausalLM`
+state dict) into `models.llava.LlavaLlamaForCausalLM`'s names, inverting
+`convert_llava_state_dict` and `convert_hf_clip_vision`;
+`blip_caption_state_dict_from_jax` / `load_blip_caption_checkpoint` carry
+the BLIP captioner (LAVIS `blip_caption`) into `models.blip_caption.
+BlipCaption`'s, inverting `convert_blip_caption`.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from spn4cir_tpu_torch.models.blip_vit import BlipViTConfig
 from spn4cir_tpu_torch.models.clip import CLIPConfig
 from spn4cir_tpu_torch.models.eva_vit import EvaViTConfig
 from spn4cir_tpu_torch.models.llama import LlamaConfig, QuantKernel
+from spn4cir_tpu_torch.models.llava import LlavaConfig
 from spn4cir_tpu_torch.models.med import MedConfig
 from spn4cir_tpu_torch.models.qformer import QFormerConfig
 
@@ -689,4 +698,148 @@ def load_llama_checkpoint(path: str, cfg: LlamaConfig
     if last not in sd or extra in sd:
         raise ValueError(f"{path} is not a {cfg.num_layers}-layer LLaMA "
                          f"state dict")
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# the captioners: LLaVA-v1 and BLIP caption
+# ---------------------------------------------------------------------------
+
+LLAVA_TOWER = "model.vision_tower.vision_tower.vision_model."
+#: where LLaVA checkpoints keep the CLIPVisionModel, in the order the JAX
+#: converter tries them
+LLAVA_TOWER_PREFIXES = (LLAVA_TOWER,
+                        "model.vision_tower.0.vision_tower.vision_model.",
+                        "vision_tower.vision_model.", "vision_model.")
+
+
+def llava_state_dict_from_jax(params_np: Mapping[str, Any],
+                              cfg: LlavaConfig) -> Dict[str, Any]:
+    """JAX `LlavaModule` params ({'params': ...} or the inner tree; numpy or
+    device leaves) -> `LlavaLlamaForCausalLM`'s names. The LM goes through
+    `llama_state_dict_from_jax` (dense, or int8 QuantKernel leaves); the
+    tower's fused qkv kernel splits into HF's q / k / v projections, its
+    HWIO patch kernel becomes the OIHW convolution weight."""
+    p = params_np.get("params", params_np)
+    sd = llama_state_dict_from_jax(p["language_model"], cfg.llama)
+    vis = p["vision_tower"]
+    t = LLAVA_TOWER
+    sd[t + "embeddings.patch_embedding.weight"] = _oihw(
+        vis["patch_embed"]["kernel"])
+    sd[t + "embeddings.class_embedding"] = _tensor(vis["class_embedding"])
+    sd[t + "embeddings.position_embedding.weight"] = _tensor(
+        vis["positional_embedding"])
+    sd[t + "pre_layrnorm.weight"] = _tensor(vis["ln_pre"]["ln"]["scale"])
+    sd[t + "pre_layrnorm.bias"] = _tensor(vis["ln_pre"]["ln"]["bias"])
+    block = vis["transformer"]["blocks"]["block"]
+    layers = t + "encoder.layers"
+    for ours, theirs in (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2")):
+        _unstack(sd, layers, f"{ours}.weight", block[theirs]["ln"]["scale"])
+        _unstack(sd, layers, f"{ours}.bias", block[theirs]["ln"]["bias"])
+    kernel = np.asarray(block["attn"]["qkv"]["kernel"])
+    bias = np.asarray(block["attn"]["qkv"]["bias"])
+    d = kernel.shape[1]
+    for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+        _unstack(sd, layers, f"self_attn.{proj}.weight",
+                 kernel[:, :, j * d:(j + 1) * d], True)
+        _unstack(sd, layers, f"self_attn.{proj}.bias",
+                 bias[:, j * d:(j + 1) * d])
+    for ours, node in (("self_attn.out_proj", block["attn"]["out"]),
+                       ("mlp.fc1", block["mlp"]["fc"]),
+                       ("mlp.fc2", block["mlp"]["proj"])):
+        _unstack(sd, layers, f"{ours}.weight", node["kernel"], True)
+        _unstack(sd, layers, f"{ours}.bias", node["bias"])
+    proj = p["mm_projector"]
+    sd["model.mm_projector.weight"] = _tensor(np.asarray(proj["kernel"]).T)
+    sd["model.mm_projector.bias"] = _tensor(proj["bias"])
+    return sd
+
+
+def load_llava_checkpoint(path: str, cfg: LlavaConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """Read an HF `LlavaLlamaForCausalLM` state dict (a torch file,
+    possibly under {'state_dict': ...} / {'model': ...}) for the port's
+    `LlavaLlamaForCausalLM`, in its own types. The CLIPVisionModel may sit
+    under any of `LLAVA_TOWER_PREFIXES` (the JAX converter's four); its
+    blocks past `effective_layers`, its `post_layernorm` and HF's
+    `position_ids` / `rotary_emb.inv_freq` buffers are dropped. The LM's
+    layer count must be the config's."""
+    obj = _unwrap_checkpoint(path)
+    tower = next((c for c in LLAVA_TOWER_PREFIXES
+                  if f"{c}embeddings.class_embedding" in obj), None)
+    if tower is None:
+        raise KeyError(f"{path}: no CLIPVisionModel keys")
+    keep_layers = cfg.vision.effective_layers
+    sd: Dict[str, torch.Tensor] = {}
+    for k, v in obj.items():
+        if k.endswith(("rotary_emb.inv_freq", "position_ids")):
+            continue
+        if k.startswith(tower):
+            rest = k[len(tower):]
+            if rest.startswith("post_layernorm."):
+                continue
+            if rest.startswith("encoder.layers."):
+                if int(rest.split(".")[2]) >= keep_layers:
+                    continue
+            sd[LLAVA_TOWER + rest] = v.detach()
+        elif k.startswith(("model.embed_tokens.", "model.layers.",
+                           "model.norm.", "model.mm_projector.", "lm_head.")):
+            sd[k] = v.detach()
+    n = cfg.llama.num_layers
+    if (f"model.layers.{n - 1}.input_layernorm.weight" not in sd
+            or f"model.layers.{n}.input_layernorm.weight" in sd):
+        raise ValueError(f"{path} is not a {n}-layer LLaVA state dict")
+    return sd
+
+
+def med_lm_state_dict(tree: Mapping, prefix: str = "text_decoder"
+                      ) -> Dict[str, torch.Tensor]:
+    """A JAX `MedLMModel` params tree -> `BertLMHeadModel`'s entries: the
+    trunk through `med_state_dict` under `{prefix}.bert`, the head under
+    `{prefix}.cls.predictions` (bare names with an empty `prefix`)."""
+    pre = f"{prefix}." if prefix else ""
+    sd = med_state_dict(tree["bert"], prefix=f"{pre}bert")
+    head = tree["lm_head"]
+    cls = f"{pre}cls.predictions"
+    sd[f"{cls}.transform.dense.weight"] = _tensor(
+        np.asarray(head["transform"]["kernel"]).T)
+    sd[f"{cls}.transform.dense.bias"] = _tensor(head["transform"]["bias"])
+    sd[f"{cls}.transform.LayerNorm.weight"] = _tensor(
+        head["transform_ln"]["scale"])
+    sd[f"{cls}.transform.LayerNorm.bias"] = _tensor(
+        head["transform_ln"]["bias"])
+    sd[f"{cls}.decoder.weight"] = _tensor(
+        np.asarray(head["decoder"]["kernel"]).T)
+    sd[f"{cls}.bias"] = _tensor(head["decoder"]["bias"])
+    return sd
+
+
+def blip_caption_state_dict_from_jax(params_np: Mapping[str, Any]
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX `BlipCaptionModule` params ({'params': ...} or the inner tree)
+    -> `BlipCaption`'s LAVIS names: the ViT through `blip_vit_state_dict`,
+    the decoder through `med_lm_state_dict`."""
+    p = params_np.get("params", params_np)
+    sd = blip_vit_state_dict(p["visual_encoder"])
+    sd.update(med_lm_state_dict(p["text_decoder"]))
+    return sd
+
+
+def load_blip_caption_checkpoint(path: str, num_tokens: Optional[int] = None
+                                 ) -> Dict[str, torch.Tensor]:
+    """Read a LAVIS `blip_caption` / upstream `blip_decoder` checkpoint into
+    a float32 state dict for `BlipCaption`: takes the {'model': sd} /
+    {'state_dict': sd} wrappers, keeps `visual_encoder.*` and
+    `text_decoder.*`, drops HF's `position_ids` buffers and the head's
+    `decoder.bias` (HF ties it to `cls.predictions.bias`, which the JAX
+    converter reads), and resamples `visual_encoder.pos_embed` to
+    `num_tokens`."""
+    obj = _unwrap_checkpoint(path)
+    sd = {k: v.detach().to(torch.float32) for k, v in obj.items()
+          if k.startswith(("visual_encoder.", "text_decoder."))
+          and "position_ids" not in k
+          and k != "text_decoder.cls.predictions.decoder.bias"}
+    if num_tokens is not None and "visual_encoder.pos_embed" in sd:
+        sd["visual_encoder.pos_embed"] = interpolate_pos_embed(
+            sd["visual_encoder.pos_embed"], num_tokens)
     return sd

@@ -1,5 +1,5 @@
-"""LLaMA decoder: the language model behind the LLaMA-2 rewriter (and, later,
-the LLaVA captioner).
+"""LLaMA decoder: the language model behind the LLaMA-2 rewriter and the
+LLaVA captioner (`models/llava.py`).
 
 Counterpart of `spn4cir_tpu/models/llama.py`, under HF `LlamaForCausalLM`
 names, so an HF state dict loads with `load_state_dict`:
@@ -231,6 +231,19 @@ def quantize_llama_weights(params) -> Dict[str, Any]:
 # the module tree (HF names) and its teacher-forced forward
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
+def init_llama_param(name: str, p: torch.Tensor,
+                     generator: torch.Generator) -> None:
+    """One LM weight drawn in place: normal 0.02 for the embedding and the
+    head, fan_in^-½ for the projections, ones for the norms."""
+    if name.endswith("layernorm.weight") or name == "model.norm.weight":
+        p.fill_(1.0)
+    elif name in ("model.embed_tokens.weight", "lm_head.weight"):
+        p.normal_(0.0, 0.02, generator=generator)
+    else:
+        p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+
+
 class LlamaRMSNorm(nn.Module):
     def __init__(self, hidden: int, eps: float, **factory):
         super().__init__()
@@ -300,16 +313,9 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights drawn in place from `generator` (of the weights'
-        device): the JAX initialisers' scales (normal 0.02 for the
-        embedding and the head, fan_in^-½ for the projections, ones for the
-        norms)."""
+        device): the JAX initialisers' scales (`init_llama_param`)."""
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "model.norm.weight":
-                p.fill_(1.0)
-            elif name in ("model.embed_tokens.weight", "lm_head.weight"):
-                p.normal_(0.0, 0.02, generator=generator)
-            else:
-                p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+            init_llama_param(name, p, generator)
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
@@ -641,7 +647,16 @@ def llama_generate(params, cfg: LlamaConfig, inputs_embeds: torch.Tensor, *,
     step. The prompt goes through `llama_prefill` (or, with
     `prefill_chunk` < P, `llama_prefill_chunked`), never through kernel
     #12; then max_new_tokens - 1 decode steps run, a fixed count whatever
-    EOS does. The cache holds exactly P + max_new_tokens rows."""
+    EOS does. The cache holds exactly P + max_new_tokens rows.
+
+    `quant_kernel` (None = off, the JAX package's default everywhere)
+    sends the decode steps' products over int8 weights through kernel #12;
+    off, they dequantize after the matmul. Callers that quantize weights,
+    the LLaVA captioner (`models/llava.py`) and
+    `datagen.captioner.make_llava_captioner(quantize_weights=True)`
+    included, leave it off unless asked, as the JAX captioner does.
+    `attn_kernel` (None = `DECODE_ATTN_DEFAULT`, on) sends the decode
+    steps' attention through kernel #11."""
     if quant_kernel is None:
         quant_kernel = False
     if attn_kernel is None:

@@ -4,14 +4,18 @@ Counterpart of `MedConfig`, `MedBert` and the mask helpers of
 `spn4cir_tpu/models/med.py`, as configured by BLIP's `med_config.json`:
 hidden 768, 12 layers, 12 heads, intermediate 3072, exact GELU, post-LN with
 eps 1e-12, cross-attention to the image tokens in every layer, vocabulary
-30522 + BLIP's two special tokens. The LM head of the captioner
-(`MedLMHead`, `MedLMModel`) is not ported yet.
+30522 + BLIP's two special tokens. `BertLMHeadModel` is the captioner's
+text decoder (JAX `MedLMModel`): the causal trunk under `bert.*` and
+`BertLMPredictionHead` (JAX `MedLMHead`) under `cls.predictions.*`.
 
 Parameter names are HF BERT's / MED's (`embeddings.word_embeddings`,
 `encoder.layer.{i}.attention.self.query`, `.attention.output.dense`,
 `.attention.output.LayerNorm`, `.crossattention.`, `.intermediate.dense`,
 `.output.dense`, `.output.LayerNorm`), so the `text_encoder.*` entries of a
-BLIP checkpoint load with `load_state_dict` directly.
+BLIP checkpoint load with `load_state_dict` directly, and so do the
+`text_decoder.*` entries of a LAVIS captioner (`bert.*`,
+`cls.predictions.transform.dense`, `cls.predictions.transform.LayerNorm`,
+`cls.predictions.decoder`, `cls.predictions.bias`).
 
 What differs from the CLIP block (`models/layers.py`): post-LN over
 `(hidden + out)` in float32; the scale multiplies the float32 logits after
@@ -253,3 +257,65 @@ class MedBert(nn.Module):
                 p.fill_(1.0)
             else:
                 p.zero_()
+
+
+class BertPredictionHeadTransform(nn.Module):
+    def __init__(self, cfg: MedConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        h = gelu(linear(hidden, self.dense))
+        return _float_ln(self.LayerNorm, h, hidden.dtype)
+
+
+class BertLMPredictionHead(nn.Module):
+    """dense -> exact GELU -> LayerNorm (eps 1e-12, float32) -> the vocabulary
+    projection plus its bias, which HF keeps as a parameter of its own
+    (`cls.predictions.bias`; a checkpoint's `decoder.bias` is the same tensor
+    tied)."""
+
+    def __init__(self, cfg: MedConfig):
+        super().__init__()
+        self.transform = BertPredictionHeadTransform(cfg)
+        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        h = self.transform(hidden)
+        return F.linear(h, self.decoder.weight.to(h.dtype),
+                        self.bias.to(h.dtype))
+
+
+class BertOnlyMLMHead(nn.Module):
+    def __init__(self, cfg: MedConfig):
+        super().__init__()
+        self.predictions = BertLMPredictionHead(cfg)
+
+
+class BertLMHeadModel(nn.Module):
+    """The causal MED trunk plus the LM head -> (B, L, vocab) logits in the
+    activation dtype: teacher-forced LM logits, and the weights that the
+    cached decoder of `models/generation.py` reads."""
+
+    def __init__(self, cfg: MedConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = MedBert(cfg, dtype)
+        self.cls = BertOnlyMLMHead(cfg)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                encoder_attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        hidden = self.bert(input_ids, attention_mask, encoder_hidden_states,
+                           encoder_attention_mask, causal=True)
+        return self.cls.predictions(hidden)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """`MedBert.init_weights` over the whole decoder: the head's
+        matrices fan-in normal, its biases zero, its LayerNorm unit."""
+        MedBert.init_weights(self, generator)

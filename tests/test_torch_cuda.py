@@ -409,11 +409,12 @@ def test_tgcir_stage2_step_takes_the_kernels_on_card(cuda_device):
 # slice; then head_dim 128, one key tile and one key; then the
 # edges of the bf16 kernels' tiles (64 query rows or keys a block, 64 keys /
 # 32 query rows a ring stage): one partial tile, a one-row query tile and a
-# one-key key tile in one slice, a one-key stage in both walks
+# one-key key tile in one slice, a one-key stage in both walks; last LLaVA's
+# tower (ViT-L/14 over a group of 16)
 LONG_SHAPES = [(1536, 577, 64), (384, 577, 64), (512, 257, 64),
                (1536, 257, 64), (256, 257, 88), (384, 197, 64), (5, 130, 40), (3, 300, 128),
                (2, 64, 8), (2, 1, 16), (3, 63, 64), (1, 65, 64),
-               (2, 129, 88)]
+               (2, 129, 88), (256, 257, 64)]
 
 
 def _long_inputs(bh, s, d, dtype, device, n=3, seed=0):
@@ -882,14 +883,16 @@ def _decode_case(device, b, h, kvh, hd, length, layers, kind, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kvh,hd,length", [
     (16, 32, 32, 128, 1842), (1, 32, 32, 128, 1842), (3, 4, 4, 8, 37),
-    (2, 8, 2, 64, 300), (5, 6, 3, 40, 129), (2, 4, 4, 128, 1)])
+    (2, 8, 2, 64, 300), (5, 6, 3, 40, 129), (2, 4, 4, 128, 1),
+    (16, 32, 32, 128, 547)])
 @pytest.mark.parametrize("kind,atol,rtol", [
     ("float32", 1e-5, 1e-5), ("bfloat16", 2e-2, 2e-2), ("int8", 1e-4, 1e-4)])
 def test_decode_attention_matches_plain_version_on_card(
         cuda_device, b, h, kvh, hd, length, kind, atol, rtol):
     """#11 against its plain version: the 7B's decode shape at B=16 and B=1,
-    hd=8 (the tiny LM), GQA, an off-power-of-two head_dim and L=1; the
-    last of 3 layers; a second launch gives the same bits."""
+    hd=8 (the tiny LM), GQA, an off-power-of-two head_dim, L=1 and LLaVA's
+    547-row cache at B=16; the last of 3 layers; a second launch gives the
+    same bits."""
     from spn4cir_tpu_torch.ops.decode_attn import (decode_attention,
                                                    decode_attention_reference)
 
@@ -1040,3 +1043,134 @@ def test_llama_generate_through_the_kernels_on_card(cuda_device):
     assert torch.equal(plain, fused)
     assert decode_attention.launches - before[0] == 2 * 7
     assert quant_matmul.launches - before[1] == 7 * (7 * 2 + 1)
+
+
+# --------------------------------------------------------------------------
+# the captioners at full width, two layers deep, float32: the kernels (#3 in
+# the towers, #11 in LLaVA's decode) against the plain versions, token
+# streams compared under the margin rule: where two streams part, the plain
+# route's top-2 margin at that step must be under 1e-5 of its top logit (at
+# least 1), float32 noise
+# --------------------------------------------------------------------------
+
+MARGIN_TOL = 1e-5
+
+
+def _parted_within_noise(kern, plain, step_logits):
+    """The rows where `kern` and `plain` (B, T) part, each with the plain
+    route's top-2 margin there; asserts each under the float32 noise.
+    `step_logits(t)` -> (B, vocab) plain-route logits at step t."""
+    parted = []
+    for r in range(kern.shape[0]):
+        where = (kern[r] != plain[r]).nonzero()
+        if len(where):
+            t = int(where[0])
+            top = step_logits(t)[r].topk(2).values
+            margin = (top[0] - top[1]).item()
+            parted.append((r, t, margin))
+            assert margin < MARGIN_TOL * max(1.0, abs(top[0].item())), parted
+    return parted
+
+
+@pytest.mark.cuda
+def test_llava_captioner_through_the_kernels_on_card(cuda_device):
+    from spn4cir_tpu_torch.models import llama as tl
+    from spn4cir_tpu_torch.models import llava as tv
+    from spn4cir_tpu_torch.models.layers import set_attention_impl
+    from spn4cir_tpu_torch.ops.decode_attn import decode_attention
+    from spn4cir_tpu_torch.tokenizer.bytelevel import ByteTokenizer
+
+    cfg = tv.LlavaConfig(
+        llama=tl.LlamaConfig(num_layers=2),
+        vision=tv.LlavaVisionConfig(num_layers=3))     # 2 blocks run
+    cap = tv.LlavaCaptioner(cfg, ByteTokenizer(), device=cuda_device)
+    cap.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    images = torch.randn(4, 224, 224, 3, device=cuda_device,
+                         generator=torch.Generator(device=cuda_device
+                                                   ).manual_seed(1))
+    ids = cap.prompt_ids("please briefly describe the image in 10 words")
+    new = 24
+
+    def embeds(plain):
+        set_attention_impl(cap.model, "plain" if plain else "auto")
+        try:
+            feats = cap.model.encode_images(images)
+        finally:
+            set_attention_impl(cap.model, "auto")
+        return tv.splice_image_embeds(cap.model.model.embed_tokens.weight,
+                                      ids, feats)
+
+    with torch.inference_mode():
+        before = long_attention.launches, decode_attention.launches
+        ek = embeds(False)
+        assert long_attention.launches - before[0] == 2
+        ep = embeds(True)
+        torch.testing.assert_close(ek, ep, atol=1e-4, rtol=1e-4)
+        kw = dict(eos_id=257, pad_id=257, max_new_tokens=new,
+                  cache_dtype=torch.float32)
+        kern = tl.llama_generate(cap.model, cfg.llama, ek, attn_kernel=True,
+                                 **kw)
+        assert decode_attention.launches - before[1] == 2 * (new - 1)
+        plain = tl.llama_generate(cap.model, cfg.llama, ep,
+                                  attn_kernel=False, **kw)
+
+        def step_logits(t):
+            state = tl.init_llama_state(cfg.llama, 4, ep.shape[1] + new,
+                                        device=cuda_device)
+            logits, state = tl.llama_prefill(cap.model, cfg.llama, state, ep)
+            for i in range(1, t + 1):
+                logits, state = tl.llama_decode_step(
+                    cap.model, cfg.llama, state,
+                    tl.embed_tokens(cap.model, plain[:, i - 1]),
+                    ep.shape[1] + i - 1)
+            return logits
+
+        _parted_within_noise(kern, plain, step_logits)
+        caps = cap.caption(images.cpu().numpy(), "describe it",
+                           max_new_tokens=8)
+    assert len(caps) == 4 and all(isinstance(c, str) for c in caps)
+
+
+@pytest.mark.cuda
+def test_blip_captioner_through_the_kernel_on_card(cuda_device, tmp_path):
+    from spn4cir_tpu_torch.models import generation as tg
+    from spn4cir_tpu_torch.models.blip_caption import BlipCaptioner
+    from spn4cir_tpu_torch.models.blip_vit import BlipViTConfig
+    from spn4cir_tpu_torch.models.layers import set_attention_impl
+    from spn4cir_tpu_torch.models.med import MedConfig
+    from torch_fixtures import write_bert_vocab
+
+    vocab = write_bert_vocab(str(tmp_path / "vocab.txt"))
+    cap = BlipCaptioner("base", bert_vocab_path=vocab,
+                        vit_cfg=BlipViTConfig(layers=2),
+                        med_cfg=MedConfig(num_layers=2), device=cuda_device)
+    cap.init_params(torch.Generator().manual_seed(0))
+    images = torch.randn(4, 384, 384, 3, device=cuda_device,
+                         generator=torch.Generator(device=cuda_device
+                                                   ).manual_seed(2))
+    prompt = torch.from_numpy(cap.prompt_ids(4)).to(cuda_device)
+    before = long_attention.launches
+    kern_embeds = cap.encode(images)
+    assert long_attention.launches - before == 2
+    set_attention_impl(cap.model, "plain")
+    try:
+        plain_embeds = cap.encode(images)
+    finally:
+        set_attention_impl(cap.model, "auto")
+    torch.testing.assert_close(kern_embeds, plain_embeds, atol=1e-4,
+                               rtol=1e-4)
+    kw = dict(num_beams=1, max_length=30, min_length=10)
+    kern = cap.generate_ids(kern_embeds, prompt, **kw)
+    plain = cap.generate_ids(plain_embeds, prompt, **kw)
+    dec = cap.model.text_decoder
+
+    def step_logits(t):  # the logits that chose token t (t > prompt)
+        state = tg.init_decode_state(dec, cap.med_cfg, plain_embeds, 30)
+        for i in range(t):
+            logits, state = tg.decode_step(dec, cap.med_cfg, state,
+                                           plain[:, i], i)
+        return tg.suppress_eos(logits, cap.tokenizer.sep_id, t, 10)
+
+    _parted_within_noise(kern, plain, step_logits)
+    caps = cap.caption(images)           # beam 3, the default
+    assert len(caps) == 4 and all(isinstance(c, str) for c in caps)

@@ -379,7 +379,11 @@ def test_port_imports_no_jax():
         "            'models.blip24cir', 'models.eva_vit', 'models.qformer',\n"
         "            'ops.maxquery_kernels', 'datagen.llm_rewrite',\n"
         "            'models.llama', 'ops.decode_attn', 'ops.quant_matmul',\n"
-        "            'cli.get_cir_data'):\n"
+        "            'cli.get_cir_data', 'models.llava', 'models.blip_caption',\n"
+        "            'models.generation', 'datagen.captioner', 'serve.mllm',\n"
+        "            'cli.serve_mllm', 'cli.captioner', 'eval.cases',\n"
+        "            'eval.generic_retrieval', 'cli.validate_case',\n"
+        "            'cli.analysis_case', 'cli.retrieval'):\n"
         "    assert 'spn4cir_tpu_torch.' + new in names, new\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
