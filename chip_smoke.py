@@ -176,7 +176,28 @@ non-zero exit):
      --no-block` with 16 concurrent /caption requests (every reply a
      non-empty string, the requests coalesced);
  16. `cli.retrieval` (ViT-L/14 float32, random weights from seed 0) i2i
-     over the 64 images of phase 15's tree and t2i for 4 captions.
+     over the 64 images of phase 15's tree and t2i for 4 captions;
+ 17. the scaling-positives datagen and resume: (a) `cli.deduplicate_images`
+     over a 1,024-image synthetic CIRR tree with 32 planted pixel-identical
+     re-saves (the groups found, `CIRDataset` reading the map); (b)
+     `cli.srm_utils` at full width over its unique train images: random
+     Unicom ViT-L/14 (float32 attention through #3 at S = 256) and
+     BGE-base read from files in the reference's layout, the synthetic
+     30,522-word vocabulary, CLIP ViT-L/14 in the cross-modal role (#3 at
+     S = 257, #1 on the captions), counted from zero; the Unicom encode's
+     images/s by CUDA events, #3's and the GEMMs' device shares from a
+     profiled batch, the batch's embeddings against the plain route; (c)
+     `srm_scores` at CIRR's size (16,939 images x 28,225 triplets, K =
+     1000) on seeded random features, timed, its peak memory, 256 rows
+     against the CPU version on the host copy; (d) `cli.captioner --mllm
+     stub`, `cli.get_cir_data --srm --i2i_rank` on (b)'s sims, and
+     `train_main("clip", [... "--plus"])` on the triplets it writes
+     (ViT-B/32 bf16, batch 256, #1, #2, #5, #6 counted); (e) that run
+     through `python -m spn4cir_tpu_torch.cli.train ... --resume
+     --ckpt_every_steps 2` in subprocesses: one uninterrupted with
+     `--profile_dir`, one killed by SIGKILL after its first checkpoint and
+     started again, their final trainable parameters compared (bitwise or
+     max abs difference).
 Phase 6 ends with 6b: `cli.validate_case` on the flagship checkpoint and on
 random weights, then `cli.analysis_case` over the two dumps. Phase 8 also holds one float32 tgcir ViT-B/16 stage-2 loss through the
 kernels against the plain versions, over a dense and an int8 bank. Phase
@@ -192,7 +213,7 @@ split plan and the blocks or clusters the card holds at once; #3, #4, #9
 and #10 are timed per call and back to back too. Phase 11 prints each
 decode step's device busy, #11's and #12's ms a step and the idle share.
 Phases 9-13 run between
-phases 7 and 8, phase 14 after 11, phases 15 and 16 after 13. The last three lines are the kernels JSON, the card's name
+phases 7 and 8, phase 14 after 11, phases 15, 16 and 17 after 13. The last three lines are the kernels JSON, the card's name
 and power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
@@ -216,6 +237,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -284,10 +306,14 @@ TGCIR_EXTRACT = dict(name="tgcir-extract", bh=256 * 12, s=197, d=64,
                      causal=False)
 # LLaVA's tower: CLIP ViT-L/14 at 224 (16 heads of 64) over a group of 16
 LLAVA_TOWER = dict(name="llava-tower", bh=16 * 16, s=257, d=64, causal=False)
+# Unicom ViT-L/14 (16 heads of 64, no class token: 256 tokens) over the SRM
+# encode batch of 32; its attention runs in float32
+UNICOM_ENCODE = dict(name="unicom-encode", bh=32 * 16, s=256, d=64,
+                     causal=False)
 LONG_TIMED = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT, ZS_STAGE1, TGCIR_EXTRACT,
-              LLAVA_TOWER)
+              LLAVA_TOWER, UNICOM_ENCODE)
 LONG_SHAPES = (BLIP_EXTRACT, BLIP_INDEX, EVA_EXTRACT, ZS_STAGE1, TGCIR_EXTRACT,
-               LLAVA_TOWER,
+               LLAVA_TOWER, UNICOM_ENCODE,
                dict(name="vit-l14", bh=32 * 16, s=257, d=64, causal=False),
                dict(name="eva-g", bh=16 * 16, s=257, d=88, causal=False),
                dict(name="vit-b16", bh=32 * 12, s=197, d=64, causal=False),
@@ -402,6 +428,23 @@ NEGTYPE_MODEL = "ViT-B/32"
 ZS_BATCH = 48
 ZS_TRAIN = 192
 ZS_IMAGES = 256
+# phase 17, the scaling-positives datagen: dedup, the SRM matcher, resume.
+# A 1,024-image tree with 1,024 train triplets, 32 planted duplicate pairs;
+# the SRM encode at its batch of 32 (Unicom ViT-L/14 + CLIP ViT-L/14);
+# srm_scores at CIRR's train size (16,939 images, 28,225 triplets), K =
+# 1000, 768-wide random unit features, 256 rows checked on the host
+SRM_IMAGES = 1024
+SRM_TRAIN = 1024
+SRM_PLANTED = 32
+SRM_BATCH = 32
+SRM_K = 1000
+SRM_DIM = 768
+CIRR_SRM_IMAGES = 16939
+CIRR_SRM_TRIPLETS = 28225
+SRM_CHECK_ROWS = 256
+# unit Unicom embeddings (768) through #3 against the plain route, float32
+# both: the attention differs in summation order only (1e-5 a layer)
+SRM_EMBED_TOL = 1e-4
 CAPTIONS = ("make it like number 7 but red", "is darker and has longer sleeves",
             "the dress is shorter with a floral print",
             "change the dog to a cat sitting on the grass")
@@ -4730,6 +4773,435 @@ def drive_retrieval(ak, bk, tmp, card):
     return {k: i2i[k] + t2i[k] for k in i2i}
 
 
+def drive_dedup(tmp, card):
+    """Phase 17a: `cli.deduplicate_images` over a 1,024-image synthetic CIRR
+    tree in which SRM_PLANTED images are pixel-identical re-saves (another
+    PNG compression level) of others under their own names: every planted
+    pair that the train set holds must come out as a group, and
+    `CIRDataset` must read the map (one id per group, the duplicates gone
+    from the unique images). Returns the tree's root."""
+    from PIL import Image
+
+    from spn4cir_tpu_torch.cli import deduplicate_images
+    from spn4cir_tpu_torch.data.datasets import CIRDataset
+
+    make_cirr = load_test_module("fixtures").make_cirr
+    root = make_cirr(os.path.join(tmp, "cirr_srm"), n_images=SRM_IMAGES,
+                     n_train=SRM_TRAIN, n_val=N_VAL, extended=False)
+    dev = os.path.join(root, "dev")
+    for i in range(SRM_PLANTED):
+        with Image.open(os.path.join(dev, f"cirr_img{i}.png")) as img:
+            img.convert("RGB").save(
+                os.path.join(dev, f"cirr_img{i + SRM_IMAGES // 2}.png"),
+                compress_level=1)
+    before = CIRDataset("cirr", "train", "relative", None, root)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        deduplicate_images.main(["--dataset", "cirr", "--data_path", root])
+    dedup_s = time.perf_counter() - t0
+    with open(os.path.join(root, "same_image_list.json")) as fh:
+        groups = json.load(fh)
+    present = set(before.imagenames)
+    want = {frozenset((f"cirr_img{i}", f"cirr_img{i + SRM_IMAGES // 2}"))
+            for i in range(SRM_PLANTED)}
+    want = {g for g in want if g <= present}
+    assert {frozenset(g) for g in groups} == want, (groups, want)
+    after = CIRDataset("cirr", "train", "relative", None, root)
+    assert after.num_unique_images == before.num_unique_images - len(want)
+    for group in groups:
+        assert len({after.imagename2id[n] for n in group}) == 1, group
+    phase(f"dedup slice: cli.deduplicate_images hashed "
+          f"{before.num_unique_images} train images in {dedup_s:.2f} s, "
+          f"found the {len(groups)} planted pairs that the train set holds "
+          f"(of {SRM_PLANTED}); CIRDataset reads "
+          f"{after.num_unique_images} unique images [{card}]")
+    return root
+
+
+def write_random_srm(tmp, device):
+    """Random Unicom ViT-L/14 and BGE-base weights written as the
+    reference's files: Unicom as a half-precision DDP save (`module.`
+    keys), BGE as an HF BertModel save with its pooler. Returns (the
+    Unicom path, the BGE path, the float32 Unicom tower on the card)."""
+    from spn4cir_tpu_torch.models.med import MedBert, MedConfig
+    from spn4cir_tpu_torch.models.unicom import UnicomConfig, UnicomViT
+
+    with torch.device(device):
+        tower = UnicomViT(UnicomConfig.vit_l14())
+    tower.init_weights(torch.Generator(device=device).manual_seed(0))
+    unicom = os.path.join(tmp, "FP16-ViT-L-14-random.pt")
+    torch.save({f"module.{k}": (v.half() if v.is_floating_point() else v)
+                for k, v in tower.state_dict().items()}, unicom)
+    bge = MedBert(MedConfig.bge_base())
+    bge.init_weights(torch.Generator().manual_seed(0))
+    sd = dict(bge.state_dict())
+    sd["pooler.dense.weight"] = torch.zeros(768, 768)
+    sd["pooler.dense.bias"] = torch.zeros(768)
+    bge_path = os.path.join(tmp, "bge-base-en-random.pt")
+    torch.save(sd, bge_path)
+    return unicom, bge_path, tower.eval()
+
+
+def drive_srm(ak, bk, root, tmp, card):
+    """Phase 17b: `python -m spn4cir_tpu_torch.cli.srm_utils` through its
+    main() at full width over 17a's tree: random Unicom ViT-L/14 and
+    BGE-base read from files in the reference's layout (Unicom a
+    half-precision DDP save), the synthetic 30,522-word vocabulary, CLIP
+    ViT-L/14 in the cross-modal role, counted from zero: #3 in Unicom's 24
+    blocks (float32, S = 256) and CLIP's 24 vision layers (S = 257) per
+    batch of 32, #1 in CLIP's 12 text layers per 64 captions, BGE's masked
+    attention plain. Then the Unicom encode on a resident batch: images/s by
+    CUDA events, the device share of #3 and of the GEMMs from a profiled
+    batch, and the batch's embeddings against the plain attention route.
+    Returns (launch counts, sims path)."""
+    import numpy as np
+
+    from spn4cir_tpu_torch.cli import srm_utils
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_unique_images
+    from spn4cir_tpu_torch.data.transforms import ImageTransform
+    from spn4cir_tpu_torch.datagen.srm import load_srm
+    from spn4cir_tpu_torch.models.layers import set_attention_impl
+
+    device = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    unicom, bge, tower = write_random_srm(tmp, device)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "srm_out")
+    os.makedirs(out, exist_ok=True)
+    sims_path = os.path.join(out, "sims.npz")
+    scores_path = os.path.join(out, "srm.npz")
+    count = zero_counts(ak, bk)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        srm_utils.main(["--dataset", "cirr", "--data_path", root,
+                        "--unicom_ckpt", unicom, "--bge_ckpt", bge,
+                        "--batch_size", str(SRM_BATCH), "--k_negatives",
+                        str(SRM_K), "--out", scores_path,
+                        "--sims_out", sims_path])
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(count)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    ds = CIRDataset("cirr", "train", "relative", None, root)
+    m, n = ds.num_unique_images, len(ds.triplets)
+    image_batches = math.ceil(m / SRM_BATCH)
+    text_chunks = math.ceil(n / srm_utils.TEXT_CHUNK)
+    want = dict(long_attention=(24 + 24) * image_batches,
+                short_attention=12 * text_chunks, long_attention_bwd=0,
+                short_attention_bwd=0, **bank_launches(False, 0))
+    assert launches == want, (launches, want)
+    sims, scores = dict(np.load(sims_path)), load_srm(scores_path)
+    assert sims["i2i"].shape == (m, m) and sims["t2t"].shape == (n, n)
+    assert sims["i2t"].shape == (m, n)
+    assert np.allclose(np.diag(sims["i2i"]), 1.0, atol=1e-5)
+    assert np.allclose(np.diag(sims["t2t"]), 1.0, atol=1e-5)
+    refer = np.array([ds.imagename2id[t["reference_name"]]
+                      for t in ds.triplets])
+    assert scores["r_fn"].shape == (n, min(SRM_K, m))
+    assert scores["m_fn"].shape == (n, min(SRM_K, n))
+    if m <= SRM_K:      # the whole row is kept: the self index comes last
+        assert (scores["r_fn"][:, -1] == refer).all()
+    for key in ("rt", "rm", "mt"):
+        assert scores[key].dtype == np.int64 and (scores[key] >= 0).all()
+    phase(f"srm slice: cli.srm_utils over {m} unique train images and {n} "
+          f"captions in {cli_s:.1f} s (random Unicom ViT-L/14 + BGE-base "
+          f"files written in {write_s:.1f} s and read strictly; CLIP "
+          f"ViT-L/14 float32), peak device memory {peak_gb:.2f} GiB; "
+          f"launches {launches} (want 24 + 24 #3 per batch of {SRM_BATCH} "
+          f"and 12 #1 per {srm_utils.TEXT_CHUNK} captions); r_fn "
+          f"{scores['r_fn'].shape}, m_fn {scores['m_fn'].shape}, rank sums "
+          f"rt median {int(np.median(scores['rt']))} [{card}]")
+
+    # the Unicom encode on a resident batch of the tree's images
+    tf = ImageTransform("clip", 224)
+    ds_img = CIRDataset("cirr", "train", "relative", tf, root)
+    _, images = next(iter_unique_images(ds_img, SRM_BATCH))
+    images = torch.from_numpy(images).to(device)
+
+    def encode():
+        with torch.inference_mode():
+            return tower(images)
+
+    count = zero_counts(ak, bk)
+    encode()
+    assert read_counts(count)["long_attention"] == 24
+    batch_ms = median_ms(encode, reps=5, warmup=1)
+    busy_ms, n_ops, groups = batch_profile(encode, "unicom")
+    with torch.inference_mode():
+        got = encode()
+        got = got / got.norm(dim=-1, keepdim=True)
+        set_attention_impl(tower, "plain")
+        plain = tower(images)
+        plain = plain / plain.norm(dim=-1, keepdim=True)
+    err = (got - plain).abs().max().item()
+    assert err <= SRM_EMBED_TOL, err
+    share = {k: groups.get(k, 0.0) / busy_ms
+             for k in ("attention kernels", "GEMMs")}
+    stats = dict(images_per_s=SRM_BATCH / batch_ms * 1e3, batch_ms=batch_ms,
+                 busy_ms=busy_ms, device_ops=n_ops,
+                 attention_share=share["attention kernels"],
+                 gemm_share=share["GEMMs"], embed_err_vs_plain=err,
+                 ms_by_group={k: round(v, 3) for k, v in sorted(
+                     groups.items(), key=lambda kv: -kv[1])})
+    phase(f"srm slice: Unicom ViT-L/14 float32 encode of a resident batch of "
+          f"{SRM_BATCH}: {batch_ms:.3f} ms a batch (median of 5, CUDA "
+          f"events), {stats['images_per_s']:.1f} images/s; "
+          f"{extraction_line(busy_ms, n_ops, groups, batch_ms)}: #3 "
+          f"{100 * share['attention kernels']:.1f}% of the device time, GEMMs "
+          f"{100 * share['GEMMs']:.1f}%; unit embeddings through #3 against "
+          f"the plain attention route: max_abs_err={err:.3e} (tol "
+          f"{SRM_EMBED_TOL}) [{card}]")
+    phase("srm encode stats " + json.dumps(stats))
+    del tower, images
+    torch.cuda.empty_cache()
+    return launches, sims_path
+
+
+def _assert_same_up_to_ties(mat, selves, got, want):
+    """Negatives of two runs over the same rows: the same values in the
+    same order; inside a run of equal values the same index set (the run
+    that the K boundary cuts: its value's lowest indices in both)."""
+    mat = mat.clone()
+    mat[torch.arange(len(selves)), selves] = -1e4
+    gv, wv = mat.gather(1, got), mat.gather(1, want)
+    assert torch.equal(gv, wv)
+    same = torch.equal(got, want)
+    if not same:        # compare index sets run by run where they differ
+        for r in torch.nonzero((got != want).any(dim=1)).flatten().tolist():
+            vals = gv[r]
+            edge = torch.nonzero(vals[1:] != vals[:-1]).flatten() + 1
+            bounds = [0] + edge.tolist() + [len(vals)]
+            for s, e in zip(bounds[:-1], bounds[1:]):
+                assert set(got[r, s:e].tolist()) == set(
+                    want[r, s:e].tolist()), (r, s, e)
+    return same
+
+
+def drive_srm_scale(card):
+    """Phase 17c: `srm_scores` at CIRR's size, 16,939 images x 28,225
+    triplets, K = 1000, on seeded random unit features (768 wide): the four
+    products and the scores timed by CUDA events, their peak device memory;
+    256 sampled triplets held against the port's CPU version (`score_rows`)
+    on the same similarities copied to the host: ranks exactly, the
+    negatives' values exactly and their index sets within each run of
+    equal values. No sims file is written at this size (8 GB)."""
+    from spn4cir_tpu_torch.datagen.srm import (compute_sims, score_rows,
+                                               srm_scores)
+
+    device = torch.device("cuda:0")
+    g = torch.Generator(device=device).manual_seed(17)
+
+    def unit(rows):
+        x = torch.randn(rows, SRM_DIM, generator=g, device=device)
+        return x / x.norm(dim=1, keepdim=True)
+
+    m, n = CIRR_SRM_IMAGES, CIRR_SRM_TRIPLETS
+    feats = [unit(m), unit(n), unit(m), unit(n)]
+    refer = torch.randint(0, m, (n,), generator=g, device=device)
+    target = torch.randint(0, m, (n,), generator=g, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    sims = compute_sims(*feats)
+    ev[1].record()
+    scores = srm_scores(sims, refer, target, SRM_K)
+    ev[2].record()
+    ev[2].synchronize()
+    sims_ms, scores_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    sims_gb = sum(v.numel() * 4 for k, v in sims.items() if k != "t2i") / 1e9
+    assert scores["r_fn"].shape == (n, SRM_K) and scores["m_fn"].shape == (
+        n, SRM_K)
+
+    rows = torch.randperm(n, generator=g, device=device)[:SRM_CHECK_ROWS]
+    t0 = time.perf_counter()
+    i2t = sims["i2t"].cpu()
+    host = {"i2t": i2t, "t2i": i2t.T, "i2i": sims["i2i"].cpu(),
+            "t2t": sims["t2t"].cpu()}
+    want = score_rows(host, refer.cpu(), target.cpu(), rows.cpu(), SRM_K)
+    cpu_s = time.perf_counter() - t0
+    got = {k: v[rows].cpu() for k, v in scores.items()}
+    for key in ("rt", "rm", "mt"):
+        assert torch.equal(got[key], want[key]), key
+    r, t, rc = refer.cpu()[rows.cpu()], target.cpu()[rows.cpu()], rows.cpu()
+    exact = [_assert_same_up_to_ties(host["i2i"][r], r, got["r_fn"],
+                                     want["r_fn"]),
+             _assert_same_up_to_ties(host["i2i"][t], t, got["t_fn"],
+                                     want["t_fn"]),
+             _assert_same_up_to_ties(host["t2t"][rc], rc, got["m_fn"],
+                                     want["m_fn"])]
+    stats = dict(images=m, triplets=n, k=SRM_K, sims_ms=sims_ms,
+                 scores_ms=scores_ms, sims_gb=sims_gb,
+                 peak_gb_over_inputs=peak_gb - base_gb, peak_gb=peak_gb,
+                 checked_rows=SRM_CHECK_ROWS, cpu_check_s=cpu_s,
+                 negatives_index_identical=all(exact))
+    phase(f"srm scale: CIRR size, {m} images x {n} triplets, K = {SRM_K}: "
+          f"compute_sims {sims_ms:.2f} ms ({sims_gb:.2f} GB of float32 "
+          f"similarities), srm_scores {scores_ms:.2f} ms (CUDA events), peak "
+          f"device memory {peak_gb:.2f} GiB ({peak_gb - base_gb:.2f} over "
+          f"the features); {SRM_CHECK_ROWS} sampled triplets equal the CPU "
+          f"version on the host copy (ranks exactly, negatives' values "
+          f"exactly, indices {'identical' if all(exact) else 'equal as sets within runs of equal values'}"
+          f"; {cpu_s:.1f} s) [{card}]")
+    phase("srm scale stats " + json.dumps(stats))
+    del sims, scores, host, feats
+    torch.cuda.empty_cache()
+
+
+def drive_srm_train(ak, bk, root, sims_path, tmp, card):
+    """Phase 17d: `cli.captioner --mllm stub` writes the tree's it-list,
+    `cli.get_cir_data --srm <17b's sims> --i2i_rank 1 --i2i_rank_max 50
+    --model clip` writes the extended triplets from partners in that rank
+    window of i2i, then `train_main("clip", [... "--plus"])` (ViT-B/32
+    bf16, batch 256) takes one epoch of stage-2 steps on them, counted from
+    zero: 12 + 12 short attentions and 1 + 1 bank kernels a step, 12 per
+    extraction batch. Returns (launch counts, its argv, which names the
+    bank cache that phase 17e's runs load)."""
+    from spn4cir_tpu_torch.cli import captioner, get_cir_data, train
+    from spn4cir_tpu_torch.data.datasets import CIRDataset
+
+    cwd = os.getcwd()
+    os.chdir(tmp)       # the it-list lands under the working directory
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            it_path = os.path.abspath(captioner.main(
+                ["--dataset", "cirr", "--data_path", root, "--mllm",
+                 "stub"]))
+    finally:
+        os.chdir(cwd)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ext_path = get_cir_data.main(
+            ["--dataset", "cirr", "--data_path", root, "--it_list", it_path,
+             "--srm", sims_path, "--i2i_rank", "1", "--i2i_rank_max", "50",
+             "--model", "clip"])
+    gen_s = time.perf_counter() - t0
+    with open(ext_path) as fh:
+        n_ext = len(json.load(fh))
+    ds = CIRDataset("cirr", "train", "relative", None, root, plus=True,
+                    extend_suffix="clip", seed=0)
+    human = len(CIRDataset("cirr", "train", "relative", None, root).triplets)
+    assert len(ds.triplets) == human + n_ext and n_ext > 0
+    bank_path = os.path.join(tmp, "srm_bank.npz")
+    argv = ["--dataset", "cirr", "--data_path", root, "--clip-model-name",
+            "ViT-B/32", "--bf16", "--seed", "0", "--batch-size",
+            str(TRAIN_BATCH), "--num-epochs", "1", "--plus", "--bank_path",
+            bank_path, "--validation-frequency", "99"]
+    count = zero_counts(ak, bk)
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        train.train_main("clip", argv + ["--output_path",
+                                         os.path.join(tmp, "srm_train")],
+                         log_every=1, **train.CLIP4CIR_DEFAULTS)
+    train_s = time.perf_counter() - t0
+    launches = read_counts(count)
+    losses = logged_losses(tee.buffer_.getvalue())
+    steps = len(ds.triplets) // TRAIN_BATCH
+    extract = math.ceil(ds.num_unique_images / TRAIN_BATCH)
+    assert len(losses) == steps >= 4 and all(map(math.isfinite, losses)), \
+        losses
+    want = dict(short_attention=12 * (steps + extract),
+                short_attention_bwd=12 * steps, **NO_LONG,
+                **bank_launches(False, steps))
+    assert launches == want, (launches, want)
+    phase(f"srm train slice: cli.captioner (stub) -> cli.get_cir_data "
+          f"--srm --i2i_rank 1..50 wrote {n_ext} extended triplets in "
+          f"{gen_s:.2f} s; train_main clip --plus (ViT-B/32 bf16, batch "
+          f"{TRAIN_BATCH}) over {len(ds.triplets)} triplets: {steps} steps "
+          f"in {train_s:.1f} s, losses {[round(x, 4) for x in losses]}; "
+          f"launches {launches} (want {want}) [{card}]")
+    return launches, argv
+
+
+def drive_resume(argv, tmp, card):
+    """Phase 17e: 17d's run through `python -m spn4cir_tpu_torch.cli.train
+    clip ... --resume --ckpt_every_steps 2` in subprocesses, all with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 and 17d's bank cache: an uninterrupted
+    run with `--profile_dir` and, beside it, a run killed by SIGKILL once
+    its first checkpoint lands, then started again to the end. The two
+    final states' trainable parameters: bitwise equal, or their max abs
+    difference (reported as such)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    flags = argv + ["--resume", "--ckpt_every_steps", "2"]
+
+    def start(out, *extra):
+        log = open(os.path.join(tmp, os.path.basename(out) + ".log"), "w")
+        return subprocess.Popen(
+            [sys.executable, "-m", "spn4cir_tpu_torch.cli.train", "clip",
+             *flags, "--output_path", out, *extra], cwd=REPO, env=env,
+            stdout=log, stderr=subprocess.STDOUT), log
+
+    def finish(proc, log):
+        rc = proc.wait(timeout=600)
+        log.close()
+        with open(log.name) as fh:
+            text = fh.read()
+        assert rc == 0, text[-3000:]
+        return text
+
+    whole, part = os.path.join(tmp, "resume_whole"), os.path.join(
+        tmp, "resume_part")
+    prof = os.path.join(tmp, "resume_prof")
+    t0 = time.perf_counter()
+    a = start(whole, "--profile_dir", prof)
+    b, blog = start(part)
+    first = os.path.join(part, "resume", "2.pt")
+    try:
+        while not os.path.exists(first):
+            assert b.poll() is None, "the run ended before its first save"
+            assert time.perf_counter() - t0 < 600, "no first checkpoint"
+            time.sleep(0.005)
+    finally:
+        b.kill()
+        b.wait()
+        blog.close()
+    assert b.returncode == -signal.SIGKILL, b.returncode
+    killed_s = time.perf_counter() - t0
+    kept = sorted(int(f[:-3]) for f in os.listdir(os.path.join(
+        part, "resume")) if f.endswith(".pt") and f[:-3].isdigit())
+    text = finish(*start(part))
+    resumed_s = time.perf_counter() - t0 - killed_s
+    resumed = re.search(r"resumed from epoch (\d+) step (\d+)", text)
+    assert resumed, text[-2000:]
+    finish(*a)
+    wall = time.perf_counter() - t0
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    assert traces, os.listdir(prof)
+
+    def final(out):
+        d = os.path.join(out, "resume")
+        step = max(int(f[:-3]) for f in os.listdir(d)
+                   if f.endswith(".pt") and f[:-3].isdigit())
+        return step, torch.load(os.path.join(d, f"{step}.pt"),
+                                map_location="cpu", weights_only=True)
+
+    (sa, fa), (sb, fb) = final(whole), final(part)
+    assert sa == sb == fa["step"] == fb["step"], (sa, sb)
+    assert fa["params"].keys() == fb["params"].keys()
+    bitwise = all(torch.equal(fa["params"][k], fb["params"][k])
+                  for k in fa["params"])
+    diff = max((fa["params"][k] - fb["params"][k]).abs().max().item()
+               for k in fa["params"])
+    assert all(torch.isfinite(v).all() for v in fb["params"].values())
+    phase(f"resume slice: cli.train clip --plus --resume --ckpt_every_steps "
+          f"2 killed by SIGKILL with checkpoints {kept} on disk, resumed "
+          f"from epoch {resumed.group(1)} step {resumed.group(2)} to step "
+          f"{sb}: its {len(fb['params'])} trainable tensors "
+          + ("are BITWISE EQUAL to" if bitwise else
+             f"differ by max abs {diff:.3e} from")
+          + f" the uninterrupted run's (CUBLAS_WORKSPACE_CONFIG=:4096:8); "
+          f"--profile_dir wrote {traces[0]}; {wall:.1f} s for the three "
+          f"processes (the killed one {killed_s:.1f} s from the start, its "
+          f"resumption {resumed_s:.1f} s, the uninterrupted one beside them) "
+          f"[{card}]")
+    return dict(bitwise=bitwise, max_abs_diff=diff, resumed_at=[
+        int(resumed.group(1)), int(resumed.group(2))], final_step=sb)
+
+
 def pick(records, **want):
     return next(r for r in records
                 if all(r[k] == v for k, v in want.items()))
@@ -4951,6 +5423,19 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         lap("16")
+        # phase 17: the scaling-positives datagen (dedup, the SRM matcher at
+        # full width, CIRR-size scoring, --plus training on its triplets)
+        # and a stage-2 run killed and resumed
+        srm_root = drive_dedup(tmp, card)
+        srm_launches, sims_path = drive_srm(ak, bk, srm_root, tmp, card)
+        torch.cuda.empty_cache()
+        drive_srm_scale(card)
+        srm_train_launches, srm_argv = drive_srm_train(
+            ak, bk, srm_root, sims_path, tmp, card)
+        torch.cuda.empty_cache()
+        drive_resume(srm_argv, tmp, card)
+
+        lap("17")
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
         check_blip_plain_step(layers, card)
@@ -4987,7 +5472,9 @@ def main() -> int:
                     "llava_service": llava_service_launches[name],
                     "blip_caption": blip_caption_launches[name],
                     "blip_caption_serve": blip_caption_serve_launches[name],
-                    "retrieval": retrieval_launches[name]}
+                    "retrieval": retrieval_launches[name],
+                    "srm": srm_launches[name],
+                    "srm_train": srm_train_launches[name]}
 
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
         at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
@@ -4997,7 +5484,8 @@ def main() -> int:
             "short_attention", jax_ops + "attention_kernels.py:257",
             csrc + "short_attention.cu", by_path("short_attention"),
             ("serve", "train", "flagship", "tgcir_serve", "tgcir_train",
-             "negtype", "zs_stage1", "cases", "retrieval"), fwd_records,
+             "negtype", "zs_stage1", "cases", "retrieval", "srm",
+             "srm_train"), fwd_records,
             pick(fwd_records, tower="vision", dtype="bfloat16"),
             also=[pick(fwd_records, tower=t, dtype="bfloat16") for t in
                   ("text", "train-text", "flagship-text",
@@ -5005,7 +5493,8 @@ def main() -> int:
         entries.append(kernel_entry(
             "short_attention_bwd", jax_ops + "attention_kernels.py:279",
             csrc + "short_attention.cu", by_path("short_attention_bwd"),
-            ("train", "flagship", "tgcir_train", "negtype", "zs_stage1"),
+            ("train", "flagship", "tgcir_train", "negtype", "zs_stage1",
+             "srm_train"),
             bwd_records,
             pick(bwd_records, tower="train-text", dtype="bfloat16"),
             also=[pick(bwd_records, tower="flagship-text",
@@ -5015,7 +5504,7 @@ def main() -> int:
             entries.append(kernel_entry(
                 name, f"{jax_ops}bank_kernels.py:{line}",
                 csrc + "bank_infonce.cu", by_path(name),
-                ("train", "blip_train", "tgcir_train"), recs,
+                ("train", "blip_train", "tgcir_train", "srm_train"), recs,
                 pick(recs, shape=at_bank, dtype="float32"),
                 also=[pick(recs, shape=at_bank, dtype="bfloat16"),
                       pick(recs, shape=at_flag, dtype="float32"),
@@ -5038,7 +5527,7 @@ def main() -> int:
                  ("blip_serve", "blip_train", "blip_stage1", "blip2_serve",
                   "blip2_train", "tgcir_serve", "tgcir_train", "zs_stage1",
                   "llava", "llava_service", "blip_caption",
-                  "blip_caption_serve", "retrieval"),
+                  "blip_caption_serve", "retrieval", "srm"),
                  long_fwd_records),
                 ("long_attention_bwd", 109, ("blip_stage1", "zs_stage1"),
                  long_bwd_records)):
@@ -5053,7 +5542,8 @@ def main() -> int:
                       pick(recs, tower="eva-g-extract", dtype="float32"),
                       pick(recs, tower="zs-stage1", dtype="bfloat16"),
                       pick(recs, tower="tgcir-extract", dtype="bfloat16"),
-                      pick(recs, tower="llava-tower", dtype="bfloat16")]))
+                      pick(recs, tower="llava-tower", dtype="bfloat16"),
+                      pick(recs, tower="unicom-encode", dtype="float32")]))
         at_mq = (f"B={BLIP2_BATCH}, M={RECIPE_BANK}, Q={BLIP2_QUERIES}, "
                  f"D={BLIP_DIM}")
         for name, line in (("max_query_infonce_fwd", 72),

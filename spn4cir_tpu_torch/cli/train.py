@@ -56,10 +56,20 @@ unlabeled image pool to the target bank as extra negatives (`--neg_num`
 then keeps only the first `neg_num` of them), cached beside the bank as
 `<bank>_unlabeled.npz`.
 
+`--resume` keeps the full training state under `<output>/resume/` (the
+trainable parameters, the optimizer state, the global step and the dropout
+generator's state; `utils.checkpoint.CheckpointManager`) at every epoch's
+end, and with `--ckpt_every_steps N` every N optimizer steps too; a run
+started again with the same flags goes on from the newest one, at its
+epoch and step (`divmod(global_step, steps_per_epoch)`: the epoch's
+shuffle, captions and negatives are functions of the seed, the epoch and
+the step, so the skipped batches are the ones already taken). A directory
+without the `format.json` marker of that layout is refused. `--profile_dir`
+writes a `torch.profiler` trace of the epoch loop there.
+
 Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
 Flags whose path is not ported raise "not yet ported": meshes,
---distributed, --device_preprocess, --loader_procs, --resume /
---ckpt_every_steps and --profile_dir.
+--distributed, --device_preprocess and --loader_procs.
 """
 
 from __future__ import annotations
@@ -105,8 +115,10 @@ from spn4cir_tpu_torch.train.stage1 import (create_stage1_state,
                                             train_epoch_stage1)
 from spn4cir_tpu_torch.train.stage2 import (create_train_state,
                                             make_lr_schedule, train_epoch)
-from spn4cir_tpu_torch.utils.checkpoint import save_model
-from spn4cir_tpu_torch.utils.logging import MetricLogger
+from spn4cir_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                load_train_state, save_model,
+                                                train_state)
+from spn4cir_tpu_torch.utils.logging import MetricLogger, profiler_trace
 from spn4cir_tpu_torch.utils.seeding import seed_everything
 
 __all__ = ["BLIP4CIR_DEFAULTS", "BLIP24CIR_DEFAULTS", "CLIP4CIR_DEFAULTS",
@@ -192,6 +204,29 @@ def build_bank(backbone, args, train_ds, preprocess, output_path, device
     return bank
 
 
+def resume_manager(output_path: str, steps_per_epoch: int
+                   ) -> CheckpointManager:
+    """The `--resume` manager over `<output>/resume/`, its checkpoints keyed
+    by global step (epoch * steps_per_epoch + step in the epoch). A
+    directory that holds checkpoints but not the `format.json` marker of
+    that layout is refused: resuming it would start at the wrong
+    position."""
+    resume_dir = os.path.join(output_path, "resume")
+    mgr = CheckpointManager(resume_dir)
+    marker = os.path.join(resume_dir, "format.json")
+    if mgr.latest_step() is not None and not os.path.exists(marker):
+        raise SystemExit(
+            f"{resume_dir} holds checkpoints without the global-step "
+            "marker format.json; delete the directory (or finish that run "
+            "with the code that wrote it): resuming would restart at the "
+            "wrong position")
+    if not os.path.exists(marker):
+        with open(marker, "w") as f:
+            json.dump({"keys": "global_step",
+                       "steps_per_epoch": steps_per_epoch}, f)
+    return mgr
+
+
 def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
                tokenizer=None, log_every: int = 50, **parser_kw):
     """Parse `argv` and train; returns the best validation score.
@@ -230,12 +265,12 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
          args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
         ("--distributed", args.distributed),
         ("--loader_procs (multi-process image loader)", args.loader_procs),
-        ("--resume / --ckpt_every_steps (full training-state checkpoints)",
-         args.resume or args.ckpt_every_steps),
-        ("--profile_dir", args.profile_dir),
         ("--loss_impl pallas/xla (one route per device here)",
          args.loss_impl != "auto"),
     ])
+    if args.ckpt_every_steps and not args.resume:
+        raise SystemExit("--ckpt_every_steps goes with --resume (the step "
+                         "checkpoints are resume state)")
     if args.neg_type and not 0 < args.neg_type < 16:
         raise SystemExit("--neg_type is a 4-bit mask, 1-15 (bit0 refer, "
                          "bit1 text, bit2 target, bit3 query)")
@@ -263,8 +298,8 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
             build_bank(backbone, args, train_ds, preprocess, output_path,
                        device))
 
+    steps_per_epoch = max(len(train_ds.triplets) // args.batch_size, 1)
     if args.lr_schedule != "constant":
-        steps_per_epoch = max(len(train_ds.triplets) // args.batch_size, 1)
         lr = make_lr_schedule(args.lr_schedule, args.learning_rate,
                               steps_per_epoch, args.num_epochs,
                               args.warmup_steps)
@@ -277,50 +312,91 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
     state = (create_stage1_state(backbone, lr) if args.wo_bank
              else create_train_state(backbone, lr))
 
-    for epoch in range(args.num_epochs):
-        # train() makes MED's dropout live (blip with --dropout); the CLIP
-        # towers have none, and BatchNorm runs on its stored statistics in
-        # either mode
-        backbone.train()
-        drop = None
-        if args.dropout:    # only a backbone with dropout gets past the flag
-            drop = torch.Generator(device=device).manual_seed(
-                args.seed * 1000 + epoch)
-        log_fn = lambda step, loss: logger.log(step, epoch=epoch, loss=loss)
-        if args.wo_bank:
-            state, mean_loss = train_epoch_stage1(
-                backbone, state,
-                iter_train_images(train_ds, args.batch_size, shuffle=True,
-                                  epoch_seed=args.seed + epoch),
-                neg_type=args.neg_type, dropout_generator=drop,
-                log_every=log_every, log_fn=log_fn)
-        else:
-            state, mean_loss = train_epoch(
-                backbone, state, bank,
-                iter_train_bank(train_ds, args.batch_size,
-                                epoch_seed=args.seed + epoch),
-                neg_num=neg_num, neg_seed=args.seed * 1000 + epoch,
-                log_every=log_every, log_fn=log_fn,
-                dropout_generator=drop)
-        print(f"epoch {epoch}: mean loss {mean_loss:.4f}")
+    # --- preemption resume: checkpoints keyed by global step ---
+    ckpt, start_epoch, start_step, saved_rng = None, 0, 0, None
+    if args.resume:
+        ckpt = resume_manager(output_path, steps_per_epoch)
+        saved, global_step = ckpt.restore(None)
+        if saved is not None:
+            load_train_state(saved, backbone, state)
+            saved_rng = saved["dropout_rng"]
+        start_epoch, start_step = divmod(global_step, steps_per_epoch)
+        if global_step:
+            print(f"resumed from epoch {start_epoch} step {start_step}")
 
-        if (epoch + 1) % args.validation_frequency == 0:
-            score, results = run_validation(backbone, args, preprocess)
-            print(json.dumps({"epoch": epoch, "score": score, **{
-                k: v for k, v in results.items() if isinstance(v, float)}}))
-            if args.nni:  # HPO reporting (ref clip4cir/train.py:157,188)
-                try:
-                    import nni
+    def step_hook(epoch, drop):
+        """Save every --ckpt_every_steps optimizer steps inside the epoch
+        (its end is saved after the validation)."""
+        if ckpt is None or not args.ckpt_every_steps:
+            return None
 
-                    nni.report_intermediate_result(score)
-                except ImportError:
-                    pass
-            if score > best_score:
-                best_score = score
-                save_model(os.path.join(output_path, "best.pt"),
-                           backbone.model, epoch=epoch,
-                           extra={"score": score, "dataset": args.dataset})
-                print(f"saved best (score {score:.2f})")
+        def hook(step_in_epoch, st):
+            gs = epoch * steps_per_epoch + step_in_epoch
+            if gs % args.ckpt_every_steps == 0 and \
+                    step_in_epoch < steps_per_epoch:
+                ckpt.save(gs, train_state(backbone, st, drop))
+        return hook
+
+    with profiler_trace(args.profile_dir):
+        for epoch in range(start_epoch, args.num_epochs):
+            ep_start = start_step if epoch == start_epoch else 0
+            # train() makes MED's dropout live (blip with --dropout); the
+            # CLIP towers have none, and BatchNorm runs on its stored
+            # statistics in either mode
+            backbone.train()
+            drop = None
+            if args.dropout:  # only a backbone with dropout gets past it
+                drop = torch.Generator(device=device).manual_seed(
+                    args.seed * 1000 + epoch)
+                if ep_start and saved_rng is not None:
+                    drop.set_state(saved_rng)   # mid-epoch: replay its noise
+            log_fn = lambda step, loss: logger.log(step, epoch=epoch,
+                                                   loss=loss)
+            if args.wo_bank:
+                state, mean_loss = train_epoch_stage1(
+                    backbone, state,
+                    iter_train_images(train_ds, args.batch_size, shuffle=True,
+                                      epoch_seed=args.seed + epoch,
+                                      start_step=ep_start),
+                    neg_type=args.neg_type, dropout_generator=drop,
+                    log_every=log_every, log_fn=log_fn, start_step=ep_start,
+                    step_hook=step_hook(epoch, drop))
+            else:
+                state, mean_loss = train_epoch(
+                    backbone, state, bank,
+                    iter_train_bank(train_ds, args.batch_size,
+                                    epoch_seed=args.seed + epoch,
+                                    start_step=ep_start),
+                    neg_num=neg_num, neg_seed=args.seed * 1000 + epoch,
+                    log_every=log_every, log_fn=log_fn,
+                    dropout_generator=drop, start_step=ep_start,
+                    step_hook=step_hook(epoch, drop))
+            print(f"epoch {epoch}: mean loss {mean_loss:.4f}")
+
+            if (epoch + 1) % args.validation_frequency == 0:
+                score, results = run_validation(backbone, args, preprocess)
+                print(json.dumps({"epoch": epoch, "score": score, **{
+                    k: v for k, v in results.items()
+                    if isinstance(v, float)}}))
+                if args.nni:  # HPO reporting (ref clip4cir/train.py:157,188)
+                    try:
+                        import nni
+
+                        nni.report_intermediate_result(score)
+                    except ImportError:
+                        pass
+                if score > best_score:
+                    best_score = score
+                    save_model(os.path.join(output_path, "best.pt"),
+                               backbone.model, epoch=epoch,
+                               extra={"score": score,
+                                      "dataset": args.dataset})
+                    print(f"saved best (score {score:.2f})")
+            if ckpt is not None:
+                ckpt.save((epoch + 1) * steps_per_epoch,
+                          train_state(backbone, state, drop))
+        if ckpt is not None:
+            ckpt.wait()
     if args.nni:  # (ref clip4cir/train.py:196-197)
         try:
             import nni

@@ -54,6 +54,13 @@ state dict) into `models.llava.LlavaLlamaForCausalLM`'s names, inverting
 `blip_caption_state_dict_from_jax` / `load_blip_caption_checkpoint` carry
 the BLIP captioner (LAVIS `blip_caption`) into `models.blip_caption.
 BlipCaption`'s, inverting `convert_blip_caption`.
+
+The SRM matcher: `unicom_state_dict_from_jax` / `bge_state_dict_from_jax`
+carry the JAX `UnicomViT` and BGE `MedBert` trees into
+`models.unicom.UnicomViT`'s timm names and a plain HF `BertModel`'s,
+inverting `convert_unicom_state_dict` and `convert_bge_state_dict`;
+`load_unicom_checkpoint` / `load_bge_checkpoint` read the reference's two
+files for strict loading.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from spn4cir_tpu_torch.models.llama import LlamaConfig, QuantKernel
 from spn4cir_tpu_torch.models.llava import LlavaConfig
 from spn4cir_tpu_torch.models.med import MedConfig
 from spn4cir_tpu_torch.models.qformer import QFormerConfig
+from spn4cir_tpu_torch.models.unicom import UnicomConfig
 
 # keys of an OpenAI jit archive that describe the model rather than hold
 # weights (the OpenAI loader deletes them too)
@@ -843,3 +851,107 @@ def load_blip_caption_checkpoint(path: str, num_tokens: Optional[int] = None
         sd["visual_encoder.pos_embed"] = interpolate_pos_embed(
             sd["visual_encoder.pos_embed"], num_tokens)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# The SRM matcher (Unicom ViT + BGE)
+# ---------------------------------------------------------------------------
+
+def _bn_from_jax(sd: Dict[str, torch.Tensor], name: str, node: Mapping
+                 ) -> None:
+    """An inference BatchNorm's scale, bias and running statistics; the
+    step count, which the JAX tree does not keep, is 0."""
+    for ours, theirs in (("weight", "scale"), ("bias", "bias"),
+                         ("running_mean", "mean"), ("running_var", "var")):
+        sd[f"{name}.{ours}"] = _tensor(node[theirs])
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def unicom_state_dict_from_jax(params_np: Mapping[str, Any],
+                               cfg: Optional[UnicomConfig] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX `UnicomViT` params ({'params': ...} or the inner tree; numpy or
+    device leaves) -> `models.unicom.UnicomViT`'s timm names; inverts
+    `convert_unicom_state_dict` of the JAX package. `cfg`, when given,
+    checks the depth."""
+    p = params_np.get("params", params_np)
+    sd: Dict[str, torch.Tensor] = {
+        "patch_embed.proj.weight": _oihw(p["patch_embed"]["kernel"]),
+        "patch_embed.proj.bias": _tensor(p["patch_embed"]["bias"]),
+        "pos_embed": _tensor(np.asarray(p["pos_embed"])[None]),
+        "norm.weight": _tensor(p["norm"]["scale"]),
+        "norm.bias": _tensor(p["norm"]["bias"]),
+        "feature.0.weight": _tensor(np.asarray(
+            p["feature_fc1"]["kernel"]).T),
+        "feature.2.weight": _tensor(np.asarray(
+            p["feature_fc2"]["kernel"]).T),
+    }
+    _bn_from_jax(sd, "feature.1", p["feature_bn1"])
+    _bn_from_jax(sd, "feature.3", p["feature_bn2"])
+    block = p["blocks"]["block"]
+    for ln in ("norm1", "norm2"):
+        _unstack(sd, "blocks", f"{ln}.weight", block[ln]["scale"])
+        _unstack(sd, "blocks", f"{ln}.bias", block[ln]["bias"])
+    _unstack(sd, "blocks", "attn.qkv.weight", block["qkv"]["kernel"], True)
+    for ours, theirs in (("attn.proj", "proj"), ("mlp.fc1", "fc1"),
+                         ("mlp.fc2", "fc2")):
+        _unstack(sd, "blocks", f"{ours}.weight", block[theirs]["kernel"],
+                 True)
+        _unstack(sd, "blocks", f"{ours}.bias", block[theirs]["bias"])
+    depth = np.shape(block["qkv"]["kernel"])[0]
+    if cfg is not None and depth != cfg.depth:
+        raise ValueError(f"the tree has {depth} blocks, the config "
+                         f"{cfg.depth}")
+    return sd
+
+
+def bge_state_dict_from_jax(params_np: Mapping[str, Any],
+                            cfg: Optional[MedConfig] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX `MedBert` params of the BGE text encoder (no cross-attention)
+    -> a plain HF `BertModel`'s names, as `models.med.MedBert` built with
+    `cross_attention=False` holds them; `cfg`, when given, checks the
+    depth."""
+    p = params_np.get("params", params_np)
+    sd = med_state_dict(p, prefix="")
+    if any(".crossattention." in k for k in sd):
+        raise ValueError("a BGE tree has no cross-attention")
+    depth = np.shape(p["layers"]["layer"]["ln"]["scale"])[0]
+    if cfg is not None and depth != cfg.num_layers:
+        raise ValueError(f"the tree has {depth} layers, the config "
+                         f"{cfg.num_layers}")
+    return sd
+
+
+def _floats_to_float32(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Floating tensors to float32 (a half-precision save included);
+    integer buffers keep their type."""
+    return {k: (v.detach().to(torch.float32) if v.is_floating_point()
+                else v.detach())
+            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def load_unicom_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a Unicom checkpoint (the published `FP16-ViT-L-14.pt` is a
+    half-precision DDP save) into a float32 state dict for `UnicomViT`:
+    the {'state_dict': sd} / {'model': sd} wrappers taken, everything up to
+    the last `module.` of a key stripped, as the JAX converter reads it
+    (`spn4cir_tpu/models/convert.py:429-475`)."""
+    obj = _unwrap_checkpoint(path)
+    return _floats_to_float32({k.split("module.")[-1]: v
+                               for k, v in obj.items()})
+
+
+def load_bge_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a BGE (`BAAI/bge-base-en`, an HF `BertModel`) save into a
+    float32 state dict for the cross-attention-free `MedBert`: a `bert.`
+    prefix stripped, the unused pooler and HF's `position_ids` /
+    `token_type_ids` buffers dropped (SRM reads the CLS hidden state,
+    `spn4cir_tpu/models/convert.py:286-293`)."""
+    obj = _unwrap_checkpoint(path)
+    sd = {(k[len("bert."):] if k.startswith("bert.") else k): v
+          for k, v in obj.items()}
+    return _floats_to_float32({
+        k: v for k, v in sd.items()
+        if k.startswith(("embeddings.", "encoder."))
+        and not k.endswith(("position_ids", "token_type_ids"))})

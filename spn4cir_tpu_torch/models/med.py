@@ -22,9 +22,11 @@ What differs from the CLIP block (`models/layers.py`): post-LN over
 the q·k product; masks are additive -1e9, not -inf; word + position
 embeddings only (no token-type table unless `type_vocab_size`); separate
 q / k / v projections, the cross-attention's k and v reading
-`encoder_width`. The attention carries data-dependent padding masks: it is
-plain tensor code here, as it runs outside any Pallas kernel in the JAX
-package.
+`encoder_width`; `cross_attention=False` (`MedConfig.bge_base`, the SRM
+matcher's BGE text encoder) builds the layers of a plain HF `BertModel`,
+with no `crossattention` module. The attention carries data-dependent
+padding masks: it is plain tensor code here, as it runs outside any Pallas
+kernel in the JAX package.
 
 Dropout (`dropout_rate`, 0 by default) is live only in `train()` mode, at
 HF's four places (embeddings, attention probabilities, attention output,
@@ -62,11 +64,22 @@ class MedConfig:
     # HF BERT trains with hidden/attention dropout 0.1 (med_config.json);
     # 0.0 reproduces eval numerics
     dropout_rate: float = 0.0
+    # False = a plain HF BertModel: no `crossattention` module in any layer
+    # (BGE; the JAX package builds its cross-attention only when it is
+    # called with encoder states, so a text-only tree has none)
+    cross_attention: bool = True
 
     @classmethod
     def tiny(cls, vocab_size: int = 128, **kw) -> "MedConfig":
         return cls(vocab_size=vocab_size, hidden_size=32, num_layers=2,
                    num_heads=2, intermediate_size=64, encoder_width=32, **kw)
+
+    @classmethod
+    def bge_base(cls, vocab_size: int = 30522) -> "MedConfig":
+        """BAAI/bge-base-en: a standard bert-base-uncased BertModel (token
+        types, no cross-attention)."""
+        return cls(vocab_size=vocab_size, type_vocab_size=2,
+                   cross_attention=False)
 
 
 def additive_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -170,7 +183,8 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: MedConfig):
         super().__init__()
         self.attention = BertAttention(cfg)
-        self.crossattention = BertAttention(cfg, cross=True)
+        self.crossattention = (BertAttention(cfg, cross=True)
+                               if cfg.cross_attention else None)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
 
@@ -178,6 +192,9 @@ class BertLayer(nn.Module):
                 drop: Dropout) -> torch.Tensor:
         hidden = self.attention(hidden, None, self_mask, drop)
         if enc_states is not None:
+            if self.crossattention is None:
+                raise ValueError("encoder states given to a MED built "
+                                 "without cross-attention")
             hidden = self.crossattention(hidden, enc_states, cross_mask, drop)
         return self.output(self.intermediate(hidden), hidden, drop)
 

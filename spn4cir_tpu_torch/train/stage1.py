@@ -82,12 +82,14 @@ def train_epoch_stage1(
     log_every: int = 50,
     log_fn: Callable[[int, float], None] = lambda step, loss: None,
     start_step: int = 0,
+    step_hook: Optional[Callable[[int, TrainState], None]] = None,
 ):
     """Host loop over `iter_train_images` batches; a batch with a padded
     tail is dropped (drop_last). The loss accumulates on the device; the
     host reads it only every `log_every` steps. The next batch's decode
     runs ahead on a prefetch thread: a step decodes 2B fresh images.
-    Returns (state, mean_loss)."""
+    `step_hook(step_in_epoch, state)` runs after every step; `start_step`
+    numbers the steps of a mid-epoch resume. Returns (state, mean_loss)."""
     device = backbone.device
     loss_sum, count = None, 0
     for step, raw in enumerate(prefetch(batches, depth=2), start=start_step):
@@ -105,4 +107,6 @@ def train_epoch_stage1(
         count += 1
         if log_every and step % log_every == 0:
             log_fn(step, float(loss))
+        if step_hook is not None:
+            step_hook(step + 1, state)
     return state, (float(loss_sum) / count if count else 0.0)

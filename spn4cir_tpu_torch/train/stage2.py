@@ -198,11 +198,15 @@ def train_epoch(
     log_fn: Callable[[int, float], None] = lambda step, loss: None,
     start_step: int = 0,
     dropout_generator: Optional[torch.Generator] = None,
+    step_hook: Optional[Callable[[int, TrainState], None]] = None,
 ):
     """Host epoch loop over `iter_train_bank` batches: gather refer rows,
     tokenize, run the step. Returns (state, mean_loss). Batches are
     prefetched on a background thread. `dropout_generator`: see
-    `stage2_train_step`."""
+    `stage2_train_step`. `step_hook(step_in_epoch, state)` runs after every
+    step (the step-granular checkpoints of `--ckpt_every_steps`);
+    `start_step` numbers the steps of a mid-epoch resume (pair it with the
+    iterator's `start_step`)."""
     device = backbone.device
     # The loss stays on the device between steps (loss_sum is a device
     # scalar); the host reads it only every `log_every` steps — a per-step
@@ -234,5 +238,7 @@ def train_epoch(
         count += 1
         if log_every and step % log_every == 0:
             log_fn(step, float(loss))
+        if step_hook is not None:
+            step_hook(step + 1, state)
     mean = float(loss_sum) / count if count else 0.0
     return state, mean

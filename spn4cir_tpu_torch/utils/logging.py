@@ -1,14 +1,20 @@
-"""Training observability: a line-oriented metric printer and step timing.
+"""Training observability: a line-oriented metric printer, a profiler
+trace and step timing.
 
-Counterpart of `MetricLogger` / `StepTimer` in
+Counterpart of `MetricLogger`, `profiler_trace` and `StepTimer` in
 `spn4cir_tpu/utils/logging.py`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
 import time
+from typing import Optional
+
+import torch
 
 
 class MetricLogger:
@@ -28,6 +34,26 @@ class MetricLogger:
         self.stream.write(json.dumps(payload) + "\n")
         self.stream.flush()
         self._last = now
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: Optional[str]):
+    """A `torch.profiler` trace of the block (host and, where there is a
+    card, device activity), written under `logdir` as a Chrome trace
+    (`<host>_<pid>.<time>.pt.trace.json`, TensorBoard's layout) when the
+    block ends; nothing when `logdir` is empty."""
+    if not logdir:
+        yield None
+        return
+    os.makedirs(logdir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                logdir)) as prof:
+        yield prof
 
 
 class StepTimer:

@@ -1174,3 +1174,78 @@ def test_blip_captioner_through_the_kernel_on_card(cuda_device, tmp_path):
     _parted_within_noise(kern, plain, step_logits)
     caps = cap.caption(images)           # beam 3, the default
     assert len(caps) == 4 and all(isinstance(c, str) for c in caps)
+
+
+@pytest.mark.cuda
+def test_unicom_float32_attention_through_kernel_3_on_card(cuda_device):
+    """Unicom ViT-L/14's attention slice at an encode batch of 32: (32 x 16
+    heads, 256 tokens, 64) in float32 through #3 against its plain
+    version."""
+    q, k, v = _long_inputs(512, 256, 64, torch.float32, cuda_device, seed=4)
+    before = long_attention.launches
+    with torch.inference_mode():
+        got = long_attention(q, k, v)
+    assert long_attention.launches == before + 1
+    torch.testing.assert_close(got, long_attention_reference(q, k, v),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bf16_unicom_takes_the_float32_route_on_card(cuda_device,
+                                                     monkeypatch):
+    """Built in bf16 (at ViT-L/14's 256 tokens, two narrow blocks), the
+    tower hands #3 float32 q, k and v, once a block; its embeddings agree
+    with the plain attention route."""
+    from spn4cir_tpu_torch.models.unicom import UnicomConfig, UnicomViT
+
+    cfg = UnicomConfig(dim=128, embedding_size=32, depth=2, num_heads=2)
+    with torch.device(cuda_device):
+        model = UnicomViT(cfg, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device=cuda_device).manual_seed(0))
+    seen = []
+    kernel = layers.long_attention
+
+    def spy(q, k, v):
+        seen.append((q.dtype, tuple(q.shape)))
+        return kernel(q, k, v)
+
+    monkeypatch.setattr(layers, "long_attention", spy)
+    images = torch.rand(3, 224, 224, 3, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(1))
+    before = long_attention.launches
+    with torch.inference_mode():
+        got = model.eval()(images)
+        layers.set_attention_impl(model, "plain")
+        want = model(images)
+    assert long_attention.launches == before + cfg.depth
+    assert seen == [(torch.float32, (3 * 2, 256, 64))] * cfg.depth
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_srm_scores_on_card_equal_the_cpu_port(cuda_device):
+    """`srm_scores` on device similarities against the same function on
+    their host copy: the same six arrays, exactly (random features hold no
+    equal values)."""
+    from spn4cir_tpu_torch.datagen.srm import compute_sims, srm_scores
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def unit(n):
+        x = torch.randn(n, 64, generator=g, device=cuda_device)
+        return x / x.norm(dim=1, keepdim=True)
+
+    n_img, n_txt = 700, 900
+    sims = compute_sims(unit(n_img), unit(n_txt), unit(n_img), unit(n_txt))
+    refer = torch.randint(0, n_img, (n_txt,), generator=g,
+                          device=cuda_device)
+    target = torch.randint(0, n_img, (n_txt,), generator=g,
+                           device=cuda_device)
+    got = srm_scores(sims, refer, target, 100, chunk=256)
+    host = {key: v.cpu() for key, v in sims.items()}
+    want = srm_scores(host, refer.cpu(), target.cpu(), 100)
+    for key in want:
+        assert got[key].device.type == "cuda"
+        assert torch.equal(got[key].cpu(), want[key]), key

@@ -470,7 +470,7 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
 @pytest.mark.parametrize("flags,match", [
     (["tgcir", "--wo_bank", "--neg_type", "1"], "--neg_type"),
     (["--neg_type", "1"], "--neg_type"),
-    (["--ckpt_every_steps", "5"], "--ckpt_every_steps"),
+    (["tgcir", "--unlabeled"], "--unlabeled"),
     (["--use_cc"], "--use_cc"),
     (["--loss_impl", "xla"], "--loss_impl"),
     (["--mesh_data", "2"], "--mesh_data"),
@@ -479,13 +479,13 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
     (["--distributed"], "--distributed"),
     (["--device_preprocess"], "--device_preprocess"),
     (["--loader_procs", "2"], "--loader_procs"),
-    (["--resume"], "--resume"),
+    (["blip2", "--text_max_len", "40"], "--text_max_len"),
     (["--wo_bank", "--use_cc"], "--use_cc"),
     (["--dropout", "0.1"], "--dropout"),
     (["--text_max_len", "40"], "--text_max_len"),
     (["--val_ret_train"], "--val_ret_train"),
     (["--device_canvas", "448"], "--device_canvas"),
-    (["--profile_dir", "traces"], "--profile_dir"),
+    (["zs", "--dropout", "0.1"], "--dropout"),
 ])
 def test_unported_flags_raise_not_yet_ported(flags, match, tok, cirr_root,
                                              tmp_path):
