@@ -197,7 +197,31 @@ non-zero exit):
      --ckpt_every_steps 2` in subprocesses: one uninterrupted with
      `--profile_dir`, one killed by SIGKILL after its first checkpoint and
      started again, their final trainable parameters compared (bitwise or
-     max abs difference).
+     max abs difference);
+ 18. the host input path: prints os.cpu_count() and whether the native
+     loader and the native BPE built (or the build error); a fresh
+     1,024-image CIRR tree of JPEGs at sides 320-640 (quality 90, smooth
+     content plus noise) and 4 palette PNGs; `serve_main` (ViT-B/32 bf16)
+     indexes it four ways, (a) PIL on a thread pool (`SPN4CIR_NATIVE=0`),
+     (b) the native loader where it built, (c) `--loader_procs N` (N =
+     min(8, cpus // 2)) and (d) `--device_preprocess` (the native stager,
+     or PIL's staging where the loader did not build) at the default
+     canvas 448 and at 640, which holds every image without a host
+     pre-downscale, each timed in images/s beside the device encode rate of
+     a resident batch and the device preprocess of one, answering 64
+     /retrieve requests checked as phase 4's, #1 counted; (c) gives
+     features equal to the bit to those of the in-process route with its
+     decoder, (b), or (a) where the native loader did not build (the
+     palette rows of (b) and (c) equal to (a)'s: the same PIL fallback),
+     and every route against (a) a cosine above 0.999 per
+     row of a JPEG that reaches the device as it is (the palette and
+     pre-downscaled rows and the top-10 agreement are printed);
+     `train_main --device_preprocess --device_canvas 640 --loader_procs N`:
+     the bank from raw canvases (against the host pipeline's, cosine above
+     0.999 per JPEG row), 3 stage-2 steps, then 2 `--wo_bank`
+     stage-1 steps on raw batches, the losses finite, #1, #2, #5, #6
+     counted; a 32-query dispatch and 1,024 captions through the Python and
+     the native BPE, timed, the ids identical.
 Phase 6 ends with 6b: `cli.validate_case` on the flagship checkpoint and on
 random weights, then `cli.analysis_case` over the two dumps. Phase 8 also holds one float32 tgcir ViT-B/16 stage-2 loss through the
 kernels against the plain versions, over a dense and an int8 bank. Phase
@@ -213,7 +237,8 @@ split plan and the blocks or clusters the card holds at once; #3, #4, #9
 and #10 are timed per call and back to back too. Phase 11 prints each
 decode step's device busy, #11's and #12's ms a step and the idle share.
 Phases 9-13 run between
-phases 7 and 8, phase 14 after 11, phases 15, 16 and 17 after 13. The last three lines are the kernels JSON, the card's name
+phases 7 and 8, phase 14 after 11, phases 15, 16 and 17 after 13, phase 18
+after 17. The last three lines are the kernels JSON, the card's name
 and power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
@@ -5214,6 +5239,455 @@ def timing(at):
             "library_ms": at["library_ms"]}
 
 
+# phase 18, the host input path: a fresh tree of JPEGs at CIRR-like sizes
+# (sides 320-640 from the seed, quality 90, smooth content plus noise; four
+# palette PNGs that take the per-image PIL fallback) written under the names
+# the fixture's JSON gives (both decoders read the format from the magic
+# bytes). Cut: 1,024 images where CIRR's test gallery has 2,315
+HOST_IMAGES = 1024
+HOST_PALETTE = 4
+HOST_TRAIN = 768                  # 3 stage-2 steps at TRAIN_BATCH
+HOST_S1_BATCH = 384               # 2 stage-1 steps over the same triplets
+HOST_QUERIES = 64
+HOST_CANVAS = 448                 # the CLI's default: twice ViT-B/32's 224
+HOST_CANVAS_FULL = 640            # holds every image without a pre-downscale
+HOST_DISPATCH = 32                # the tokenized query dispatch
+HOST_CAPTIONS = 1024
+# every route against the PIL route: cosine per gallery row of a JPEG that
+# reaches the device as it is (a palette PNG is resized NEAREST on its
+# indices by PIL and bicubically on its colours by the device preprocess; an
+# image larger than the canvas is pre-downscaled on the host first: both
+# are reported, not held to this bound)
+HOST_COS = 0.999
+
+
+def write_host_tree(tmp):
+    """The phase-18 tree: `make_cirr`'s JSON over HOST_IMAGES names, each
+    file rewritten as a JPEG (or, for HOST_PALETTE of them, a palette PNG).
+    Returns (root, the palette images' names, {name: (h, w)})."""
+    import numpy as np
+    from PIL import Image
+
+    make_cirr = load_test_module("fixtures").make_cirr
+    root = make_cirr(os.path.join(tmp, "cirr_host"), n_images=HOST_IMAGES,
+                     n_train=HOST_TRAIN, n_val=N_VAL, extended=False)
+    rng = np.random.RandomState(18)
+    sizes = rng.randint(320, 641, (HOST_IMAGES, 2))
+    seeds = rng.randint(0, 2 ** 31 - 1, HOST_IMAGES)
+    palette = {int(i) for i in rng.choice(HOST_IMAGES, HOST_PALETTE,
+                                          replace=False)}
+
+    def write(i):
+        r = np.random.RandomState(seeds[i])
+        w, h = (int(x) for x in sizes[i])
+        smooth = Image.fromarray(r.randint(0, 256, (6, 6, 3), np.uint8)
+                                 ).resize((w, h), Image.BILINEAR)
+        arr = np.asarray(smooth, np.float32) + r.normal(0, 10, (h, w, 3))
+        img = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+        path = os.path.join(root, "dev", f"cirr_img{i}.png")
+        if i in palette:
+            img.convert("P", palette=Image.ADAPTIVE, colors=64).save(
+                path, format="PNG")
+        else:
+            img.save(path, format="JPEG", quality=90)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(write, range(HOST_IMAGES)))
+    return root, {f"cirr_img{i}" for i in palette}, {
+        f"cirr_img{i}": (int(h), int(w)) for i, (w, h) in enumerate(sizes)}
+
+
+@contextlib.contextmanager
+def scoped_env(**values):
+    """Environment variables set (None: removed) inside the block only."""
+    before = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def timed_indexing(seconds: list):
+    """Records the wall seconds of each `extract_index_features` call made
+    inside the block (the serving CLI imports it at call time)."""
+    from spn4cir_tpu_torch.eval import retrieval
+
+    real = retrieval.extract_index_features
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    retrieval.extract_index_features = timed
+    try:
+        yield
+    finally:
+        retrieval.extract_index_features = real
+
+
+def host_queries(names):
+    """HOST_QUERIES (reference name, caption) pairs from a fixed seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    picks = rng.choice(len(names), HOST_QUERIES, replace=False)
+    return [(names[i], CAPTIONS[j % len(CAPTIONS)])
+            for j, i in enumerate(picks)]
+
+
+def drive_host_route(ak, bk, root, route, flags, env, card):
+    """One route of phase 18: `serve_main` indexes the tree (its index time
+    recorded), HOST_QUERIES /retrieve requests 16 at a time, each checked
+    as phase 4 checks them. Returns (index, per-query top-10 names, images/s
+    of the index, launches)."""
+    from spn4cir_tpu_torch.cli.serve import serve_main
+
+    argv = ["--dataset", "cirr", "--data_path", root, "--clip-model-name",
+            "ViT-B/32", "--bf16", "--seed", "0", "--batch-size",
+            str(ENCODE_BATCH), "--serve_batch", str(SERVE_BATCH),
+            "--default_k", str(K), "--serve_host", "127.0.0.1",
+            "--serve_port", "0", "--no-block", *flags]
+    seconds = []
+    count = zero_counts(ak, bk)
+    with scoped_env(**env), timed_indexing(seconds), \
+            contextlib.redirect_stdout(io.StringIO()):
+        server, service = serve_main(argv)
+    port = server.server_address[1]
+    try:
+        names = list(service.index.names)
+        jobs = host_queries(names)
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            outs = list(pool.map(lambda job: post(port, {
+                "reference_name": job[0], "caption": job[1], "k": K})[0],
+                jobs))
+        launches = read_counts(count)
+        dispatches = service.metrics()["dispatches"]
+    finally:
+        server.shutdown()
+        server.server_close()
+    for (name, _), results in zip(jobs, outs):
+        check_results(name, results, set(names))
+    cfg = service.backbone.cfg
+    batches = math.ceil(HOST_IMAGES / ENCODE_BATCH)
+    want = dict(short_attention=(cfg.vision_layers * batches
+                                 + cfg.transformer_layers * dispatches),
+                short_attention_bwd=0, **NO_LONG, **bank_launches(False, 0))
+    assert launches == want, (route, launches, want)
+    (index_s,) = seconds
+    rate = HOST_IMAGES / index_s
+    phase(f"host input {route}: {HOST_IMAGES} images indexed in "
+          f"{index_s:.3f} s, {rate:.1f} images/s; {HOST_QUERIES} queries in "
+          f"{dispatches} fuse dispatches checked; #1 launches "
+          f"{launches['short_attention']} (want {cfg.vision_layers}*{batches}"
+          f" + {cfg.transformer_layers}*{dispatches}) [{card}]")
+    tops = [[r["name"] for r in results] for results in outs]
+    return service.index, service.backbone, tops, rate, launches
+
+
+def drive_host_input(ak, bk, tmp, card):
+    """Phase 18: the host input path. Returns {path name: launches}."""
+    import numpy as np
+
+    from spn4cir_tpu_torch import native
+    from spn4cir_tpu_torch.ops.preprocess import preprocess_batch_dynamic
+    from spn4cir_tpu_torch.tokenizer import native_bpe
+
+    cpus = os.cpu_count()
+    procs = max(1, min(8, cpus // 2))
+    phase(f"host input: os.cpu_count() = {cpus}")
+    loader_ok = native.native_available()
+    phase("host input: native loader "
+          + (f"built: {os.path.relpath(native.loaded_library(), REPO)}"
+             if loader_ok else "did not build"))
+    if not loader_ok:
+        phase(f"host input: native loader build error: "
+              f"{native.build_error()!r}")
+    bpe_ok = native_bpe.native_available()
+    phase("host input: native BPE " + (
+        "built" if bpe_ok else f"did not build: {native_bpe.build_error()!r}"))
+    assert bpe_ok, native_bpe.build_error()
+
+    t0 = time.perf_counter()
+    root, palette, sizes = write_host_tree(tmp)
+    phase(f"host input: {HOST_IMAGES} images written in "
+          f"{time.perf_counter() - t0:.1f} s ({HOST_IMAGES - HOST_PALETTE} "
+          f"JPEGs q90 at sides 320-640, {HOST_PALETTE} palette PNGs)")
+
+    routes = [("host_pil", "(a) PIL thread pool", [],
+               {"SPN4CIR_NATIVE": "0"})]
+    if loader_ok:
+        routes.append(("host_native", "(b) native loader", [], {}))
+    else:
+        phase("host input (b) native loader: not run (no native loader)")
+    routes += [("host_mp", f"(c) --loader_procs {procs}",
+                ["--loader_procs", str(procs)], {}),
+               ("host_raw", f"(d) --device_preprocess (canvas {HOST_CANVAS})",
+                ["--device_preprocess"], {}),
+               ("host_raw_full", f"(d) --device_preprocess --device_canvas "
+                f"{HOST_CANVAS_FULL}", ["--device_preprocess",
+                                        "--device_canvas",
+                                        str(HOST_CANVAS_FULL)], {})]
+    results, rates, launches = {}, {}, {}
+    for key, label, flags, env in routes:
+        with scoped_env(SPN4CIR_MP_PROCS=None):
+            index, backbone, tops, rate, counts = drive_host_route(
+                ak, bk, root, label, flags, env, card)
+        results[key] = (index, tops)
+        rates[key] = rate
+        launches[key] = counts
+
+    # the device's own rates on resident batches: the encode, and the
+    # device preprocess of ENCODE_BATCH canvases
+    dev = backbone.device
+    res = backbone.cfg.image_resolution
+    g = torch.Generator(device=dev).manual_seed(18)
+    with torch.inference_mode():
+        batch = torch.randn(ENCODE_BATCH, res, res, 3, device=dev, generator=g)
+        encode_ms = median_ms(lambda: backbone.index_features(batch), reps=10,
+                              warmup=2)
+        pre = {}
+        for canvas in (HOST_CANVAS, HOST_CANVAS_FULL):
+            canv = torch.randint(0, 256, (ENCODE_BATCH, canvas, canvas, 3),
+                                 device=dev, generator=g, dtype=torch.uint8)
+            ext = torch.randint(canvas // 2, canvas + 1, (ENCODE_BATCH, 2),
+                                device=dev, generator=g, dtype=torch.int32)
+            ms = median_ms(lambda: preprocess_batch_dynamic(
+                canv, ext, res, "targetpad"), reps=10, warmup=2)
+            gflop = 2 * ENCODE_BATCH * res * canvas * 3 * (canvas + res) / 1e9
+            pre[canvas] = (ms, gflop)
+            del canv
+    phase(f"host input: device encode {ENCODE_BATCH / encode_ms * 1e3:.1f} "
+          f"images/s ({encode_ms:.3f} ms a resident batch of {ENCODE_BATCH})"
+          + "".join(f"; device preprocess of {ENCODE_BATCH} canvases {c} -> "
+                    f"{res}: {ms:.3f} ms ({gf:.1f} GFLOP float32, "
+                    f"{gf / ms:.2f} TFLOP/s)" for c, (ms, gf) in pre.items())
+          + f" [{card}]")
+    phase("host input rates images/s " + json.dumps(
+        {**{k: round(v, 1) for k, v in rates.items()},
+         "device_encode": round(ENCODE_BATCH / encode_ms * 1e3, 1),
+         **{f"device_preprocess_{c}": round(ENCODE_BATCH / ms * 1e3, 1)
+            for c, (ms, _) in pre.items()},
+         "cpu_count": cpus, "loader_procs": procs}))
+
+    # features: the native routes agree to the bit; every route against PIL
+    from spn4cir_tpu_torch.data.transforms import pad_geometry
+
+    pil_index, pil_tops = results["host_pil"]
+    names = pil_index.names
+    is_palette = np.array([n in palette for n in names])
+
+    def fits(canvas):
+        out = []
+        for n in names:
+            h, w = sizes[n]
+            vp, hp = pad_geometry(h, w, "targetpad")
+            out.append(max(h + 2 * vp, w + 2 * hp) <= canvas)
+        return np.array(out)
+
+    # the worker processes decode as this process does: natively, or with
+    # PIL where the loader did not build
+    same = "host_native" if loader_ok else "host_pil"
+    one, mp_ = results[same][0], results["host_mp"][0]
+    assert torch.equal(one.target, mp_.target)
+    assert np.array_equal(one.refer, mp_.refer)
+    assert results[same][1] == results["host_mp"][1]
+    phase(f"host input: {same} and host_mp index features equal to the "
+          f"bit, every top-10 list the same")
+    jobs = host_queries(names)
+    gids = torch.tensor([names.index(n) for n, _ in jobs], device=dev)
+    rows = torch.arange(len(jobs), device=dev)
+    text = torch.from_numpy(backbone.tokenize([c for _, c in jobs])).to(dev)
+
+    def scores(index):
+        with torch.inference_mode():
+            q = backbone.fuse(index.refer_rows(gids.cpu().numpy()), text)
+            s = backbone.score_queries(q, index.target).float()
+            s[rows, gids] = float("-inf")
+        return s.clone()
+
+    pil_scores = scores(pil_index)
+    top11 = pil_scores.topk(11, dim=-1).values
+    gap = (top11[:, 9] - top11[:, 10]).median().item()
+    jpeg_cols = torch.from_numpy(~is_palette).to(dev)
+    for key in results:
+        if key == "host_pil":
+            continue
+        index, tops = results[key]
+        assert index.names == names
+        cos = torch.nn.functional.cosine_similarity(
+            index.target.float(), pil_index.target.float(), dim=-1).cpu()
+        cos = cos.numpy()
+        canvas = (HOST_CANVAS if key == "host_raw" else HOST_CANVAS_FULL
+                  if key == "host_raw_full" else 10 ** 6)
+        held = ~is_palette & fits(canvas)
+        scaled = ~is_palette & ~fits(canvas)
+        diff = scores(index) - pil_scores
+        diff[rows, gids] = 0.0                     # the excluded reference
+        diff = diff[:, jpeg_cols].abs()
+        agree = np.mean([set(a) == set(b) for a, b in zip(tops, pil_tops)])
+        ordered = np.mean([a == b for a, b in zip(tops, pil_tops)])
+        phase(f"host input {key} against (a): cosine per row min "
+              f"{cos[held].min():.6f} over {int(held.sum())} JPEGs that reach "
+              f"the device as they are (bound {HOST_COS})"
+              + (f", {cos[scaled].min():.6f} over {int(scaled.sum())} "
+                 f"pre-downscaled to the canvas" if scaled.any() else "")
+              + f", {cos[is_palette].min():.6f} over the {HOST_PALETTE} "
+              f"palette PNGs; top-10 sets equal for {agree:.3f} of "
+              f"{HOST_QUERIES} queries, in the same order for {ordered:.3f} "
+              f"(median gap between (a)'s 10th and 11th score "
+              f"{gap:.2e}, median of the largest score change over the "
+              f"JPEG rows {diff.amax(-1).median().item():.2e})")
+        if key in ("host_native", "host_mp"):
+            # the palette images take the same PIL fallback as route (a)
+            pal = torch.from_numpy(is_palette).to(index.target.device)
+            assert torch.equal(index.target[pal], pil_index.target[pal])
+        assert cos[held].min() > HOST_COS, key
+
+    launches["host_train"] = drive_host_training(ak, bk, root, procs,
+                                                 palette, tmp, card)
+    drive_tokenize(card)
+    return launches
+
+
+def drive_host_training(ak, bk, root, procs, palette, tmp, card):
+    """Phase 18, training: `train_main clip --device_preprocess
+    --loader_procs N` on the canvas that holds every image as it is, stage 2
+    (the bank extracted from raw canvases, 3 steps) then stage 1
+    (`--wo_bank`, 2 steps on raw batches). Returns the launches of both
+    runs."""
+    from spn4cir_tpu_torch.bank.bank import Bank, extract_banks
+    from spn4cir_tpu_torch.cli import common, train
+    from spn4cir_tpu_torch.data.datasets import CIRDataset, iter_unique_images
+    from spn4cir_tpu_torch.utils.seeding import seed_everything
+
+    out = os.path.join(tmp, "host_train")
+    argv = ["--dataset", "cirr", "--data_path", root, "--clip-model-name",
+            "ViT-B/32", "--bf16", "--seed", "0", "--num-epochs", "1",
+            "--device_preprocess", "--device_canvas", str(HOST_CANVAS_FULL),
+            "--loader_procs", str(procs)]
+    runs = (("stage 2", argv + ["--batch-size", str(TRAIN_BATCH),
+                                "--output_path", out]),
+            ("stage 1", argv + ["--batch-size", str(HOST_S1_BATCH),
+                                "--wo_bank", "--output_path", out + "_s1"]))
+    count = zero_counts(ak, bk)
+    losses = {}
+    t0 = time.perf_counter()
+    for label, run_argv in runs:
+        tee = Tee(io.StringIO())
+        with scoped_env(SPN4CIR_MP_PROCS=None), contextlib.redirect_stdout(tee):
+            train.train_main("clip", run_argv, log_every=1,
+                             **train.CLIP4CIR_DEFAULTS)
+        losses[label] = [json.loads(line)["loss"]
+                         for line in tee.buffer_.getvalue().splitlines()
+                         if line.startswith('{"step"')]
+    launches = read_counts(count)
+    train_s = time.perf_counter() - t0
+    steps2, steps1 = len(losses["stage 2"]), len(losses["stage 1"])
+    assert steps2 == HOST_TRAIN // TRAIN_BATCH == 3, losses
+    assert steps1 == HOST_TRAIN // HOST_S1_BATCH == 2, losses
+    assert all(math.isfinite(x) for v in losses.values() for x in v), losses
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        args = common.base_parser(**train.CLIP4CIR_DEFAULTS).parse_args(
+            runs[0][1])
+    backbone = common.make_backbone("clip", args)
+    common.load_or_init_params(backbone, args, seed_everything(args.seed))
+    backbone.eval()
+    cfg = backbone.cfg
+    ds = CIRDataset("cirr", "train", "relative",
+                    common.make_transform(backbone, args), root)
+    m = ds.num_unique_images
+    val_batches = math.ceil(HOST_IMAGES / 32) + math.ceil(N_VAL / 32)
+    v, t = cfg.vision_layers, cfg.transformer_layers
+    want = dict(
+        short_attention=(t * steps2 + v * math.ceil(m / TRAIN_BATCH)
+                         + (v + t) * steps1
+                         + 2 * (v * math.ceil(HOST_IMAGES / 32)
+                                + t * math.ceil(N_VAL / 32))),
+        short_attention_bwd=t * steps2 + (v + t) * steps1,
+        **NO_LONG, **bank_launches(False, steps2))
+    phase(f"host input training (train_main ViT-B/32 bf16 "
+          f"--device_preprocess --device_canvas {HOST_CANVAS_FULL} "
+          f"--loader_procs {procs}): bank of {m} images "
+          f"from raw canvases, {steps2} stage-2 steps at batch {TRAIN_BATCH}"
+          f" (losses {[round(x, 4) for x in losses['stage 2']]}), "
+          f"{steps1} stage-1 steps at batch {HOST_S1_BATCH} on raw batches "
+          f"(losses {[round(x, 4) for x in losses['stage 1']]}), 2 "
+          f"validations over {val_batches} batches, {train_s:.1f} s; "
+          f"launches {launches} (want {want}) [{card}]")
+    assert launches == want, (launches, want)
+
+    # the bank from raw canvases against the one the host pipeline gives
+    raw_bank = Bank.load(os.path.join(out, "cirr_bank.npz"))
+    host_ds = CIRDataset("cirr", "train", "relative", common.ImageTransform(
+        args.transform, backbone.input_dim, args.target_ratio), root)
+    with scoped_env(SPN4CIR_MP_PROCS=None):
+        host_bank = extract_banks(backbone.bank_features,
+                                  iter_unique_images(host_ds, TRAIN_BATCH), m,
+                                  device=backbone.device)
+    cos = torch.nn.functional.cosine_similarity(
+        raw_bank.target.float(), host_bank.target.float().cpu(), dim=-1)
+    pal = torch.tensor([n in palette for n in ds.imagenames])
+    phase(f"host input: raw-extracted bank against the host-extracted one, "
+          f"cosine per row min {cos[~pal].min().item():.6f} over "
+          f"{int((~pal).sum())} JPEG rows (bound {HOST_COS})"
+          + (f", {cos[pal].min().item():.6f} over {int(pal.sum())} palette "
+             f"PNGs" if pal.any() else ""))
+    assert cos[~pal].min().item() > HOST_COS
+    return launches
+
+
+def drive_tokenize(card):
+    """Phase 18, text: a query dispatch and a caption batch through the
+    Python BPE and the native one, timed; the ids must be identical."""
+    import numpy as np
+
+    from spn4cir_tpu_torch.tokenizer.bpe import ClipTokenizer, tokenize
+
+    fixtures = load_test_module("torch_fixtures")
+    merges = fixtures.synthetic_merges()
+    words = sorted({w for text in fixtures.CORPUS for w in text.split()})
+    rng = np.random.RandomState(7)
+    captions = [" ".join(rng.choice(words, rng.randint(5, 15)))
+                for _ in range(HOST_CAPTIONS)]
+    out = {}
+    for label, texts in (("dispatch", captions[:HOST_DISPATCH]),
+                         ("captions", captions)):
+        ids = {}
+        for path in ("python", "native"):
+            tok = ClipTokenizer(merges=merges)
+            if path == "python":
+                tok._native = False
+            t0 = time.perf_counter()
+            ids[path] = tokenize(texts, truncate=True, tokenizer=tok)
+            cold = (time.perf_counter() - t0) * 1e3
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                tokenize(texts, truncate=True, tokenizer=tok)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[f"{label}_{path}_first_ms"] = cold
+            out[f"{label}_{path}_ms"] = statistics.median(times)
+        assert np.array_equal(ids["python"], ids["native"]), label
+    phase(f"host input tokenize ({HOST_DISPATCH}-query dispatch, "
+          f"{HOST_CAPTIONS} captions; the native and Python ids identical; "
+          f"ms warm median of 5, first call with a cold word cache) "
+          + json.dumps({k: round(v, 3) for k, v in out.items()})
+          + f" [{card}]")
+
+
 def kernel_entry(name, replaces, source, launches_by_path, on_paths, records,
                  at, also=()):
     """One entry of the kernels line: `launches` is the sum over the main
@@ -5436,6 +5910,12 @@ def main() -> int:
         drive_resume(srm_argv, tmp, card)
 
         lap("17")
+        # phase 18: the host input path (native loader, multi-process
+        # loader, device preprocess, native BPE) on a tree of JPEGs
+        host_launches = drive_host_input(ak, bk, tmp, card)
+        torch.cuda.empty_cache()
+
+        lap("18")
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
         check_blip_plain_step(layers, card)
@@ -5474,7 +5954,11 @@ def main() -> int:
                     "blip_caption_serve": blip_caption_serve_launches[name],
                     "retrieval": retrieval_launches[name],
                     "srm": srm_launches[name],
-                    "srm_train": srm_train_launches[name]}
+                    "srm_train": srm_train_launches[name],
+                    **{path: counts[name]
+                       for path, counts in host_launches.items()}}
+
+        host_paths = tuple(host_launches)      # (b) only where it built
 
         at_bank = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={BANK_DIM}"
         at_flag = f"B={TRAIN_BATCH}, M={RECIPE_BANK}, D={FLAGSHIP_DIM}"
@@ -5485,7 +5969,7 @@ def main() -> int:
             csrc + "short_attention.cu", by_path("short_attention"),
             ("serve", "train", "flagship", "tgcir_serve", "tgcir_train",
              "negtype", "zs_stage1", "cases", "retrieval", "srm",
-             "srm_train"), fwd_records,
+             "srm_train") + host_paths, fwd_records,
             pick(fwd_records, tower="vision", dtype="bfloat16"),
             also=[pick(fwd_records, tower=t, dtype="bfloat16") for t in
                   ("text", "train-text", "flagship-text",
@@ -5494,7 +5978,7 @@ def main() -> int:
             "short_attention_bwd", jax_ops + "attention_kernels.py:279",
             csrc + "short_attention.cu", by_path("short_attention_bwd"),
             ("train", "flagship", "tgcir_train", "negtype", "zs_stage1",
-             "srm_train"),
+             "srm_train", "host_train"),
             bwd_records,
             pick(bwd_records, tower="train-text", dtype="bfloat16"),
             also=[pick(bwd_records, tower="flagship-text",
@@ -5504,7 +5988,8 @@ def main() -> int:
             entries.append(kernel_entry(
                 name, f"{jax_ops}bank_kernels.py:{line}",
                 csrc + "bank_infonce.cu", by_path(name),
-                ("train", "blip_train", "tgcir_train", "srm_train"), recs,
+                ("train", "blip_train", "tgcir_train", "srm_train",
+                 "host_train"), recs,
                 pick(recs, shape=at_bank, dtype="float32"),
                 also=[pick(recs, shape=at_bank, dtype="bfloat16"),
                       pick(recs, shape=at_flag, dtype="float32"),

@@ -4,17 +4,21 @@ Runs on one NVIDIA H100 (Hopper, sm_90a). The JAX package `spn4cir_tpu`
 beside it is the reference each module is tested against. This package
 imports `torch` and never JAX, and nothing of the JAX package: it keeps its
 own copies of the host modules it needs (tokenizer, datasets, transforms,
-prefetch).
+prefetch, the native loader's and BPE's C++ sources).
 
-Ported so far:
-  - the clip4cir serving path (ViT CLIP towers, gallery index, retrieval
-    service and its CLI) with the short-sequence attention kernel;
-  - clip4cir stage-2 training (feature banks, full-bank InfoNCE, masked
-    AdamW, per-epoch validation, best checkpoint, `cli/train.py`) with the
-    bank-InfoNCE forward/backward kernels and the attention backward
-    kernel.
-Kernels: `ops/attention_kernels.py` + `csrc/short_attention.cu`,
-`ops/bank_kernels.py` + `csrc/bank_infonce.cu`.
+Ported: the four supervised backbones (clip4cir with the ViT and RN50x4
+towers, tgcir, blip4cir, blip24cir) and zscir, with serving, bank
+extraction, stage-2 and stage-1 training, validation and the CIRR
+submission; the datagen pipeline (the LLaVA / BLIP captioners, the LLaMA-2
+rewriter, dedup, the SRM matcher) and training-state resume; the eval
+tools; the host input path: the native C++ image loader and BPE
+(`native/`, `tokenizer/native_bpe.py`), the multi-process loader
+(`data/mploader.py`) and the device preprocess (`ops/preprocess.py`).
+Kernels (hand-written CUDA C++ in `csrc/`, built by `ops/cuda_build.py`):
+`ops/attention_kernels.py` (short and long attention, forward and
+backward), `ops/bank_kernels.py` (bank InfoNCE over float32, bf16 and int8
+banks), `ops/maxquery_kernels.py`, `ops/decode_attn.py`,
+`ops/quant_matmul.py`. Not ported: multi-GPU (meshes, `--distributed`).
 """
 
 __version__ = "0.1.0"

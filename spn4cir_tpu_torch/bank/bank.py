@@ -26,6 +26,10 @@ by triplet (`refer_key="triplet"`), or under `--plus` by image, written for
 the refer and the target image of each triplet with that triplet's caption.
 Its target bank, (M, 32, 256) on the device, covers the refer images too.
 
+Under `--device_preprocess` the image batches are `RawBatch` canvases: they
+go to the device as they are, and the caller's encoder, wrapped by
+`ops.preprocess.absorb_raw`, runs the resize, crop and normalize there.
+
 `extract_unlabeled_features` / `extend_target_bank` (`--unlabeled`) append
 the normalized features of an unlabeled image pool to the target bank as
 extra negatives; the pool's cache is an `.npz` with the key `unlabeled`, as
@@ -46,6 +50,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from spn4cir_tpu_torch.ops.preprocess import batch_to_device
 from spn4cir_tpu_torch.utils.tensors import to_host
 
 
@@ -107,7 +112,8 @@ def extract_banks(
 
     bank_features_fn: (images tensor on `device`) -> (refer_feats,
         target_feats) for one batch; target_feats already L2-normalized.
-    image_batches: yields (image_ids (B,), images (B, H, W, 3)) as numpy;
+    image_batches: yields (image_ids (B,), images (B, H, W, 3)) as numpy,
+        or a RawBatch in place of the images (moved to `device` as one);
         the last batch may be padded — ids < 0 are ignored.
     num_images: M, the unique (deduplicated) train image count.
 
@@ -118,7 +124,7 @@ def extract_banks(
     refer_buf = None
     target_buf = None
     for image_ids, images in image_batches:
-        refer, target = bank_features_fn(torch.from_numpy(images).to(device))
+        refer, target = bank_features_fn(batch_to_device(images, device))
         refer, target = to_host(refer), to_host(target)
         if refer_buf is None:
             refer_buf = np.zeros((num_images, *refer.shape[1:]), refer.dtype)
@@ -168,9 +174,9 @@ def extract_fusion_banks(
     for batch in triplet_batches:
         text_ids = torch.from_numpy(tokenize(batch["captions"])).to(device)
         refer, target = fusion_features_fn(
-            torch.from_numpy(batch["refer_images"]).to(device), text_ids)
+            batch_to_device(batch["refer_images"], device), text_ids)
         refer_t, target_t = fusion_features_fn(
-            torch.from_numpy(batch["target_images"]).to(device), text_ids)
+            batch_to_device(batch["target_images"], device), text_ids)
         refer, target = to_host(refer), to_host(target)
         target_t = to_host(target_t)
         if refer_buf is None:
@@ -211,7 +217,7 @@ def extract_unlabeled_features(encode_fn: Callable,
         return np.load(Bank.cache_file(cache_path))["unlabeled"]
     buf = None
     for ids, images in batches:
-        feats = to_host(encode_fn(torch.from_numpy(images).to(device)))
+        feats = to_host(encode_fn(batch_to_device(images, device)))
         if buf is None:
             buf = np.zeros((num_images, *feats.shape[1:]), feats.dtype)
         valid = ids >= 0

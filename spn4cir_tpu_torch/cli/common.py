@@ -11,7 +11,7 @@ import os
 
 import torch
 
-from spn4cir_tpu_torch.data.transforms import ImageTransform
+from spn4cir_tpu_torch.data.transforms import ImageTransform, RawStageTransform
 from spn4cir_tpu_torch.models.api import CIRBackbone, build_backbone
 
 
@@ -85,8 +85,9 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
                         "image scans — the production-rate input pipeline "
                         "(0 = in-process thread pool)")
     p.add_argument("--device_preprocess", action="store_true",
-                   help="run resize/crop/normalize on the device (not "
-                        "ported to PyTorch yet)")
+                   help="the host only decodes and stages uint8 canvases; "
+                        "resize/crop/normalize run on the device ahead of "
+                        "the encoder (ops/preprocess.py)")
     p.add_argument("--device_canvas", type=int, default=0,
                    help="staging canvas side for --device_preprocess "
                         "(0 = 2x the backbone input dim); images whose "
@@ -114,6 +115,9 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
 
 
 def finalize_args(args) -> None:
+    if args.loader_procs:
+        # read by the dataset iterators (data/datasets.py:_mp_loader)
+        os.environ["SPN4CIR_MP_PROCS"] = str(args.loader_procs)
     if args.data_path == "":
         args.data_path = ("fashionIQ_dataset" if args.dataset == "fiq"
                           else "cirr_dataset")
@@ -237,12 +241,17 @@ def make_backbone(name: str, args, tokenizer=None) -> CIRBackbone:
     return build_backbone(name, **kw)
 
 
-def make_transform(backbone: CIRBackbone, args) -> ImageTransform:
-    """The host preprocess; --device_preprocess is not ported yet."""
-    refuse_unported(args, [
-        ("--device_preprocess", args.device_preprocess),
-        ("--device_canvas (goes with --device_preprocess)",
-         args.device_canvas)])
+def make_transform(backbone: CIRBackbone, args):
+    """The host preprocess (ImageTransform), or under --device_preprocess
+    its raw staging half (RawStageTransform on a canvas of --device_canvas,
+    else twice the input size): the iterators then yield uint8 canvases
+    and the device runs resize/crop/normalize ahead of the encoder."""
+    if args.device_preprocess:
+        canvas = args.device_canvas or 2 * backbone.input_dim
+        return RawStageTransform(args.transform, backbone.input_dim, canvas,
+                                 args.target_ratio)
+    if args.device_canvas:
+        raise SystemExit("--device_canvas goes with --device_preprocess")
     return ImageTransform(args.transform, backbone.input_dim, args.target_ratio)
 
 

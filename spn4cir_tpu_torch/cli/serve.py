@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -71,8 +72,7 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
     if args.mesh_data > 1 or args.mesh_model > 1 or args.mesh_bank > 1:
         raise NotImplementedError("--mesh_data/--mesh_model/--mesh_bank > 1: "
                                   "multi-device serving is not yet ported")
-    refuse_unported(args, [
-        ("--loader_procs (multi-process image loader)", args.loader_procs)])
+    refuse_unported(args, [("--distributed", args.distributed)])
     generator = seed_everything(args.seed)
 
     backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
@@ -94,8 +94,9 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
                              preprocess, args.data_path,
                              args.dress_types if args.dataset == "fiq"
                              else None)
-        index = extract_index_features(backbone, classic, args.batch_size,
-                                       num_workers=0)
+        t0 = time.perf_counter()
+        index = extract_index_features(backbone, classic, args.batch_size)
+        index_s = time.perf_counter() - t0
         if args.gallery_dtype != "float32":
             from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
 
@@ -108,7 +109,8 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
             index.save(cache)
             print(f"gallery index cached -> {cache}")
         print(f"gallery indexed: {len(index.names)} images "
-              f"({args.gallery_dtype})")
+              f"({args.gallery_dtype}) in {index_s:.2f} s, "
+              f"{len(index.names) / index_s:.1f} images/s")
 
     from spn4cir_tpu_torch.serve import (BatchingRetrievalService,
                                          RetrievalService, serve)

@@ -67,9 +67,16 @@ the step, so the skipped batches are the ones already taken). A directory
 without the `format.json` marker of that layout is refused. `--profile_dir`
 writes a `torch.profiler` trace of the epoch loop there.
 
+`--loader_procs N` decodes the bank, unlabeled-pool and stage-1 images on N
+worker processes (`data/mploader.py`). `--device_preprocess` stages uint8
+canvases on the host (`--device_canvas`, default twice the input size) and
+runs resize/crop/normalize on the device: the bank and unlabeled-pool
+encoders absorb it (`ops.preprocess.absorb_raw`), the validation index runs
+it ahead of its encoder, and stage 1 inside each step.
+
 Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
-Flags whose path is not ported raise "not yet ported": meshes,
---distributed, --device_preprocess and --loader_procs.
+Flags whose path is not ported raise "not yet ported": meshes and
+--distributed.
 """
 
 from __future__ import annotations
@@ -111,6 +118,7 @@ from spn4cir_tpu_torch.eval.retrieval import (cirr_val_retrieval,
                                               fiq_val_retrieval)
 from spn4cir_tpu_torch.models.api import backbone_class
 from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
+from spn4cir_tpu_torch.ops.preprocess import absorb_raw
 from spn4cir_tpu_torch.train.stage1 import (create_stage1_state,
                                             train_epoch_stage1)
 from spn4cir_tpu_torch.train.stage2 import (create_train_state,
@@ -150,7 +158,14 @@ def build_bank(backbone, args, train_ds, preprocess, output_path, device
     """The stage-2 bank: one frozen-tower pass over the unique train images
     (cached; blip2: over the train triplets, caption-aware), the unlabeled
     pool appended under `--unlabeled`, the target cast or quantized per
-    `--bank_dtype`."""
+    `--bank_dtype`. Under `--device_preprocess` each encoder runs the
+    device preprocess on the staged canvases first."""
+
+    def absorb(fn):
+        if not args.device_preprocess:
+            return fn
+        return absorb_raw(fn, backbone.input_dim, args.transform)
+
     # --- bank extraction (cached) ---
     bank_path = args.bank_path or os.path.join(
         output_path, f"{args.dataset}_bank.npz")
@@ -158,14 +173,14 @@ def build_bank(backbone, args, train_ds, preprocess, output_path, device
     if backbone.caption_aware_bank:
         # the refer entries are caption-dependent fusion states
         bank = extract_fusion_banks(
-            backbone.fusion_bank_features,
+            absorb(backbone.fusion_bank_features),
             iter_train_images(train_ds, args.batch_size),
             len(train_ds.triplets), train_ds.num_unique_images,
             backbone.tokenize, cache_path=bank_path,
             reload=args.reload_bank, by_image=args.plus, device=device)
     else:
         bank = extract_banks(
-            backbone.bank_features,
+            absorb(backbone.bank_features),
             iter_unique_images(train_ds, args.batch_size),
             train_ds.num_unique_images,
             cache_path=bank_path,
@@ -182,7 +197,7 @@ def build_bank(backbone, args, train_ds, preprocess, output_path, device
         unlabeled_cache = Bank.cache_file(bank_path).replace(
             ".npz", "_unlabeled.npz")
         extra = extract_unlabeled_features(
-            backbone.gallery_features,
+            absorb(backbone.gallery_features),
             iter_unlabeled(unlabeled_ds, args.batch_size),
             len(unlabeled_ds.unlabeled_imagepaths),
             cache_path=unlabeled_cache, reload=args.reload_bank,
@@ -264,7 +279,6 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
         ("--mesh_data/--mesh_bank/--mesh_model > 1",
          args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
         ("--distributed", args.distributed),
-        ("--loader_procs (multi-process image loader)", args.loader_procs),
         ("--loss_impl pallas/xla (one route per device here)",
          args.loss_impl != "auto"),
     ])
@@ -360,7 +374,9 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
                                       start_step=ep_start),
                     neg_type=args.neg_type, dropout_generator=drop,
                     log_every=log_every, log_fn=log_fn, start_step=ep_start,
-                    step_hook=step_hook(epoch, drop))
+                    step_hook=step_hook(epoch, drop),
+                    raw_kind=(args.transform if args.device_preprocess
+                              else None))
             else:
                 state, mean_loss = train_epoch(
                     backbone, state, bank,

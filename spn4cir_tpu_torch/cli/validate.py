@@ -72,7 +72,6 @@ def refuse_mesh(args) -> None:
         ("--mesh_data/--mesh_bank/--mesh_model > 1",
          args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
         ("--distributed", args.distributed),
-        ("--loader_procs (multi-process image loader)", args.loader_procs),
     ])
 
 

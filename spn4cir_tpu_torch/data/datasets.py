@@ -18,13 +18,17 @@ Covered semantics:
     `data_path` instead of the reference's hardcoded repo-relative path.
 
 No torch DataLoader: the batch iterators below yield fixed-shape numpy
-batches (padded, with id -1 sentinels), and image decode runs on a thread
-pool.
+batches (padded, with id -1 sentinels). Image decode runs in the native C++
+loader (`native/`) where it builds and `SPN4CIR_NATIVE` is not 0, else with
+PIL on a thread pool; `SPN4CIR_MP_PROCS=N` (`--loader_procs N`) moves the
+gallery, bank and stage-1 scans onto N worker processes
+(`data/mploader.py`). Under a `RawStageTransform` (`--device_preprocess`)
+the iterators yield `RawBatch` uint8 canvases for the device preprocess.
 
-A copy of `spn4cir_tpu/data/datasets.py`, name for name, with the PIL /
-thread-pool decode only: the native C++ loader, the multi-process loader
-and the raw staging for a device preprocess are not ported yet. The same
-paths and seeds give the same batches as the JAX package's module.
+A copy of `spn4cir_tpu/data/datasets.py`, name for name: the same paths and
+seeds give the same batches as the JAX package's module. One departure: the
+native loader is skipped only where it is unavailable or switched off; an
+error building it raises instead of falling back to PIL.
 """
 
 from __future__ import annotations
@@ -38,8 +42,11 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
+from spn4cir_tpu_torch import native
 from spn4cir_tpu_torch.data.transforms import (
     ImageTransform,
+    RawBatch,
+    RawStageTransform,
     deterministic_fiq_caption,
     generate_randomized_fiq_caption,
 )
@@ -352,6 +359,30 @@ class CIRDataset:
     def load_image(self, path: str) -> np.ndarray:
         return self.preprocess(Image.open(path))
 
+    def native_loader(self):
+        """The C++ threaded decoder of this dataset's preprocess: a
+        `NativeLoader` (decode + preprocess) for an `ImageTransform` of a
+        kind the C++ code implements, a `NativeRawStager` (decode-only
+        staging for the device preprocess) for a `RawStageTransform`; None,
+        for PIL, when the library is unavailable, `SPN4CIR_NATIVE=0` or the
+        preprocess is another. Any other error raises. Images the C++
+        decoder declines go through `load_image`."""
+        if getattr(self, "_native_checked", False):
+            return self._native
+        self._native_checked = True
+        self._native = None
+        tf = self.preprocess
+        if not (native.native_enabled() and native.native_available()):
+            return None
+        if isinstance(tf, ImageTransform) and tf.kind in native.KINDS:
+            self._native = native.NativeLoader(
+                tf.kind, tf.dim, tf.target_ratio, tf.mean, tf.std,
+                fallback=self.load_image)
+        elif isinstance(tf, RawStageTransform):
+            self._native = native.NativeRawStager(
+                tf.kind, tf.canvas, tf.target_ratio, fallback=self.load_image)
+        return self._native
+
     def caption_for(self, index: int, train: bool,
                     epoch_seed: Optional[int] = None) -> str:
         """Caption selection incl. the original-vs-extended boundary
@@ -426,9 +457,51 @@ class CIRDataset:
 
 def _decode_batch(dataset: CIRDataset, paths: Sequence[str],
                   pool: Optional[ThreadPoolExecutor]):
-    if pool is not None:
-        return np.stack(list(pool.map(dataset.load_image, paths)))
-    return np.stack([dataset.load_image(p) for p in paths])
+    loader = dataset.native_loader()
+    if loader is not None:
+        if isinstance(dataset.preprocess, RawStageTransform):
+            return RawBatch(*loader.stage_batch(list(paths)))
+        return loader.decode_batch(list(paths))
+    items = (list(pool.map(dataset.load_image, paths)) if pool is not None
+             else [dataset.load_image(p) for p in paths])
+    if isinstance(dataset.preprocess, RawStageTransform):
+        return RawBatch(np.stack([c for c, _ in items]),
+                        np.asarray([e for _, e in items], np.int32))
+    return np.stack(items)
+
+
+def _thread_pool(dataset: CIRDataset, num_workers: int
+                 ) -> Optional[ThreadPoolExecutor]:
+    """A pool of `num_workers` threads for the PIL decode; none where the
+    native loader decodes (it has its own threads)."""
+    if not num_workers or dataset.native_loader() is not None:
+        return None
+    return ThreadPoolExecutor(num_workers)
+
+
+def _mp_loader(dataset: CIRDataset, batch_size: int):
+    """The multi-process loader for this dataset's scans when
+    `SPN4CIR_MP_PROCS` > 0 and its preprocess is one the workers run (a
+    `RawStageTransform`, or an `ImageTransform` of a C++ kind); else None."""
+    procs = int(os.environ.get("SPN4CIR_MP_PROCS", "0") or 0)
+    tf = dataset.preprocess
+    is_raw = isinstance(tf, RawStageTransform)
+    if procs <= 0 or not (is_raw or (isinstance(tf, ImageTransform)
+                                     and tf.kind in native.KINDS)):
+        return None
+    from spn4cir_tpu_torch.data.mploader import MPLoader
+
+    return MPLoader(tf.kind, tf.dim, batch_size, target_ratio=tf.target_ratio,
+                    mean=tf.mean, std=tf.std, num_procs=procs,
+                    raw_canvas=tf.canvas if is_raw else 0)
+
+
+def _copy_out(arr):
+    """A batch copied out of its recycled shared-memory block: downstream
+    prefetch buffers batches beyond the block's validity."""
+    if isinstance(arr, RawBatch):
+        return RawBatch(arr.canvas.copy(), arr.extents)
+    return arr.copy()
 
 
 def _iter_image_paths(dataset: CIRDataset, paths: Sequence[str],
@@ -436,16 +509,27 @@ def _iter_image_paths(dataset: CIRDataset, paths: Sequence[str],
                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Shared (ids, images) scan over a path list; the final batch is padded
     by repeating the last image with id -1 (keep-all eval with fixed
-    shapes)."""
-    pool = ThreadPoolExecutor(num_workers) if num_workers else None
+    shapes). `SPN4CIR_MP_PROCS=N` decodes on N worker processes
+    (`_mp_loader`), else in this process (`_decode_batch`)."""
+    chunks, id_rows = [], []
+    for start in range(0, len(paths), batch_size):
+        chunk = list(paths[start : start + batch_size])
+        ids = np.arange(start, start + len(chunk))
+        pad = batch_size - len(chunk)
+        if pad:
+            chunk += [chunk[-1]] * pad
+            ids = np.concatenate([ids, np.full(pad, -1, np.int64)])
+        chunks.append(chunk)
+        id_rows.append(ids)
+    loader = _mp_loader(dataset, batch_size)
+    if loader is not None:
+        with loader:
+            for ids, (arr, _n) in zip(id_rows, loader.map_batches(chunks)):
+                yield ids, _copy_out(arr)
+        return
+    pool = _thread_pool(dataset, num_workers)
     try:
-        for start in range(0, len(paths), batch_size):
-            chunk = paths[start : start + batch_size]
-            ids = np.arange(start, start + len(chunk))
-            pad = batch_size - len(chunk)
-            if pad:
-                chunk = list(chunk) + [chunk[-1]] * pad
-                ids = np.concatenate([ids, np.full(pad, -1, np.int64)])
+        for ids, chunk in zip(id_rows, chunks):
             yield ids, _decode_batch(dataset, chunk, pool)
     finally:
         if pool:
@@ -577,7 +661,28 @@ def iter_train_images(dataset: CIRDataset, batch_size: int, *,
 
     starts = list(range(start_step * batch_size, n, batch_size))
 
-    pool = ThreadPoolExecutor(num_workers) if num_workers else None
+    # SPN4CIR_MP_PROCS=N: one 2B-row loader batch a step, rows [0, B) the
+    # refer images and [B, 2B) the targets, decoded ahead of the step
+    loader = _mp_loader(dataset, 2 * batch_size) if starts else None
+    if loader is not None:
+        metas = [step_meta(s) for s in starts]
+        with loader:
+            for (captions, _r, _t, ids), (arr, _n) in zip(
+                    metas, loader.map_batches(
+                        [refer + target for _c, refer, target, _i in metas])):
+                arr = _copy_out(arr)
+                if isinstance(arr, RawBatch):
+                    refer_b = RawBatch(arr.canvas[:batch_size],
+                                       arr.extents[:batch_size])
+                    target_b = RawBatch(arr.canvas[batch_size:],
+                                        arr.extents[batch_size:])
+                else:
+                    refer_b, target_b = arr[:batch_size], arr[batch_size:]
+                yield {"captions": captions, "refer_images": refer_b,
+                       "target_images": target_b, **ids}
+        return
+
+    pool = _thread_pool(dataset, num_workers)
     try:
         for start in starts:
             captions, refer_paths, target_paths, ids = step_meta(start)

@@ -5,8 +5,8 @@ Parity targets (see SURVEY.md §2.1): `SquarePad` / `TargetPad` /
 in `clip4cir/data_utils.py:20-119`. These run on host (PIL) and emit float32
 HWC arrays. A copy of `spn4cir_tpu/data/transforms.py` (numpy + PIL only), kept
 name for name; the port imports nothing of the JAX package. The raw-staging
-half (`RawStageTransform`) is carried for parity checks; its device half is
-not ported yet.
+half (`RawStageTransform`) feeds the device preprocess of
+`ops/preprocess.py` (`--device_preprocess`).
 """
 
 from __future__ import annotations
@@ -121,9 +121,9 @@ class ImageTransform:
 
 
 # ---------------------------------------------------------------------------
-# Raw staging for an on-device fused preprocess: the host only decodes and
-# pastes the padded image into a fixed uint8 canvas; resize+crop+normalize
-# would run on the device (that half is not ported yet).
+# Raw staging for the device preprocess: the host only decodes and pastes
+# the padded image into a fixed uint8 canvas; resize+crop+normalize run on
+# the device (ops/preprocess.py).
 # ---------------------------------------------------------------------------
 
 
@@ -181,8 +181,8 @@ class RawBatch(NamedTuple):
 @dataclass(frozen=True)
 class RawStageTransform:
     """Host half of the device-preprocess split: decode + pad-paste into a
-    uint8 canvas; the resize/crop/normalize half belongs on the device
-    (not ported yet). Carries the
+    uint8 canvas; the resize/crop/normalize half runs on the device
+    (ops/preprocess.py:preprocess_batch_dynamic). Carries the
     full geometry so the device side can be derived from the transform
     alone. `canvas` must be >= dim; images whose padded extent exceeds it
     are host-downscaled first (see stage_raw_image)."""

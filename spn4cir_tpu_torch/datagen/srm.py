@@ -9,9 +9,9 @@ and the top-1000 hard negatives in a Python loop (`:142-183`)).
 
 `compute_sims`: the four matrices as plain float32 products. They lie
 outside any Pallas kernel in the JAX package, so `torch.matmul` is the
-port's too; TF32 is switched off for them inside the function (`_ieee_fp32`)
-whatever the caller set, since a rank is a strict `>` count and moves with
-the last bit of a similarity.
+port's too; TF32 is switched off for them inside the function
+(`utils.tensors.ieee_fp32`) whatever the caller set, since a rank is a
+strict `>` count and moves with the last bit of a similarity.
 
 `srm_scores`: the per-triplet work in row chunks (`score_rows`), so that at
 CIRR's size (16.9k images x 28.2k triplets: i2t 1.9 GB, i2i 1.1 GB, t2t
@@ -33,7 +33,6 @@ tensor roles as the reference's srm.pth).
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Callable, Dict, Iterable, Mapping, Tuple
 
@@ -41,6 +40,7 @@ import numpy as np
 import torch
 
 from spn4cir_tpu_torch.eval.metrics import topk_lowest_index_first
+from spn4cir_tpu_torch.utils.tensors import ieee_fp32
 
 #: the value a row's own entry takes before its top-K (the reference's
 #: diagonal fill)
@@ -51,17 +51,6 @@ SELF_FILL = -1e4
 ROW_CHUNK = 1024
 
 
-@contextlib.contextmanager
-def _ieee_fp32():
-    """float32 products in full float32 (no TF32) inside the block."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
 def compute_sims(clip_image_feats: torch.Tensor,
                  clip_text_feats: torch.Tensor,
                  srm_image_feats: torch.Tensor,
@@ -69,7 +58,7 @@ def compute_sims(clip_image_feats: torch.Tensor,
     """The four matrices of srm_utils.calcu_sims (`:119-131`): cross-modal
     from CLIP (i2t, and t2i as its transposed view) and intra-modal from
     the SRM model (i2i, t2t), float32 without TF32."""
-    with _ieee_fp32():
+    with ieee_fp32():
         i2t = clip_image_feats.float() @ clip_text_feats.float().T
         i2i = srm_image_feats.float() @ srm_image_feats.float().T
         t2t = srm_text_feats.float() @ srm_text_feats.float().T

@@ -9,7 +9,10 @@ bfloat16 refer is kept as float32 on the host (numpy has no bfloat16); the
 widening is exact, and the fusion upcasts it to float32 anyway. Query
 reference features are gathered from the index by integer id (eval reuses
 gallery features for references, never a fresh encode); ranking runs on the
-device through `eval/metrics.py`.
+device through `eval/metrics.py`. A dataset whose preprocess is a
+`RawStageTransform` (`--device_preprocess`) yields uint8 canvases; the
+index then runs the device preprocess ahead of the encoder
+(`ops.preprocess.index_features_from_raw`).
 """
 
 from __future__ import annotations
@@ -24,9 +27,12 @@ import torch
 from spn4cir_tpu_torch.data.datasets import (CIRDataset, iter_gallery,
                                              iter_relative_eval)
 from spn4cir_tpu_torch.data.prefetch import prefetch
+from spn4cir_tpu_torch.data.transforms import RawStageTransform
 from spn4cir_tpu_torch.eval import metrics as M
 from spn4cir_tpu_torch.models.api import CIRBackbone
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank
+from spn4cir_tpu_torch.ops.preprocess import (batch_to_device,
+                                              index_features_from_raw)
 from spn4cir_tpu_torch.utils.tensors import to_host
 
 
@@ -86,15 +92,21 @@ def extract_index_features(backbone: CIRBackbone, dataset: CIRDataset,
                            batch_size: int = 32, num_workers: int = 4
                            ) -> GalleryIndex:
     """Encode the gallery of `dataset` on the backbone's device: host
-    decode runs ahead in a prefetch thread; each batch is encoded, its
-    valid rows copied into the host buffers; 'target' is moved back to the
-    device once at the end."""
+    decode runs ahead in a prefetch thread; each batch is encoded (staged
+    canvases through the device preprocess first), its valid rows copied
+    into the host buffers; 'target' is moved back to the device once at
+    the end."""
     device = backbone.device
     names = dataset.gallery_names
+    raw_kind = (dataset.preprocess.kind
+                if isinstance(dataset.preprocess, RawStageTransform) else None)
     bufs: Dict[str, np.ndarray] = {}
     for ids, images in prefetch(iter_gallery(dataset, batch_size, num_workers),
                                 depth=2):
-        out = backbone.index_features(torch.from_numpy(images).to(device))
+        images = batch_to_device(images, device)
+        out = (backbone.index_features(images) if raw_kind is None else
+               index_features_from_raw(backbone, images.canvas,
+                                       images.extents, kind=raw_kind))
         out = {k: to_host(v) for k, v in out.items()}
         if not bufs:
             bufs = {k: np.zeros((len(names), *v.shape[1:]), v.dtype)

@@ -8,7 +8,10 @@ scored on the device, and only the (B, k) top-k values and ids come back.
 
 Every device dispatch runs under `self._lock`, from request threads and
 from the batching worker alike; all of them use the backbone's device and
-the thread's current (default) stream.
+the thread's current (default) stream. With a `RawStageTransform` as its
+preprocess (`--device_preprocess`), a live image (`/gallery/add`, a query by
+image) is staged into a uint8 canvas on the host and resized, cropped and
+normalized on the device ahead of the encoder.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from spn4cir_tpu_torch.data.transforms import RawStageTransform
 from spn4cir_tpu_torch.eval.metrics import topk_lowest_index_first
 from spn4cir_tpu_torch.eval.retrieval import (GalleryIndex,
                                               quantized_score_queries)
 from spn4cir_tpu_torch.models.api import CIRBackbone
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank, quantize_bank
+from spn4cir_tpu_torch.ops.preprocess import index_features_from_raw
 from spn4cir_tpu_torch.utils.tensors import to_host
 
 
@@ -99,15 +104,33 @@ class RetrievalService:
             return self.backbone.index_features(
                 torch.from_numpy(images).to(self.device))
 
+    def _index_features_raw(self, staged):
+        """`index_features` of host-staged (canvas, extent) pairs through
+        the device preprocess."""
+        canvas = torch.from_numpy(np.stack([c for c, _ in staged]))
+        extents = torch.tensor([e for _, e in staged], dtype=torch.int32)
+        with self._lock, torch.inference_mode():
+            return index_features_from_raw(
+                self.backbone, canvas.to(self.device),
+                extents.to(self.device), kind=self.preprocess.kind)
+
+    def _encode_live(self, images):
+        """`index_features` of live PIL images (or of a preprocessed
+        (B, H, W, 3) array)."""
+        if isinstance(images, np.ndarray):
+            return self._index_features(images)
+        if self.preprocess is None:
+            raise RuntimeError("service built without a preprocess pipeline")
+        if isinstance(self.preprocess, RawStageTransform):
+            return self._index_features_raw(
+                [self.preprocess(im) for im in images])
+        return self._index_features(
+            np.stack([self.preprocess(im) for im in images]))
+
     def add_images(self, names: Sequence[str], images) -> int:
         """Append new gallery images: encode on the device, extend the index
         (names must be new). Returns the new gallery size."""
-        if not isinstance(images, np.ndarray):
-            if self.preprocess is None:
-                raise RuntimeError("service built without a preprocess "
-                                   "pipeline")
-            images = np.stack([self.preprocess(im) for im in images])
-        feats = self._index_features(images)
+        feats = self._encode_live(images)
         # one mutation at a time: concurrent add_images must not build from
         # the same base snapshot (lost update)
         with self._mutate_lock:
@@ -153,8 +176,8 @@ class RetrievalService:
         """image: PIL.Image or (H, W, 3) array; preprocessed + encoded live."""
         if self.preprocess is None:
             raise RuntimeError("service built without a preprocess pipeline")
-        arr = image if isinstance(image, np.ndarray) else self.preprocess(image)
-        refer = self._index_features(arr[None])["refer"]
+        refer = self._encode_live(
+            image[None] if isinstance(image, np.ndarray) else [image])["refer"]
         return self._run(self.index, refer, caption, k, exclude_gid=None)
 
     def _score_topk(self, index: GalleryIndex, queries: torch.Tensor,

@@ -6,8 +6,10 @@ The merges table is a *data asset* (`bpe_simple_vocab_16e6.txt.gz`); we load it
 from a user-supplied path, from `SPN4CIR_BPE_VOCAB` or from beside this
 module at runtime rather than vendoring it.
 
-A copy of `spn4cir_tpu/tokenizer/bpe.py`, the pure-Python BPE only: the
-native C++ fast path of the JAX package is not ported yet.
+A copy of `spn4cir_tpu/tokenizer/bpe.py`: `encode` and `encode_batch` take
+the native C++ ASCII fast path (`tokenizer/native_bpe.py`) where it builds
+and `SPN4CIR_NATIVE` is not 0, and the Python path (`_encode_py`) for every
+text outside its contract; the ids are the same either way.
 
 Token-id layout (must match CLIP checkpoints, vocab size 49408):
   [0, 256)            : byte-level unicode symbols
@@ -113,6 +115,7 @@ class ClipTokenizer:
         self.vocab_size = len(vocab)
         self.sot_id = self.encoder[SOT_TOKEN]
         self.eot_id = self.encoder[EOT_TOKEN]
+        self._native = None  # resolved at first use: NativeBpe | False
 
     # -- BPE core ----------------------------------------------------------
     def _merge_word(self, token: str) -> str:
@@ -145,15 +148,38 @@ class ClipTokenizer:
         self._cache[token] = merged
         return merged
 
+    def _native_bpe(self):
+        if self._native is None:
+            from spn4cir_tpu_torch.tokenizer import native_bpe
+
+            self._native = native_bpe.get_native(self) or False
+        return self._native
+
     def encode(self, text: str) -> List[int]:
+        # the native ASCII fast path; it returns None for any text outside
+        # its contract, and the Python path (the ground truth) runs then
+        native = self._native_bpe()
+        if native is not False:
+            ids = native.encode(text)
+            if ids is not None:
+                return ids
+        return self._encode_py(text)
+
+    def encode_batch(self, texts: Sequence[str]) -> List[List[int]]:
+        """`[self.encode(t) for t in texts]`, with one native call for the
+        whole batch; rows outside its contract take the Python path."""
+        native = self._native_bpe()
+        if native is False or len(texts) < 2:
+            return [self.encode(t) for t in texts]
+        return [ids if ids is not None else self._encode_py(t)
+                for ids, t in zip(native.encode_batch(list(texts)), texts)]
+
+    def _encode_py(self, text: str) -> List[int]:
         ids: List[int] = []
         for chunk in _SPLIT_PATTERN.findall(_clean(text)):
             mapped = "".join(self._byte_encoder[b] for b in chunk.encode("utf-8"))
             ids.extend(self.encoder[tok] for tok in self._merge_word(mapped).split(" "))
         return ids
-
-    def encode_batch(self, texts: Sequence[str]) -> List[List[int]]:
-        return [self.encode(t) for t in texts]
 
     def decode(self, ids: Iterable[int]) -> str:
         text = "".join(self.decoder[i] for i in ids)

@@ -12,8 +12,12 @@ trades the blocks' activations for a second forward in the backward.
 (`stage1_negtype_loss`, clip and zs) in place of `stage1_loss`; it runs
 without dropout, as in the JAX CLI.
 
-Not ported: the data-sharded step over a device mesh (`sharded_step`) and
-the device-side preprocess (`raw_kind`).
+`raw_kind` (`--device_preprocess`): the image entries arrive as `RawBatch`
+uint8 canvases and the resize, crop and normalize run on the device inside
+the step; they do not depend on the weights, so autograd records nothing
+for them.
+
+Not ported: the data-sharded step over a device mesh (`sharded_step`).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch
 
 from spn4cir_tpu_torch.data.prefetch import prefetch
 from spn4cir_tpu_torch.models.api import CIRBackbone
+from spn4cir_tpu_torch.ops.preprocess import (batch_to_device,
+                                              preprocess_batch_dynamic)
 from spn4cir_tpu_torch.train.stage2 import (LearningRate, TrainState,
                                             apply_gradients, make_optimizer)
 
@@ -44,11 +50,18 @@ def create_stage1_state(backbone: CIRBackbone, learning_rate: LearningRate,
 
 def stage1_loss_fn(backbone: CIRBackbone, batch: Dict[str, torch.Tensor],
                    neg_type: int = 0,
-                   dropout_generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   dropout_generator: Optional[torch.Generator] = None,
+                   raw_kind: Optional[str] = None) -> torch.Tensor:
     """The stage-1 loss of one batch: the negtype ablation's when
     `neg_type` > 0 (no dropout), else the backbone's `stage1_loss`, with
-    `dropout_generator` for a backbone that takes one."""
+    `dropout_generator` for a backbone that takes one. With `raw_kind` the
+    image entries are RawBatch canvases, preprocessed here first."""
+    if raw_kind is not None:
+        batch = dict(batch, **{
+            side: preprocess_batch_dynamic(
+                batch[side].canvas, batch[side].extents, backbone.input_dim,
+                raw_kind)
+            for side in ("refer_images", "target_images")})
     images = (batch["refer_images"], batch["target_images"],
               batch["text_ids"])
     if neg_type:
@@ -61,14 +74,16 @@ def stage1_loss_fn(backbone: CIRBackbone, batch: Dict[str, torch.Tensor],
 def stage1_train_step(backbone: CIRBackbone, state: TrainState,
                       batch: Dict[str, torch.Tensor],
                       dropout_generator: Optional[torch.Generator] = None,
-                      neg_type: int = 0) -> torch.Tensor:
+                      neg_type: int = 0,
+                      raw_kind: Optional[str] = None) -> torch.Tensor:
     """One optimizer step. batch: refer_images (B, H, W, 3), target_images
-    (B, H, W, 3), text_ids. `dropout_generator` goes to a backbone that
-    takes one (the MED family in `train()` mode); `neg_type` picks the
-    ablation's loss (`stage1_loss_fn`). Returns the loss as a detached
-    device scalar."""
+    (B, H, W, 3) (RawBatch canvases with `raw_kind`), text_ids.
+    `dropout_generator` goes to a backbone that takes one (the MED family in
+    `train()` mode); `neg_type` picks the ablation's loss
+    (`stage1_loss_fn`). Returns the loss as a detached device scalar."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss = stage1_loss_fn(backbone, batch, neg_type, dropout_generator)
+    loss = stage1_loss_fn(backbone, batch, neg_type, dropout_generator,
+                          raw_kind)
     return apply_gradients(state, loss)
 
 
@@ -83,26 +98,28 @@ def train_epoch_stage1(
     log_fn: Callable[[int, float], None] = lambda step, loss: None,
     start_step: int = 0,
     step_hook: Optional[Callable[[int, TrainState], None]] = None,
+    raw_kind: Optional[str] = None,
 ):
     """Host loop over `iter_train_images` batches; a batch with a padded
     tail is dropped (drop_last). The loss accumulates on the device; the
     host reads it only every `log_every` steps. The next batch's decode
     runs ahead on a prefetch thread: a step decodes 2B fresh images.
     `step_hook(step_in_epoch, state)` runs after every step; `start_step`
-    numbers the steps of a mid-epoch resume. Returns (state, mean_loss)."""
+    numbers the steps of a mid-epoch resume; `raw_kind`: the batches hold
+    RawBatch canvases (`stage1_loss_fn`). Returns (state, mean_loss)."""
     device = backbone.device
     loss_sum, count = None, 0
     for step, raw in enumerate(prefetch(batches, depth=2), start=start_step):
         if (raw["triplet_idx"] < 0).any():
             continue
         batch = {
-            "refer_images": torch.from_numpy(raw["refer_images"]).to(device),
-            "target_images": torch.from_numpy(raw["target_images"]).to(device),
+            "refer_images": batch_to_device(raw["refer_images"], device),
+            "target_images": batch_to_device(raw["target_images"], device),
             "text_ids": torch.from_numpy(
                 backbone.tokenize(raw["captions"])).to(device),
         }
         loss = stage1_train_step(backbone, state, batch, dropout_generator,
-                                 neg_type)
+                                 neg_type, raw_kind)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         count += 1
         if log_every and step % log_every == 0:

@@ -1,10 +1,23 @@
-"""Small tensor helpers shared by the bank, the gallery index and the
-service."""
+"""Small tensor helpers shared by the bank, the gallery index, the service,
+the device preprocess and the SRM scores."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """float32 products in full float32 (no TF32) inside the block."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

@@ -1249,3 +1249,99 @@ def test_srm_scores_on_card_equal_the_cpu_port(cuda_device):
     for key in want:
         assert got[key].device.type == "cuda"
         assert torch.equal(got[key].cpu(), want[key]), key
+
+
+def _staged(kind, canvas, sizes, seed):
+    import numpy as np
+
+    from spn4cir_tpu_torch.data.transforms import stage_raw_image
+
+    rng = np.random.RandomState(seed)
+    images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
+    canv, ext = zip(*(stage_raw_image(im, canvas, kind) for im in images))
+    return images, torch.from_numpy(np.stack(canv)), torch.tensor(ext)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["targetpad", "squarepad", "clip",
+                                  "blip_eval"])
+def test_device_preprocess_on_card_matches_the_cpu(cuda_device, kind):
+    """`preprocess_batch_dynamic` (ViT-B/32's 224 from the CLI's canvas of
+    448, CIRR-like sizes) and `preprocess_batch` on CUDA tensors against the
+    same functions on the CPU: no element more than one uint8 step apart in
+    normalized units (1 / 255 / 0.2613) and at most 0.1% more than 1e-5
+    (the products sum in another order; TF32 stays off inside)."""
+    from spn4cir_tpu_torch.ops.preprocess import (preprocess_batch,
+                                                  preprocess_batch_dynamic)
+
+    step = 1.0 / 255.0 / 0.2613
+    torch.backends.cuda.matmul.allow_tf32 = True   # the function turns it off
+    try:
+        images, canv, ext = _staged(kind, 448, [(300, 420), (448, 336),
+                                                (150, 190), (640, 480)], 0)
+        got = preprocess_batch_dynamic(canv.to(cuda_device),
+                                       ext.to(cuda_device), 224, kind)
+        want = preprocess_batch_dynamic(canv, ext, 224, kind)
+        assert got.device.type == "cuda"
+        diff = (got.cpu() - want).abs()
+        assert diff.max() <= step and (diff > 1e-5).float().mean() <= 1e-3
+        src = torch.from_numpy(images[0][None].repeat(3, 0))
+        got = preprocess_batch(src.to(cuda_device), 224, kind)
+        diff = (got.cpu() - preprocess_batch(src, 224, kind)).abs()
+        assert diff.max() <= step and (diff > 1e-5).float().mean() <= 1e-3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_index_features_from_raw_on_card_matches_the_host_route(cuda_device):
+    """ViT-B/32's widths at two layers, float32: the raw route on the card
+    (device preprocess, then the encoder through the kernels) against the
+    CPU encoder on the same preprocessed pixels (1e-4; the pixels' own
+    card-CPU parity is the test above, where a value may round one uint8
+    step the other way) and against the host pipeline (PIL, another
+    resampler: cosine above 0.99 per row)."""
+    import numpy as np
+    from PIL import Image
+
+    from spn4cir_tpu_torch.data.transforms import ImageTransform
+    from spn4cir_tpu_torch.models.clip4cir import ClipCIR
+    from spn4cir_tpu_torch.ops.preprocess import (index_features_from_raw,
+                                                  preprocess_batch_dynamic)
+    from torch_fixtures import synthetic_tokenizer
+
+    cfg = tclip.CLIPConfig(512, 224, 2, 768, 32, transformer_width=512,
+                           transformer_heads=8, transformer_layers=2)
+    tclip.CLIP_CONFIGS["card-raw"] = cfg
+    try:
+        tb = ClipCIR("card-raw", device=cuda_device,
+                     tokenizer=synthetic_tokenizer())
+        cpu = ClipCIR("card-raw", tokenizer=synthetic_tokenizer())
+    finally:
+        del tclip.CLIP_CONFIGS["card-raw"]
+    tb.init_params(torch.Generator().manual_seed(0))
+    cpu.model.load_state_dict(tb.model.state_dict())
+    tb.eval()
+    cpu.eval()
+    images, canv, ext = _staged("targetpad", 448, [(300, 420), (448, 336),
+                                                   (150, 190), (640, 480)], 1)
+    before = short_attention.launches
+    with torch.inference_mode():
+        got = index_features_from_raw(tb, canv.to(cuda_device),
+                                      ext.to(cuda_device), kind="targetpad")
+        assert short_attention.launches - before == 2, (
+            short_attention.launches - before)
+        pixels = preprocess_batch_dynamic(canv.to(cuda_device),
+                                          ext.to(cuda_device), 224,
+                                          "targetpad")
+        want = cpu.index_features(pixels.cpu())
+        tf = ImageTransform("targetpad", 224)
+        host = torch.from_numpy(np.stack(
+            [tf(Image.fromarray(im)) for im in images])).to(cuda_device)
+        host_feats = tb.index_features(host)
+    for key in ("target", "refer"):
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-4,
+                                   rtol=0)
+    cos = torch.nn.functional.cosine_similarity(got["target"],
+                                                host_feats["target"], dim=-1)
+    assert cos.min() > 0.99, cos

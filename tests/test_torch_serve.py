@@ -38,6 +38,8 @@ from spn4cir_tpu.serve import RetrievalService as JaxRetrievalService
 from spn4cir_tpu.tokenizer.bpe import tokenize
 from spn4cir_tpu_torch.cli.serve import serve_main
 from spn4cir_tpu_torch.data.datasets import CIRDataset as TorchCIRDataset
+from spn4cir_tpu_torch.data.transforms import \
+    ImageTransform as TorchImageTransform
 from spn4cir_tpu_torch.eval.retrieval import GalleryIndex, extract_index_features
 from spn4cir_tpu_torch.models.clip4cir import ClipCIR
 from spn4cir_tpu_torch.models.convert import clip_state_dict_from_jax
@@ -317,7 +319,9 @@ def test_serve_main_end_to_end(world, tmp_path):
         server.server_close()
 
     # the loaded checkpoint holds the fixture weights: same gallery features
-    classic = TorchCIRDataset("cirr", "val", "classic", TF, root)
+    # (decoded as the CLI decodes them, with the port's own transform)
+    classic = TorchCIRDataset("cirr", "val", "classic",
+                              TorchImageTransform("targetpad", 32), root)
     direct = extract_index_features(world["tb"], classic, 4, num_workers=0)
     np.testing.assert_array_equal(service.index.refer, direct.refer)
 
@@ -337,10 +341,10 @@ def test_serve_main_end_to_end(world, tmp_path):
      NotImplementedError),
     (("--clip-model-name", "test-tiny", "--mesh_bank", "2"),
      NotImplementedError),
-    (("--clip-model-name", "test-tiny", "--device_preprocess"),
-     NotImplementedError),
+    (("--clip-model-name", "test-tiny", "--device_preprocess",
+      "--distributed"), NotImplementedError),
     (("--clip-model-name", "test-tiny", "--device_canvas", "448"),
-     NotImplementedError),
+     SystemExit),
     (("--clip-model-name", "test-tiny", "--dropout", "0.1"),
      NotImplementedError),
     (("--clip-model-name", "test-tiny", "--val_ret_train"),
@@ -362,13 +366,23 @@ def test_cuda_device_without_cuda_raises():
             resolve_device("0")
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port, with JAX_PLATFORMS=cpu set in the
     child's environment, leaves neither jax nor the JAX package
     `spn4cir_tpu` in sys.modules: the port keeps its own copies of the host
-    modules it needs."""
-    code = (
+    modules it needs. Then the child, a script that holds torch, starts the
+    multi-process loader: under `-X importtime` (which spawn hands on to
+    its children) every import of its workers is logged after the marker,
+    and none is of torch, jax or spn4cir_tpu, not even through the parent's
+    script, which spawn would run again in each worker as `__mp_main__`."""
+    from PIL import Image
+
+    image = str(tmp_path / "im.png")
+    Image.fromarray(np.zeros((40, 30, 3), np.uint8)).save(image)
+    script = tmp_path / "imports.py"
+    script.write_text(
         "import pkgutil, importlib, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
         "import spn4cir_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    spn4cir_tpu_torch.__path__, 'spn4cir_tpu_torch.')]\n"
@@ -383,15 +397,33 @@ def test_port_imports_no_jax():
         "            'models.generation', 'datagen.captioner', 'serve.mllm',\n"
         "            'cli.serve_mllm', 'cli.captioner', 'eval.cases',\n"
         "            'eval.generic_retrieval', 'cli.validate_case',\n"
-        "            'cli.analysis_case', 'cli.retrieval'):\n"
+        "            'cli.analysis_case', 'cli.retrieval', 'native',\n"
+        "            'tokenizer.native_bpe', 'data.mploader', 'ops.preprocess'):\n"
         "    assert 'spn4cir_tpu_torch.' + new in names, new\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'spn4cir_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'torch' in sys.modules\n"
+        "from spn4cir_tpu_torch.data.mploader import MPLoader\n"
+        "print('WORKERS-START', file=sys.stderr, flush=True)\n"
+        "with MPLoader('clip', 32, batch_size=2, num_procs=2,\n"
+        "              threads_per_proc=1) as loader:\n"
+        f"    for arr, n in loader.map_batches([[{image!r}] * 2] * 3):\n"
+        "        assert n == 2 and arr.shape == (2, 32, 32, 3)\n"
         "print('ok')\n")
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    env.pop("SPN4CIR_NATIVE", None)
+    out = subprocess.run([sys.executable, "-X", "importtime", str(script)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        out.stderr[-3000:]
+    workers = out.stderr.split("WORKERS-START", 1)[1].splitlines()
+    mods = [line.rsplit("|", 1)[-1].strip() for line in workers
+            if line.startswith("import time:")]
+    assert "spn4cir_tpu_torch.native" in mods, workers[-20:]
+    bad = sorted({m for m in mods if m.split(".")[0] in
+                  ("torch", "jax", "jaxlib", "spn4cir_tpu")})
+    assert not bad, bad

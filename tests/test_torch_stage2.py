@@ -477,14 +477,15 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
     (["--mesh_bank", "2"], "--mesh_bank"),
     (["--mesh_model", "2"], "--mesh_model"),
     (["--distributed"], "--distributed"),
-    (["--device_preprocess"], "--device_preprocess"),
-    (["--loader_procs", "2"], "--loader_procs"),
+    (["--device_preprocess", "--mesh_data", "2"], "--mesh_data"),
+    (["--device_preprocess", "--distributed"], "--distributed"),
     (["blip2", "--text_max_len", "40"], "--text_max_len"),
     (["--wo_bank", "--use_cc"], "--use_cc"),
     (["--dropout", "0.1"], "--dropout"),
     (["--text_max_len", "40"], "--text_max_len"),
     (["--val_ret_train"], "--val_ret_train"),
-    (["--device_canvas", "448"], "--device_canvas"),
+    (["--device_preprocess", "--device_canvas", "448", "--mesh_model", "2"],
+     "--mesh_model"),
     (["zs", "--dropout", "0.1"], "--dropout"),
 ])
 def test_unported_flags_raise_not_yet_ported(flags, match, tok, cirr_root,

@@ -205,7 +205,7 @@ def test_submission_main_needs_cirr(world):
     (["--mesh_model", "2"], "--mesh_model"),
     (["--mesh_bank", "2"], "--mesh_bank"),
     (["--distributed"], "--distributed"),
-    (["--device_preprocess"], "--device_preprocess"),
+    (["--device_preprocess", "--mesh_data", "2"], "--mesh_data"),
 ])
 def test_entry_points_refuse_what_is_not_ported(main, flags, match, world):
     argv = ARGV + ["--dataset", "cirr", "--data_path", world["cirr"]] + flags
