@@ -470,6 +470,34 @@ SRM_CHECK_ROWS = 256
 # unit Unicom embeddings (768) through #3 against the plain route, float32
 # both: the attention differs in summation order only (1e-5 a layer)
 SRM_EMBED_TOL = 1e-4
+# the phase-19 paths that train the ViT-B/32 text tower through #1, #2, #5, #6
+DIST_TRAIN_PATHS = ("dist_nccl1", "dist_gloo_train", "dist_gloo_recipe")
+# phase 19: multi-GPU on one card. DIST_STEPS recipe-scale steps at the CLIP
+# recipe's learning rate. The weights after AdamW steps cannot tell a right
+# gradient from a wrong one (its normalized update moves a coordinate by
+# about lr whatever the gradient's size or scale), so the sharded steps are
+# held by their first step's gradients, read after the data all-reduce and
+# before the update, against the single process's: the relative error
+# |g - g_ref| / |g_ref| over all trainable tensors. A split batch or bank
+# sums the bf16 partials in another order: the H100 read 1.4e-3 at bank 2
+# and 2.3e-3 at data 2 (0 at world size 1), and DIST_GRAD_RTOL is 4x the
+# larger, where a gradient counted twice, or summed over one rank's rows
+# only, errs by 0.5-1. Every loss of a run within DIST_LOSS_RTOL of the
+# single process's. The sharded service's scores are
+# float32 sums over 512 products in another order (shards of other
+# heights): 1e-5
+DIST_DEVICE = "cuda:0"
+DIST_LR = 2e-5
+DIST_STEPS = 2
+DIST_RANK_DEADLINE_S = 480     # the two gloo ranks take 40-150 s on one H100
+DIST_GRAD_RTOL = 1e-2
+DIST_LOSS_RTOL = 1e-3
+DIST_LLAMA_NEW = 16
+DIST_PROMPT = "Rewrite the caption: a red dress with long sleeves."
+DIST_QUERIES = 16
+SHARDED_ROWS = 16384
+SHARDED_MQ_ROWS = 4096
+SERVE_SCORE_TOL = 1e-5
 CAPTIONS = ("make it like number 7 but red", "is darker and has longer sleeves",
             "the dress is shorter with a floral print",
             "change the dog to a cat sitting on the grass")
@@ -1125,6 +1153,19 @@ def check_bank(bk, device, card):
         scales = torch.full((m + 300,), float("nan"), device=device)
         scales[:m] = qbank.scales
         run(q, bk.QuantBank(qbank.values, scales[:m]), labels, time_it=False)
+    # labels outside [0, M): the positive lies in another shard of a bank
+    # split over ranks (parallel/loss.py), so pos is 0 and no one-hot
+    b, m = 48, 3000
+    q = unit_rows(b, BANK_DIM, g, device)
+    bank32 = unit_rows(m, BANK_DIM, g, device)
+    labels = torch.randint(-m // 2, m + m // 2, (b,), generator=g,
+                           device=device)
+    outside = int(((labels < 0) | (labels >= m)).sum())
+    assert 0 < outside < b, outside
+    phase(f"bank kernels with {outside} of {b} labels outside [0, {m}) "
+          f"(positives in other shards), float32, bf16 and int8 banks:")
+    for bank in (bank32, bank32.to(torch.bfloat16), bk.quantize_bank(bank32)):
+        run(q, bank, labels, time_it=False)
     return records
 
 
@@ -1216,6 +1257,7 @@ def drive_serving(ak, bk, layers, root, card):
         server.shutdown()
         server.server_close()
 
+    PHASE4["service"] = service
     backbone = service.backbone
     cfg = backbone.cfg
     encode_batches = math.ceil(N_GALLERY / ENCODE_BATCH)
@@ -1444,6 +1486,8 @@ def drive_training_cli(ak, bk, root, tmp, card, model="ViT-B/32",
                     args.dress_types, extend_suffix=trained.extend_suffix,
                     seed=args.seed, replace_extended=trained.replace_extended)
     m = ds.num_unique_images
+    if model == "ViT-B/32":
+        PHASE5.update(losses=losses, bank_rows=m)
     extract_batches = math.ceil(m / TRAIN_BATCH)
     val_gallery_batches = math.ceil(n_gallery / 32)
     val_query_batches = math.ceil(N_VAL / 32)
@@ -2732,6 +2776,16 @@ def check_max_query(mk, bk, device, card):
     scales = torch.full((m + 300, nq), float("nan"), device=device)
     scales[:m] = qbank.scales
     run(q, bk.QuantBank(qbank.values, scales[:m]), labels, time_it=False)
+    # labels outside [0, M): positives in other shards (parallel/loss.py)
+    b, m, nq = 6, 1200, 8
+    q = unit_rows(b, BLIP_DIM, g, device)
+    bank32 = unit_bank(m, nq, BLIP_DIM, g, device)
+    labels = torch.tensor([-1, 0, m - 1, m, 5 * m, 17], device=device)
+    phase(f"max-query kernels with labels {labels.tolist()} against M={m} "
+          f"(4 outside [0, M): positives in other shards), float32, bf16 and "
+          f"int8 banks:")
+    for bank in (bank32, bank32.to(torch.bfloat16), bk.quantize_bank(bank32)):
+        run(q, bank, labels, time_it=False)
     torch.cuda.empty_cache()
     return records
 
@@ -5688,6 +5742,613 @@ def drive_tokenize(card):
           + f" [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: multi-GPU (parallel/, serve/sharded.py) on the one card
+# ---------------------------------------------------------------------------
+
+# what the other phases leave for phase 19 to compare against
+PHASE4 = {}
+PHASE5 = {}
+
+
+def dist_backbone(device):
+    """ViT-B/32 bf16 with the seed-0 weights every process draws alike."""
+    from spn4cir_tpu_torch.models.api import build_backbone
+
+    bb = build_backbone("clip", clip_model_name="ViT-B/32", tau=TAU,
+                        dtype=torch.bfloat16, device=device)
+    bb.init_params(torch.Generator().manual_seed(0))
+    return bb
+
+
+def dist_recipe_inputs(bb, device):
+    """The recipe-scale stage-2 inputs of phase 19, from seeds: a 65,536 x
+    512 bf16 bank and DIST_STEPS global batches of 256."""
+    g = torch.Generator(device=device).manual_seed(19)
+    bank = unit_rows(RECIPE_BANK, BANK_DIM, g, device).to(torch.bfloat16)
+    batches = []
+    for step in range(DIST_STEPS):
+        caps = [CAPTIONS[(step + i) % len(CAPTIONS)]
+                for i in range(TRAIN_BATCH)]
+        batches.append({
+            "refer_feats": unit_rows(TRAIN_BATCH, BANK_DIM, g, device),
+            "text_ids": torch.from_numpy(bb.tokenize(caps)).to(device),
+            "labels": torch.randint(0, RECIPE_BANK, (TRAIN_BATCH,),
+                                    generator=g, device=device)})
+    return bank, batches
+
+
+def dist_loss_inputs(bk, device):
+    """The loss-level cases of phase 19b: a bf16 and an int8 flat bank at
+    the recipe's size and blip2's (65,536, 32, 256) bf16 bank, with their
+    queries."""
+    g = torch.Generator(device=device).manual_seed(191)
+    q = unit_rows(TRAIN_BATCH, BANK_DIM, g, device)
+    rows = unit_rows(RECIPE_BANK, BANK_DIM, g, device)
+    flat = bk.quantize_bank(rows)
+    labels = torch.randint(0, RECIPE_BANK, (TRAIN_BATCH,), generator=g,
+                           device=device)
+    f = unit_rows(BLIP2_BATCH, BLIP_DIM, g, device)
+    mq = unit_bank(RECIPE_BANK, BLIP2_QUERIES, BLIP_DIM, g,
+                   device).to(torch.bfloat16)
+    mq_labels = torch.randint(0, RECIPE_BANK, (BLIP2_BATCH,), generator=g,
+                              device=device)
+    return {"bf16": (q, rows.to(torch.bfloat16), labels),
+            "int8": (q, flat, labels), "blip2": (f, mq, mq_labels)}
+
+
+def text_state(bb):
+    """The trainable (text-side) tensors of a clip backbone, on the host."""
+    return {n: p.detach().float().cpu() for n, p in bb.named_parameters()
+            if p.requires_grad}
+
+
+def text_grads(bb):
+    """The gradients the last step applied (the optimizer leaves them in
+    `.grad`), of the trainable tensors, on the host in float32."""
+    return {n: p.grad.float().cpu() for n, p in bb.named_parameters()
+            if p.requires_grad and p.grad is not None}
+
+
+def grad_gap(got, want):
+    """|got - want| / |want| over all the tensors (their norms pooled)."""
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    num = sum(float((got[n] - want[n]).square().sum()) for n in want)
+    den = sum(float(want[n].square().sum()) for n in want)
+    return (num / den) ** 0.5
+
+
+def param_gap(bb, ref):
+    """(largest |p - ref| over the trainable tensors, tensors that moved)."""
+    gap, n = 0.0, 0
+    for name, p in bb.named_parameters():
+        if name in ref:
+            gap = max(gap, (p.detach().float().cpu() - ref[name]).abs().max()
+                      .item())
+            n += 1
+    return gap, n
+
+
+def topk_agree(got, want, tol):
+    """Two (values, ids) top-k results agree: the values within `tol`, and
+    the ids equal wherever a score stands more than `tol` from both of its
+    neighbours (rows that differ only inside such a near-tie are allowed
+    to swap). Returns (largest value gap, ids that differ)."""
+    gv, gi = (t.float().cpu() for t in got)
+    wv, wi = (t.float().cpu() for t in want)
+    gap = (gv - wv).abs().max().item()
+    assert gap <= tol, gap
+    pad = torch.full((wv.shape[0], 1), float("inf"))
+    left = torch.cat([pad, wv[:, :-1]], 1) - wv
+    right = wv - torch.cat([wv[:, 1:], -pad], 1)
+    clear = (left.abs() > tol) & (right.abs() > tol)
+    assert torch.equal(gi[clear], wi[clear]), "top-k ids differ"
+    return gap, int((gi != wi).sum())
+
+
+def drive_dist_nccl(ak, bk, tmp, card):
+    """Phase 19a: one process over NCCL at world size 1 (SPN4CIR_DIST_NPROCS
+    = 1): `make_sharded_stage2_step` of ViT-B/32 bf16 against 65,536 x 512
+    bf16 rows at batch 256, DIST_STEPS steps, held against
+    `stage2_train_step` from the same weights; then the sharded loss alone
+    against `bank_infonce` (loss and dQ). Writes the single-process
+    reference for the two-rank runs."""
+    import torch.distributed as dist
+
+    from spn4cir_tpu_torch.ops.bank_kernels import bank_infonce
+    from spn4cir_tpu_torch.parallel import loss as ploss
+    from spn4cir_tpu_torch.parallel import mesh as pm
+    from spn4cir_tpu_torch.parallel.train import make_sharded_stage2_step
+    from spn4cir_tpu_torch.train.stage2 import (create_train_state,
+                                                stage2_train_step)
+
+    device = torch.device(DIST_DEVICE)
+    ref = dist_backbone(device)
+    bank, batches = dist_recipe_inputs(ref, device)
+    state = create_train_state(ref, DIST_LR)
+    want, ref_grads = [], None
+    for b in batches:
+        want.append(stage2_train_step(ref, state, bank, b).item())
+        ref_grads = ref_grads or text_grads(ref)
+    ref_path = os.path.join(tmp, "dist_ref_clip.pt")
+    torch.save({"losses": want, "params": text_state(ref),
+                "grads": ref_grads}, ref_path)
+    del ref, state
+    # the loss-level references of the two-rank runs
+    cases = dist_loss_inputs(bk, device)
+    refs = {}
+    for name, (q, tgt, lab) in cases.items():
+        leaf = q.clone().requires_grad_()
+        if name == "blip2":
+            from spn4cir_tpu_torch.ops.maxquery_kernels import (
+                max_query_infonce)
+            loss = max_query_infonce(leaf, tgt, lab, TAU)
+        else:
+            loss = bank_infonce(leaf, tgt, lab, TAU)
+        loss.backward()
+        refs[name] = (loss.item(), leaf.grad.cpu())
+    torch.save(refs, os.path.join(tmp, "dist_ref_loss.pt"))
+    del cases
+
+    t0 = time.perf_counter()
+    with scoped_env(SPN4CIR_DIST_NPROCS="1", SPN4CIR_DIST_BACKEND=None):
+        assert pm.initialize_distributed(device=device)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = pm.make_mesh(data=1, bank=1, device=device)
+        bb = dist_backbone(device)
+        state = create_train_state(bb, DIST_LR)
+        shard, offset = pm.bank_shard(bank, mesh)
+        assert offset == 0 and shard.shape[0] == RECIPE_BANK
+        step = make_sharded_stage2_step(bb, mesh, m_actual=RECIPE_BANK)
+        count = zero_counts(ak, bk)
+        got, grads = [], None
+        for b in batches:
+            got.append(step(state, shard, b).item())
+            grads = grads or text_grads(bb)
+        launches = read_counts(count)
+        saved = torch.load(ref_path)
+        gap, n = param_gap(bb, saved["params"])
+        g_gap = grad_gap(grads, saved["grads"])
+        # the loss alone: dQ against the single-device kernels
+        q = unit_rows(TRAIN_BATCH, BANK_DIM,
+                      torch.Generator(device=device).manual_seed(5), device)
+        leaf = q.clone().requires_grad_()
+        sl = ploss.sharded_bank_infonce(leaf, shard, batches[0]["labels"],
+                                        TAU, mesh, m_actual=RECIPE_BANK)
+        sl.backward()
+        leaf2 = q.clone().requires_grad_()
+        bl = bank_infonce(leaf2, bank, batches[0]["labels"], TAU)
+        bl.backward()
+        torch.testing.assert_close(sl, bl, atol=BANK_RTOL, rtol=BANK_RTOL)
+        torch.testing.assert_close(leaf.grad, leaf2.grad, atol=BANK_DQ_ATOL,
+                                   rtol=BANK_RTOL)
+        dq_err = (leaf.grad - leaf2.grad).abs().max().item()
+    finally:
+        dist.destroy_process_group()
+    layers_n = bb.cfg.transformer_layers
+    steps = DIST_STEPS
+    want_l = dict(short_attention=layers_n * steps,
+                  short_attention_bwd=layers_n * steps, **NO_LONG,
+                  **bank_launches(False, steps))
+    seconds = time.perf_counter() - t0
+    phase(f"multi-GPU (a), NCCL world size 1: make_sharded_stage2_step of "
+          f"ViT-B/32 bf16 against {RECIPE_BANK} x {BANK_DIM} bf16 rows at "
+          f"batch {TRAIN_BATCH}, {steps} steps: losses {got} against "
+          f"stage2_train_step {want}; first step's gradients relative "
+          f"error {g_gap:.3e} (<= {DIST_GRAD_RTOL}); trainable tensors {n}, "
+          f"largest weight gap after the steps {gap:.3e}; the "
+          f"sharded loss alone against bank_infonce: dQ max_abs_err "
+          f"{dq_err:.3e}; launches {launches}; {seconds:.1f} s "
+          f"(correctness run, not a multi-GPU speed) [{card}]")
+    for a, b in zip(got, want):
+        assert abs(a - b) <= DIST_LOSS_RTOL * abs(b), (got, want)
+    assert g_gap <= DIST_GRAD_RTOL, g_gap
+    assert launches == want_l, (launches, want_l)
+    return launches
+
+
+def dist_rank(rank, world, port, tmp, root, device_index):
+    """One rank of phase 19b/19d: two gloo ranks on the one card. (b1)
+    `train_main("clip", ... --distributed --mesh_bank 2)` on phase 5's
+    tree; (b2) the recipe-scale sharded step at (bank 2) and (data 2), and
+    the sharded int8 and blip2 losses at (bank 2); (d1) the ViT-B/32
+    gallery encode through `extract_index_features(mesh=(1, 1, 2))`; (d2)
+    LLaMA-2-7B bf16 cut over (1, 1, 2), its prefill logits and 16 greedy
+    tokens. Writes its results to `rank<rank>.json` under `tmp`."""
+    import numpy as np
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    os.environ.update(SPN4CIR_DIST_COORDINATOR=f"localhost:{port}",
+                      SPN4CIR_DIST_NPROCS=str(world),
+                      SPN4CIR_DIST_PROC_ID=str(rank),
+                      SPN4CIR_DIST_BACKEND="gloo")
+    from spn4cir_tpu_torch.cli import train
+    from spn4cir_tpu_torch.data.datasets import CIRDataset
+    from spn4cir_tpu_torch.data.transforms import ImageTransform
+    from spn4cir_tpu_torch.eval.retrieval import extract_index_features
+    from spn4cir_tpu_torch.models import llama as tl
+    from spn4cir_tpu_torch.ops import attention_kernels as ak
+    from spn4cir_tpu_torch.ops import bank_kernels as bk
+    from spn4cir_tpu_torch.parallel import loss as ploss
+    from spn4cir_tpu_torch.parallel import mesh as pm
+    from spn4cir_tpu_torch.parallel.tp import shard_llama_params
+    from spn4cir_tpu_torch.parallel.train import make_sharded_stage2_step
+    from spn4cir_tpu_torch.tokenizer.bytelevel import ByteTokenizer
+    from spn4cir_tpu_torch.train.stage2 import create_train_state
+
+    device = torch.device(f"cuda:{device_index}" if DIST_DEVICE != "cpu"
+                          else "cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    bank_rows = []
+    launch_fwd = bk._launch_fwd
+
+    def record_rows(query, bank, labels, tau):
+        bank_rows.append(int(bank.shape[0]))
+        return launch_fwd(query, bank, labels, tau)
+
+    bk._launch_fwd = record_rows
+
+    # (b1) the training CLI, two ranks, the bank split in two
+    argv = phase5_argv(root, os.path.join(tmp, "dist_train")) + [
+        "--distributed", "--mesh_bank", "2", "--device",
+        "cpu" if DIST_DEVICE == "cpu" else str(device_index)]
+    count = zero_counts(ak, bk)
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        train.train_main("clip", argv, log_every=1, **train.CLIP4CIR_DEFAULTS)
+    out["train"] = read_counts(count)
+    out["train_losses"] = [json.loads(line)["loss"] for line in
+                           tee.buffer_.getvalue().splitlines()
+                           if line.startswith('{"step"')]
+    out["train_bank_rows"] = sorted(set(bank_rows))
+    assert dist.get_backend() == "gloo" and dist.get_world_size() == world
+
+    # (b2) the recipe-scale step and the sharded losses
+    ref = torch.load(os.path.join(tmp, "dist_ref_clip.pt"))
+    refs = torch.load(os.path.join(tmp, "dist_ref_loss.pt"))
+    count = zero_counts(ak, bk)
+    bank_rows.clear()
+    recipe = {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = pm.make_mesh(data=shape[0], bank=shape[1], device=device)
+        bb = dist_backbone(device)
+        bank, batches = dist_recipe_inputs(bb, device)
+        shard, _ = pm.bank_shard(bank, mesh)
+        del bank
+        state = create_train_state(bb, DIST_LR)
+        step = make_sharded_stage2_step(bb, mesh, m_actual=RECIPE_BANK)
+        losses, grads = [], None
+        for b in batches:
+            losses.append(step(state, shard, pm.local_rows(b, mesh)).item())
+            grads = grads or text_grads(bb)
+        gap, n = param_gap(bb, ref["params"])
+        recipe[f"data{shape[0]}_bank{shape[1]}"] = dict(
+            losses=losses, want=ref["losses"],
+            grad_gap=grad_gap(grads, ref["grads"]), gap=gap, tensors=n)
+        del bb, state, shard
+    mesh = pm.make_mesh(data=1, bank=2, device=device)
+    for name, (q, tgt, lab) in dist_loss_inputs(bk, device).items():
+        leaf = q.clone().requires_grad_()
+        fn = (ploss.sharded_max_query_infonce if name == "blip2"
+              else ploss.sharded_bank_infonce)
+        loss = fn(leaf, pm.bank_shard(tgt, mesh)[0], lab, TAU, mesh,
+                  m_actual=RECIPE_BANK)
+        loss.backward()
+        want_loss, want_dq = refs[name]
+        dq = leaf.grad.cpu()
+        torch.testing.assert_close(loss.item(), want_loss, atol=BANK_RTOL,
+                                   rtol=BANK_RTOL)
+        torch.testing.assert_close(dq, want_dq, atol=BANK_DQ_ATOL,
+                                   rtol=BANK_RTOL)
+        recipe[name] = dict(loss=loss.item(), want=want_loss,
+                            dq_err=(dq - want_dq).abs().max().item())
+    del q, tgt
+    out["recipe"] = read_counts(count)
+    out["recipe_bank_rows"] = sorted(set(bank_rows))
+    out["recipe_checks"] = recipe
+
+    # (d1) the gallery encode, the towers cut over two ranks
+    mesh = pm.make_mesh(data=1, bank=1, model=2, device=device)
+    bb = dist_backbone(device).eval()
+    classic = CIRDataset("cirr", "val", "classic",
+                         ImageTransform("targetpad", bb.input_dim, 1.25),
+                         root)
+    heads = set()
+    hooks = [m.register_forward_pre_hook(
+                 lambda m, args: heads.add(m.num_heads))
+             for m in bb.modules() if hasattr(m, "in_proj_weight")]
+    count = zero_counts(ak, bk)
+    index = extract_index_features(bb, classic, ENCODE_BATCH, mesh=mesh)
+    out["tp_encode"] = read_counts(count)
+    for h in hooks:
+        h.remove()
+    # cut for the pass (its vision heads), whole after it (all its heads)
+    out["tp_heads"] = sorted(heads)
+    out["tp_heads_after"] = sorted({m.num_heads for m in bb.modules()
+                                    if hasattr(m, "in_proj_weight")})
+    out["tp_whole_after"] = not any(hasattr(m, "tp") for m in bb.modules())
+    if rank == 0:
+        np.save(os.path.join(tmp, "dist_tp_index.npy"),
+                index.target.float().cpu().numpy())
+    del bb, index
+
+    # (d2) LLaMA-2-7B bf16, the decoder cut over two ranks
+    cfg, model = llama_model(device)
+    local, lcfg = shard_llama_params(model, cfg, mesh)
+    del model
+    torch.cuda.empty_cache()
+    tok = ByteTokenizer()
+    ids = torch.tensor(tok.encode(DIST_PROMPT), device=device)
+    emb = tl.embed_tokens(local, ids)[None]
+    state = tl.init_llama_state(lcfg, 1, len(ids) + DIST_LLAMA_NEW,
+                                dtype=torch.bfloat16, device=device)
+    logits0, _ = tl.llama_prefill(local, lcfg, state, emb)
+    heads = []
+    attend = tl.decode_attention
+
+    def recording(q, *args, **kw):
+        heads.append(int(q.shape[1]))
+        return attend(q, *args, **kw)
+
+    tl.decode_attention = recording
+    count = zero_counts(ak, bk)
+    tokens = tl.llama_generate(local, lcfg, emb, eos_id=tok.eos_token_id,
+                               pad_id=tok.eos_token_id,
+                               max_new_tokens=DIST_LLAMA_NEW,
+                               cache_dtype=torch.bfloat16)
+    out["tp_llama"] = read_counts(count)
+    tl.decode_attention = attend
+    out["tp_llama_heads"] = sorted(set(heads))
+    out["tp_llama_cfg"] = [lcfg.num_heads, lcfg.kv_heads,
+                           lcfg.intermediate_size, lcfg.head_dim]
+    ref = torch.load(os.path.join(tmp, "dist_ref_llama.pt"))
+    out["tp_llama_logit_gap"] = (logits0.float().cpu()
+                                 - ref["logits"]).abs().max().item()
+    out["tp_llama_tokens"] = tokens.cpu().tolist()
+    out["tp_llama_want"] = ref["tokens"]
+    bk._launch_fwd = launch_fwd
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase5_argv(root, out):
+    """Phase 5's argv (ViT-B/32 bf16, float32 bank, batch 256, one epoch)
+    into another output directory."""
+    return ["--dataset", "cirr", "--data_path", root, "--clip-model-name",
+            "ViT-B/32", "--bf16", "--seed", "0", "--batch-size",
+            str(TRAIN_BATCH), "--num-epochs", "1", "--output_path", out,
+            "--bank_dtype", "float32"]
+
+
+def drive_dist_gloo(ak, bk, root, tmp, card):
+    """Phase 19b and 19d: the single-process references (the LLaMA-2-7B
+    prefill logits and 16 greedy tokens; the ViT-B/32 gallery of phase 4),
+    then two gloo ranks on the one card (`dist_rank`); no failure of a rank
+    is caught. Returns the launch counts by path, summed over the ranks."""
+    import numpy as np
+
+    import torch.multiprocessing as mp
+    from spn4cir_tpu_torch.models import llama as tl
+    from spn4cir_tpu_torch.parallel.mesh import free_port
+    from spn4cir_tpu_torch.tokenizer.bytelevel import ByteTokenizer
+
+    device = torch.device(DIST_DEVICE)
+    cfg, model = llama_model(device)
+    tok = ByteTokenizer()
+    ids = torch.tensor(tok.encode(DIST_PROMPT), device=device)
+    emb = tl.embed_tokens(model, ids)[None]
+    state = tl.init_llama_state(cfg, 1, len(ids) + DIST_LLAMA_NEW,
+                                dtype=torch.bfloat16, device=device)
+    logits0, _ = tl.llama_prefill(model, cfg, state, emb)
+    tokens = tl.llama_generate(model, cfg, emb, eos_id=tok.eos_token_id,
+                               pad_id=tok.eos_token_id,
+                               max_new_tokens=DIST_LLAMA_NEW,
+                               cache_dtype=torch.bfloat16)
+    torch.save({"logits": logits0.float().cpu(),
+                "tokens": tokens.cpu().tolist()},
+               os.path.join(tmp, "dist_ref_llama.pt"))
+    del model, state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dist_rank, args=(2, free_port(), tmp, root, 0),
+                             nprocs=2, join=False, start_method="spawn")
+    # a rank that fails raises here; ranks stuck past the deadline (a
+    # collective one of them never reached) are killed and fail the smoke
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > DIST_RANK_DEADLINE_S:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"the two ranks did not finish in "
+                                 f"{DIST_RANK_DEADLINE_S} s; killed")
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    def summed(key):
+        return {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+
+    r0 = ranks[0]
+    # (b1) the CLI: both ranks took every step on half the bank
+    steps = N_TRAIN // TRAIN_BATCH
+    single = PHASE5["losses"]
+    phase(f"multi-GPU (b1), 2 gloo ranks on one card, train_main clip "
+          f"--distributed --mesh_bank 2 on phase 5's tree: losses "
+          f"{[round(x, 4) for x in r0['train_losses']]} against phase 5's "
+          f"single process {[round(x, 4) for x in single]}; bank rows of "
+          f"each rank's launches {[r['train_bank_rows'] for r in ranks]} "
+          f"of {PHASE5['bank_rows']}; launches by rank "
+          f"{[r['train'] for r in ranks]} [{card}]")
+    assert len(r0["train_losses"]) == steps == len(single), r0
+    for a, b in zip(r0["train_losses"], single):
+        assert abs(a - b) <= DIST_LOSS_RTOL * abs(b), (r0["train_losses"],
+                                                       single)
+    # each rank launches on its shard's valid rows: ceil(m/2), then the rest
+    m = PHASE5["bank_rows"]
+    assert [r["train_bank_rows"] for r in ranks] == [
+        [-(-m // 2)], [m - (-(-m // 2))]], (m, ranks)
+    for r in ranks:
+        assert r["train"]["bank_infonce_fwd"] == steps
+        assert r["train"]["bank_infonce_bwd"] == steps
+    # (b2) the recipe-scale step and the losses
+    half = RECIPE_BANK // 2
+    phase(f"multi-GPU (b2), recipe scale over 2 gloo ranks: "
+          f"{json.dumps(r0['recipe_checks'])}; bank rows a launch "
+          f"{r0['recipe_bank_rows']}; launches by rank "
+          f"{[r['recipe'] for r in ranks]} [{card}]")
+    for r in ranks:
+        checks = r["recipe_checks"]
+        for key in ("data1_bank2", "data2_bank1"):
+            c = checks[key]
+            for a, b in zip(c["losses"], c["want"]):
+                assert abs(a - b) <= DIST_LOSS_RTOL * abs(b), (key, c)
+            assert c["grad_gap"] <= DIST_GRAD_RTOL, (key, c)
+        assert r["recipe_bank_rows"] == [half, RECIPE_BANK], r
+        # 2 meshes x DIST_STEPS steps of #5/#6 (bf16 bank) and the bf16
+        # sharded loss; one sharded loss of #7/#8 and of #9/#10
+        assert r["recipe"]["bank_infonce_fwd"] == 2 * DIST_STEPS + 1
+        assert r["recipe"]["bank_infonce_bwd"] == 2 * DIST_STEPS + 1
+        assert r["recipe"]["bank_infonce_q8_fwd"] == 1
+        assert r["recipe"]["bank_infonce_q8_bwd"] == 1
+        assert r["recipe"]["max_query_infonce_fwd"] == 1
+        assert r["recipe"]["max_query_infonce_bwd"] == 1
+    # (d1) the tensor-parallel encode against phase 4's single-process index
+    got = np.load(os.path.join(tmp, "dist_tp_index.npy"))
+    want = PHASE4["service"].index.target.float().cpu().numpy()
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                 * np.linalg.norm(want, axis=1))
+    phase(f"multi-GPU (d1), ViT-B/32 gallery encode at TP=2 over 2 gloo "
+          f"ranks: {got.shape[0]} rows, cosine to the single process min "
+          f"{cos.min():.6f}; vision heads a rank in the pass "
+          f"{r0['tp_heads']}, after it {r0['tp_heads_after']}; launches by "
+          f"rank {[r['tp_encode'] for r in ranks]} [{card}]")
+    assert got.shape == want.shape and cos.min() > 0.999, cos.min()
+    for r in ranks:
+        assert r["tp_heads"] == [6], r   # ViT-B/32's 12 vision heads, halved
+        # the towers whole again after the pass: 8 text, 12 vision heads
+        assert r["tp_heads_after"] == [8, 12] and r["tp_whole_after"], r
+    # (d2) LLaMA-2-7B at TP=2
+    same = sum(a == b for a, b in zip(r0["tp_llama_tokens"][0],
+                                      r0["tp_llama_want"][0]))
+    phase(f"multi-GPU (d2), LLaMA-2-7B bf16 at TP=2 over 2 gloo ranks: "
+          f"local (heads, kv heads, FFN, head_dim) {r0['tp_llama_cfg']}; "
+          f"prefill logits max gap to one process "
+          f"{max(r['tp_llama_logit_gap'] for r in ranks):.4f} (bound "
+          f"{LLAMA_BF16_LOGIT_TOL}); {same} of {DIST_LLAMA_NEW} greedy "
+          f"tokens equal to one process; #11 on {r0['tp_llama_heads']} "
+          f"heads a rank, launches by rank {[r['tp_llama'] for r in ranks]}; "
+          f"the two ranks' phases took {seconds:.1f} s (correctness run, "
+          f"not a multi-GPU speed) [{card}]")
+    for r in ranks:
+        assert r["tp_llama_logit_gap"] <= LLAMA_BF16_LOGIT_TOL, r
+        assert r["tp_llama_heads"] == [16], r["tp_llama_heads"]
+        assert r["tp_llama_cfg"] == [16, 16, 5504, 128], r["tp_llama_cfg"]
+        assert r["tp_llama"]["decode_attention"] == 32 * (DIST_LLAMA_NEW - 1)
+        assert r["tp_llama_tokens"] == r0["tp_llama_tokens"]
+    return {"dist_gloo_train": summed("train"),
+            "dist_gloo_recipe": summed("recipe"),
+            "tp_encode": summed("tp_encode"),
+            "tp_llama": summed("tp_llama")}
+
+
+def drive_sharded_service(ak, bk, card):
+    """Phase 19c: `ShardedRetrievalService` with 4 shards on the one card
+    against `RetrievalService`: top-50 ids and scores of queries by name on
+    phase 4's ViT-B/32 gallery (counted), then `_score_topk` on a 16,384-row
+    gallery over bf16 and int8 and on a blip2 max-query gallery."""
+    from spn4cir_tpu_torch.eval.retrieval import GalleryIndex
+    from spn4cir_tpu_torch.models.api import build_backbone
+    from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
+    from spn4cir_tpu_torch.serve import (RetrievalService,
+                                         ShardedRetrievalService)
+
+    t0 = time.perf_counter()
+    device = torch.device(DIST_DEVICE)
+    shards = [DIST_DEVICE] * 4
+    base = PHASE4["service"]
+    backbone = base.backbone
+    index = GalleryIndex(target=base.index.target, refer=base.index.refer,
+                         names=list(base.index.names))
+    single = RetrievalService(backbone, index)
+    sharded = ShardedRetrievalService(backbone, index, shards)
+    count = zero_counts(ak, bk)
+    checks = {}
+    gaps, swaps = [], 0
+    for i, name in enumerate(index.names[:DIST_QUERIES]):
+        cap = CAPTIONS[i % len(CAPTIONS)]
+        a = sharded.query_by_name(name, cap, k=50)
+        b = single.query_by_name(name, cap, k=50)
+        got = (torch.tensor([[r["score"] for r in a]]),
+               torch.tensor([[index.names.index(r["name"]) for r in a]]))
+        want = (torch.tensor([[r["score"] for r in b]]),
+                torch.tensor([[index.names.index(r["name"]) for r in b]]))
+        g, s = topk_agree(got, want, SERVE_SCORE_TOL)
+        gaps.append(g)
+        swaps += s
+    launches = read_counts(count)
+    checks["phase4"] = dict(queries=DIST_QUERIES, gap=max(gaps), swaps=swaps)
+    g = torch.Generator(device=device).manual_seed(23)
+    q = unit_rows(32, BANK_DIM, g, device)
+    gids = torch.arange(32).numpy()
+    flat = unit_rows(SHARDED_ROWS, BANK_DIM, g, device).to(torch.bfloat16)
+    names = [f"img{i}" for i in range(SHARDED_ROWS)]
+    refer = torch.zeros(SHARDED_ROWS, 1).numpy()
+    for label, target in (("bf16", flat), ("int8", quantize_bank(flat))):
+        idx = GalleryIndex(target=target, refer=refer, names=names)
+        one = RetrievalService(backbone, idx)
+        four = ShardedRetrievalService(backbone, idx, shards)
+        with torch.inference_mode():
+            want = one._score_topk(idx, q, gids, 64)
+            got = four._score_topk(four.index, q, gids, 64)
+        gap, s = topk_agree((got[0][:, :50], got[1][:, :50]),
+                            (want[0][:, :50], want[1][:, :50]),
+                            SERVE_SCORE_TOL)
+        checks[label] = dict(rows=SHARDED_ROWS, gap=gap, swaps=s)
+    b2 = build_backbone("blip2", blip2_size="test-tiny", device=device)
+    mq = unit_bank(SHARDED_MQ_ROWS, BLIP2_QUERIES, BLIP_DIM, g,
+                   device).to(torch.bfloat16)
+    fq = unit_rows(16, BLIP_DIM, g, device)
+    idx = GalleryIndex(target=mq, refer=torch.zeros(SHARDED_MQ_ROWS, 1)
+                       .numpy(), names=names[:SHARDED_MQ_ROWS])
+    one, four = RetrievalService(b2, idx), ShardedRetrievalService(
+        b2, idx, shards)
+    with torch.inference_mode():
+        want = one._score_topk(idx, fq, gids[:16], 64)
+        got = four._score_topk(four.index, fq, gids[:16], 64)
+    gap, s = topk_agree((got[0][:, :50], got[1][:, :50]),
+                        (want[0][:, :50], want[1][:, :50]), SERVE_SCORE_TOL)
+    checks["blip2"] = dict(rows=SHARDED_MQ_ROWS, gap=gap, swaps=s)
+    layers_n = backbone.cfg.transformer_layers
+    want_l = dict(short_attention=2 * layers_n * DIST_QUERIES,
+                  short_attention_bwd=0, **NO_LONG, **bank_launches(False, 0))
+    phase(f"multi-GPU (c), ShardedRetrievalService, 4 shards on one card, "
+          f"against RetrievalService, top-50: {json.dumps(checks)} (score "
+          f"tolerance {SERVE_SCORE_TOL}; ids must agree outside near-ties); "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s [{card}]")
+    assert launches == want_l, (launches, want_l)
+    return launches
+
+
+def drive_multi_gpu(ak, bk, root, tmp, card):
+    """Phase 19: (a) NCCL at world size 1, (c) the sharded service, (b, d)
+    two gloo ranks on the one card. Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    paths = {"dist_nccl1": drive_dist_nccl(ak, bk, tmp, card)}
+    torch.cuda.empty_cache()
+    paths["sharded_serve"] = drive_sharded_service(ak, bk, card)
+    torch.cuda.empty_cache()
+    paths.update(drive_dist_gloo(ak, bk, root, tmp, card))
+    phase(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s of wall time "
+          f"(a correctness run on one card, not a multi-GPU speed) [{card}]")
+    return paths
+
+
 def kernel_entry(name, replaces, source, launches_by_path, on_paths, records,
                  at, also=()):
     """One entry of the kernels line: `launches` is the sum over the main
@@ -5916,6 +6577,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         lap("18")
+        # phase 19: multi-GPU on the one card (NCCL at world size 1, the
+        # sharded service, two gloo ranks: the training CLI, the recipe
+        # step, tensor-parallel ViT-B/32 and LLaMA-2-7B)
+        dist_launches = drive_multi_gpu(ak, bk, root, tmp, card)
+        torch.cuda.empty_cache()
+
+        lap("19")
         # phase 8: kernels vs plain versions through one whole loss
         check_plain_step(layers, bk, card)
         check_blip_plain_step(layers, card)
@@ -5956,7 +6624,9 @@ def main() -> int:
                     "srm": srm_launches[name],
                     "srm_train": srm_train_launches[name],
                     **{path: counts[name]
-                       for path, counts in host_launches.items()}}
+                       for path, counts in host_launches.items()},
+                    **{path: counts[name]
+                       for path, counts in dist_launches.items()}}
 
         host_paths = tuple(host_launches)      # (b) only where it built
 
@@ -5969,7 +6639,8 @@ def main() -> int:
             csrc + "short_attention.cu", by_path("short_attention"),
             ("serve", "train", "flagship", "tgcir_serve", "tgcir_train",
              "negtype", "zs_stage1", "cases", "retrieval", "srm",
-             "srm_train") + host_paths, fwd_records,
+             "srm_train") + host_paths + DIST_TRAIN_PATHS
+            + ("sharded_serve", "tp_encode"), fwd_records,
             pick(fwd_records, tower="vision", dtype="bfloat16"),
             also=[pick(fwd_records, tower=t, dtype="bfloat16") for t in
                   ("text", "train-text", "flagship-text",
@@ -5978,7 +6649,7 @@ def main() -> int:
             "short_attention_bwd", jax_ops + "attention_kernels.py:279",
             csrc + "short_attention.cu", by_path("short_attention_bwd"),
             ("train", "flagship", "tgcir_train", "negtype", "zs_stage1",
-             "srm_train", "host_train"),
+             "srm_train", "host_train") + DIST_TRAIN_PATHS,
             bwd_records,
             pick(bwd_records, tower="train-text", dtype="bfloat16"),
             also=[pick(bwd_records, tower="flagship-text",
@@ -5989,7 +6660,7 @@ def main() -> int:
                 name, f"{jax_ops}bank_kernels.py:{line}",
                 csrc + "bank_infonce.cu", by_path(name),
                 ("train", "blip_train", "tgcir_train", "srm_train",
-                 "host_train"), recs,
+                 "host_train") + DIST_TRAIN_PATHS, recs,
                 pick(recs, shape=at_bank, dtype="float32"),
                 also=[pick(recs, shape=at_bank, dtype="bfloat16"),
                       pick(recs, shape=at_flag, dtype="float32"),
@@ -6004,7 +6675,7 @@ def main() -> int:
             entries.append(kernel_entry(
                 name, f"{jax_ops}bank_kernels.py:{line}",
                 csrc + "bank_infonce.cu", by_path(name),
-                ("flagship", "tgcir_train"), recs,
+                ("flagship", "tgcir_train", "dist_gloo_recipe"), recs,
                 pick(recs, shape=at_flag, dtype="int8"),
                 also=[pick(recs, shape=at_bank, dtype="int8")]))
         for name, line, on_paths, recs in (
@@ -6037,7 +6708,7 @@ def main() -> int:
             entries.append(kernel_entry(
                 name, f"{jax_ops}maxquery_kernels.py:{line}",
                 csrc + "max_query_infonce.cu", by_path(name),
-                ("blip2_train",), recs,
+                ("blip2_train", "dist_gloo_recipe"), recs,
                 pick(recs, shape=at_mq, dtype="float32"),
                 also=[pick(recs, shape=at_mq, dtype="bfloat16"),
                       pick(recs, shape=at_mq, dtype="int8")]))
@@ -6046,7 +6717,8 @@ def main() -> int:
         entries.append(kernel_entry(
             "decode_attention", jax_ops + "decode_attn.py:97",
             csrc + "decode_attention.cu", by_path("decode_attention"),
-            ("rewrite", "llama_q8", "get_cir_data", "llava", "llava_service"),
+            ("rewrite", "llama_q8", "get_cir_data", "llava", "llava_service",
+             "tp_llama"),
             decode_records,
             pick(decode_records, shape=at_dec, dtype="bfloat16"),
             also=[pick(decode_records, shape=at_dec, dtype=t)

@@ -18,7 +18,11 @@ Kernels (hand-written CUDA C++ in `csrc/`, built by `ops/cuda_build.py`):
 `ops/attention_kernels.py` (short and long attention, forward and
 backward), `ops/bank_kernels.py` (bank InfoNCE over float32, bf16 and int8
 banks), `ops/maxquery_kernels.py`, `ops/decode_attn.py`,
-`ops/quant_matmul.py`. Not ported: multi-GPU (meshes, `--distributed`).
+`ops/quant_matmul.py`. Multi-GPU (`parallel/`, `serve/sharded.py`): one
+process per GPU over `torch.distributed` process groups (the bank-sharded
+InfoNCE, data-parallel stage 1 and stage 2, Megatron tensor parallelism of
+the towers and the LLaMA / LLaVA decoders), and the gallery in row shards
+over a device list in one serving process.
 """
 
 __version__ = "0.1.0"

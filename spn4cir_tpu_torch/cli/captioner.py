@@ -16,10 +16,13 @@ satisfy a resume); a rerun skips them without decoding, and a run with
 nothing left loads no model.
 
 The flags are the JAX script's, plus `--device` ("N" is cuda:N, the default
-cuda:0; "cpu" the CPU). Not yet ported, and refused: `--tokenizer_path` (an
-HF LLaMA tokenizer needs `transformers`) and `--mesh_model` > 1. Without a
-tokenizer the 7B LLaVA has none to run with, so `--mllm llava` runs
-`--llava_size tiny` (the byte tokenizer) today.
+cuda:0; "cpu" the CPU). `--mesh_model N` (LLaVA) splits the model over N
+ranks (tensor parallelism, `parallel/tp.py`), one process per GPU launched
+by torchrun or the `SPN4CIR_DIST_*` variables: every rank captions the same
+images and rank 0 alone writes the sidecar and the it-list. Not yet ported,
+and refused: `--tokenizer_path` (an HF LLaMA tokenizer needs
+`transformers`). Without a tokenizer the 7B LLaVA has none to run with, so
+`--mllm llava` runs `--llava_size tiny` (the byte tokenizer) today.
 """
 
 from __future__ import annotations
@@ -32,13 +35,15 @@ from typing import Optional, Sequence
 import numpy as np
 from PIL import Image
 
-from spn4cir_tpu_torch.cli.common import ATTN_KERNEL, CACHE_DTYPES
+from spn4cir_tpu_torch.cli.common import (ATTN_KERNEL, CACHE_DTYPES,
+                                          setup_model_mesh)
 from spn4cir_tpu_torch.data.datasets import CIRDataset
 from spn4cir_tpu_torch.data.transforms import ImageTransform
 from spn4cir_tpu_torch.datagen.captioner import (
     caption_images, caption_images_batched, caption_prompt,
     load_caption_checkpoint, load_cc_shard, make_blip_captioner,
     make_llava_captioner, stub_captioner, write_it_list)
+from spn4cir_tpu_torch.parallel.mesh import process_is_main
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
@@ -59,8 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--llava_size", default="7b", choices=["7b", "tiny"])
     p.add_argument("--max_new_tokens", type=int, default=64)
     p.add_argument("--mesh_model", type=int, default=0,
-                   help="tensor-parallel LLaVA over this many cards (not "
-                        "yet ported)")
+                   help="tensor-parallel LLaVA over this many ranks: one "
+                        "process per GPU, launched by torchrun or the "
+                        "SPN4CIR_DIST_* variables; rank 0 alone writes")
     p.add_argument("--llm_cache", default="",
                    choices=["", "f32", "bf16", "int8"],
                    help="KV cache type of the LLaVA LM ('' = bf16 at 7B, "
@@ -113,7 +119,7 @@ def sidecar_path(args, out_folder: str, out_name: str) -> str:
                         f".{out_name}.{tag}.partial.jsonl")
 
 
-def _load_captioner(args):
+def _load_captioner(args, mesh=None):
     """(transform, batched_fn) of --mllm, loaded once."""
     if args.mllm == "llava":
         _, transform, batched_fn = make_llava_captioner(
@@ -121,7 +127,8 @@ def _load_captioner(args):
             word_num=args.word_num, max_new_tokens=args.max_new_tokens,
             batch_size=args.batch_size,
             cache_dtype=CACHE_DTYPES.get(args.llm_cache),
-            attn_kernel=ATTN_KERNEL[args.attn_kernel], device=args.device)
+            attn_kernel=ATTN_KERNEL[args.attn_kernel], device=args.device,
+            mesh=mesh)
         return transform, batched_fn
     _, transform, batched_fn = make_blip_captioner(
         args.ckpt, blip_size=args.blip_size,
@@ -137,9 +144,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if args.tokenizer_path:
         raise SystemExit("--tokenizer_path is not yet ported to PyTorch (an "
                          "HF LLaMA tokenizer needs transformers)")
-    if args.mesh_model > 1:
-        raise SystemExit("--mesh_model > 1 is not yet ported to PyTorch (the "
-                         "tensor-parallel LLaVA)")
+    if args.mesh_model > 1 and args.mllm != "llava":
+        raise SystemExit("--mesh_model applies to the LLaVA captioner")
+    mesh = setup_model_mesh(args)
+    main_rank = process_is_main()
     if args.batch_size == 0:
         # the llava_v1 caption prompt plus 64 new tokens fits the 448 bucket
         from spn4cir_tpu_torch.datagen.llm_rewrite import recommended_llm_batch
@@ -148,9 +156,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                                448, CACHE_DTYPES.get(args.llm_cache)))
     out_folder, out_name = output_name(args)
     ckpt_path = sidecar_path(args, out_folder, out_name)
-    if ckpt_path:
+    if ckpt_path and main_rank:
         os.makedirs(os.path.dirname(ckpt_path) or ".", exist_ok=True)
     done = load_caption_checkpoint(ckpt_path)
+    if not main_rank:  # every rank captions; rank 0 alone writes
+        ckpt_path = None
     if done:
         print(f"resuming: {len(done)} captions already in {ckpt_path}")
 
@@ -169,7 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     # a fully resumed run never loads the model
     transform = batched_fn = None
     if remaining and args.mllm != "stub":
-        transform, batched_fn = _load_captioner(args)
+        transform, batched_fn = _load_captioner(args, mesh)
 
     if args.dataset == "cc":
         if not remaining:
@@ -229,6 +239,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
             have = {it["image_id"] for it in it_list}
             it_list.extend({"image_id": n, "caption": c}
                            for n, c in done.items() if n not in have)
+    if not main_rank:
+        return ""
     out = write_it_list(it_list, out_folder, args.mllm, args.word_num,
                         filename=out_name)
     print(f"wrote {len(it_list)} captions -> {out}")

@@ -38,7 +38,8 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
     p.add_argument("--model_path", type=str, default="")
     p.add_argument("--reload_bank", action="store_true")
     p.add_argument("--device", default="0",
-                   help="N = cuda:N (the default, cuda:0), or cpu")
+                   help="N = cuda:N (the default, cuda:0; under torchrun "
+                        "cuda:LOCAL_RANK), or cpu")
     p.add_argument("--bank_path", default="")
     p.add_argument("--nni", action="store_true")
     p.add_argument("--plus", action="store_true")
@@ -65,11 +66,16 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
                         "(the reference trains with HF BERT dropout 0.1; 0.0 "
                         "matches eval parity)")
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="data-axis size (0 = all devices)")
-    p.add_argument("--mesh_bank", type=int, default=1, help="bank-axis size")
+                   help="data-axis size (0 = the ranks left after bank x "
+                        "model); a mesh > 1 runs one process per GPU, "
+                        "launched by torchrun or the SPN4CIR_DIST_* "
+                        "variables")
+    p.add_argument("--mesh_bank", type=int, default=1,
+                   help="bank-axis size (the stage-2 bank's rows split over "
+                        "ranks; serve: gallery shards over cuda:0..N-1)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel axis for gallery/bank indexing "
-                        "(Megatron-style tower sharding, parallel/tp.py)")
+                   help="tensor-parallel axis: Megatron slices of the "
+                        "towers (parallel/tp.py) for training and indexing")
     p.add_argument("--loss_impl", default="auto",
                    choices=["auto", "pallas", "xla"])
     # ablation flags (ref clip4cir/train_negtype.py / train_negplus.py)
@@ -110,8 +116,99 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
                    help="device dtype of the target bank (int8 = per-row "
                         "absmax quantization; logits accumulate f32)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training (not ported to PyTorch yet)")
+                   help="join the process group of a multi-process launch "
+                        "(torchrun, or SPN4CIR_DIST_COORDINATOR / "
+                        "SPN4CIR_DIST_NPROCS / SPN4CIR_DIST_PROC_ID); "
+                        "SPN4CIR_DIST_BACKEND overrides nccl/gloo")
     return p
+
+
+def uses_mesh(args, bank: bool = True) -> bool:
+    """The flags ask for a process group: --distributed, or a --mesh_* > 1
+    (with `bank=False`, --mesh_bank does not count: the sharded service
+    holds its bank shards in one process)."""
+    return (args.mesh_data > 1 or args.mesh_model > 1 or args.distributed
+            or (bank and args.mesh_bank > 1))
+
+
+def launch_size() -> int:
+    """The process count of the launch (SPN4CIR_DIST_NPROCS, else
+    torchrun's WORLD_SIZE), 0 when the process was started alone."""
+    env = os.environ
+    return int(env.get("SPN4CIR_DIST_NPROCS") or env.get("WORLD_SIZE") or 0)
+
+
+def setup_distributed(args, bank: bool = True) -> bool:
+    """Join the process group when --distributed or a --mesh_* > 1 asks for
+    one (`parallel.mesh.initialize_distributed`); returns True inside one.
+    A process started alone is refused: a mesh runs one process per GPU,
+    launched by torchrun or the SPN4CIR_DIST_* variables. Each rank runs on
+    --device, except that under torchrun the default cuda:0 becomes
+    cuda:LOCAL_RANK; `args.device` is set to the rank's."""
+    from spn4cir_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                 rank, world_size)
+
+    if not uses_mesh(args, bank):
+        return False
+    nprocs = _need_launch()
+    if args.device == "0" and os.environ.get("LOCAL_RANK"):
+        args.device = os.environ["LOCAL_RANK"]
+    device = resolve_device(args.device)
+    on = initialize_distributed(num_processes=nprocs, device=device)
+    print(f"distributed: rank {rank()} of {world_size()} on {device}")
+    return on
+
+
+def _need_launch() -> int:
+    nprocs = launch_size()
+    if not nprocs:
+        raise SystemExit(
+            "--distributed / --mesh_* > 1 need a multi-process launch, one "
+            "process per GPU: torchrun, or SPN4CIR_DIST_COORDINATOR, "
+            "SPN4CIR_DIST_NPROCS and SPN4CIR_DIST_PROC_ID")
+    return nprocs
+
+
+def setup_model_mesh(args):
+    """--mesh_model N of the datagen CLIs (captioner, serve_mllm,
+    get_cir_data): N ranks, one process per GPU, each holding its
+    tensor-parallel slice of the model (`parallel.tp`); returns the (1, 1,
+    N) mesh, or None for N <= 1. Rank 0 alone writes and serves."""
+    if args.mesh_model <= 1:
+        return None
+    from spn4cir_tpu_torch.parallel.mesh import initialize_distributed
+    from spn4cir_tpu_torch.parallel.tp import make_model_mesh
+
+    nprocs = _need_launch()
+    if args.device == "0" and os.environ.get("LOCAL_RANK"):
+        args.device = os.environ["LOCAL_RANK"]
+    device = resolve_device(args.device)
+    initialize_distributed(num_processes=nprocs, device=device)
+    return make_model_mesh(args.mesh_model, device)
+
+
+def encode_mesh(args, device, bank: bool = True):
+    """The indexing mesh of validate / submission / validate_case / serve:
+    --mesh_data x --mesh_model over the ranks (bank 1), or None for one
+    process (call `setup_distributed` with the same `bank` first)."""
+    if not uses_mesh(args, bank):
+        return None
+    return make_cli_mesh(args, device, bank=1)
+
+
+def make_cli_mesh(args, device, bank: int = None):
+    """The (data, bank, model) mesh of --mesh_data / --mesh_bank /
+    --mesh_model over the world (`bank` overrides --mesh_bank); across
+    hosts the data axis spans them (`make_hybrid_mesh`)."""
+    from spn4cir_tpu_torch.parallel.mesh import (make_hybrid_mesh, make_mesh,
+                                                 world_size)
+
+    bank = args.mesh_bank if bank is None else bank
+    if world_size() > int(os.environ.get("LOCAL_WORLD_SIZE", world_size())):
+        return make_hybrid_mesh(bank=bank, model=args.mesh_model,
+                                device=device)
+    return make_mesh(data=args.mesh_data or None, bank=bank,
+                     model=args.mesh_model, device=device)
 
 
 def finalize_args(args) -> None:

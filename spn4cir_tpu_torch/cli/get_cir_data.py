@@ -9,10 +9,13 @@ The flags are the JAX script's, with these differences: `--llm_backend`
 takes `torch` (the LLaMA-2 7B decoder, from `--llm_ckpt`) or `torch-tiny`
 (a random tiny LM with the byte tokenizer, for smoke runs) in place of
 `jax`, `jax-tiny` and `hf`; `--device` picks the card ("N" is cuda:N, the
-default cuda:0; "cpu" the CPU). Not yet ported, and refused: a
-`--llm_tokenizer` (it needs `transformers`) and `--mesh_model` > 1 (the
-tensor-parallel LM). Without a tokenizer the 7B cannot run, so `torch` needs
-a ported tokenizer first; `torch-tiny` runs today.
+default cuda:0; "cpu" the CPU). `--mesh_model N` splits the LM over N
+ranks (tensor parallelism, `parallel/tp.py`), one process per GPU launched
+by torchrun or the `SPN4CIR_DIST_*` variables; every rank rewrites the same
+captions and rank 0 alone writes the triplets. Not yet ported, and
+refused: a `--llm_tokenizer` (it needs `transformers`). Without a tokenizer
+the 7B cannot run, so `torch` needs a ported tokenizer first; `torch-tiny`
+runs today.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from spn4cir_tpu_torch.cli.common import ATTN_KERNEL, CACHE_DTYPES
+from spn4cir_tpu_torch.cli.common import (ATTN_KERNEL, CACHE_DTYPES,
+                                          setup_model_mesh)
+from spn4cir_tpu_torch.parallel.mesh import process_is_main
 from spn4cir_tpu_torch.data.datasets import CIRDataset
 from spn4cir_tpu_torch.data.transforms import ImageTransform
 from spn4cir_tpu_torch.datagen.generate import (
@@ -76,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "left-padded device batches; 1 = one prompt per "
                         "generate (the reference's loop)")
     p.add_argument("--mesh_model", type=int, default=0,
-                   help="tensor-parallel LM over this many cards (not yet "
-                        "ported)")
+                   help="tensor-parallel model over this many ranks: one "
+                        "process per GPU, launched by torchrun or the "
+                        "SPN4CIR_DIST_* variables; rank 0 alone writes")
     p.add_argument("--llm_cache", default="",
                    choices=["", "f32", "bf16", "int8"],
                    help="KV cache type ('' = bf16 at 7B, f32 at tiny; int8 "
@@ -100,9 +106,6 @@ def _rewriter(args, base: str):
     if args.llm_tokenizer:
         raise SystemExit("--llm_tokenizer is not yet ported (it needs "
                          "transformers)")
-    if args.mesh_model > 1:
-        raise SystemExit("--mesh_model > 1 is not yet ported (the "
-                         "tensor-parallel LM)")
     from spn4cir_tpu_torch.datagen.llm_rewrite import load_torch_rewriter
 
     # the reference composes the LM input differently per dataset: fiq
@@ -115,7 +118,7 @@ def _rewriter(args, base: str):
         prefill_chunk=args.prefill_chunk or None,
         cache_dtype=CACHE_DTYPES.get(args.llm_cache),
         attn_kernel=ATTN_KERNEL[args.attn_kernel],
-        device=args.device)
+        device=args.device, mesh=setup_model_mesh(args))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
@@ -165,7 +168,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         triplets = generate_cc_triplets(
             cc_items, base, k=args.k, prompt_ids=prompt_ids,
             total_cap=args.K, llm_rewrite=rewriter, seed=args.seed)
-        out = write_cc_triplets(data_path, base, triplets)
+        out = (write_cc_triplets(data_path, base, triplets)
+               if process_is_main() else "")
     else:
         triplets = generate_extended_triplets(
             ds, name2cap, k=args.k, total_cap=args.K,
@@ -173,9 +177,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
             refer_only=args.refer, i2i_ranks=i2i_ranks,
             rank_lo=args.i2i_rank, rank_hi=args.i2i_rank_max,
             llm_rewrite=rewriter, seed=args.seed)
-        out = write_extended_triplets(ds, triplets, args.model,
-                                      llm=args.use_llm)
-    print(f"wrote {len(triplets)} triplets -> {out}")
+        out = (write_extended_triplets(ds, triplets, args.model,
+                                       llm=args.use_llm)
+               if process_is_main() else "")
+    if process_is_main():
+        print(f"wrote {len(triplets)} triplets -> {out}")
     return out
 
 

@@ -17,6 +17,13 @@ An optional first word, `clip` (the default), `blip` or `blip2`, picks the
 backbone. A blip2 gallery holds 32 query features per image on the device
 (scored by the best of them; `--gallery_dtype int8` quantizes each of them
 per row) and the frozen EVA tokens of each image on the host.
+
+Several GPUs: `--mesh_bank N` holds the gallery as N row shards on
+cuda:0..N-1 of this one process (`serve/sharded.py`, an exact two-stage
+top-k; N past the visible devices is refused; with `--device cpu` every
+shard lives on the CPU). `--mesh_data` / `--mesh_model` encode the gallery
+once over several ranks (`cli.validate`'s indexing mesh; a torchrun or
+`SPN4CIR_DIST_*` launch), and rank 0 alone serves.
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ from spn4cir_tpu_torch.cli.common import (
     backbone_from_argv,
     base_parser,
     finalize_args,
+    encode_mesh,
     load_or_init_params,
     make_backbone,
     make_transform,
     recipe_defaults,
-    refuse_unported,
+    setup_distributed,
 )
+from spn4cir_tpu_torch.parallel.mesh import broadcast_module, process_is_main
 from spn4cir_tpu_torch.utils.seeding import seed_everything
 
 
@@ -69,16 +78,26 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
                    help="return the server instead of blocking (tests)")
     args = p.parse_args(argv)
     finalize_args(args)
-    if args.mesh_data > 1 or args.mesh_model > 1 or args.mesh_bank > 1:
-        raise NotImplementedError("--mesh_data/--mesh_model/--mesh_bank > 1: "
-                                  "multi-device serving is not yet ported")
-    refuse_unported(args, [("--distributed", args.distributed)])
+    shard_devices = None
+    if args.mesh_bank > 1:
+        if args.device == "cpu":
+            shard_devices = ["cpu"] * args.mesh_bank
+        else:
+            visible = torch.cuda.device_count()
+            if args.mesh_bank > visible:
+                raise SystemExit(f"--mesh_bank {args.mesh_bank} exceeds the "
+                                 f"{visible} visible CUDA devices")
+            shard_devices = [f"cuda:{i}" for i in range(args.mesh_bank)]
+    setup_distributed(args, bank=False)
     generator = seed_everything(args.seed)
 
     backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
     preprocess = make_transform(backbone, args)
     load_or_init_params(backbone, args, generator)
     backbone.eval()
+    mesh = encode_mesh(args, backbone.device, bank=False)
+    if mesh is not None:
+        broadcast_module(backbone)
 
     from spn4cir_tpu_torch.eval.retrieval import (GalleryIndex, cache_file,
                                                   extract_index_features)
@@ -95,7 +114,8 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
                              args.dress_types if args.dataset == "fiq"
                              else None)
         t0 = time.perf_counter()
-        index = extract_index_features(backbone, classic, args.batch_size)
+        index = extract_index_features(backbone, classic, args.batch_size,
+                                       mesh=mesh)
         index_s = time.perf_counter() - t0
         if args.gallery_dtype != "float32":
             from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
@@ -105,18 +125,32 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
                       else index.target.to(torch.bfloat16))
             index = GalleryIndex(target=target, refer=index.refer,
                                  names=index.names)
-        if cache:
+        if cache and process_is_main():
             index.save(cache)
             print(f"gallery index cached -> {cache}")
         print(f"gallery indexed: {len(index.names)} images "
               f"({args.gallery_dtype}) in {index_s:.2f} s, "
               f"{len(index.names) / index_s:.1f} images/s")
 
+    if not process_is_main():  # the indexing ranks are done
+        return None, None
+
     from spn4cir_tpu_torch.serve import (BatchingRetrievalService,
-                                         RetrievalService, serve)
+                                         RetrievalService,
+                                         ShardedBatchingRetrievalService,
+                                         ShardedRetrievalService, serve)
 
     kw = dict(preprocess=preprocess, default_k=args.default_k)
-    if args.serve_batch > 0:
+    if shard_devices is not None:
+        if args.serve_batch > 0:
+            service = ShardedBatchingRetrievalService(
+                backbone, index, shard_devices, max_batch=args.serve_batch,
+                **kw)
+        else:
+            service = ShardedRetrievalService(backbone, index, shard_devices,
+                                              **kw)
+        print(f"gallery sharded over {args.mesh_bank} devices")
+    elif args.serve_batch > 0:
         service = BatchingRetrievalService(backbone, index,
                                            max_batch=args.serve_batch, **kw)
     else:

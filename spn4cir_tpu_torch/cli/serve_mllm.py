@@ -7,12 +7,14 @@ serves `serve/mllm.py`'s endpoints:
     curl -s localhost:8081/caption -d '{"image_b64": "..."}'
 
 The flags are the JAX script's, plus `--device` ("N" is cuda:N, the default
-cuda:0; "cpu" the CPU). Not yet ported, and refused: `--tokenizer_path` (an
-HF LLaMA tokenizer needs `transformers`) and `--mesh_model` > 1 (the
-tensor-parallel model). Without a tokenizer the 7B LLaVA has none to run
-with, so `--mllm llava` serves `--llava_size tiny` (the byte tokenizer)
-today; the 7B runs through `datagen.captioner.make_llava_captioner` with a
-tokenizer object.
+cuda:0; "cpu" the CPU). `--mesh_model N` (LLaVA) splits the model over N
+ranks, one process per GPU launched by torchrun or the `SPN4CIR_DIST_*`
+variables: rank 0 answers HTTP and sends each coalesced batch to the other
+ranks, which run it with it (`follow_batches`). Not yet ported, and
+refused: `--tokenizer_path` (an HF LLaMA tokenizer needs `transformers`).
+Without a tokenizer the 7B LLaVA has none to run with, so `--mllm llava`
+serves `--llava_size tiny` (the byte tokenizer) today; the 7B runs through
+`datagen.captioner.make_llava_captioner` with a tokenizer object.
 """
 
 from __future__ import annotations
@@ -20,7 +22,44 @@ from __future__ import annotations
 import argparse
 from typing import Optional
 
-from spn4cir_tpu_torch.cli.common import ATTN_KERNEL, CACHE_DTYPES
+from spn4cir_tpu_torch.cli.common import (ATTN_KERNEL, CACHE_DTYPES,
+                                          setup_model_mesh)
+
+
+def lead_batches(batched_fn, mesh):
+    """Rank 0's `batched_fn` under tensor parallelism: each call first
+    sends its (images, prompt) to the other ranks of `mesh`."""
+    import torch.distributed as dist
+
+    def lead(images, prompt=None):
+        dist.broadcast_object_list([(list(images), prompt)], 0)
+        return (batched_fn(images) if prompt is None
+                else batched_fn(images, prompt=prompt))
+
+    def stop():
+        dist.broadcast_object_list([None], 0)
+
+    lead.stop = stop
+    return lead
+
+
+def follow_batches(batched_fn) -> int:
+    """A non-zero rank's loop: run every batch rank 0 sends until it sends
+    None; returns the number of batches run."""
+    import torch.distributed as dist
+
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, 0)
+        if box[0] is None:
+            return n
+        images, prompt = box[0]
+        if prompt is None:
+            batched_fn(images)
+        else:
+            batched_fn(images, prompt=prompt)
+        n += 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,8 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize_int8", action="store_true",
                    help="weight-only int8 LM (llava)")
     p.add_argument("--mesh_model", type=int, default=0,
-                   help="tensor-parallel model over this many cards (not "
-                        "yet ported)")
+                   help="tensor-parallel model over this many ranks: one "
+                        "process per GPU, launched by torchrun or the "
+                        "SPN4CIR_DIST_* variables; rank 0 alone writes")
     p.add_argument("--llm_cache", default="",
                    choices=["", "f32", "bf16", "int8"],
                    help="KV cache type of the LLaVA LM ('' = bf16 at 7B, "
@@ -75,13 +115,14 @@ def main(argv: Optional[list] = None):
     if args.tokenizer_path:
         raise SystemExit("--tokenizer_path is not yet ported to PyTorch (an "
                          "HF LLaMA tokenizer needs transformers)")
-    if args.mesh_model > 1:
-        raise SystemExit("--mesh_model > 1 is not yet ported to PyTorch (the "
-                         "tensor-parallel model)")
     if args.mllm == "blip" and args.quantize_int8:
         raise SystemExit("--quantize_int8 applies to the LLaVA backend only "
                          "(BLIP base fits any card in full precision)")
 
+    if args.mllm == "blip" and args.mesh_model > 1:
+        raise SystemExit("--mesh_model applies to the LLaVA backend (BLIP "
+                         "base fits any card)")
+    mesh = setup_model_mesh(args)
     if args.mllm == "llava":
         from spn4cir_tpu_torch.datagen.captioner import make_llava_captioner
 
@@ -90,7 +131,15 @@ def main(argv: Optional[list] = None):
             word_num=args.word_num, max_new_tokens=args.max_new_tokens,
             batch_size=args.batch_size, quantize_weights=args.quantize_int8,
             cache_dtype=CACHE_DTYPES.get(args.llm_cache),
-            attn_kernel=ATTN_KERNEL[args.attn_kernel], device=args.device)
+            attn_kernel=ATTN_KERNEL[args.attn_kernel], device=args.device,
+            mesh=mesh)
+        if mesh is not None:
+            from spn4cir_tpu_torch.parallel.mesh import process_is_main
+
+            if not process_is_main():
+                follow_batches(batched_fn)
+                return None, None
+            batched_fn = lead_batches(batched_fn, mesh)
     else:
         from spn4cir_tpu_torch.datagen.captioner import make_blip_captioner
 

@@ -10,8 +10,9 @@ Counterpart of `spn4cir_tpu/cli/submission.py`:
 They land in `submission/<backbone>4cir/` under the working directory
 (`blip24cir/` for blip2). An optional first word, `clip` (the default),
 `blip` or `blip2`, picks the backbone. Runs on cuda:0 unless --device says
-otherwise (`--device cpu` for the CPU).
-`--mesh_*` > 1 raise "not yet ported".
+otherwise (`--device cpu` for the CPU). `--mesh_data` / `--mesh_model`
+index the test gallery over several ranks as in `cli.validate`; rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -22,14 +23,11 @@ from spn4cir_tpu_torch.cli.common import (
     backbone_from_argv,
     base_parser,
     finalize_args,
-    load_or_init_params,
-    make_backbone,
-    make_transform,
     recipe_defaults,
 )
-from spn4cir_tpu_torch.cli.validate import refuse_mesh
+from spn4cir_tpu_torch.cli.validate import build_for_eval
 from spn4cir_tpu_torch.eval.submission import generate_cirr_test_submissions
-from spn4cir_tpu_torch.utils.seeding import seed_everything
+from spn4cir_tpu_torch.parallel.mesh import process_is_main
 
 
 def submission_main(backbone_name: str = "clip", argv: Optional[list] = None,
@@ -43,17 +41,14 @@ def submission_main(backbone_name: str = "clip", argv: Optional[list] = None,
     if args.dataset != "cirr":
         raise SystemExit("CIRR test submissions require --dataset cirr")
     finalize_args(args)
-    refuse_mesh(args)
-    generator = seed_everything(args.seed)
-
-    backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
-    preprocess = make_transform(backbone, args)
-    load_or_init_params(backbone, args, generator)
-    backbone.eval()
+    backbone, preprocess, mesh = build_for_eval(backbone_name, args,
+                                                tokenizer)
 
     p1, p2 = generate_cirr_test_submissions(
-        backbone, args.submission_name, preprocess, args.data_path)
-    print(f"wrote {p1}\nwrote {p2}")
+        backbone, args.submission_name, preprocess, args.data_path,
+        mesh=mesh)
+    if process_is_main():
+        print(f"wrote {p1}\nwrote {p2}")
     return p1, p2
 
 

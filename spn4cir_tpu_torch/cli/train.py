@@ -74,9 +74,22 @@ runs resize/crop/normalize on the device: the bank and unlabeled-pool
 encoders absorb it (`ops.preprocess.absorb_raw`), the validation index runs
 it ahead of its encoder, and stage 1 inside each step.
 
-Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU).
-Flags whose path is not ported raise "not yet ported": meshes and
---distributed.
+Several GPUs (`parallel/`): one process per GPU, launched by torchrun or
+the `SPN4CIR_DIST_*` variables, with `--distributed` or a `--mesh_*` > 1.
+Stage 2 splits the batch over `--mesh_data` and the bank's rows over
+`--mesh_bank` (the bank-sharded InfoNCE); stage 1 splits the batch over
+`--mesh_data`; `--mesh_model` slices the towers Megatron-style, for bank
+extraction, training and validation alike. Parameters start from rank 0's;
+rank 0 alone writes the bank cache, checkpoints and JSON. Refused under a
+mesh, as in the JAX CLI: `--neg_num` (the sharded loss is full-bank) and
+`--mesh_bank` with `--wo_bank`; and `--resume` with `--mesh_model` > 1
+(the tensor-parallel training state is not checkpointed).
+
+    torchrun --nproc_per_node 8 -m spn4cir_tpu_torch.cli.train \
+        --dataset cirr --data_path cirr_dataset --mesh_bank 2 --bf16
+
+Runs on cuda:0 unless --device says otherwise (`--device cpu` for the CPU;
+under torchrun cuda:LOCAL_RANK).
 """
 
 from __future__ import annotations
@@ -101,10 +114,13 @@ from spn4cir_tpu_torch.cli.common import (
     finalize_args,
     load_or_init_params,
     make_backbone,
+    make_cli_mesh,
     make_transform,
     recipe_defaults,
     refuse_unported,
     resolve_output_path,
+    setup_distributed,
+    uses_mesh,
 )
 from spn4cir_tpu_torch.data.datasets import (
     CIRDataset,
@@ -119,6 +135,13 @@ from spn4cir_tpu_torch.eval.retrieval import (cirr_val_retrieval,
 from spn4cir_tpu_torch.models.api import backbone_class
 from spn4cir_tpu_torch.ops.bank_kernels import quantize_bank
 from spn4cir_tpu_torch.ops.preprocess import absorb_raw
+from spn4cir_tpu_torch.parallel.mesh import (AXIS_BANK, AXIS_DATA, AXIS_MODEL,
+                                             bank_shard, broadcast_module,
+                                             broadcast_str, process_is_main)
+from spn4cir_tpu_torch.parallel.tp import full_state_dict, shard_module_tp
+from spn4cir_tpu_torch.parallel.train import (make_sharded_gallery_encode,
+                                              make_sharded_stage1_step,
+                                              make_sharded_stage2_step)
 from spn4cir_tpu_torch.train.stage1 import (create_stage1_state,
                                             train_epoch_stage1)
 from spn4cir_tpu_torch.train.stage2 import (create_train_state,
@@ -133,19 +156,22 @@ __all__ = ["BLIP4CIR_DEFAULTS", "BLIP24CIR_DEFAULTS", "CLIP4CIR_DEFAULTS",
            "TGCIR_DEFAULTS", "ZSCIR_DEFAULTS", "run_validation", "train_main"]
 
 
-def run_validation(backbone, args, preprocess) -> tuple[float, dict]:
+def run_validation(backbone, args, preprocess, mesh=None
+                   ) -> tuple[float, dict]:
     """Per-epoch validation; score definitions mirror
-    clip4cir/train.py:134-195."""
+    clip4cir/train.py:134-195. With `mesh`, every rank runs it and the
+    gallery encode splits over the mesh (`extract_index_features`)."""
     backbone.eval()
     if args.dataset == "cirr":
         m = cirr_val_retrieval(backbone, args.data_path, preprocess,
-                               batch_size=32)
+                               batch_size=32, mesh=mesh)
         return m["arithmetic_mean"], m
     per_type = []
     results = {}
     for dt in args.dress_types:
         m = fiq_val_retrieval(backbone, args.data_path, dt, preprocess,
-                              batch_size=32, fiq_val_type=args.fiq_val_type)
+                              batch_size=32, fiq_val_type=args.fiq_val_type,
+                              mesh=mesh)
         per_type.append(m)
         results[dt] = m
     avg = fiq_average(per_type)
@@ -153,18 +179,31 @@ def run_validation(backbone, args, preprocess) -> tuple[float, dict]:
     return avg["mean_recall"], results
 
 
-def build_bank(backbone, args, train_ds, preprocess, output_path, device
-               ) -> Bank:
+def build_bank(backbone, args, train_ds, preprocess, output_path, device,
+               write: bool = True, mesh=None) -> Bank:
     """The stage-2 bank: one frozen-tower pass over the unique train images
     (cached; blip2: over the train triplets, caption-aware), the unlabeled
     pool appended under `--unlabeled`, the target cast or quantized per
     `--bank_dtype`. Under `--device_preprocess` each encoder runs the
-    device preprocess on the staged canvases first."""
+    device preprocess on the staged canvases first. A rank that must not
+    `write` reads a cache that exists and otherwise extracts without
+    saving (every rank of a tensor-parallel tower runs the pass). With
+    `mesh` each rank decodes and encodes its rows of every batch over the
+    data axis and the features are gathered back
+    (`make_sharded_gallery_encode`): every rank holds the whole bank."""
+
+    def cache(path):
+        """The cache argument of this rank: every rank reads one that
+        exists; only a writer saves a new one."""
+        fresh = args.reload_bank or not os.path.exists(Bank.cache_file(path))
+        return path if write or not fresh else None
+
+    part = mesh.part() if mesh is not None else None
 
     def absorb(fn):
-        if not args.device_preprocess:
-            return fn
-        return absorb_raw(fn, backbone.input_dim, args.transform)
+        if args.device_preprocess:
+            fn = absorb_raw(fn, backbone.input_dim, args.transform)
+        return fn if mesh is None else make_sharded_gallery_encode(fn, mesh)
 
     # --- bank extraction (cached) ---
     bank_path = args.bank_path or os.path.join(
@@ -174,16 +213,16 @@ def build_bank(backbone, args, train_ds, preprocess, output_path, device
         # the refer entries are caption-dependent fusion states
         bank = extract_fusion_banks(
             absorb(backbone.fusion_bank_features),
-            iter_train_images(train_ds, args.batch_size),
+            iter_train_images(train_ds, args.batch_size, part=part),
             len(train_ds.triplets), train_ds.num_unique_images,
-            backbone.tokenize, cache_path=bank_path,
+            backbone.tokenize, cache_path=cache(bank_path),
             reload=args.reload_bank, by_image=args.plus, device=device)
     else:
         bank = extract_banks(
             absorb(backbone.bank_features),
-            iter_unique_images(train_ds, args.batch_size),
+            iter_unique_images(train_ds, args.batch_size, part=part),
             train_ds.num_unique_images,
-            cache_path=bank_path,
+            cache_path=cache(bank_path),
             reload=args.reload_bank,
             device=device,
         )
@@ -198,9 +237,9 @@ def build_bank(backbone, args, train_ds, preprocess, output_path, device
             ".npz", "_unlabeled.npz")
         extra = extract_unlabeled_features(
             absorb(backbone.gallery_features),
-            iter_unlabeled(unlabeled_ds, args.batch_size),
+            iter_unlabeled(unlabeled_ds, args.batch_size, part=part),
             len(unlabeled_ds.unlabeled_imagepaths),
-            cache_path=unlabeled_cache, reload=args.reload_bank,
+            cache_path=cache(unlabeled_cache), reload=args.reload_bank,
             device=device)
         bank = extend_target_bank(bank, extra,
                                   args.neg_num if args.neg_num > 0 else 0)
@@ -213,10 +252,18 @@ def build_bank(backbone, args, train_ds, preprocess, output_path, device
                              " (no sampled negatives)")
         bank = Bank(refer=bank.refer, target=quantize_bank(bank.target),
                     refer_key=bank.refer_key)
-    print(f"bank: {bank.num_images} images, refer {bank.refer.shape}, "
-          f"target {tuple(bank.target.shape)} {bank.target.dtype} -> "
-          f"{bank_path}")
+    if write:
+        print(f"bank: {bank.num_images} images, refer {bank.refer.shape}, "
+              f"target {tuple(bank.target.shape)} {bank.target.dtype} -> "
+              f"{bank_path}")
     return bank
+
+
+def _to_cpu(target):
+    """A bank target (a tensor or a QuantBank) on the host."""
+    if isinstance(target, torch.Tensor):
+        return target.cpu()
+    return type(target)(*(t.cpu() for t in target))
 
 
 def resume_manager(output_path: str, steps_per_epoch: int
@@ -276,12 +323,21 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
         (f"--unlabeled with {backbone_name} (its gallery features are not "
          "target-bank rows)",
          args.unlabeled and not cls.gallery_extends_target_bank),
-        ("--mesh_data/--mesh_bank/--mesh_model > 1",
-         args.mesh_data > 1 or args.mesh_bank > 1 or args.mesh_model > 1),
-        ("--distributed", args.distributed),
         ("--loss_impl pallas/xla (one route per device here)",
          args.loss_impl != "auto"),
     ])
+    on_mesh = uses_mesh(args)
+    if on_mesh and args.wo_bank and args.mesh_bank > 1:
+        raise SystemExit("--wo_bank (stage-1) has no bank axis; shard with "
+                         "--mesh_data / --mesh_model")
+    if on_mesh and not args.wo_bank and args.neg_num > 0 and \
+            not args.unlabeled:
+        raise SystemExit("--neg_num (sampled negatives) is not supported "
+                         "with a mesh; the sharded loss is full-bank")
+    if on_mesh and args.resume and args.mesh_model > 1:
+        raise SystemExit("--resume with --mesh_model > 1: the "
+                         "tensor-parallel training state is not "
+                         "checkpointed")
     if args.ckpt_every_steps and not args.resume:
         raise SystemExit("--ckpt_every_steps goes with --resume (the step "
                          "checkpoints are resume state)")
@@ -293,13 +349,30 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
             f"--wo_bank with {backbone_name}: the JAX package's "
             f"{backbone_name} backbone has no stage-1 loss, so there is none "
             "to port yet")
+    setup_distributed(args)
     generator = seed_everything(args.seed)
 
     backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
     preprocess = make_transform(backbone, args)
     load_or_init_params(backbone, args, generator)
     device = backbone.device
-    output_path = resolve_output_path(args, backbone_name)
+    mesh = None
+    if on_mesh:
+        mesh = make_cli_mesh(args, device)
+        if args.batch_size % mesh.size(AXIS_DATA):
+            raise SystemExit(f"--batch-size {args.batch_size} does not split "
+                             f"over --mesh_data {mesh.size(AXIS_DATA)}")
+        broadcast_module(backbone)
+        if mesh.size(AXIS_MODEL) > 1:
+            shard_module_tp(backbone, mesh)
+        if process_is_main():
+            print(f"mesh: data={mesh.size(AXIS_DATA)} "
+                  f"bank={mesh.size(AXIS_BANK)} "
+                  f"model={mesh.size(AXIS_MODEL)}")
+    main = process_is_main()
+    output_path = broadcast_str(resolve_output_path(args, backbone_name)
+                                if main else "")
+    os.makedirs(output_path, exist_ok=True)
     logger = MetricLogger(prefix=f"{backbone_name}-train")
 
     train_ds = CIRDataset(args.dataset, "train", "relative", preprocess,
@@ -308,9 +381,23 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
                           extend_suffix=backbone.extend_suffix, seed=args.seed,
                           replace_extended=backbone.replace_extended)
 
-    bank = (None if args.wo_bank else
-            build_bank(backbone, args, train_ds, preprocess, output_path,
-                       device))
+    bank = shard = sharded_step = None
+    if not args.wo_bank:
+        bank = build_bank(backbone, args, train_ds, preprocess, output_path,
+                          device, write=main, mesh=mesh)
+        if mesh is not None:
+            # the whole target goes back to the host and only this rank's
+            # shard stays on its device
+            bank = Bank(refer=bank.refer, target=_to_cpu(bank.target),
+                        refer_key=bank.refer_key)
+            shard, _ = bank_shard(bank.target, mesh)
+            sharded_step = make_sharded_stage2_step(
+                backbone, mesh, m_actual=int(bank.target.shape[0]))
+    elif mesh is not None:
+        sharded_step = make_sharded_stage1_step(
+            backbone, mesh, with_dropout=bool(args.dropout),
+            neg_type=args.neg_type,
+            raw_kind=args.transform if args.device_preprocess else None)
 
     steps_per_epoch = max(len(train_ds.triplets) // args.batch_size, 1)
     if args.lr_schedule != "constant":
@@ -347,7 +434,7 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
         def hook(step_in_epoch, st):
             gs = epoch * steps_per_epoch + step_in_epoch
             if gs % args.ckpt_every_steps == 0 and \
-                    step_in_epoch < steps_per_epoch:
+                    step_in_epoch < steps_per_epoch and main:
                 ckpt.save(gs, train_state(backbone, st, drop))
         return hook
 
@@ -364,19 +451,22 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
                     args.seed * 1000 + epoch)
                 if ep_start and saved_rng is not None:
                     drop.set_state(saved_rng)   # mid-epoch: replay its noise
-            log_fn = lambda step, loss: logger.log(step, epoch=epoch,
-                                                   loss=loss)
+            log_fn = ((lambda step, loss: logger.log(step, epoch=epoch,
+                                                     loss=loss)) if main
+                      else (lambda step, loss: None))
             if args.wo_bank:
                 state, mean_loss = train_epoch_stage1(
                     backbone, state,
                     iter_train_images(train_ds, args.batch_size, shuffle=True,
                                       epoch_seed=args.seed + epoch,
-                                      start_step=ep_start),
+                                      start_step=ep_start,
+                                      part=(mesh.part() if mesh is not None
+                                            else None)),
                     neg_type=args.neg_type, dropout_generator=drop,
                     log_every=log_every, log_fn=log_fn, start_step=ep_start,
                     step_hook=step_hook(epoch, drop),
                     raw_kind=(args.transform if args.device_preprocess
-                              else None))
+                              else None), sharded_step=sharded_step)
             else:
                 state, mean_loss = train_epoch(
                     backbone, state, bank,
@@ -386,15 +476,19 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
                     neg_num=neg_num, neg_seed=args.seed * 1000 + epoch,
                     log_every=log_every, log_fn=log_fn,
                     dropout_generator=drop, start_step=ep_start,
-                    step_hook=step_hook(epoch, drop))
-            print(f"epoch {epoch}: mean loss {mean_loss:.4f}")
+                    step_hook=step_hook(epoch, drop),
+                    sharded_step=sharded_step, mesh=mesh, bank_shard=shard)
+            if main:
+                print(f"epoch {epoch}: mean loss {mean_loss:.4f}")
 
             if (epoch + 1) % args.validation_frequency == 0:
-                score, results = run_validation(backbone, args, preprocess)
-                print(json.dumps({"epoch": epoch, "score": score, **{
-                    k: v for k, v in results.items()
-                    if isinstance(v, float)}}))
-                if args.nni:  # HPO reporting (ref clip4cir/train.py:157,188)
+                score, results = run_validation(backbone, args, preprocess,
+                                                mesh)
+                if main:
+                    print(json.dumps({"epoch": epoch, "score": score, **{
+                        k: v for k, v in results.items()
+                        if isinstance(v, float)}}))
+                if args.nni and main:  # HPO reporting (ref :157,188)
                     try:
                         import nni
 
@@ -403,24 +497,31 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
                         pass
                 if score > best_score:
                     best_score = score
-                    save_model(os.path.join(output_path, "best.pt"),
-                               backbone.model, epoch=epoch,
-                               extra={"score": score,
-                                      "dataset": args.dataset})
-                    print(f"saved best (score {score:.2f})")
-            if ckpt is not None:
+                    # a tensor-parallel model is gathered by every rank
+                    weights = (full_state_dict(backbone.model, mesh)
+                               if mesh is not None
+                               and mesh.size(AXIS_MODEL) > 1 else None)
+                    if main:
+                        save_model(os.path.join(output_path, "best.pt"),
+                                   backbone.model, epoch=epoch,
+                                   extra={"score": score,
+                                          "dataset": args.dataset},
+                                   state_dict=weights)
+                        print(f"saved best (score {score:.2f})")
+            if ckpt is not None and main:
                 ckpt.save((epoch + 1) * steps_per_epoch,
                           train_state(backbone, state, drop))
         if ckpt is not None:
             ckpt.wait()
-    if args.nni:  # (ref clip4cir/train.py:196-197)
+    if args.nni and main:  # (ref clip4cir/train.py:196-197)
         try:
             import nni
 
             nni.report_final_result(best_score)
         except ImportError:
             pass
-    print(f"best score: {best_score:.2f}")
+    if main:
+        print(f"best score: {best_score:.2f}")
     return best_score
 
 

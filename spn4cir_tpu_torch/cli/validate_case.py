@@ -10,7 +10,8 @@ and prints one JSON line a file:
 
 The flags are `cli.validate`'s plus `--cases_out`; an optional first word
 picks the backbone (clip, the default, as in the JAX script). Runs on
-cuda:0 unless --device says otherwise.
+cuda:0 unless --device says otherwise. `--mesh_data` / `--mesh_model`
+index the gallery over several ranks as in `cli.validate`; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -19,14 +20,12 @@ import json
 from typing import List, Optional
 
 from spn4cir_tpu_torch.cli.common import (backbone_from_argv, base_parser,
-                                          finalize_args, load_or_init_params,
-                                          make_backbone, make_transform,
-                                          recipe_defaults)
-from spn4cir_tpu_torch.cli.validate import refuse_mesh
+                                          finalize_args, recipe_defaults)
+from spn4cir_tpu_torch.cli.validate import build_for_eval
 from spn4cir_tpu_torch.data.datasets import CIRDataset
 from spn4cir_tpu_torch.eval.cases import dump_cases
 from spn4cir_tpu_torch.eval.retrieval import extract_index_features
-from spn4cir_tpu_torch.utils.seeding import seed_everything
+from spn4cir_tpu_torch.parallel.mesh import process_is_main
 
 
 def validate_case_main(backbone_name: str = "clip",
@@ -38,12 +37,7 @@ def validate_case_main(backbone_name: str = "clip",
     parser.add_argument("--cases_out", default="cases/model.json")
     args = parser.parse_args(argv)
     finalize_args(args)
-    refuse_mesh(args)
-    generator = seed_everything(args.seed)
-    backbone = make_backbone(backbone_name, args, tokenizer=tokenizer)
-    tf = make_transform(backbone, args)
-    load_or_init_params(backbone, args, generator)
-    backbone.eval()
+    backbone, tf, mesh = build_for_eval(backbone_name, args, tokenizer)
     summaries = []
     for dt in (args.dress_types if args.dataset == "fiq" else [None]):
         kinds = [dt] if dt else None
@@ -51,9 +45,11 @@ def validate_case_main(backbone_name: str = "clip",
                              args.data_path, kinds)
         relative = CIRDataset(args.dataset, "val", "relative", tf,
                               args.data_path, kinds)
-        index = extract_index_features(backbone, classic, 32)
+        index = extract_index_features(backbone, classic, 32, mesh=mesh)
         out = (args.cases_out if not dt
                else args.cases_out.replace(".json", f".{dt}.json"))
+        if not process_is_main():
+            continue
         cases = dump_cases(backbone, relative, index, out)
         hits = sum(c["rank"] < 10 for c in cases)
         summary = {"dress_type": dt, "queries": len(cases),

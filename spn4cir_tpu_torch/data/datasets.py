@@ -504,13 +504,31 @@ def _copy_out(arr):
     return arr.copy()
 
 
+def _part_rows(batch_size: int, part: Optional[Tuple[int, int]]) -> slice:
+    """The rows of a batch that `part` = (i, n) decodes: the i-th of n
+    equal runs (a data-parallel rank's, `parallel.mesh.Mesh.part`); the
+    whole batch for None."""
+    if part is None:
+        return slice(0, batch_size)
+    i, n = part
+    if batch_size % n:
+        raise ValueError(f"a batch of {batch_size} does not split in {n}")
+    step = batch_size // n
+    return slice(i * step, (i + 1) * step)
+
+
 def _iter_image_paths(dataset: CIRDataset, paths: Sequence[str],
-                      batch_size: int, num_workers: int
+                      batch_size: int, num_workers: int,
+                      part: Optional[Tuple[int, int]] = None
                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Shared (ids, images) scan over a path list; the final batch is padded
     by repeating the last image with id -1 (keep-all eval with fixed
     shapes). `SPN4CIR_MP_PROCS=N` decodes on N worker processes
-    (`_mp_loader`), else in this process (`_decode_batch`)."""
+    (`_mp_loader`), else in this process (`_decode_batch`). With `part`
+    only those rows of each batch are decoded (`_part_rows`) while the ids
+    stay the whole batch's: a data-parallel encode gathers the rows back
+    (`parallel.train.make_sharded_gallery_encode`)."""
+    rows = _part_rows(batch_size, part)
     chunks, id_rows = [], []
     for start in range(0, len(paths), batch_size):
         chunk = list(paths[start : start + batch_size])
@@ -519,9 +537,9 @@ def _iter_image_paths(dataset: CIRDataset, paths: Sequence[str],
         if pad:
             chunk += [chunk[-1]] * pad
             ids = np.concatenate([ids, np.full(pad, -1, np.int64)])
-        chunks.append(chunk)
+        chunks.append(chunk[rows])
         id_rows.append(ids)
-    loader = _mp_loader(dataset, batch_size)
+    loader = _mp_loader(dataset, rows.stop - rows.start)
     if loader is not None:
         with loader:
             for ids, (arr, _n) in zip(id_rows, loader.map_batches(chunks)):
@@ -536,20 +554,22 @@ def _iter_image_paths(dataset: CIRDataset, paths: Sequence[str],
             pool.shutdown()
 
 
-def iter_gallery(dataset: CIRDataset, batch_size: int, num_workers: int = 4
+def iter_gallery(dataset: CIRDataset, batch_size: int, num_workers: int = 4,
+                 part: Optional[Tuple[int, int]] = None
                  ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """(ids, images) over the gallery."""
+    """(ids, images) over the gallery (`part`: see `_iter_image_paths`)."""
     yield from _iter_image_paths(dataset, dataset.gallery_paths, batch_size,
-                                 num_workers)
+                                 num_workers, part)
 
 
-def iter_unique_images(dataset: CIRDataset, batch_size: int, num_workers: int = 4
+def iter_unique_images(dataset: CIRDataset, batch_size: int, num_workers: int = 4,
+                       part: Optional[Tuple[int, int]] = None
                        ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """(image_ids, images) over the deduplicated unique train images — the
     bank-extraction scan (SURVEY.md §7: one pass replaces the reference's
-    three)."""
+    three); `part`: see `_iter_image_paths`."""
     yield from _iter_image_paths(dataset, dataset.imagepaths, batch_size,
-                                 num_workers)
+                                 num_workers, part)
 
 
 def iter_train_bank(dataset: CIRDataset, batch_size: int, *,
@@ -618,14 +638,18 @@ def iter_relative_eval(dataset: CIRDataset, batch_size: int,
 
 def iter_train_images(dataset: CIRDataset, batch_size: int, *,
                       num_workers: int = 4, shuffle: bool = False,
-                      epoch_seed: int = 0, start_step: int = 0
+                      epoch_seed: int = 0, start_step: int = 0,
+                      part: Optional[Tuple[int, int]] = None
                       ) -> Iterator[dict]:
     """Image-mode relative train batches (reference-mode __getitem__ without
     use_bank, ref data_utils.py:276-283): decoded refer/target images +
     caption + all id columns. Used by stage-1 training and the blip2
     caption-aware bank extraction. The final batch is padded (ids -1).
     `start_step` skips whole batches WITHOUT decoding their images —
-    mid-epoch resume for the live-encode stage-1 epochs."""
+    mid-epoch resume for the live-encode stage-1 epochs. With `part` the
+    images and captions are those rows of each batch only (`_part_rows`:
+    a data-parallel rank's), the id columns the whole batch's, so every
+    rank sees the same padded tail."""
     n = len(dataset.triplets)
     order = np.arange(n)
     if shuffle:
@@ -657,13 +681,16 @@ def iter_train_images(dataset: CIRDataset, batch_size: int, *,
             target_paths += [target_paths[-1]] * pad
             ids = {k: np.concatenate([v, np.full(pad, -1, np.int64)])
                    for k, v in ids.items()}
-        return captions, refer_paths, target_paths, ids
+        return (captions[cut], refer_paths[cut], target_paths[cut], ids)
 
+    cut = _part_rows(batch_size, part)
+    local = cut.stop - cut.start
     starts = list(range(start_step * batch_size, n, batch_size))
 
     # SPN4CIR_MP_PROCS=N: one 2B-row loader batch a step, rows [0, B) the
     # refer images and [B, 2B) the targets, decoded ahead of the step
-    loader = _mp_loader(dataset, 2 * batch_size) if starts else None
+    # (B the rows of `part`)
+    loader = _mp_loader(dataset, 2 * local) if starts else None
     if loader is not None:
         metas = [step_meta(s) for s in starts]
         with loader:
@@ -672,12 +699,12 @@ def iter_train_images(dataset: CIRDataset, batch_size: int, *,
                         [refer + target for _c, refer, target, _i in metas])):
                 arr = _copy_out(arr)
                 if isinstance(arr, RawBatch):
-                    refer_b = RawBatch(arr.canvas[:batch_size],
-                                       arr.extents[:batch_size])
-                    target_b = RawBatch(arr.canvas[batch_size:],
-                                        arr.extents[batch_size:])
+                    refer_b = RawBatch(arr.canvas[:local],
+                                       arr.extents[:local])
+                    target_b = RawBatch(arr.canvas[local:],
+                                        arr.extents[local:])
                 else:
-                    refer_b, target_b = arr[:batch_size], arr[batch_size:]
+                    refer_b, target_b = arr[:local], arr[local:]
                 yield {"captions": captions, "refer_images": refer_b,
                        "target_images": target_b, **ids}
         return
@@ -697,9 +724,11 @@ def iter_train_images(dataset: CIRDataset, batch_size: int, *,
             pool.shutdown()
 
 
-def iter_unlabeled(dataset: CIRDataset, batch_size: int, num_workers: int = 4
+def iter_unlabeled(dataset: CIRDataset, batch_size: int, num_workers: int = 4,
+                   part: Optional[Tuple[int, int]] = None
                    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """(ids, images) over the unlabeled negative pool (ids are positions in
-    `unlabeled_imagepaths`; padded tail ids are -1)."""
+    `unlabeled_imagepaths`; padded tail ids are -1; `part`: see
+    `_iter_image_paths`)."""
     yield from _iter_image_paths(dataset, dataset.unlabeled_imagepaths,
-                                 batch_size, num_workers)
+                                 batch_size, num_workers, part)

@@ -17,8 +17,10 @@ resumes without decoding what it already captioned
 (`load_caption_checkpoint` tolerates a torn last line). `stub_captioner` is
 the model-free fallback.
 
+`make_llava_captioner(mesh=)` runs the tensor-parallel LLaVA: every rank
+of the mesh's model group holds its slice (`models.llava.LlavaCaptioner`).
 Not yet ported, and refused: an HF tokenizer (`tokenizer_path=`, it needs
-`transformers`) and the tensor-parallel model (`mesh=`).
+`transformers`).
 """
 
 from __future__ import annotations
@@ -166,7 +168,8 @@ def make_llava_captioner(params=None, *, tokenizer=None,
     still dequantize after the matmul (kernel #12 off, as in the JAX
     captioner). `batch_size=0` takes `recommended_llm_batch(448,
     cache_dtype)` at 7B (the llava_v1 prompt plus 64 new tokens fits the
-    448 bucket) and 2 at tiny.
+    448 bucket) and 2 at tiny. `mesh` (`parallel.tp.make_model_mesh`):
+    the tensor-parallel model; every rank makes the same calls.
 
     Returns (captioner, transform, batched_fn) like make_blip_captioner;
     `batched_fn(images, generator=None, prompt=None)` takes a prompt that
@@ -176,9 +179,6 @@ def make_llava_captioner(params=None, *, tokenizer=None,
         raise SystemExit("tokenizer_path is not yet ported to PyTorch (an HF "
                          "LLaMA tokenizer needs transformers); pass "
                          "tokenizer=")
-    if mesh is not None:
-        raise ValueError("mesh= (the tensor-parallel LLaVA) is not yet "
-                         "ported to PyTorch")
     from spn4cir_tpu_torch.cli.common import resolve_device
     from spn4cir_tpu_torch.data.transforms import ImageTransform
     from spn4cir_tpu_torch.models.convert import load_llava_checkpoint
@@ -198,7 +198,7 @@ def make_llava_captioner(params=None, *, tokenizer=None,
     if dtype is None:
         dtype = torch.float32 if tiny else torch.bfloat16
     dev = resolve_device(device) if isinstance(device, str) else device
-    cap = LlavaCaptioner(cfg, tokenizer, dtype=dtype, device=dev)
+    cap = LlavaCaptioner(cfg, tokenizer, dtype=dtype, device=dev, mesh=mesh)
     transform = ImageTransform("clip", cfg.vision.image_size)
     if params is None or params == "":
         cap.init_params(torch.Generator(device=dev).manual_seed(0))

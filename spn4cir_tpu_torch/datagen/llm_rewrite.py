@@ -429,7 +429,7 @@ def load_torch_rewriter(ckpt_path: str = "", tokenizer=None, *,
                         quantize_weights: bool = False, batch_size: int = 1,
                         cache_dtype=None, prefill_chunk: Optional[int] = None,
                         attn_kernel: Optional[bool] = None,
-                        device: str = "0"):
+                        device: str = "0", mesh=None):
     """The rewriter end to end: the port's LLaMA-2 decoder and the
     byte-exact prompt contract, on `device` (`cli.common.resolve_device`:
     "N" is cuda:N, the default cuda:0; "cpu" the CPU).
@@ -440,7 +440,12 @@ def load_torch_rewriter(ckpt_path: str = "", tokenizer=None, *,
     dataset). `tokenizer` defaults to the byte-level one when `tiny`. The
     7B's cache defaults to bf16, the tiny one's to float32.
     `quantize_weights` makes the matmul weights int8. `batch_size != 1`
-    rewrites in left-padded device batches (0 = by DECODE_BUCKET_BATCH)."""
+    rewrites in left-padded device batches (0 = by DECODE_BUCKET_BATCH).
+    `mesh` (`parallel.tp.make_model_mesh`) makes the LM tensor-parallel:
+    this rank keeps its slice (`parallel.tp.shard_llama_params`), its KV
+    cache holds its kv heads, and every rank of the group must rewrite the
+    same captions in the same order (the sampling generators are seeded
+    alike and see the same gathered logits)."""
     from spn4cir_tpu_torch.cli.common import resolve_device
     from spn4cir_tpu_torch.models.convert import load_llama_checkpoint
     from spn4cir_tpu_torch.models.llama import (LlamaConfig,
@@ -470,6 +475,11 @@ def load_torch_rewriter(ckpt_path: str = "", tokenizer=None, *,
         model.init_weights(torch.Generator(device=dev).manual_seed(0))
     model.eval()
     params = quantize_llama_weights(model) if quantize_weights else model
+    if mesh is not None:
+        from spn4cir_tpu_torch.parallel.tp import shard_llama_params
+
+        params, cfg = shard_llama_params(params, cfg, mesh)
+        del model
     if cache_dtype is None and not tiny:
         cache_dtype = torch.bfloat16
     if batch_size != 1:  # 0 = bucket-aware auto, >1 = fixed device batches

@@ -3,7 +3,7 @@
 Counterpart of `spn4cir_tpu/eval/retrieval.py` (`GalleryIndex`,
 `extract_index_features`, `generate_val_predictions`, `query_scores`,
 `fiq_val_retrieval`, `cirr_val_retrieval`): the gallery is encoded in fixed-size
-batches on one device; 'target' (score-ready) stays on the device and
+batches on one device (or split over a mesh's ranks, `mesh=`); 'target' (score-ready) stays on the device and
 'refer' (the fusion-side lookup) is kept in host memory as numpy. A
 bfloat16 refer is kept as float32 on the host (numpy has no bfloat16); the
 widening is exact, and the fusion upcasts it to float32 anyway. Query
@@ -17,6 +17,7 @@ index then runs the device preprocess ahead of the encoder
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, List, Optional, Union
@@ -89,31 +90,52 @@ class GalleryIndex:
 
 @torch.inference_mode()
 def extract_index_features(backbone: CIRBackbone, dataset: CIRDataset,
-                           batch_size: int = 32, num_workers: int = 4
-                           ) -> GalleryIndex:
+                           batch_size: int = 32, num_workers: int = 4,
+                           mesh=None) -> GalleryIndex:
     """Encode the gallery of `dataset` on the backbone's device: host
     decode runs ahead in a prefetch thread; each batch is encoded (staged
     canvases through the device preprocess first), its valid rows copied
     into the host buffers; 'target' is moved back to the device once at
-    the end."""
+    the end.
+
+    With `mesh` (`parallel.mesh.Mesh`; every rank calls this), each rank
+    decodes and encodes its rows of every batch and the features are
+    gathered back (`parallel.train.make_sharded_gallery_encode`); a model
+    axis cuts the towers for the pass and leaves them whole after it
+    (`parallel.tp.tensor_parallel`): every rank ends with the whole index
+    and the whole backbone."""
     device = backbone.device
     names = dataset.gallery_names
     raw_kind = (dataset.preprocess.kind
                 if isinstance(dataset.preprocess, RawStageTransform) else None)
-    bufs: Dict[str, np.ndarray] = {}
-    for ids, images in prefetch(iter_gallery(dataset, batch_size, num_workers),
-                                depth=2):
+
+    def encode(images):
         images = batch_to_device(images, device)
-        out = (backbone.index_features(images) if raw_kind is None else
-               index_features_from_raw(backbone, images.canvas,
-                                       images.extents, kind=raw_kind))
-        out = {k: to_host(v) for k, v in out.items()}
-        if not bufs:
-            bufs = {k: np.zeros((len(names), *v.shape[1:]), v.dtype)
-                    for k, v in out.items()}
-        valid = ids >= 0
-        for k, v in out.items():
-            bufs[k][ids[valid]] = v[valid]
+        if raw_kind is None:
+            return backbone.index_features(images)
+        return index_features_from_raw(backbone, images.canvas,
+                                       images.extents, kind=raw_kind)
+
+    part, cut = None, contextlib.nullcontext()
+    if mesh is not None:
+        from spn4cir_tpu_torch.parallel.tp import tensor_parallel
+        from spn4cir_tpu_torch.parallel.train import (
+            make_sharded_gallery_encode)
+
+        encode = make_sharded_gallery_encode(encode, mesh)
+        part, cut = mesh.part(), tensor_parallel(backbone, mesh)
+    bufs: Dict[str, np.ndarray] = {}
+    with cut:
+        for ids, images in prefetch(iter_gallery(dataset, batch_size,
+                                                 num_workers, part),
+                                    depth=2):
+            out = {k: to_host(v) for k, v in encode(images).items()}
+            if not bufs:
+                bufs = {k: np.zeros((len(names), *v.shape[1:]), v.dtype)
+                        for k, v in out.items()}
+            valid = ids >= 0
+            for k, v in out.items():
+                bufs[k][ids[valid]] = v[valid]
     if not bufs:
         raise ValueError("empty gallery")
     return GalleryIndex(target=torch.from_numpy(bufs["target"]).to(device),
@@ -180,7 +202,7 @@ def _ids(arr: np.ndarray, device) -> torch.Tensor:
 def fiq_val_retrieval(backbone: CIRBackbone, data_path: str, dress_type: str,
                       preprocess, batch_size: int = 32,
                       index: Optional[GalleryIndex] = None,
-                      fiq_val_type: int = 0) -> Dict[str, float]:
+                      fiq_val_type: int = 0, mesh=None) -> Dict[str, float]:
     # fiq_val_type selects the gallery image list (0=image_splits, 1=VAL-set
     # only); the relative query set is unaffected.
     classic = CIRDataset("fiq", "val", "classic", preprocess, data_path,
@@ -188,7 +210,8 @@ def fiq_val_retrieval(backbone: CIRBackbone, data_path: str, dress_type: str,
     relative = CIRDataset("fiq", "val", "relative", preprocess, data_path,
                           [dress_type])
     if index is None:
-        index = extract_index_features(backbone, classic, batch_size)
+        index = extract_index_features(backbone, classic, batch_size,
+                                       mesh=mesh)
     preds = generate_val_predictions(backbone, relative, index, batch_size)
     scores = query_scores(backbone, preds, index)
     refer = (_ids(preds["refer_gid"], scores.device)
@@ -200,12 +223,13 @@ def fiq_val_retrieval(backbone: CIRBackbone, data_path: str, dress_type: str,
 @torch.inference_mode()
 def cirr_val_retrieval(backbone: CIRBackbone, data_path: str, preprocess,
                        batch_size: int = 32,
-                       index: Optional[GalleryIndex] = None
+                       index: Optional[GalleryIndex] = None, mesh=None
                        ) -> Dict[str, float]:
     classic = CIRDataset("cirr", "val", "classic", preprocess, data_path)
     relative = CIRDataset("cirr", "val", "relative", preprocess, data_path)
     if index is None:
-        index = extract_index_features(backbone, classic, batch_size)
+        index = extract_index_features(backbone, classic, batch_size,
+                                       mesh=mesh)
     preds = generate_val_predictions(backbone, relative, index, batch_size)
     scores = query_scores(backbone, preds, index)
     dev = scores.device

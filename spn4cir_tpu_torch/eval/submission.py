@@ -69,10 +69,15 @@ def generate_cirr_test_submissions(
     output_root: str = "submission",
     subdir: Optional[str] = None,
     batch_size: int = 32,
+    mesh=None,
 ) -> Tuple[str, str]:
-    """Writes both submission JSONs; returns their paths."""
+    """Writes both submission JSONs; returns their paths. With `mesh` the
+    gallery encode splits over it (`extract_index_features`) and rank 0
+    alone writes."""
+    from spn4cir_tpu_torch.parallel.mesh import process_is_main
+
     classic = CIRDataset("cirr", "test1", "classic", preprocess, data_path)
-    index = extract_index_features(backbone, classic, batch_size)
+    index = extract_index_features(backbone, classic, batch_size, mesh=mesh)
     relative = CIRDataset("cirr", "test1", "relative", preprocess, data_path)
     pred, group = generate_cirr_test_dicts(backbone, relative, index,
                                            batch_size)
@@ -83,9 +88,11 @@ def generate_cirr_test_submissions(
     group_submission.update(group)
 
     folder = os.path.join(output_root, subdir or f"{backbone.name}4cir")
-    os.makedirs(folder, exist_ok=True)
     p1 = os.path.join(folder, f"recall_submission_{file_name}.json")
     p2 = os.path.join(folder, f"recall_subset_submission_{file_name}.json")
+    if not process_is_main():
+        return p1, p2
+    os.makedirs(folder, exist_ok=True)
     with open(p1, "w") as f:
         json.dump(submission, f, sort_keys=True)
     with open(p2, "w") as f:

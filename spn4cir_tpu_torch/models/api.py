@@ -102,7 +102,9 @@ class CIRBackbone(nn.Module, metaclass=abc.ABCMeta):
                     images_target: torch.Tensor, text_ids: torch.Tensor
                     ) -> torch.Tensor:
         """End-to-end in-batch InfoNCE (`--wo_bank`): both image batches go
-        through the live image tower."""
+        through the live image tower. A backbone that trains stage 1 takes
+        a keyword `gather` (`ops.infonce.Gather`): the in-batch loss over
+        the global batch of a data-parallel step."""
 
     @abc.abstractmethod
     def stage2_loss(self, refer_feats: torch.Tensor, text_ids: torch.Tensor,
@@ -124,6 +126,13 @@ class CIRBackbone(nn.Module, metaclass=abc.ABCMeta):
                       ) -> torch.Tensor:
         """Similarity matrix used for retrieval: the cosine dot, float32."""
         return query_feats.float() @ gallery.float().T
+
+    def loss_tau(self):
+        """The temperature the InfoNCE losses divide by: a float, or the
+        learnable 0-d parameter of a backbone that trains it (blip4cir's
+        `tau`, blip2's `temp`), so a loss built outside the backbone keeps
+        its gradient (`parallel/train.py`)."""
+        return self.tau
 
     # ---- optimization ----
     def optimizer_kwargs(self) -> Dict[str, Any]:

@@ -281,6 +281,9 @@ class Blip2CIR(CIRBackbone):
                             device=feats.device))
         return max_query_infonce(feats, target_bank, labels, tau)
 
+    def loss_tau(self):
+        return self.model.temp
+
     # ---- host helpers ----
     @staticmethod
     def pre_caption(caption: str, max_words: int = 50) -> str:

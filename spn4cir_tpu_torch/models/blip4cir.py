@@ -182,15 +182,17 @@ class BlipCIR(CIRBackbone):
     # ---- losses ----
     def stage1_loss(self, images_refer: torch.Tensor,
                     images_target: torch.Tensor, text_ids: torch.Tensor,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    gather: infonce.Gather = None) -> torch.Tensor:
         """End-to-end in-batch InfoNCE (`--wo_bank`): clip4cir's stage-1
         objective applied to the BLIP fusion. query = img_txt_fusion(live
-        ViT tokens, text), target = pooled-normalized target features."""
+        ViT tokens, text), target = pooled-normalized target features.
+        `gather`: see `infonce.in_batch_infonce`."""
         refer_tokens = self.encode_image(images_refer)
         target = self.gallery_features(images_target)
         query = self.fuse(refer_tokens, text_ids, generator=generator)
-        return infonce.in_batch_infonce(query, target, self.model.tau)
+        return infonce.in_batch_infonce(query, target, self.model.tau,
+                                        gather)
 
     def stage2_loss(self, refer_feats: torch.Tensor, text_ids: torch.Tensor,
                     target_bank, labels: torch.Tensor, *,
@@ -202,6 +204,9 @@ class BlipCIR(CIRBackbone):
             return infonce.sampled_neg_infonce(query, target_bank, labels,
                                                neg_idx, self.model.tau)
         return bank_infonce(query, target_bank, labels, self.model.tau)
+
+    def loss_tau(self):
+        return self.model.tau
 
     # ---- host helpers ----
     def tokenize(self, texts) -> np.ndarray:

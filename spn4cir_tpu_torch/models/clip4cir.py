@@ -91,21 +91,22 @@ class ClipCIR(CIRBackbone):
         return bank_infonce(query, target_bank, labels, self.tau)
 
     def stage1_loss(self, images_refer: torch.Tensor,
-                    images_target: torch.Tensor, text_ids: torch.Tensor
-                    ) -> torch.Tensor:
+                    images_target: torch.Tensor, text_ids: torch.Tensor,
+                    gather: infonce.Gather = None) -> torch.Tensor:
         """In-batch InfoNCE training the full model end to end (`--wo_bank`).
         Refer and target ride one 2B-batch tower call, as in the JAX
-        package: per-sample math is identical to two B-batch calls."""
+        package: per-sample math is identical to two B-batch calls.
+        `gather`: see `infonce.in_batch_infonce`."""
         b = images_refer.shape[0]
         both = self.encode_image(torch.cat([images_refer, images_target]))
         target = l2_normalize(both[b:].float())
         query = self.combine(both[:b], self.encode_text(text_ids))
-        return infonce.in_batch_infonce(query, target, self.tau)
+        return infonce.in_batch_infonce(query, target, self.tau, gather)
 
     def stage1_negtype_loss(self, images_refer: torch.Tensor,
                             images_target: torch.Tensor,
-                            text_ids: torch.Tensor, neg_type: int = 15
-                            ) -> torch.Tensor:
+                            text_ids: torch.Tensor, neg_type: int = 15,
+                            gather: infonce.Gather = None) -> torch.Tensor:
         """The negative-type ablation (`--neg_type`): the mean of the
         flavors of `infonce.negtype_losses` that the bitmask selects (bit0
         refer, bit1 text, bit2 target, bit3 query). Refer and target go
@@ -114,7 +115,8 @@ class ClipCIR(CIRBackbone):
         refer = self.encode_image(images_refer).float()
         target = l2_normalize(self.encode_image(images_target).float())
         text = self.encode_text(text_ids).float()
-        losses = infonce.negtype_losses(refer, text, target, self.tau)
+        losses = infonce.negtype_losses(refer, text, target, self.tau,
+                                        gather)
         return infonce.combine_negtype(losses, neg_type)
 
     # ---- host helpers ----

@@ -38,8 +38,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """`layer` applied in the dtype of `x` (float32 params cast at use)."""
+    """`layer` applied in the dtype of `x` (float32 params cast at use).
+    A tensor-parallel layer (`parallel.tp`) carries `tp`, which applies its
+    slice with the model group's collective."""
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    tp = getattr(layer, "tp", None)
+    if tp is not None:
+        return tp(x, layer.weight.to(x.dtype), bias)
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 

@@ -68,6 +68,9 @@ class LlamaConfig:
     max_position_embeddings: int = 2048
     rope_theta: float = 10000.0
     rms_eps: float = 1e-6
+    # a tensor-parallel rank's geometry (`parallel.tp.llama_local_config`)
+    # holds num_heads/n of the heads at the model's head_dim
+    head_dim_fixed: Optional[int] = None
 
     @property
     def kv_heads(self) -> int:
@@ -75,7 +78,7 @@ class LlamaConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
+        return self.head_dim_fixed or self.hidden_size // self.num_heads
 
     @classmethod
     def llama_7b(cls) -> "LlamaConfig":
@@ -149,14 +152,41 @@ class QuantKernel(NamedTuple):
     scales: torch.Tensor
 
 
+class ShardedWeight(NamedTuple):
+    """A tensor-parallel rank's slice of a matmul weight
+    (`parallel.tp.shard_llama_params`) and how its product is combined over
+    the model group: "sum" (a row slice: o_proj, down_proj) or "gather" (a
+    column slice of lm_head, gathered to the full vocabulary)."""
+
+    weight: Any
+    group: Any
+    combine: str
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        if self.group is None:
+            return y
+        if self.combine == "sum":
+            dist.all_reduce(y, group=self.group)
+            return y
+        parts = [torch.empty_like(y)
+                 for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, y.contiguous(), group=self.group)
+        return torch.cat(parts, dim=-1)
+
+
 def _mm(x: torch.Tensor, w, use_kernel: bool = False) -> torch.Tensor:
-    """x @ w for a dense HF weight (F, D) or a QuantKernel.
+    """x @ w for a dense HF weight (F, D) or a QuantKernel (or the
+    `ShardedWeight` slice of either, combined over its group).
 
     A dense product runs in the promoted type of x and w, as `x @ w` does
     in JAX (a float32 x against bf16 weights is a float32 product). A
     QuantKernel takes kernel #12 when `use_kernel` (decode steps with
     `quant_kernel=True`), else dequant-after-matmul: the product in x's
     type, then the scales in x's type."""
+    if isinstance(w, ShardedWeight):
+        return w.finish(_mm(x, w.weight, use_kernel))
     if isinstance(w, QuantKernel):
         if use_kernel:
             return quant_matmul(x, w.values, w.scales)

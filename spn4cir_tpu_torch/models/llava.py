@@ -350,14 +350,25 @@ class LlavaCaptioner:
     The LM that generation reads is `self.lm_params`: the model itself, or
     after `quantize()` the int8 dict of `quantize_llama_weights`.
     `quant_kernel` (False by default, as in the JAX captioner) sends the
-    decode steps' int8 products through kernel #12."""
+    decode steps' int8 products through kernel #12.
+
+    `mesh` (a `parallel.mesh.Mesh` with a model axis; every rank of it
+    makes the same calls): at the first caption the vision tower is cut to
+    this rank's tensor-parallel slice (`parallel.tp.shard_module_tp`), the
+    projector stays whole, and the LM becomes this rank's slice and local
+    geometry (`parallel.tp.shard_llama_params`); its full weights are
+    released."""
 
     def __init__(self, cfg: LlavaConfig, tokenizer,
                  dtype: torch.dtype = torch.float32, device="cpu",
                  mesh=None):
-        if mesh is not None:
-            raise ValueError("tensor-parallel captioning (mesh=) is not yet "
-                             "ported to PyTorch")
+        from spn4cir_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh= takes a parallel.mesh.Mesh, not "
+                             f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.lm_cfg = cfg.llama
         self.cfg = cfg
         self.tok = tokenizer
         self.device = torch.device(device)
@@ -381,6 +392,23 @@ class LlavaCaptioner:
         for p in dense.values():
             p.data = p.data.new_empty(0)
 
+    @torch.no_grad()
+    def shard(self) -> None:
+        """Cut the tower and the LM to this rank's slices (once)."""
+        from spn4cir_tpu_torch.parallel.tp import (shard_llama_params,
+                                                   shard_module_tp)
+
+        if self.mesh is None or self.lm_cfg is not self.cfg.llama:
+            return
+        shard_module_tp(self.model.model.vision_tower, self.mesh)
+        lm = {k: v for k, v in _flat(self.lm_params).items()
+              if not k.startswith(VISION_PREFIXES)}
+        self.lm_params, self.lm_cfg = shard_llama_params(
+            lm, self.cfg.llama, self.mesh)
+        for name, p in self.model.named_parameters():
+            if not name.startswith(VISION_PREFIXES):
+                p.data = p.data.new_empty(0)
+
     def prompt_ids(self, user_message: str) -> List[int]:
         prompt = build_llava_v1_prompt(user_message)
         return tokenizer_image_token(prompt, self.tok.encode,
@@ -400,6 +428,7 @@ class LlavaCaptioner:
             cache_dtype = (torch.bfloat16
                            if self.cfg.llama.hidden_size >= 1024
                            else torch.float32)
+        self.shard()
         ids = self.prompt_ids(user_message)
         eos = self.tok.eos_token_id
         images = as_tensor(images).to(self.device)
@@ -407,7 +436,7 @@ class LlavaCaptioner:
         embeds = splice_image_embeds(
             _flat(self.lm_params)["model.embed_tokens.weight"], ids, feats)
         out = llama_generate(
-            self.lm_params, self.cfg.llama, embeds, eos_id=eos, pad_id=eos,
+            self.lm_params, self.lm_cfg, embeds, eos_id=eos, pad_id=eos,
             max_new_tokens=max_new_tokens, do_sample=True,
             temperature=temperature, top_p=top_p, generator=generator,
             cache_dtype=cache_dtype, quant_kernel=self.quant_kernel,

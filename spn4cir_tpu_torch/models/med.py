@@ -38,7 +38,7 @@ default generator when none is given.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,20 +93,45 @@ def causal_additive_mask(length: int, device=None) -> torch.Tensor:
     return (1.0 - tri)[None, None] * -1e9
 
 
+class GlobalNoise(NamedTuple):
+    """A dropout noise source for a rank that holds rows [offset, offset +
+    B_loc) of a global batch of `rows` (`parallel/train.py`): the noise is
+    drawn at the global batch's shape from `generator`, seeded alike on
+    every rank, and the rank keeps its rows, so a data-parallel step drops
+    what one process would drop for the same seed."""
+
+    generator: Optional[torch.Generator]
+    offset: int
+    rows: int
+
+
 class Dropout:
     """Inverted dropout with an explicit noise source: `rate`, whether it is
-    live, and the generator the uniform noise is drawn from."""
+    live, and the generator the uniform noise is drawn from (or a
+    `GlobalNoise`)."""
 
-    def __init__(self, rate: float, live: bool,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, rate: float, live: bool, generator=None):
         self.rate = rate if live else 0.0
         self.generator = generator
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, heads: Optional[Tuple[int, int]] = None
+                 ) -> torch.Tensor:
+        """`heads` (offset, total): x's axis 1 holds heads [offset, offset +
+        H_loc) of `total` (tensor-parallel attention weights); the noise is
+        drawn for all of them."""
         if not self.rate:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.rate
+        shape, index = list(x.shape), [slice(None)] * x.dim()
+        gen = self.generator
+        if isinstance(gen, GlobalNoise):
+            shape[0] = gen.rows
+            index[0] = slice(gen.offset, gen.offset + x.shape[0])
+            gen = gen.generator
+        if heads is not None:
+            shape[1] = heads[1]
+            index[1] = slice(heads[0], heads[0] + x.shape[1])
+        keep = torch.rand(shape, generator=gen,
+                          device=x.device)[tuple(index)] >= self.rate
         return x * keep.to(x.dtype) / (1.0 - self.rate)
 
 
@@ -119,22 +144,30 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         kv_width = cfg.encoder_width if cross else cfg.hidden_size
         self.num_heads = cfg.num_heads
+        # (offset, total) of this rank's heads under tensor parallelism
+        self.head_slice: Optional[Tuple[int, int]] = None
         self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.key = nn.Linear(kv_width, cfg.hidden_size)
         self.value = nn.Linear(kv_width, cfg.hidden_size)
 
     def forward(self, hidden, kv, mask, drop: Dropout) -> torch.Tensor:
-        b, lq, d = hidden.shape
-        h, hd = self.num_heads, d // self.num_heads
-        q = linear(hidden, self.query).view(b, lq, h, hd)
+        b, lq, _ = hidden.shape
+        q = linear(hidden, self.query)
+        # the projections' width, not the stream's: under tensor
+        # parallelism a rank holds num_heads of the heads
+        h = self.num_heads
+        hd = q.shape[-1] // h
+        q = q.view(b, lq, h, hd)
         k = linear(kv, self.key).view(b, -1, h, hd)
         v = linear(kv, self.value).view(b, -1, h, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                               k.float()) * hd ** -0.5
         if mask is not None:
             logits = logits + mask
-        weights = drop(torch.softmax(logits, dim=-1).to(hidden.dtype))
-        return torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, lq, d)
+        weights = drop(torch.softmax(logits, dim=-1).to(hidden.dtype),
+                       self.head_slice)
+        return torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, lq,
+                                                                   h * hd)
 
 
 class BertSelfOutput(nn.Module):

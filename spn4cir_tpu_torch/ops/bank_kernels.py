@@ -27,6 +27,12 @@ Routes:
     `bank_infonce_q8_reference`, the plain PyTorch versions (autograd
     differentiates them), counting nothing.
 
+Labels: a label in [0, M) names the positive's bank row. A label outside
+[0, M) says that the positive lies in another shard of a bank split over
+devices (`parallel/loss.py`): that row's positive logit is 0 and its
+backward has no one-hot, in the kernels and in the plain versions alike;
+the statistics stay valid and the caller combines them across shards.
+
 Gradients: dquery and dtau are exact; the bank is a frozen feature cache in
 stage 2 and gets none. The bfloat16 bank is widened to float32 before the
 product in the kernels and in the plain version alike. Every product of
@@ -122,26 +128,43 @@ def _q8_logits(query: torch.Tensor, qbank: QuantBank, tau: Tau) -> torch.Tensor:
     return (query.float() @ qbank.values.float().T) * qbank.scales[None, :] / tau
 
 
+def _in_shard(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: the label names a column of `logits`. A label outside
+    [0, M) says that the positive lies in another shard of the bank."""
+    labels = labels.long()
+    return (labels >= 0) & (labels < logits.shape[-1])
+
+
+def _positive(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[i, labels[i]], 0 where the label is outside [0, M): a masked
+    gather, as the kernels compute it."""
+    inside = _in_shard(logits, labels)
+    safe = torch.where(inside, labels.long(), 0)
+    pos = logits.gather(-1, safe[:, None])[:, 0]
+    return torch.where(inside, pos, torch.zeros_like(pos))
+
+
 def _stats(logits: torch.Tensor, labels: torch.Tensor) -> Stats:
     mx = logits.amax(dim=-1)
     e = torch.exp(logits - mx[:, None])
-    pos = logits.gather(-1, labels.long()[:, None])[:, 0]
-    return mx, e.sum(dim=-1), pos, (e * logits).sum(dim=-1)
+    return mx, e.sum(dim=-1), _positive(logits, labels), (e * logits).sum(dim=-1)
 
 
 def _loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     mx = logits.detach().amax(dim=-1)
     se = torch.exp(logits - mx[:, None]).sum(dim=-1)
-    pos = logits.gather(-1, labels.long()[:, None])[:, 0]
-    return (torch.log(se) + mx - pos).mean()
+    return (torch.log(se) + mx - _positive(logits, labels)).mean()
 
 
 def _coefficient(logits: torch.Tensor, labels: torch.Tensor, tau: Tau,
                  mx: torch.Tensor, se: torch.Tensor, gout: torch.Tensor
                  ) -> torch.Tensor:
-    """(P - onehot)·g with P = exp(logits - mx) / se, g = gout/(B·tau)."""
+    """(P - onehot)·g with P = exp(logits - mx) / se, g = gout/(B·tau); a
+    row whose label lies outside [0, M) has no one-hot."""
     p = torch.exp(logits - mx[:, None]) / se[:, None]
-    p[torch.arange(p.shape[0], device=p.device), labels.long()] -= 1.0
+    inside = _in_shard(logits, labels)
+    rows = torch.arange(p.shape[0], device=p.device)[inside]
+    p[rows, labels.long()[inside]] -= 1.0
     return p * (gout.float() / (logits.shape[0] * tau))
 
 
@@ -301,6 +324,8 @@ def _check(query: torch.Tensor, bank, labels: torch.Tensor) -> None:
     if query.dim() != 2 or rows.dim() != 2 or query.shape[1] != rows.shape[1]:
         raise ValueError(f"query (B, D) and bank (M, D) must share D; got "
                          f"{tuple(query.shape)}, {tuple(rows.shape)}")
+    # a label outside [0, M) is allowed: the positive lies in another
+    # shard (pos 0, no one-hot; see the module docstring)
     if labels.shape != (query.shape[0],):
         raise ValueError(f"labels must be (B,) = ({query.shape[0]},); got "
                          f"{tuple(labels.shape)}")

@@ -17,11 +17,15 @@ JAX package's `preferred_element_type=float32` dots compute.
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 Tau = Union[float, torch.Tensor]
+
+#: a data-parallel step's gather: this rank's rows -> every rank's rows in
+#: rank order, with their gradient (`parallel.mesh.gather_rows_with_grad`)
+Gather = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12
@@ -40,9 +44,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - pos).mean()
 
 
-def in_batch_infonce(query: torch.Tensor, target: torch.Tensor, tau: Tau
-                     ) -> torch.Tensor:
-    """In-batch InfoNCE: positives on the diagonal (the stage-1 loss)."""
+def in_batch_infonce(query: torch.Tensor, target: torch.Tensor, tau: Tau,
+                     gather: Gather = None) -> torch.Tensor:
+    """In-batch InfoNCE: positives on the diagonal (the stage-1 loss). With
+    `gather`, over the global batch of a data-parallel step: both sides are
+    gathered first, and every rank computes the same global loss."""
+    if gather is not None:
+        query, target = gather(query), gather(target)
     logits = query.float() @ target.float().T / tau
     return cross_entropy(logits, torch.arange(query.shape[0],
                                               device=query.device))
@@ -100,7 +108,8 @@ NEGTYPE_ORDER = ("refer", "text", "target", "query")
 
 
 def negtype_losses(refer: torch.Tensor, text: torch.Tensor,
-                   target: torch.Tensor, tau: Tau) -> Dict[str, torch.Tensor]:
+                   target: torch.Tensor, tau: Tau, gather: Gather = None
+                   ) -> Dict[str, torch.Tensor]:
     """The four negative flavors of the negative-type ablation. refer /
     text: (B, D) raw features; target: (B, D) normalized.
 
@@ -109,7 +118,10 @@ def negtype_losses(refer: torch.Tensor, text: torch.Tensor,
     - 'query': the reverse direction, target_i over the queries;
     - 'text': logits[i, j] = <normalize(refer_i + text_j), target_i>;
     - 'refer': logits[i, j] = <normalize(refer_j + text_i), target_i>;
-    the positive at j == i in each."""
+    the positive at j == i in each; with `gather`, over the global batch
+    (as `in_batch_infonce`)."""
+    if gather is not None:
+        refer, text, target = gather(refer), gather(text), gather(target)
     labels = torch.arange(refer.shape[0], device=refer.device)
     query = l2_normalize(refer + text)
     out = {"target": in_batch_infonce(query, target, tau),

@@ -31,6 +31,11 @@ Routes:
   - tensors on the CPU: `max_query_infonce_reference`, the plain PyTorch
     version (autograd differentiates it), counting nothing.
 
+Labels: as in `ops/bank_kernels.py`, a label outside [0, M) says that the
+positive lies in another shard of the bank: its positive logit is 0 and
+the backward puts no one-hot in its row (the kernels and the plain
+versions alike), so a bank split over devices runs them per shard.
+
 Gradients: dfeats and dtau are exact; the bank is a frozen feature cache and
 gets none. The max's gradient goes to the first argmax query alone, in the
 kernels and in the plain versions (they gather at `argmax`): `amax`'s
@@ -243,6 +248,8 @@ def _check_bank(bank, device: torch.device) -> None:
 
 
 def _check(feats: torch.Tensor, bank, labels: torch.Tensor) -> None:
+    """Types, shapes and layout. A label outside [0, M) is allowed: the
+    positive lies in another shard (pos 0, no one-hot)."""
     rows = bank.values if isinstance(bank, QuantBank) else bank
     if feats.dim() != 2 or rows.dim() != 3 or feats.shape[1] != rows.shape[2]:
         raise ValueError(f"feats (B, D) and bank (M, Q, D) must share D; got "

@@ -3,5 +3,12 @@ from spn4cir_tpu_torch.serve.service import (
     RetrievalService,
     serve,
 )
+from spn4cir_tpu_torch.serve.sharded import (
+    ShardedBatchingRetrievalService,
+    ShardedGalleryIndex,
+    ShardedRetrievalService,
+)
 
-__all__ = ["BatchingRetrievalService", "RetrievalService", "serve"]
+__all__ = ["BatchingRetrievalService", "RetrievalService",
+           "ShardedBatchingRetrievalService", "ShardedGalleryIndex",
+           "ShardedRetrievalService", "serve"]

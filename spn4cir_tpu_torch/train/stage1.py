@@ -17,7 +17,9 @@ uint8 canvases and the resize, crop and normalize run on the device inside
 the step; they do not depend on the weights, so autograd records nothing
 for them.
 
-Not ported: the data-sharded step over a device mesh (`sharded_step`).
+`sharded_step` (`parallel.train.make_sharded_stage1_step`) runs each batch
+data-parallel: every rank takes its rows of the global batch and the step
+sums the gradients over the mesh's data group.
 """
 
 from __future__ import annotations
@@ -51,11 +53,14 @@ def create_stage1_state(backbone: CIRBackbone, learning_rate: LearningRate,
 def stage1_loss_fn(backbone: CIRBackbone, batch: Dict[str, torch.Tensor],
                    neg_type: int = 0,
                    dropout_generator: Optional[torch.Generator] = None,
-                   raw_kind: Optional[str] = None) -> torch.Tensor:
+                   raw_kind: Optional[str] = None,
+                   gather: Optional[Callable] = None) -> torch.Tensor:
     """The stage-1 loss of one batch: the negtype ablation's when
     `neg_type` > 0 (no dropout), else the backbone's `stage1_loss`, with
     `dropout_generator` for a backbone that takes one. With `raw_kind` the
-    image entries are RawBatch canvases, preprocessed here first."""
+    image entries are RawBatch canvases, preprocessed here first. `gather`
+    (a data-parallel step's, `ops.infonce.Gather`) makes the in-batch
+    losses run over the global batch."""
     if raw_kind is not None:
         batch = dict(batch, **{
             side: preprocess_batch_dynamic(
@@ -64,10 +69,11 @@ def stage1_loss_fn(backbone: CIRBackbone, batch: Dict[str, torch.Tensor],
             for side in ("refer_images", "target_images")})
     images = (batch["refer_images"], batch["target_images"],
               batch["text_ids"])
+    kw = {"gather": gather} if gather is not None else {}
     if neg_type:
-        return backbone.stage1_negtype_loss(*images, neg_type)
-    kw = ({"generator": dropout_generator}
-          if dropout_generator is not None else {})
+        return backbone.stage1_negtype_loss(*images, neg_type, **kw)
+    if dropout_generator is not None:
+        kw["generator"] = dropout_generator
     return backbone.stage1_loss(*images, **kw)
 
 
@@ -99,6 +105,7 @@ def train_epoch_stage1(
     start_step: int = 0,
     step_hook: Optional[Callable[[int, TrainState], None]] = None,
     raw_kind: Optional[str] = None,
+    sharded_step=None,
 ):
     """Host loop over `iter_train_images` batches; a batch with a padded
     tail is dropped (drop_last). The loss accumulates on the device; the
@@ -106,8 +113,20 @@ def train_epoch_stage1(
     runs ahead on a prefetch thread: a step decodes 2B fresh images.
     `step_hook(step_in_epoch, state)` runs after every step; `start_step`
     numbers the steps of a mid-epoch resume; `raw_kind`: the batches hold
-    RawBatch canvases (`stage1_loss_fn`). Returns (state, mean_loss)."""
+    RawBatch canvases (`stage1_loss_fn`). `sharded_step` runs each batch
+    data-parallel; `batches` then holds this rank's rows of each global
+    batch with the whole batch's ids (`iter_train_images(part=mesh.part())`)
+    and the step must have been built for this epoch's `neg_type`, dropout
+    and `raw_kind`. Returns (state, mean_loss)."""
     device = backbone.device
+    if sharded_step is not None:
+        built = (sharded_step.neg_type, sharded_step.with_dropout,
+                 sharded_step.raw_kind)
+        asked = (neg_type, dropout_generator is not None, raw_kind)
+        if built != asked:
+            raise ValueError(f"the sharded step was built for (neg_type, "
+                             f"dropout, raw_kind) = {built}; this epoch asks "
+                             f"for {asked}")
     loss_sum, count = None, 0
     for step, raw in enumerate(prefetch(batches, depth=2), start=start_step):
         if (raw["triplet_idx"] < 0).any():
@@ -118,8 +137,11 @@ def train_epoch_stage1(
             "text_ids": torch.from_numpy(
                 backbone.tokenize(raw["captions"])).to(device),
         }
-        loss = stage1_train_step(backbone, state, batch, dropout_generator,
-                                 neg_type, raw_kind)
+        if sharded_step is not None:
+            loss = sharded_step(state, batch, dropout_generator)
+        else:
+            loss = stage1_train_step(backbone, state, batch,
+                                     dropout_generator, neg_type, raw_kind)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         count += 1
         if log_every and step % log_every == 0:

@@ -154,11 +154,18 @@ def sample_negatives(rng, pos_ids, num_images: int, neg_num: int) -> np.ndarray:
     return out
 
 
-def apply_gradients(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    reduce_grads: Optional[Callable[[list], None]] = None
+                    ) -> torch.Tensor:
     """Backward from `loss`, one AdamW step at the state's learning rate;
-    returns the loss as a detached device scalar (no host read)."""
+    returns the loss as a detached device scalar (no host read).
+    `reduce_grads(params)` runs between the two (the data-parallel steps
+    sum the gradients over their data group there)."""
     optimizer = state.optimizer
     loss.backward()
+    if reduce_grads is not None:
+        reduce_grads([p for group in optimizer.param_groups
+                      for p in group["params"]])
     lr = state.lr_at(state.step)
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -199,6 +206,9 @@ def train_epoch(
     start_step: int = 0,
     dropout_generator: Optional[torch.Generator] = None,
     step_hook: Optional[Callable[[int, TrainState], None]] = None,
+    sharded_step=None,
+    mesh=None,
+    bank_shard=None,
 ):
     """Host epoch loop over `iter_train_bank` batches: gather refer rows,
     tokenize, run the step. Returns (state, mean_loss). Batches are
@@ -206,13 +216,25 @@ def train_epoch(
     `stage2_train_step`. `step_hook(step_in_epoch, state)` runs after every
     step (the step-granular checkpoints of `--ckpt_every_steps`);
     `start_step` numbers the steps of a mid-epoch resume (pair it with the
-    iterator's `start_step`)."""
+    iterator's `start_step`). `sharded_step`
+    (`parallel.train.make_sharded_stage2_step`) with its `mesh` and this
+    rank's `bank_shard` runs each batch data-parallel: the rank gathers,
+    tokenizes and steps its rows of the global batch (full-bank loss only:
+    no `neg_num`)."""
     device = backbone.device
+    if sharded_step is not None and neg_num:
+        raise ValueError("the sharded step's loss is full-bank: no neg_num")
     # The loss stays on the device between steps (loss_sum is a device
     # scalar); the host reads it only every `log_every` steps — a per-step
     # float(loss) would wait for the device every step.
     loss_sum, count = None, 0
     for step, raw in enumerate(prefetch(batches, depth=2), start=start_step):
+        if sharded_step is not None:
+            from spn4cir_tpu_torch.parallel.mesh import local_rows
+
+            raw = local_rows({k: raw[k] for k in (
+                "captions", "target_image_id", "refer_image_id",
+                "triplet_idx")}, mesh)
         dev_batch = {
             "refer_feats": torch.from_numpy(bank.gather_refer(raw)).to(device),
             "text_ids": torch.from_numpy(
@@ -232,8 +254,12 @@ def train_epoch(
             dev_batch["neg_idx"] = torch.from_numpy(sample_negatives(
                 rng, raw["target_image_id"], bank.num_images, neg_num)
             ).to(device)
-        loss = stage2_train_step(backbone, state, bank.target, dev_batch,
-                                 dropout_generator)
+        if sharded_step is not None:
+            loss = sharded_step(state, bank_shard, dev_batch,
+                                dropout_generator)
+        else:
+            loss = stage2_train_step(backbone, state, bank.target, dev_batch,
+                                     dropout_generator)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         count += 1
         if log_every and step % log_every == 0:

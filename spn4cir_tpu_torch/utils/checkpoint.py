@@ -33,10 +33,14 @@ from torch import nn
 
 
 def save_model(path: str, model: nn.Module, epoch: int = 0,
-               extra: Optional[dict] = None) -> None:
-    """Best-checkpoint save: {'epoch', 'state_dict', 'extra'} on the CPU."""
+               extra: Optional[dict] = None,
+               state_dict: Optional[dict] = None) -> None:
+    """Best-checkpoint save: {'epoch', 'state_dict', 'extra'} on the CPU.
+    `state_dict` replaces the model's own (a tensor-parallel model's
+    gathered weights, `parallel.tp.full_state_dict`)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    state = {k: v.detach().cpu() for k, v in (
+        state_dict if state_dict is not None else model.state_dict()).items()}
     torch.save({"epoch": epoch, "state_dict": state, "extra": extra or {}},
                path)
 

@@ -1345,3 +1345,47 @@ def test_index_features_from_raw_on_card_matches_the_host_route(cuda_device):
     cos = torch.nn.functional.cosine_similarity(got["target"],
                                                 host_feats["target"], dim=-1)
     assert cos.min() > 0.99, cos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "max_query"])
+def test_sharded_loss_launches_the_bank_kernels_on_card(cuda_device, kind):
+    """One process, a mesh of one rank (no process group): the sharded loss
+    launches #5/#6 (#7/#8 over int8, #9/#10 over a max-query bank) once
+    each and equals the single-device loss and dQ."""
+    from spn4cir_tpu_torch.ops import maxquery_kernels as mq
+    from spn4cir_tpu_torch.parallel import loss as ploss
+    from spn4cir_tpu_torch.parallel.mesh import make_mesh
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    d, m = (256, 1000) if kind == "max_query" else (512, 3001)
+    q = torch.nn.functional.normalize(
+        torch.randn(16, d, generator=g, device=cuda_device), dim=-1)
+    shape = (m, 8, d) if kind == "max_query" else (m, d)
+    bank = torch.nn.functional.normalize(
+        torch.randn(*shape, generator=g, device=cuda_device), dim=-1)
+    if kind == "bfloat16":
+        bank = bank.to(torch.bfloat16)
+    elif kind == "int8":
+        bank = bk.quantize_bank(bank)
+    labels = torch.randint(0, m, (16,), generator=g, device=cuda_device)
+    wrappers = ((mq.max_query_infonce_fwd, mq.max_query_infonce_bwd)
+                if kind == "max_query" else
+                (bk.bank_infonce_q8_fwd, bk.bank_infonce_q8_bwd)
+                if kind == "int8" else
+                (bk.bank_infonce_fwd, bk.bank_infonce_bwd))
+    fn = (ploss.sharded_max_query_infonce if kind == "max_query"
+          else ploss.sharded_bank_infonce)
+    single = mq.max_query_infonce if kind == "max_query" else bk.bank_infonce
+    mesh = make_mesh(device=cuda_device)
+    before = [w.launches for w in wrappers]
+    leaf = q.clone().requires_grad_()
+    loss = fn(leaf, bank, labels, 0.05, mesh, m_actual=m)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1]
+    leaf2 = q.clone().requires_grad_()
+    want = single(leaf2, bank, labels, 0.05)
+    want.backward()
+    torch.testing.assert_close(loss, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(leaf.grad, leaf2.grad, atol=1e-6, rtol=1e-4)

@@ -249,14 +249,20 @@ def test_entry_points_take_the_loader_and_device_preprocess(world, flags,
      "--distributed"),
 ])
 def test_entry_points_still_refuse_meshes_and_distributed(world, flags, match,
-                                                          tmp_path):
+                                                          tmp_path,
+                                                          monkeypatch):
+    """With the host-input flags, a mesh (`match`'s flag) still needs one
+    process per GPU: a process started alone is refused."""
+    for var in ("SPN4CIR_DIST_NPROCS", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    assert match in flags
     argv = ARGV + ["--data_path", world["cirr"]] + flags
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(SystemExit, match="multi-process launch"):
         train_main("clip", argv + ["--output_path", str(tmp_path / "o")],
                    tokenizer=world["tok"])
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(SystemExit, match="multi-process launch"):
         validate_main("clip", argv, tokenizer=world["tok"])
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(SystemExit, match="multi-process launch"):
         serve_main(argv + ["--no-block"], tokenizer=world["tok"])
 
 

@@ -287,7 +287,7 @@ def test_cli_writes_the_file_of_the_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["--llm_tokenizer", "some/dir"], "not yet ported"),
-    (["--mesh_model", "2"], "not yet ported")])
+    (["--mesh_model", "2"], "multi-process launch")])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, message):
     root = make_cirr(str(tmp_path / "cirr"), extended=False)
     it = tmp_path / "it.json"

@@ -339,10 +339,9 @@ def test_serve_main_end_to_end(world, tmp_path):
 @pytest.mark.parametrize("extra,error", [
     (("--clip-model-name", "test-tiny", "--text_max_len", "40"),
      NotImplementedError),
-    (("--clip-model-name", "test-tiny", "--mesh_bank", "2"),
-     NotImplementedError),
+    (("--clip-model-name", "test-tiny", "--mesh_data", "2"), SystemExit),
     (("--clip-model-name", "test-tiny", "--device_preprocess",
-      "--distributed"), NotImplementedError),
+      "--distributed"), SystemExit),
     (("--clip-model-name", "test-tiny", "--device_canvas", "448"),
      SystemExit),
     (("--clip-model-name", "test-tiny", "--dropout", "0.1"),
@@ -398,7 +397,9 @@ def test_port_imports_no_jax(tmp_path):
         "            'cli.serve_mllm', 'cli.captioner', 'eval.cases',\n"
         "            'eval.generic_retrieval', 'cli.validate_case',\n"
         "            'cli.analysis_case', 'cli.retrieval', 'native',\n"
-        "            'tokenizer.native_bpe', 'data.mploader', 'ops.preprocess'):\n"
+        "            'tokenizer.native_bpe', 'data.mploader', 'ops.preprocess',\n"
+        "            'parallel.mesh', 'parallel.loss', 'parallel.train',\n"
+        "            'parallel.tp', 'serve.sharded'):\n"
         "    assert 'spn4cir_tpu_torch.' + new in names, new\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -473,19 +473,11 @@ def test_int8_bank_with_sampled_negatives_exits_as_the_jax_cli_does(
     (["tgcir", "--unlabeled"], "--unlabeled"),
     (["--use_cc"], "--use_cc"),
     (["--loss_impl", "xla"], "--loss_impl"),
-    (["--mesh_data", "2"], "--mesh_data"),
-    (["--mesh_bank", "2"], "--mesh_bank"),
-    (["--mesh_model", "2"], "--mesh_model"),
-    (["--distributed"], "--distributed"),
-    (["--device_preprocess", "--mesh_data", "2"], "--mesh_data"),
-    (["--device_preprocess", "--distributed"], "--distributed"),
     (["blip2", "--text_max_len", "40"], "--text_max_len"),
     (["--wo_bank", "--use_cc"], "--use_cc"),
     (["--dropout", "0.1"], "--dropout"),
     (["--text_max_len", "40"], "--text_max_len"),
     (["--val_ret_train"], "--val_ret_train"),
-    (["--device_preprocess", "--device_canvas", "448", "--mesh_model", "2"],
-     "--mesh_model"),
     (["zs", "--dropout", "0.1"], "--dropout"),
 ])
 def test_unported_flags_raise_not_yet_ported(flags, match, tok, cirr_root,
@@ -500,6 +492,25 @@ def test_unported_flags_raise_not_yet_ported(flags, match, tok, cirr_root,
     with pytest.raises(NotImplementedError) as err:
         train_main(name, argv, tokenizer=tok)
     assert match in str(err.value) and "not yet ported" in str(err.value)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh_data", "2"], ["--mesh_bank", "2"], ["--mesh_model", "2"],
+    ["--distributed"], ["--device_preprocess", "--mesh_data", "2"],
+    ["--device_preprocess", "--distributed"],
+    ["--device_preprocess", "--device_canvas", "448", "--mesh_model", "2"],
+])
+def test_meshes_need_a_multi_process_launch(flags, tok, cirr_root, tmp_path,
+                                            monkeypatch):
+    """A mesh runs one process per GPU (`parallel/`): a process started
+    alone, without torchrun's or the SPN4CIR_DIST_* variables, is refused
+    before it builds anything."""
+    for var in ("SPN4CIR_DIST_NPROCS", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ARGV + ["--data_path", cirr_root, "--output_path",
+                   str(tmp_path / "run")] + flags
+    with pytest.raises(SystemExit, match="multi-process launch"):
+        train_main("clip", argv, tokenizer=tok)
 
 
 def test_train_main_defaults_to_cuda(tok, cirr_root, tmp_path):

@@ -207,11 +207,16 @@ def test_submission_main_needs_cirr(world):
     (["--distributed"], "--distributed"),
     (["--device_preprocess", "--mesh_data", "2"], "--mesh_data"),
 ])
-def test_entry_points_refuse_what_is_not_ported(main, flags, match, world):
+def test_entry_points_refuse_what_is_not_ported(main, flags, match, world,
+                                                monkeypatch):
+    """A mesh (`match`'s flag) runs one process per GPU: a process started
+    alone, without a torchrun or SPN4CIR_DIST_* launch, is refused."""
+    for var in ("SPN4CIR_DIST_NPROCS", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     argv = ARGV + ["--dataset", "cirr", "--data_path", world["cirr"]] + flags
-    with pytest.raises(NotImplementedError) as err:
+    with pytest.raises(SystemExit, match="multi-process launch"):
         main("clip", argv, tokenizer=world["tok"])
-    assert match in str(err.value) and "not yet ported" in str(err.value)
+    assert match in " ".join(flags)
 
 
 @pytest.mark.parametrize("main", [validate_main, submission_main])
