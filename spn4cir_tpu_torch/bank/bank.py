@@ -35,6 +35,11 @@ the normalized features of an unlabeled image pool to the target bank as
 extra negatives; the pool's cache is an `.npz` with the key `unlabeled`, as
 the JAX package writes it.
 
+Spans (`utils.logging.span`, recorded only under the profiler): in each
+extractor a batch's ids and pixels going to the device are
+`bank.to_device`, its rows coming back into the host buffers
+`bank.to_host`; the backbone's encode between them is `bank.encode`.
+
 The JAX package also caches a "prepared" relayout of the target bank (rows
 padded to its kernel's block multiple) as a sidecar file. The Hopper
 bank-InfoNCE kernels mask the ragged tail themselves, so the port has no
@@ -51,6 +56,7 @@ import numpy as np
 import torch
 
 from spn4cir_tpu_torch.ops.preprocess import batch_to_device
+from spn4cir_tpu_torch.utils.logging import span
 from spn4cir_tpu_torch.utils.tensors import to_host
 
 
@@ -124,14 +130,19 @@ def extract_banks(
     refer_buf = None
     target_buf = None
     for image_ids, images in image_batches:
-        refer, target = bank_features_fn(batch_to_device(images, device))
-        refer, target = to_host(refer), to_host(target)
-        if refer_buf is None:
-            refer_buf = np.zeros((num_images, *refer.shape[1:]), refer.dtype)
-            target_buf = np.zeros((num_images, *target.shape[1:]), target.dtype)
-        valid = image_ids >= 0
-        refer_buf[image_ids[valid]] = refer[valid]
-        target_buf[image_ids[valid]] = target[valid]
+        with span("bank.to_device"):
+            images = batch_to_device(images, device)
+        refer, target = bank_features_fn(images)
+        with span("bank.to_host"):
+            refer, target = to_host(refer), to_host(target)
+            if refer_buf is None:
+                refer_buf = np.zeros((num_images, *refer.shape[1:]),
+                                     refer.dtype)
+                target_buf = np.zeros((num_images, *target.shape[1:]),
+                                      target.dtype)
+            valid = image_ids >= 0
+            refer_buf[image_ids[valid]] = refer[valid]
+            target_buf[image_ids[valid]] = target[valid]
     if refer_buf is None:
         raise ValueError("no image batches supplied")
 
@@ -172,26 +183,32 @@ def extract_fusion_banks(
     target_buf = None
     refer_rows = num_images if by_image else num_triplets
     for batch in triplet_batches:
-        text_ids = torch.from_numpy(tokenize(batch["captions"])).to(device)
-        refer, target = fusion_features_fn(
-            batch_to_device(batch["refer_images"], device), text_ids)
-        refer_t, target_t = fusion_features_fn(
-            batch_to_device(batch["target_images"], device), text_ids)
-        refer, target = to_host(refer), to_host(target)
-        target_t = to_host(target_t)
-        if refer_buf is None:
-            refer_buf = np.zeros((refer_rows, *refer.shape[1:]), refer.dtype)
-            target_buf = np.zeros((num_images, *target.shape[1:]), target.dtype)
-        valid = batch["triplet_idx"] >= 0
-        if by_image:
-            refer_buf[batch["refer_image_id"][valid]] = refer[valid]
-            refer_buf[batch["target_image_id"][valid]] = to_host(
-                refer_t)[valid]
-        else:
-            refer_buf[batch["triplet_idx"][valid]] = refer[valid]
-        # the target bank covers the refer images too
-        target_buf[batch["refer_image_id"][valid]] = target[valid]
-        target_buf[batch["target_image_id"][valid]] = target_t[valid]
+        text_ids = tokenize(batch["captions"])
+        with span("bank.to_device"):
+            text_ids = torch.from_numpy(text_ids).to(device)
+            refer_images = batch_to_device(batch["refer_images"], device)
+        refer, target = fusion_features_fn(refer_images, text_ids)
+        with span("bank.to_device"):
+            target_images = batch_to_device(batch["target_images"], device)
+        refer_t, target_t = fusion_features_fn(target_images, text_ids)
+        with span("bank.to_host"):
+            refer, target = to_host(refer), to_host(target)
+            target_t = to_host(target_t)
+            if refer_buf is None:
+                refer_buf = np.zeros((refer_rows, *refer.shape[1:]),
+                                     refer.dtype)
+                target_buf = np.zeros((num_images, *target.shape[1:]),
+                                      target.dtype)
+            valid = batch["triplet_idx"] >= 0
+            if by_image:
+                refer_buf[batch["refer_image_id"][valid]] = refer[valid]
+                refer_buf[batch["target_image_id"][valid]] = to_host(
+                    refer_t)[valid]
+            else:
+                refer_buf[batch["triplet_idx"][valid]] = refer[valid]
+            # the target bank covers the refer images too
+            target_buf[batch["refer_image_id"][valid]] = target[valid]
+            target_buf[batch["target_image_id"][valid]] = target_t[valid]
     if refer_buf is None:
         raise ValueError("no batches supplied")
 
@@ -217,11 +234,15 @@ def extract_unlabeled_features(encode_fn: Callable,
         return np.load(Bank.cache_file(cache_path))["unlabeled"]
     buf = None
     for ids, images in batches:
-        feats = to_host(encode_fn(batch_to_device(images, device)))
-        if buf is None:
-            buf = np.zeros((num_images, *feats.shape[1:]), feats.dtype)
-        valid = ids >= 0
-        buf[ids[valid]] = feats[valid]
+        with span("bank.to_device"):
+            images = batch_to_device(images, device)
+        feats = encode_fn(images)
+        with span("bank.to_host"):
+            feats = to_host(feats)
+            if buf is None:
+                buf = np.zeros((num_images, *feats.shape[1:]), feats.dtype)
+            valid = ids >= 0
+            buf[ids[valid]] = feats[valid]
     if buf is None:
         raise ValueError("no unlabeled batches")
     if cache_path:

@@ -99,7 +99,9 @@ def base_parser(default_model: str = "RN50x4", default_tau: float = 0.02,
                         "(0 = 2x the backbone input dim); images whose "
                         "padded extent exceeds it are host-downscaled first")
     p.add_argument("--profile_dir", default="",
-                   help="write a profiler trace of the train loop here")
+                   help="write profiler traces here: the bank extraction "
+                        "and the train loop (cli.train), the serving until "
+                        "the server stops (cli.serve)")
     p.add_argument("--resume", action="store_true",
                    help="save/restore full training state (orbax); restores "
                         "to the exact epoch+step of the latest checkpoint")

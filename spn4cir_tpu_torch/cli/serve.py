@@ -24,6 +24,12 @@ top-k; N past the visible devices is refused; with `--device cpu` every
 shard lives on the CPU). `--mesh_data` / `--mesh_model` encode the gallery
 once over several ranks (`cli.validate`'s indexing mesh; a torchrun or
 `SPN4CIR_DIST_*` launch), and rank 0 alone serves.
+
+`--profile_dir DIR` serves under the torch profiler with every thread
+recorded (the request threads and the batching worker: the `serve.*` and
+`text.tokenize` spans beside the kernels they issue) and writes the trace
+under DIR when the server stops (Ctrl-C). The trace is held in memory until
+then, so profile a short session.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from spn4cir_tpu_torch.cli.common import (
     setup_distributed,
 )
 from spn4cir_tpu_torch.parallel.mesh import broadcast_module, process_is_main
+from spn4cir_tpu_torch.utils.logging import profiler_trace
 from spn4cir_tpu_torch.utils.seeding import seed_everything
 
 
@@ -161,7 +168,8 @@ def serve_main(argv: Optional[list] = None, backbone_name: str = "clip",
           f" (k={args.default_k}, batch={args.serve_batch or 'off'}, "
           f"device={backbone.device})", flush=True)
     if args.block:  # pragma: no cover - foreground production mode
-        threading.Event().wait()
+        with profiler_trace(args.profile_dir):
+            threading.Event().wait()
     return server, service
 
 

@@ -65,7 +65,8 @@ epoch and step (`divmod(global_step, steps_per_epoch)`: the epoch's
 shuffle, captions and negatives are functions of the seed, the epoch and
 the step, so the skipped batches are the ones already taken). A directory
 without the `format.json` marker of that layout is refused. `--profile_dir`
-writes a `torch.profiler` trace of the epoch loop there.
+writes a `torch.profiler` trace of the bank extraction there, and one of the
+epoch loop.
 
 `--loader_procs N` decodes the bank, unlabeled-pool and stage-1 images on N
 worker processes (`data/mploader.py`). `--device_preprocess` stages uint8
@@ -383,8 +384,9 @@ def train_main(backbone_name: str = "clip", argv: Optional[list] = None,
 
     bank = shard = sharded_step = None
     if not args.wo_bank:
-        bank = build_bank(backbone, args, train_ds, preprocess, output_path,
-                          device, write=main, mesh=mesh)
+        with profiler_trace(args.profile_dir):
+            bank = build_bank(backbone, args, train_ds, preprocess,
+                              output_path, device, write=main, mesh=mesh)
         if mesh is not None:
             # the whole target goes back to the host and only this rank's
             # shard stays on its device

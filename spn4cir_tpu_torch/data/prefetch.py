@@ -11,6 +11,8 @@ import queue
 import threading
 from typing import Iterable, Iterator
 
+from spn4cir_tpu_torch.utils.logging import span
+
 _SENTINEL = object()
 
 
@@ -22,7 +24,9 @@ def prefetch(iterator: Iterable, depth: int = 2) -> Iterator:
     worker: puts are bounded-timeout against a stop flag, and the wrapped
     iterator is closed so its own `finally` cleanup (e.g. thread-pool
     shutdown in iter_gallery) runs instead of leaking with the thread
-    parked forever on a full queue."""
+    parked forever on a full queue.
+
+    The consumer's wait for each item is the span `prefetch.wait`."""
     q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
     stop = threading.Event()
 
@@ -55,7 +59,8 @@ def prefetch(iterator: Iterable, depth: int = 2) -> Iterator:
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("prefetch.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 return
             if isinstance(item, BaseException):

@@ -36,6 +36,7 @@ from spn4cir_tpu_torch.ops import infonce
 from spn4cir_tpu_torch.ops.infonce import l2_normalize
 from spn4cir_tpu_torch.ops.maxquery_kernels import max_query_infonce
 from spn4cir_tpu_torch.tokenizer.wordpiece import BertTokenizer, tiny_test_vocab
+from spn4cir_tpu_torch.utils.logging import span
 
 EMBED_DIM = 256
 MAX_TXT_LEN = 32
@@ -238,10 +239,14 @@ class Blip2CIR(CIRBackbone):
                              text_ids: torch.Tensor):
         """(fusion hidden states (B, 32, 768), target query features (B, 32,
         256)): the blip2 bank forms of one batch of (image, caption)."""
-        embeds = self.encode_image(images)
-        fused = self.model.fusion_hidden(embeds, text_ids[:, 0, :],
-                                         text_ids[:, 1, :])
-        return fused, self.model.target_query_feats(embeds)
+        with span("bank.encode"):
+            with span("bank.encode.vision"):
+                embeds = self.encode_image(images)
+            with span("bank.encode.fusion"):
+                fused = self.model.fusion_hidden(embeds, text_ids[:, 0, :],
+                                                 text_ids[:, 1, :])
+            with span("bank.encode.query"):
+                return fused, self.model.target_query_feats(embeds)
 
     # ---- losses ----
     def stage1_loss(self, images_refer, images_target, text_ids):
@@ -298,9 +303,10 @@ class Blip2CIR(CIRBackbone):
 
     def tokenize(self, texts) -> np.ndarray:
         """A stacked (B, 2, 32) int32 array: [input_ids; attention_mask]."""
-        ids, mask = self.tokenizer([self.pre_caption(t) for t in texts],
-                                   max_length=MAX_TXT_LEN)
-        return np.stack([ids, mask], axis=1)
+        with span("text.tokenize"):
+            ids, mask = self.tokenizer([self.pre_caption(t) for t in texts],
+                                       max_length=MAX_TXT_LEN)
+            return np.stack([ids, mask], axis=1)
 
     # ---- optimization ----
     def optimizer_kwargs(self):

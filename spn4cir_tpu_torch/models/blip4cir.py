@@ -30,6 +30,7 @@ from spn4cir_tpu_torch.ops import infonce
 from spn4cir_tpu_torch.ops.bank_kernels import bank_infonce
 from spn4cir_tpu_torch.ops.infonce import l2_normalize
 from spn4cir_tpu_torch.tokenizer.wordpiece import BertTokenizer, tiny_test_vocab
+from spn4cir_tpu_torch.utils.logging import span
 
 EMBED_DIM = 256
 TEXT_MAX_LEN = 35  # BLIP4CIR tokenizes with padding='longest'; 35 covers CIR
@@ -156,8 +157,10 @@ class BlipCIR(CIRBackbone):
         return self.model.img_pooled(self.encode_image(images))
 
     def bank_features(self, images: torch.Tensor):
-        tokens = self.encode_image(images)
-        return tokens, self.model.img_pooled(tokens)
+        with span("bank.encode"):
+            with span("bank.encode.vision"):
+                tokens = self.encode_image(images)
+            return tokens, self.model.img_pooled(tokens)
 
     def index_features(self, images: torch.Tensor):
         """Raw ViT tokens for the cross-attention fusion, pooled and
@@ -213,9 +216,10 @@ class BlipCIR(CIRBackbone):
         """A stacked (B, 2, L) int32 array: [input_ids; attention_mask] with
         the enc-token swap applied; one array keeps the backbone's
         tokenize -> device contract."""
-        ids, mask = self.tokenizer(texts, max_length=self.text_max_len,
-                                   replace_cls_with_enc=True)
-        return np.stack([ids, mask], axis=1)
+        with span("text.tokenize"):
+            ids, mask = self.tokenizer(texts, max_length=self.text_max_len,
+                                       replace_cls_with_enc=True)
+            return np.stack([ids, mask], axis=1)
 
     # ---- trainability ----
     def trainable_filter(self, name: str) -> bool:

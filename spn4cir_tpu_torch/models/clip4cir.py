@@ -19,6 +19,7 @@ from spn4cir_tpu_torch.ops import infonce
 from spn4cir_tpu_torch.ops.bank_kernels import bank_infonce
 from spn4cir_tpu_torch.ops.infonce import l2_normalize
 from spn4cir_tpu_torch.tokenizer.bpe import ClipTokenizer, tokenize
+from spn4cir_tpu_torch.utils.logging import span
 
 
 @register_backbone("clip")
@@ -58,8 +59,10 @@ class ClipCIR(CIRBackbone):
     def bank_features(self, images: torch.Tensor):
         """Single encode serving both bank forms: refer = raw feats, target
         = normalized."""
-        feats = self.encode_image(images)
-        return feats, l2_normalize(feats.float())
+        with span("bank.encode"):
+            with span("bank.encode.vision"):
+                feats = self.encode_image(images)
+            return feats, l2_normalize(feats.float())
 
     def index_features(self, images: torch.Tensor):
         """The scoring gallery is normalized; the fusion-side refer lookup
@@ -121,8 +124,9 @@ class ClipCIR(CIRBackbone):
 
     # ---- host helpers ----
     def tokenize(self, texts):
-        return tokenize(texts, context_length=self.cfg.context_length,
-                        truncate=True, tokenizer=self.tokenizer)
+        with span("text.tokenize"):
+            return tokenize(texts, context_length=self.cfg.context_length,
+                            truncate=True, tokenizer=self.tokenizer)
 
 
 @register_backbone("zs")

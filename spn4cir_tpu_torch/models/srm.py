@@ -28,6 +28,7 @@ from torch import nn
 from spn4cir_tpu_torch.models.med import MedBert, MedConfig
 from spn4cir_tpu_torch.models.unicom import UnicomConfig, UnicomViT
 from spn4cir_tpu_torch.tokenizer.wordpiece import BertTokenizer, tiny_test_vocab
+from spn4cir_tpu_torch.utils.logging import span
 
 
 def _l2(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +93,8 @@ class SRMModel(nn.Module):
     def tokenize(self, texts: Sequence[str]):
         """(input_ids, attention_mask), int32 numpy arrays of width
         `text_max_len`."""
-        return self.tokenizer(list(texts), max_length=self.text_max_len)
+        with span("text.tokenize"):
+            return self.tokenizer(list(texts), max_length=self.text_max_len)
 
     def encode_text(self, texts: List[str]) -> torch.Tensor:
         ids, mask = self.tokenize(texts)

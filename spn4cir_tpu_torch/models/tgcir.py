@@ -36,6 +36,7 @@ from spn4cir_tpu_torch.ops import infonce
 from spn4cir_tpu_torch.ops.bank_kernels import bank_infonce
 from spn4cir_tpu_torch.ops.infonce import l2_normalize
 from spn4cir_tpu_torch.tokenizer.bpe import ClipTokenizer, tokenize
+from spn4cir_tpu_torch.utils.logging import span
 
 LOCAL_TOKENS = 8
 GLOBAL_TOKENS = 4
@@ -197,8 +198,10 @@ class TgcirCIR(CIRBackbone):
         return self.encode_image(images)
 
     def bank_features(self, images: torch.Tensor):
-        tokens = self.encode_image(images)
-        return tokens, l2_normalize(tokens.float().mean(dim=1))
+        with span("bank.encode"):
+            with span("bank.encode.vision"):
+                tokens = self.encode_image(images)
+            return tokens, l2_normalize(tokens.float().mean(dim=1))
 
     def index_features(self, images: torch.Tensor):
         """Raw token sets for the fusion, pooled and normalized for
@@ -230,8 +233,9 @@ class TgcirCIR(CIRBackbone):
 
     # ---- host helpers ----
     def tokenize(self, texts):
-        return tokenize(texts, context_length=self.cfg.context_length,
-                        truncate=True, tokenizer=self.tokenizer)
+        with span("text.tokenize"):
+            return tokenize(texts, context_length=self.cfg.context_length,
+                            truncate=True, tokenizer=self.tokenizer)
 
     # ---- trainability ----
     def trainable_filter(self, name: str) -> bool:

@@ -35,6 +35,7 @@ from spn4cir_tpu_torch.parallel.mesh import (AXIS_DATA, Mesh,
                                              all_reduce_grads, gather_rows,
                                              gather_rows_with_grad)
 from spn4cir_tpu_torch.train.stage2 import TrainState, apply_gradients
+from spn4cir_tpu_torch.utils.logging import span
 
 
 def is_max_query(backbone: CIRBackbone) -> bool:
@@ -70,20 +71,23 @@ def make_sharded_stage2_step(backbone: CIRBackbone, mesh: Mesh, tau=None,
     def step(state: TrainState, bank_shard, batch: Dict[str, torch.Tensor],
              dropout_generator: Optional[torch.Generator] = None
              ) -> torch.Tensor:
-        state.optimizer.zero_grad(set_to_none=True)
+        with span("stage2.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
         kw = _noise(mesh, dropout_generator, batch["labels"].shape[0])
         t = tau if tau is not None else backbone.loss_tau()
-        if max_query:
-            feats = backbone.stage2_query_feats(batch["refer_feats"],
-                                                batch["text_ids"], **kw)
-            loss = sharded_max_query_infonce(feats, bank_shard,
-                                             batch["labels"], t, mesh,
-                                             m_actual=m_actual)
-        else:
-            query = backbone.fuse(batch["refer_feats"], batch["text_ids"],
-                                  **kw)
-            loss = sharded_bank_infonce(query, bank_shard, batch["labels"],
-                                        t, mesh, m_actual=m_actual)
+        with span("stage2.forward"):
+            if max_query:
+                feats = backbone.stage2_query_feats(batch["refer_feats"],
+                                                    batch["text_ids"], **kw)
+                loss = sharded_max_query_infonce(feats, bank_shard,
+                                                 batch["labels"], t, mesh,
+                                                 m_actual=m_actual)
+            else:
+                query = backbone.fuse(batch["refer_feats"],
+                                      batch["text_ids"], **kw)
+                loss = sharded_bank_infonce(query, bank_shard,
+                                            batch["labels"], t, mesh,
+                                            m_actual=m_actual)
         return apply_gradients(state, loss, _reduce_over_data(mesh))
 
     step.max_query = max_query

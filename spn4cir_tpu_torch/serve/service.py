@@ -12,6 +12,14 @@ the thread's current (default) stream. With a `RawStageTransform` as its
 preprocess (`--device_preprocess`), a live image (`/gallery/add`, a query by
 image) is staged into a uint8 canvas on the host and resized, cropped and
 normalized on the device ahead of the encoder.
+
+`GET /metrics` counts queries and dispatches, the mean time a dispatch
+holds the lock (`dispatch_ms_avg`) and the mean time a query waits before
+its dispatch takes the lock (`queue_wait_ms_avg`: from the batching
+worker's enqueue, or from the call of a direct dispatch). Under the
+profiler a dispatch is the span `serve.dispatch` (children `text.tokenize`,
+`serve.fuse`, `serve.score_topk`, `serve.to_host`) and the batching
+worker's coalescing wait is `serve.batch_fill`.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from spn4cir_tpu_torch.eval.retrieval import (GalleryIndex,
 from spn4cir_tpu_torch.models.api import CIRBackbone
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank, quantize_bank
 from spn4cir_tpu_torch.ops.preprocess import index_features_from_raw
+from spn4cir_tpu_torch.utils.logging import span
 from spn4cir_tpu_torch.utils.tensors import to_host
 
 
@@ -71,24 +80,32 @@ class RetrievalService:
         # snapshot self.index/self._name2gid and never take it
         self._mutate_lock = threading.Lock()
         # observability counters (GET /metrics); guarded by _lock
-        self._stats = {"queries": 0, "dispatches": 0, "latency_ms_sum": 0.0}
+        self._stats = {"queries": 0, "dispatches": 0, "dispatch_ms_sum": 0.0,
+                       "queue_wait_ms_sum": 0.0}
 
     def metrics(self) -> dict:
         """Snapshot of serving counters + gallery facts."""
         with self._lock:
             stats = dict(self._stats)
-        q = stats["queries"]
-        total = stats.pop("latency_ms_sum")
-        stats["latency_ms_avg"] = round(total / q, 3) if q else 0.0
+        q, d = stats["queries"], stats["dispatches"]
+        dispatch = stats.pop("dispatch_ms_sum")
+        wait = stats.pop("queue_wait_ms_sum")
+        stats["dispatch_ms_avg"] = round(dispatch / d, 3) if d else 0.0
+        stats["queue_wait_ms_avg"] = round(wait / q, 3) if q else 0.0
         stats["gallery_size"] = len(self.index.names)
         stats["gallery_dtype"] = str(self.index.target.dtype).replace(
             "torch.", "")
         return stats
 
-    def _record(self, n_queries: int, seconds: float) -> None:
+    def _record(self, n_queries: int, called: float, started: float,
+                ended: float) -> None:
+        """Under `self._lock`: one dispatch of `n_queries` queries, called
+        at `called`, holding the lock from `started` to `ended`."""
         self._stats["queries"] += n_queries
         self._stats["dispatches"] += 1
-        self._stats["latency_ms_sum"] += seconds * 1e3
+        self._stats["dispatch_ms_sum"] += (ended - started) * 1e3
+        self._stats["queue_wait_ms_sum"] += (
+            n_queries * (started - called) * 1e3)
 
     # -- gallery management --------------------------------------------------
     def refresh_index(self, index: GalleryIndex) -> None:
@@ -196,13 +213,18 @@ class RetrievalService:
                   captions: List[str], gids: np.ndarray, kk: int):
         """Tokenize, fuse, score and top-k one group of queries on the
         device, under the dispatch lock; returns host (values, ids)."""
-        t0 = time.monotonic()
-        with self._lock, torch.inference_mode():
-            text = torch.from_numpy(self.backbone.tokenize(captions))
-            queries = self.backbone.fuse(refer, text.to(self.device))
-            vals, idx = self._score_topk(index, queries, gids, kk)
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-            self._record(len(captions), time.monotonic() - t0)
+        called = time.monotonic()
+        with self._lock, span("serve.dispatch"), torch.inference_mode():
+            started = time.monotonic()
+            text = self.backbone.tokenize(captions)
+            with span("serve.fuse"):
+                queries = self.backbone.fuse(
+                    refer, torch.from_numpy(text).to(self.device))
+            with span("serve.score_topk"):
+                vals, idx = self._score_topk(index, queries, gids, kk)
+            with span("serve.to_host"):
+                vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            self._record(len(captions), called, started, time.monotonic())
         return vals, idx
 
     def _run(self, index: GalleryIndex, refer: torch.Tensor, caption: str,
@@ -318,7 +340,7 @@ class BatchingRetrievalService(RetrievalService):
         if gid is None:
             raise KeyError(f"unknown gallery image {reference_name!r}")
         event = threading.Event()
-        slot: dict = {}
+        slot: dict = {"arrived": time.monotonic()}
         self._queue.put((index, gid, caption, k, event, slot))
         event.wait()
         if "error" in slot:
@@ -330,14 +352,15 @@ class BatchingRetrievalService(RetrievalService):
             first = self._queue.get()
             batch = [first]
             deadline = time.monotonic() + self.max_delay_s
-            while len(batch) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    batch.append(self._queue.get(timeout=remaining))
-                except queue.Empty:
-                    break
+            with span("serve.batch_fill"):
+                while len(batch) < self.max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        batch.append(self._queue.get(timeout=remaining))
+                    except queue.Empty:
+                        break
             try:
                 self._run_batch(batch)
             except Exception as exc:  # propagate to still-waiting waiters
@@ -358,8 +381,15 @@ class BatchingRetrievalService(RetrievalService):
             kmax = min(_round_up_k(max(
                 min(item[3] or self.default_k, len(index.names))
                 for item in group)), len(index.names))
-            vals, idx = self._dispatch(index, index.refer_rows(gids),
+            refer = index.refer_rows(gids)
+            called = time.monotonic()
+            vals, idx = self._dispatch(index, refer,
                                        [item[2] for item in group], gids, kmax)
+            # each query's wait from its enqueue to this call (the dispatch
+            # has added its wait for the lock)
+            with self._lock:
+                self._stats["queue_wait_ms_sum"] += sum(
+                    called - item[5]["arrived"] for item in group) * 1e3
             for row, (_, _, _, k, event, slot) in enumerate(group):
                 kk = min(k or self.default_k, len(index.names))
                 slot["results"] = [

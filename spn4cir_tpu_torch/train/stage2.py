@@ -13,6 +13,12 @@ batch (they are the frozen cache, no gradient flows into them). Parameters
 and optimizer state are float32 even when activations run in bfloat16 (eps
 1e-7 is below bfloat16 resolution); there is no autocast and no GradScaler.
 
+Spans (`utils.logging.span`, recorded only under the profiler): each loop
+iteration is a `stage2.step` holding `stage2.gather_refer`,
+`text.tokenize`, `stage2.to_device`, `stage2.negatives`, `stage2.forward`,
+`stage2.backward`, `stage2.grad_reduce` and `stage2.optimizer`; the wait
+for each batch is the prefetcher's `prefetch.wait`, just before its step.
+
 Frozen parameters (the image tower, by the backbone's `trainable_filter`,
 and `logit_scale`, which no CIR loss reads and which weight decay would
 otherwise shrink) get `requires_grad=False` and are not handed to the
@@ -37,6 +43,7 @@ import torch
 from spn4cir_tpu_torch.bank.bank import Bank
 from spn4cir_tpu_torch.data.prefetch import prefetch
 from spn4cir_tpu_torch.models.api import CIRBackbone
+from spn4cir_tpu_torch.utils.logging import span
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -162,14 +169,17 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
     `reduce_grads(params)` runs between the two (the data-parallel steps
     sum the gradients over their data group there)."""
     optimizer = state.optimizer
-    loss.backward()
+    with span("stage2.backward"):
+        loss.backward()
     if reduce_grads is not None:
-        reduce_grads([p for group in optimizer.param_groups
-                      for p in group["params"]])
-    lr = state.lr_at(state.step)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+        with span("stage2.grad_reduce"):
+            reduce_grads([p for group in optimizer.param_groups
+                          for p in group["params"]])
+    with span("stage2.optimizer"):
+        lr = state.lr_at(state.step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
     state.step += 1
     return loss.detach()
 
@@ -183,12 +193,14 @@ def stage2_train_step(backbone: CIRBackbone, state: TrainState,
     optionally neg_idx (B, neg_num). `dropout_generator` goes to a backbone
     that takes one (see `CIRBackbone.fuse`). Returns the loss as a detached
     device scalar."""
-    state.optimizer.zero_grad(set_to_none=True)
+    with span("stage2.optimizer"):
+        state.optimizer.zero_grad(set_to_none=True)
     kw = ({"generator": dropout_generator}
           if dropout_generator is not None else {})
-    loss = backbone.stage2_loss(batch["refer_feats"], batch["text_ids"],
-                                target_bank, batch["labels"],
-                                neg_idx=batch.get("neg_idx"), **kw)
+    with span("stage2.forward"):
+        loss = backbone.stage2_loss(batch["refer_feats"], batch["text_ids"],
+                                    target_bank, batch["labels"],
+                                    neg_idx=batch.get("neg_idx"), **kw)
     return apply_gradients(state, loss)
 
 
@@ -229,42 +241,50 @@ def train_epoch(
     # float(loss) would wait for the device every step.
     loss_sum, count = None, 0
     for step, raw in enumerate(prefetch(batches, depth=2), start=start_step):
-        if sharded_step is not None:
-            from spn4cir_tpu_torch.parallel.mesh import local_rows
+        with span("stage2.step"):
+            if sharded_step is not None:
+                from spn4cir_tpu_torch.parallel.mesh import local_rows
 
-            raw = local_rows({k: raw[k] for k in (
-                "captions", "target_image_id", "refer_image_id",
-                "triplet_idx")}, mesh)
-        dev_batch = {
-            "refer_feats": torch.from_numpy(bank.gather_refer(raw)).to(device),
-            "text_ids": torch.from_numpy(
-                backbone.tokenize(raw["captions"])).to(device),
-            "labels": torch.from_numpy(raw["target_image_id"]).to(device),
-        }
-        if neg_num:
-            # neg_seed: STATELESS per-step draws (RandomState keyed on
-            # (seed, step)) so an epoch/step resume replays the exact
-            # negative sets of the uninterrupted run; neg_rng keeps the
-            # sequential stream for callers that manage it
-            if neg_seed is not None:
-                rng = np.random.RandomState(
-                    (int(neg_seed) * 100_003 + step) % (2**32))
+                raw = local_rows({k: raw[k] for k in (
+                    "captions", "target_image_id", "refer_image_id",
+                    "triplet_idx")}, mesh)
+            # the host work and its copies keep their order: a pageable
+            # copy waits for the stream, so moving one moves the idle
+            with span("stage2.gather_refer"):
+                refer = bank.gather_refer(raw)
+            with span("stage2.to_device"):
+                dev_batch = {"refer_feats": torch.from_numpy(refer).to(device)}
+            text_ids = backbone.tokenize(raw["captions"])
+            with span("stage2.to_device"):
+                dev_batch["text_ids"] = torch.from_numpy(text_ids).to(device)
+                dev_batch["labels"] = torch.from_numpy(
+                    raw["target_image_id"]).to(device)
+            if neg_num:
+                # neg_seed: STATELESS per-step draws (RandomState keyed on
+                # (seed, step)) so an epoch/step resume replays the exact
+                # negative sets of the uninterrupted run; neg_rng keeps the
+                # sequential stream for callers that manage it
+                if neg_seed is not None:
+                    rng = np.random.RandomState(
+                        (int(neg_seed) * 100_003 + step) % (2**32))
+                else:
+                    rng = neg_rng or np.random
+                with span("stage2.negatives"):
+                    neg_idx = sample_negatives(rng, raw["target_image_id"],
+                                               bank.num_images, neg_num)
+                with span("stage2.to_device"):
+                    dev_batch["neg_idx"] = torch.from_numpy(neg_idx).to(device)
+            if sharded_step is not None:
+                loss = sharded_step(state, bank_shard, dev_batch,
+                                    dropout_generator)
             else:
-                rng = neg_rng or np.random
-            dev_batch["neg_idx"] = torch.from_numpy(sample_negatives(
-                rng, raw["target_image_id"], bank.num_images, neg_num)
-            ).to(device)
-        if sharded_step is not None:
-            loss = sharded_step(state, bank_shard, dev_batch,
-                                dropout_generator)
-        else:
-            loss = stage2_train_step(backbone, state, bank.target, dev_batch,
-                                     dropout_generator)
-        loss_sum = loss if loss_sum is None else loss_sum + loss
-        count += 1
-        if log_every and step % log_every == 0:
-            log_fn(step, float(loss))
-        if step_hook is not None:
-            step_hook(step + 1, state)
+                loss = stage2_train_step(backbone, state, bank.target,
+                                         dev_batch, dropout_generator)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            count += 1
+            if log_every and step % log_every == 0:
+                log_fn(step, float(loss))
+            if step_hook is not None:
+                step_hook(step + 1, state)
     mean = float(loss_sum) / count if count else 0.0
     return state, mean

@@ -1,8 +1,13 @@
-"""Training observability: a line-oriented metric printer, a profiler
-trace and step timing.
+"""Observability: a line-oriented metric printer, a profiler trace and the
+program's spans.
 
-Counterpart of `MetricLogger`, `profiler_trace` and `StepTimer` in
-`spn4cir_tpu/utils/logging.py`.
+`MetricLogger` and `profiler_trace` are the counterparts of those in
+`spn4cir_tpu/utils/logging.py`. `span(name)` marks a stretch of host work
+(`stage2.step`, `text.tokenize`, `bank.encode`, `serve.dispatch`, ...) as a
+`torch.profiler.record_function` range, so it lands in the profiler's trace
+on the same clock as the kernels and copies it issues. Spans are recorded
+only while a profiler runs (`--profile_dir`, or a benchmark's traced
+window); otherwise `span` hands back one shared no-op context.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 class MetricLogger:
@@ -41,7 +47,9 @@ def profiler_trace(logdir: Optional[str]):
     """A `torch.profiler` trace of the block (host and, where there is a
     card, device activity), written under `logdir` as a Chrome trace
     (`<host>_<pid>.<time>.pt.trace.json`, TensorBoard's layout) when the
-    block ends; nothing when `logdir` is empty."""
+    block ends; nothing when `logdir` is empty. The host side covers every
+    thread (loader threads, a service's request threads and batching
+    worker), not only the caller's."""
     if not logdir:
         yield None
         return
@@ -51,42 +59,21 @@ def profiler_trace(logdir: Optional[str]):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
             activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                logdir)) as prof:
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir),
+            experimental_config=torch._C._profiler._ExperimentalConfig(
+                profile_all_threads=True)) as prof:
         yield prof
 
 
-class StepTimer:
-    """Rolling items/sec + step-time statistics. The caller ends each timed
-    step with work that waits for the device (e.g. a host read or
-    `torch.cuda.synchronize()`); this class only reads the host clock."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.times = []
-        self._t0 = None
-        self._count = 0
 
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, items: int = 1) -> float:
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self.times.append((dt, items))
-        return dt
-
-    @property
-    def mean_step_s(self) -> float:
-        if not self.times:
-            return float("nan")
-        return sum(t for t, _ in self.times) / len(self.times)
-
-    @property
-    def items_per_s(self) -> float:
-        if not self.times:
-            return float("nan")
-        total_items = sum(n for _, n in self.times)
-        total_time = sum(t for t, _ in self.times)
-        return total_items / total_time
+def span(name: str):
+    """A profiler range named `name` (layer-dotted, each name entered from
+    one thread only) while the torch profiler records; the shared no-op
+    context otherwise, which allocates nothing and dispatches no op. A
+    profiler keeps the ranges of the thread that started it, or of every
+    thread under `profiler_trace`."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -236,6 +236,11 @@ def test_http_front(world, rng):
         metrics = _get(port, "/metrics")
         assert metrics["queries"] == 4 and metrics["gallery_size"] == 14
         assert metrics["gallery_dtype"] == "float32"
+        # four dispatches of one query each: the lock held some time, and
+        # a query's wait before it is counted, but no summed latency
+        assert metrics["dispatches"] == 4 and metrics["dispatch_ms_avg"] > 0
+        assert metrics["queue_wait_ms_avg"] >= 0
+        assert "latency_ms_avg" not in metrics
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(port, "/retrieve", {"reference_name": "nope", "caption": "x"})
         assert err.value.code == 400

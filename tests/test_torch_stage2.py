@@ -49,7 +49,7 @@ from spn4cir_tpu_torch.models.convert import clip_state_dict_from_train_state
 from spn4cir_tpu_torch.ops import attention_kernels, bank_kernels
 from spn4cir_tpu_torch.train import stage2
 from spn4cir_tpu_torch.utils.checkpoint import load_model, save_model
-from spn4cir_tpu_torch.utils.logging import MetricLogger, StepTimer
+from spn4cir_tpu_torch.utils.logging import MetricLogger
 from tests.fixtures import make_cirr
 from tests.torch_fixtures import synthetic_tokenizer
 
@@ -545,9 +545,3 @@ def test_checkpoint_round_trip_and_logging(tok, tmp_path):
     logger.log(3, loss=1.5)
     row = json.loads(stream.getvalue())
     assert (row["step"], row["loss"], row["tag"]) == (3, 1.5, "t")
-    timer = StepTimer(warmup=1)
-    for _ in range(3):
-        timer.start()
-        timer.stop(items=8)
-    assert len(timer.times) == 2 and timer.items_per_s > 0
-    assert timer.mean_step_s >= 0
