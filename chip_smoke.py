@@ -234,7 +234,10 @@ at the 7B's four weight shapes (x float32 and
 bf16 at 1, 8, 16 rows; a ragged 5 x 40 x 77), timed beside their plain
 versions, the library call and the bound, each record with its design, its
 split plan and the blocks or clusters the card holds at once; #3, #4, #9
-and #10 are timed per call and back to back too. Phase 11 prints each
+and #10 are timed per call and back to back too. Then 3g: the LayerNorm
+kernel pair (no TPU counterpart) at the stage-2 text tower's, EVA-g's and
+Unicom's float32 shapes against its plain versions, timed beside the plain
+chain and `F.layer_norm`. Phase 11 prints each
 decode step's device busy, #11's and #12's ms a step and the idle share.
 Phases 9-13 run between
 phases 7 and 8, phase 14 after 11, phases 15, 16 and 17 after 13, phase 18
@@ -581,7 +584,8 @@ def build_kernels(cuda_build) -> None:
     """Phase 2: one nvcc per source, all started together."""
     t0 = time.perf_counter()
     names = ("short_attention", "bank_infonce", "long_attention",
-             "max_query_infonce", "decode_attention", "quant_matmul")
+             "max_query_infonce", "decode_attention", "quant_matmul",
+             "layer_norm")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = [pool.submit(cuda_build.build_library, n, [f"{n}.cu"], True)
                 for n in names]
@@ -3400,6 +3404,106 @@ def check_quant_matmul(qm, device, card):
                                          time_it=False))
     torch.cuda.empty_cache()
     return records
+
+
+# the LayerNorm kernel's shapes: the stage-2 cell's text tower (256 x 77
+# rows of 640), the encode cell's EVA-g (32 x 257 rows of 1408) in bf16, and
+# Unicom's float32 encode width
+LN_SHAPES = ((19712, 640, torch.bfloat16), (8224, 1408, torch.bfloat16),
+             (8192, 1024, torch.float32))
+
+
+def check_layer_norm(lnk, cuda_build, device, card):
+    """Phase 3g: the LayerNorm kernel pair against its plain versions (the
+    towers' chain forward, the plain backward of the same formula), at
+    LN_SHAPES; ptxas spilled nothing in it. Timed: the kernel forward, a
+    call and back to back; its backward (dx and the dweight / dbias
+    partials, then their reduction); the plain chain (float32 copy, aten's
+    float32 LayerNorm, cast back) forward and through autograd backward;
+    and aten's LayerNorm on x's own type, `F.layer_norm`, which the port
+    never calls (a yardstick only). Bound: bytes, x read and y written
+    forward, dy and x read and dx written backward, at 3.35 TB/s."""
+    log = cuda_build.build_library("layer_norm", ["layer_norm.cu"]
+                                   ).with_suffix(".log").read_text()
+    assert "spill stores" in log and all(
+        "0 bytes spill stores, 0 bytes spill loads" in line
+        for line in log.splitlines() if "spill stores" in line), log
+    g = torch.Generator(device=device).manual_seed(31)
+    for rows, width, dtype in LN_SHAPES:
+        x = (torch.randn(rows, width, generator=g, device=device) * 3 + 0.5
+             ).to(dtype)
+        w = torch.randn(width, generator=g, device=device) * 0.5 + 1
+        b = torch.randn(width, generator=g, device=device) * 0.1
+        dy = torch.randn(rows, width, generator=g, device=device).to(dtype)
+        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+        y = lnk.layer_norm_f32_fwd(x, w, b, 1e-5)
+        dx, dw, db = lnk.layer_norm_f32_bwd(dy, x, w, 1e-5)
+        torch.cuda.synchronize()
+        want = lnk.layer_norm_reference(x, (width,), w, b, 1e-5)
+        mean, rstd = lnk.layer_norm_stats_reference(x, 1e-5)
+        pdx, pdw, pdb = lnk.layer_norm_bwd_reference(dy, x, mean, rstd, w)
+        errs = {}
+        for name, got, ref, rtol in (("y", y, want, tol), ("dx", dx, pdx, tol),
+                                     ("dw", dw, pdw, 1e-4),
+                                     ("db", db, pdb, 1e-4)):
+            scale = ref.float().abs().max().item()
+            atol = (1e-3 if rtol == 2 ** -7 else rtol) * scale
+            torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                       atol=atol)
+            errs[name] = (got.float() - ref.float()).abs().max().item()
+        item = x.element_size()
+        fwd_bound = bound_ms(2 * rows * width * item, 0, dtype)[0]
+        bwd_bound = bound_ms(3 * rows * width * item, 0, dtype)[0]
+
+        xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+        chain = lnk.layer_norm_reference(xr, (width,), wr, br, 1e-5)
+        wl, bl = w.to(dtype).requires_grad_(), b.to(dtype).requires_grad_()
+        xl = x.clone().requires_grad_()
+        lib = torch.nn.functional.layer_norm(xl, (width,), wl, bl, 1e-5)
+        rec = dict(shape=f"rows={rows}, W={width}", dtype=dtype_name(dtype),
+                   plan=lnk.ln_plan(width, dtype, True), max_abs_err=errs,
+                   fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound)
+        with torch.no_grad():
+            rec["fwd_ms"] = median_ms(
+                lambda: lnk.layer_norm_f32(x, (width,), w, b, 1e-5))
+            rec["fwd_device_ms"] = device_ms(
+                lambda: lnk.layer_norm_f32(x, (width,), w, b, 1e-5))
+            rec["plain_fwd_device_ms"] = device_ms(
+                lambda: lnk.layer_norm_reference(x, (width,), w, b, 1e-5))
+            rec["library_fwd_device_ms"] = device_ms(
+                lambda: torch.nn.functional.layer_norm(
+                    x, (width,), w.to(dtype), b.to(dtype), 1e-5))
+        rec["bwd_ms"] = median_ms(lambda: lnk.layer_norm_f32_bwd(dy, x, w,
+                                                                 1e-5))
+        rec["bwd_device_ms"] = device_ms(
+            lambda: lnk.layer_norm_f32_bwd(dy, x, w, 1e-5))
+        rec["plain_bwd_device_ms"] = device_ms(lambda: torch.autograd.grad(
+            chain, (xr, wr, br), dy, retain_graph=True), n=20)
+        rec["library_bwd_device_ms"] = device_ms(lambda: torch.autograd.grad(
+            lib, (xl, wl, bl), dy, retain_graph=True), n=20)
+        rec["fwd_bound_share"] = fwd_bound / rec["fwd_device_ms"]
+        rec["bwd_bound_share"] = bwd_bound / rec["bwd_device_ms"]
+        # two backward calls: the profiler has been seen to miss the first
+        # launch of its window when it comes from a library's own runtime
+        kernels = [k.split("<")[0].split("::")[-1].split("(")[0]
+                   for k in launched_kernels(lambda: [lnk.layer_norm_f32_bwd(
+                       dy, x, w, 1e-5) for _ in range(2)])]
+        assert kernels[-2:] == ["ln_f32_bwd_kernel", "ln_f32_dparams_kernel"
+                                ] and set(kernels) == set(kernels[-2:]), kernels
+        phase(f"kernel layer_norm {rec['shape']} {rec['dtype']} (plan vec, "
+              f"nv, row_warps = {rec['plan']}): max_abs_err {errs}; forward "
+              f"{rec['fwd_ms']:.4f} ms a call, {rec['fwd_device_ms']:.4f} ms "
+              f"back to back ({100 * rec['fwd_bound_share']:.1f}% of the "
+              f"bound {fwd_bound:.5f} by bytes), plain chain "
+              f"{rec['plain_fwd_device_ms']:.4f}, library F.layer_norm "
+              f"{rec['library_fwd_device_ms']:.4f}; backward "
+              f"{rec['bwd_ms']:.4f} ms a call, {rec['bwd_device_ms']:.4f} "
+              f"back to back ({100 * rec['bwd_bound_share']:.1f}% of the "
+              f"bound {bwd_bound:.5f} by bytes), plain chain through "
+              f"autograd {rec['plain_bwd_device_ms']:.4f}, library "
+              f"{rec['library_bwd_device_ms']:.4f} [{card}]")
+        del chain, lib
+    torch.cuda.empty_cache()
 
 
 def llama_model(device, dtype=torch.bfloat16, layers=None, seed=0):
@@ -6402,6 +6506,7 @@ def main() -> int:
         from spn4cir_tpu_torch.ops import bank_kernels as bk
         from spn4cir_tpu_torch.ops import cuda_build
         from spn4cir_tpu_torch.ops import decode_attn as da
+        from spn4cir_tpu_torch.ops import layer_norm as lnk
         from spn4cir_tpu_torch.ops import maxquery_kernels as mk
         from spn4cir_tpu_torch.ops import quant_matmul as qm
 
@@ -6426,6 +6531,7 @@ def main() -> int:
         mq_records = check_max_query(mk, bk, device, card)
         decode_records = check_decode_attention(da, device, card)
         qmm_records = check_quant_matmul(qm, device, card)
+        check_layer_norm(lnk, cuda_build, device, card)
 
         lap("3 (kernels)")
         # one synthetic CIRR tree for the two ViT-B/32 slices, a smaller one

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from spn4cir_tpu_torch.ops.attention_kernels import (attention_route,
                                                       long_attention,
                                                       short_attention)
+from spn4cir_tpu_torch.ops.layer_norm import layer_norm_f32
 
 ATTENTION_IMPLS = ("auto", "plain")
 
@@ -49,10 +50,13 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm computed in float32, output cast back to the input dtype."""
+    """LayerNorm computed in float32, output cast back to the input dtype:
+    `ops.layer_norm.layer_norm_f32`, the plain chain on the CPU and the
+    LayerNorm kernel on a CUDA tensor."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        return layer_norm_f32(x, self.normalized_shape, self.weight,
+                              self.bias, self.eps)
 
 
 class SelfAttention(nn.Module):

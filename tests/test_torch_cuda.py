@@ -16,8 +16,16 @@ order), with an absolute floor of 1e-6 for dQ. The long-sequence attention
 holds the same four tolerances: its forward rounds the un-normalised P
 (online softmax) where the plain version rounds the normalised one, both
 one bf16 rounding of a value in [0, 1]; its backward takes rowsum(dO∘O) for
-the plain version's rowsum(dP∘P), equal in exact arithmetic.
+the plain version's rowsum(dP∘P), equal in exact arithmetic. LayerNorm:
+float32 y and dx within 1e-5 (the row's mean and variance summed in
+another order); bf16 y and dx within one bf16 step (2^-7 relative: both
+versions round a float32 value once, and the two float32 values differ by
+that summation order alone); dweight and dbias, float32 sums over up to
+19,712 rows in another order, within 1e-4 relative to their largest
+value.
 """
+
+import json
 
 import pytest
 import torch
@@ -25,6 +33,7 @@ import torch
 from spn4cir_tpu_torch.models import clip as tclip
 from spn4cir_tpu_torch.models import layers
 from spn4cir_tpu_torch.ops import bank_kernels as bk
+from spn4cir_tpu_torch.ops import layer_norm as lnk
 from spn4cir_tpu_torch.ops.attention_kernels import (
     long_attention, long_attention_bwd, long_attention_bwd_reference,
     long_attention_fwd, long_attention_reference, short_attention,
@@ -1389,3 +1398,142 @@ def test_sharded_loss_launches_the_bank_kernels_on_card(cuda_device, kind):
     want.backward()
     torch.testing.assert_close(loss, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(leaf.grad, leaf2.grad, atol=1e-6, rtol=1e-4)
+
+
+# the stage-2 cell's text tower (256 x 77 rows, width 640) and the encode
+# cell's EVA-g (32 x 257 rows, width 1408) in bf16, Unicom's float32 encode
+# width, two warps a row and eight, and widths that take the path without
+# vectors (77, 4093) or a vector width without a warp of them (8)
+LN_SHAPES = [(19712, 640, torch.bfloat16), (8224, 1408, torch.bfloat16),
+             (8192, 1024, torch.float32), (1001, 77, torch.bfloat16),
+             (1001, 77, torch.float32), (37, 4096, torch.bfloat16),
+             (37, 4093, torch.float32), (5, 8, torch.bfloat16),
+             (3, 2048, torch.float32)]
+
+
+def _ln_inputs(rows, width, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(rows, width, generator=g, device=device) * 3 + 0.5
+         ).to(dtype)
+    w = torch.randn(width, generator=g, device=device) * 0.5 + 1
+    b = torch.randn(width, generator=g, device=device) * 0.1
+    dy = torch.randn(rows, width, generator=g, device=device).to(dtype)
+    return x, w, b, dy
+
+
+def _ln_close(got, want, dtype):
+    scale = want.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-3 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,dtype", LN_SHAPES)
+def test_layer_norm_kernels_match_plain_versions_on_card(cuda_device, rows,
+                                                         width, dtype):
+    x, w, b, dy = _ln_inputs(rows, width, dtype, cuda_device)
+    counts = (lnk.layer_norm_f32.launches, lnk.layer_norm_f32_bwd.launches)
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    y = lnk.layer_norm_f32(xr, (width,), wr, br, 1e-5)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (lnk.layer_norm_f32.launches - counts[0],
+            lnk.layer_norm_f32_bwd.launches - counts[1]) == (1, 1)
+    assert y.dtype == dtype and xr.grad.dtype == dtype
+    _ln_close(y, lnk.layer_norm_reference(x, (width,), w, b, 1e-5), dtype)
+    mean, rstd = lnk.layer_norm_stats_reference(x, 1e-5)
+    dx, dw, db = lnk.layer_norm_bwd_reference(dy, x, mean, rstd, w)
+    _ln_close(xr.grad, dx, dtype)
+    for got, want in ((wr.grad, dw), (br.grad, db)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+    # no atomics: a second launch gives the same bits
+    with torch.no_grad():
+        assert torch.equal(lnk.layer_norm_f32(x, (width,), w, b, 1e-5), y)
+    again = lnk.layer_norm_f32_bwd(dy, x, w, 1e-5)
+    assert torch.equal(again[0], xr.grad) and torch.equal(again[1], wr.grad)
+    assert torch.equal(again[2], br.grad)
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_takes_a_misaligned_tensor_on_card(cuda_device):
+    """Contiguous tensors that start off a 16-byte boundary take the path
+    without vectors; an eps of 1e-12 and a leading shape are kept."""
+    x, w, b, dy = _ln_inputs(65 * 640 + 1, 1, torch.bfloat16, cuda_device)
+    x = x.reshape(-1)[1:].view(5, 13, 640)
+    w, b = w.repeat(641)[1:], b.repeat(641)[1:]
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    assert lnk.ln_plan(640, torch.bfloat16, False) == (1, 16, 2)
+    got = lnk.layer_norm_f32(x, (640,), w, b, 1e-12)
+    want = lnk.layer_norm_reference(x, (640,), w, b, 1e-12)
+    assert got.shape == (5, 13, 640)
+    _ln_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_layer_norm_frozen_or_input_only_gradients_on_card(cuda_device):
+    """dx alone (a frozen LayerNorm in a trained path) and the parameters'
+    gradients alone (a leaf input) each match the plain backward."""
+    x, w, b, dy = _ln_inputs(300, 640, torch.bfloat16, cuda_device, seed=4)
+    mean, rstd = lnk.layer_norm_stats_reference(x, 1e-5)
+    dx, dw, db = lnk.layer_norm_bwd_reference(dy, x, mean, rstd, w)
+    xr = x.clone().requires_grad_()
+    lnk.layer_norm_f32(xr, (640,), w, b, 1e-5).backward(dy)
+    _ln_close(xr.grad, dx, torch.bfloat16)
+    wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+    lnk.layer_norm_f32(x, (640,), wr, br, 1e-5).backward(dy)
+    torch.testing.assert_close(wr.grad, dw, rtol=1e-4,
+                               atol=1e-4 * dw.abs().max().item())
+    torch.testing.assert_close(br.grad, db, rtol=1e-4,
+                               atol=1e-4 * db.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_layer_norm_refuses_what_the_kernel_cannot_take_on_card(cuda_device):
+    x = torch.randn(4, 64, device=cuda_device)
+    w, b = torch.ones(64, device=cuda_device), torch.zeros(64,
+                                                           device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        lnk.layer_norm_f32(x.half(), (64,), w, b, 1e-5)
+    with pytest.raises(ValueError, match="widths"):
+        wide = torch.randn(2, 4100, device=cuda_device)
+        lnk.layer_norm_f32(wide, (4100,), torch.ones(4100, device=cuda_device),
+                           torch.zeros(4100, device=cuda_device), 1e-5)
+    with pytest.raises(ValueError, match="weight and bias must be"):
+        lnk.layer_norm_f32(x, (64,), w.to(torch.bfloat16), b, 1e-5)
+
+
+@pytest.mark.cuda
+def test_text_tower_runs_every_layer_norm_on_the_kernel_on_card(cuda_device,
+                                                               tmp_path):
+    """RN50x4's text tower at two layers, bf16, forward and backward: its 5
+    LayerNorms (2 a block and ln_final) launch the kernel pair, and no aten
+    LayerNorm kernel runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = tclip.CLIPConfig(640, 32, 1, 64, 32, transformer_width=640,
+                           transformer_heads=10, transformer_layers=2)
+    model = tclip.CLIP(cfg, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    ids = torch.randint(1, 49000, (16, 77), generator=g, device=cuda_device)
+    ids[:, 20] = 49407                                  # EOT
+    counts = (lnk.layer_norm_f32.launches, lnk.layer_norm_f32_bwd.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.encode_text(ids).float().square().sum().backward()
+        torch.cuda.synchronize()
+    assert (lnk.layer_norm_f32.launches - counts[0],
+            lnk.layer_norm_f32_bwd.launches - counts[1]) == (5, 5)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = [ev["name"] for ev in json.loads(path.read_text())["traceEvents"]
+             if ev.get("ph") == "X" and ev.get("cat") == "kernel"]
+    assert names
+    assert sum("ln_f32_fwd_kernel" in n for n in names) == 5
+    assert sum("ln_f32_bwd_kernel" in n for n in names) == 5
+    assert not [n for n in names if "layer_norm" in n.lower()
+                or "GammaBeta" in n], names
