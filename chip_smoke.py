@@ -241,8 +241,15 @@ chain and `F.layer_norm`. Phase 11 prints each
 decode step's device busy, #11's and #12's ms a step and the idle share.
 Phases 9-13 run between
 phases 7 and 8, phase 14 after 11, phases 15, 16 and 17 after 13, phase 18
-after 17. The last three lines are the kernels JSON, the card's name
-and power limit (nvidia-smi), and {"ok": true, "device": {...}}.
+after 17. Phase 20 comes last: `make_llava_captioner` with
+Moonlight-16B-A3B as its LM at every published width (27 layers, bf16)
+captions a batch of 128 at the caption cell's prompt, #14 counted at one
+launch a MoE layer of the prefill and of each decode step, then #14 on the
+rows that batch routed (the prefill's and a decode step's) against its
+plain version, timed beside it, a per-expert `F.linear` loop and the bound
+(no TPU counterpart: the kernels JSON's thirteenth entry). The last three
+lines are the kernels JSON, the card's name and power limit (nvidia-smi),
+and {"ok": true, "device": {...}}.
 
 The CLIP merges file is not in the repository: the text goes through the
 port's CLIP tokenizer built from a synthetic merges table
@@ -444,6 +451,18 @@ LLAVA_PROMPT_IDS = 227
 LLAVA_TOWER_LAYERS = 23
 LLAVA_LEN = LLAVA_PROMPT_IDS + 256 + LLAVA_NEW
 LLAVA_LOGIT_TOL = 0.25
+# phase 20: Moonlight-16B-A3B as the LLaVA captioner's LM at every published
+# width, one caption batch of 128 at the caption cell's prompt (the
+# benchmark's word-piece tokenizer: 44 + 256 + 16 = 316 tokens a row) and 64
+# new tokens, then kernel #14 on the rows that batch routed into its first
+# MoE layer, at the prefill and at a decode step. #14 against its plain
+# version within MOE_TOL (atol = rtol) a value and MOE_REL_L2 relative L2
+# over all (tests/test_torch_cuda.py's tolerances: both round h, then y,
+# once to bf16, in another order)
+MOONLIGHT_PROMPT_LEN = 316
+MOONLIGHT_NEW = 64
+MOE_TOL = 2e-2
+MOE_REL_L2 = 1e-2
 # phase 15: BLIP caption base through cli.captioner (64 images, batch 32,
 # beam 3) and cli.serve_mllm (16 concurrent requests)
 BLIP_CAPTION_IMAGES = 64
@@ -585,7 +604,7 @@ def build_kernels(cuda_build) -> None:
     t0 = time.perf_counter()
     names = ("short_attention", "bank_infonce", "long_attention",
              "max_query_infonce", "decode_attention", "quant_matmul",
-             "layer_norm")
+             "layer_norm", "moe_grouped")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = [pool.submit(cuda_build.build_library, n, [f"{n}.cu"], True)
                 for n in names]
@@ -616,15 +635,20 @@ def build_kernels(cuda_build) -> None:
 # int8 banks; quant_matmul.cu's int8-weight product over float32 and bf16 x
 # at one and two n8 tiles of rows
 TC_KERNELS = {"long_attention": 9, "short_attention": 24, "bank_infonce": 9,
-              "max_query_infonce": 3, "quant_matmul": 4}
+              "max_query_infonce": 3, "quant_matmul": 4, "moe_grouped": 4}
+#: the name a library's tensor-core kernels hold where it is not
+#: `_tc_kernel`: moe_grouped.cu's grouped product at its two tile routes,
+#: the SwiGLU pair and the down projection
+TC_MARK = {"moe_grouped": "moe_gemm_kernel"}
 
 
 def check_tensor_cores(cuda_build, lib) -> None:
-    """The tensor-core kernels of `lib` (`*_tc_kernel`, as many as
-    TC_KERNELS says) run on the tensor cores: each holds HMMA instructions
+    """The tensor-core kernels of `lib` (`*_tc_kernel` or TC_MARK's name,
+    as many as TC_KERNELS says) run on the tensor cores: each holds HMMA instructions
     (bf16 m16n8k16 and TF32 m16n8k8 alike) in `cuobjdump -sass` of the built
     library, and ptxas spilled nothing in any of them."""
     want = TC_KERNELS.get(lib.name.split("-")[0], 0)
+    mark = TC_MARK.get(lib.name.split("-")[0], "_tc_kernel")
     spills, entry = {}, None
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -643,7 +667,7 @@ def check_tensor_cores(cuda_build, lib) -> None:
             hmma[fn] = 0
         elif fn and "HMMA" in line:
             hmma[fn] += 1
-    tc = sorted(f for f in hmma if "_tc_kernel" in f)
+    tc = sorted(f for f in hmma if mark in f)
     assert len(tc) == want, (lib.name, tc)
     for f in tc:
         name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", f)[:56]
@@ -6453,6 +6477,154 @@ def drive_multi_gpu(ak, bk, root, tmp, card):
     return paths
 
 
+def moe_bound(rows: int, hit: int, d: int, inter: int) -> tuple:
+    """#14's least time: the weights of the experts hit read once, each
+    row's x read, h written and read for the down projection (both halves
+    of the SwiGLU pair read), y written; 2·rows·3·d·inter operations."""
+    n_bytes = 2 * (hit * 3 * inter * d + rows * (2 * d + 2 * inter))
+    return bound_ms(n_bytes, 2 * rows * 3 * d * inter, torch.bfloat16)
+
+
+def drive_moonlight(card):
+    """Phase 20: `make_llava_captioner(llava_lm="moonlight-16b-a3b")` at
+    every published width (27 layers, bf16, seed-0 weights) captions 128
+    images of noise at the caption cell's prompt, once to warm and once
+    timed; #14's launches over the timed batch must be one a MoE layer of
+    the prefill and of each of the 63 decode steps. The rows its first
+    MoE layer routed at the prefill and at the first decode step are kept
+    and #14 runs on them against its plain version, twice for the same
+    bits, timed a call and back to back beside the plain version, a
+    per-expert `F.linear` loop over host-known counts (the library
+    yardstick, called nowhere in the port) and the bound. Returns the two
+    records and the launches of the timed batch."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from cirbench.wordtok import WordTokenizer
+    from spn4cir_tpu_torch.datagen.captioner import (MOONLIGHT_BATCH,
+                                                     caption_prompt,
+                                                     make_llava_captioner)
+    from spn4cir_tpu_torch.models import deepseek_v3 as dv
+    from spn4cir_tpu_torch.ops import moe_grouped as mg
+
+    t0 = time.perf_counter()
+    lm = dv.DeepseekV3Config.moonlight_16b_a3b()
+    cap, _, batched_fn = make_llava_captioner(
+        tokenizer=WordTokenizer(lm.vocab_size), llava_lm="moonlight-16b-a3b",
+        max_new_tokens=MOONLIGHT_NEW)
+    cfg = cap.lm_cfg
+    assert cfg == lm, cfg
+    built_s = time.perf_counter() - t0
+    prompt_len = (len(cap.prompt_ids(caption_prompt("image", 10))) - 1
+                  + cap.cfg.vision.num_patches)
+    assert prompt_len == MOONLIGHT_PROMPT_LEN, prompt_len
+    side = cap.cfg.vision.image_size
+    rng = np.random.default_rng(20)
+    images = [rng.standard_normal((side, side, 3), dtype=np.float32)
+              for _ in range(MOONLIGHT_BATCH)]
+    seen = {}
+    real = dv.moe_grouped
+
+    def recording(x, src, offsets, *weights):
+        kind = "prefill" if x.shape[0] > MOONLIGHT_BATCH else "decode"
+        if kind not in seen:                  # the first MoE layer's rows
+            seen[kind] = (x.clone(), src.clone(), offsets.clone(), weights)
+        return real(x, src, offsets, *weights)
+
+    dv.moe_grouped = recording
+    try:
+        t1 = time.perf_counter()
+        batched_fn(images)                      # builds #3, #13 and #14
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        seen.clear()
+        torch.cuda.reset_peak_memory_stats()
+        before = mg.moe_grouped.launches
+        t1 = time.perf_counter()
+        caps = batched_fn(images)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t1
+    finally:
+        dv.moe_grouped = real
+    launches = mg.moe_grouped.launches - before
+    moe_layers = cfg.num_layers - cfg.first_k_dense_replace
+    assert launches == moe_layers * MOONLIGHT_NEW, launches
+    assert len(caps) == MOONLIGHT_BATCH and all(
+        isinstance(c, str) for c in caps)
+    phase(f"moonlight captioner (make_llava_captioner, llava_lm "
+          f"moonlight-16b-a3b: {cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.n_routed_experts} experts of "
+          f"{cfg.moe_intermediate_size}, bf16) built in {built_s:.1f} s; a "
+          f"batch of {MOONLIGHT_BATCH} at {prompt_len} prompt tokens and "
+          f"{MOONLIGHT_NEW} new: {warm_s:.2f} s warm, {batch_s:.3f} s "
+          f"timed ({MOONLIGHT_BATCH / batch_s:.2f} images/s); moe_grouped "
+          f"launches {launches} ({moe_layers} MoE layers x (1 prefill + "
+          f"{MOONLIGHT_NEW - 1} decode steps)); memory peak "
+          f"{torch.cuda.max_memory_allocated()} bytes [{card}]")
+    d, inter, experts = (cfg.hidden_size, cfg.moe_intermediate_size,
+                         cfg.n_routed_experts)
+    records = []
+    for kind in ("decode", "prefill"):
+        x, src, offsets, (wg, wu, wd) = seen[kind]
+        bounds = offsets.tolist()
+        rows = src.numel()
+        hit = sum(b > a for a, b in zip(bounds, bounds[1:]))
+
+        def kernel():
+            return mg.moe_grouped(x, src, offsets, wg, wu, wd)
+
+        def plain():
+            return mg.moe_grouped_reference(x, src, offsets, wg, wu, wd)
+
+        def library():
+            y = x.new_empty((rows, d))
+            for e in range(experts):
+                lo, hi = bounds[e], bounds[e + 1]
+                if hi > lo:
+                    xe = x[src[lo:hi].long()]
+                    y[lo:hi] = F.linear(F.silu(F.linear(xe, wg[e]))
+                                        * F.linear(xe, wu[e]), wd[e])
+            return y
+
+        with torch.inference_mode():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=MOE_TOL, rtol=MOE_TOL)
+            rel = float((got.float() - want.float()).norm()
+                        / want.float().norm())
+            assert rel < MOE_REL_L2, (kind, rel)
+            assert torch.equal(got, kernel()), kind
+            bound, by = moe_bound(rows, hit, d, inter)
+            rec = dict(shape=f"{kind}: tokens={x.shape[0]}, rows={rows}, "
+                             f"experts hit={hit}", plan=mg.moe_plan(
+                                 rows, experts),
+                       max_group=max(b - a for a, b in
+                                     zip(bounds, bounds[1:])),
+                       max_abs_err=(got.float() - want.float()
+                                    ).abs().max().item(), rel_l2=rel,
+                       bound_ms=bound, bound_by=by,
+                       ms=median_ms(kernel),
+                       device_ms=device_ms(kernel, 20),
+                       plain_ms=device_ms(plain, 3),
+                       library_ms=median_ms(library, 5),
+                       library_device_ms=device_ms(library, 5))
+        rec["bound_share"] = bound / rec["device_ms"]
+        records.append(rec)
+        phase(f"kernel moe_grouped {rec['shape']} (route {rec['plan']}, "
+              f"largest group {rec['max_group']}): relative "
+              f"L2 {rel:.2e} against plain, max_abs_err "
+              f"{rec['max_abs_err']:.4f}, the same bits a relaunch; "
+              f"{rec['ms']:.4f} ms a call, {rec['device_ms']:.4f} back to "
+              f"back ({100 * rec['bound_share']:.1f}% of the bound "
+              f"{bound:.4f} by {by}); plain {rec['plain_ms']:.4f}; library "
+              f"(per-expert F.linear) {rec['library_ms']:.4f} a call, "
+              f"{rec['library_device_ms']:.4f} back to back [{card}]")
+    del cap, batched_fn, seen
+    torch.cuda.empty_cache()
+    return records, launches
+
+
 def kernel_entry(name, replaces, source, launches_by_path, on_paths, records,
                  at, also=()):
     """One entry of the kernels line: `launches` is the sum over the main
@@ -6698,6 +6870,10 @@ def main() -> int:
                          probe=TGCIR_PROBE, seed=14)
 
         lap("8")
+        # phase 20: Moonlight-16B-A3B as the LLaVA captioner's LM, and #14
+        moe_records, moe_launches = drive_moonlight(card)
+
+        lap("20")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "spn4cir_tpu"))
         assert not bad, f"JAX or the JAX package was imported: {bad}"
@@ -6847,7 +7023,20 @@ def main() -> int:
                   for d, f in ((4096, 4096), (4096, 11008), (11008, 4096),
                                (4096, 32000))
                   if (r, d, f) != (16, 4096, 11008)]))
-        assert len(entries) == 12, len(entries)
+        def moe_timing(rec):
+            return {"ms_at": rec["shape"], **{k: rec[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+        entries.append({
+            "name": "moe_grouped", "route": "cuda",
+            "source": csrc + "moe_grouped.cu", "replaces": None,
+            "launches": moe_launches,
+            "launches_by_path": {"moonlight": moe_launches},
+            "max_abs_err": max(r["max_abs_err"] for r in moe_records),
+            **moe_timing(moe_records[0]),
+            "also_at": [moe_timing(r) for r in moe_records[1:]],
+            "checks": moe_records})
+        assert len(entries) == 13, len(entries)
         phase(f"every phase passed in {time.perf_counter() - t_start:.1f} s; "
               f"seconds since the start at the end of each phase: {laps}")
         print(json.dumps({"kernels": entries}), flush=True)

@@ -23,6 +23,10 @@ images and rank 0 alone writes the sidecar and the it-list. Not yet ported,
 and refused: `--tokenizer_path` (an HF LLaMA tokenizer needs
 `transformers`). Without a tokenizer the 7B LLaVA has none to run with, so
 `--mllm llava` runs `--llava_size tiny` (the byte tokenizer) today.
+`--llava_lm moonlight-16b-a3b` puts Moonlight-16B-A3B (DeepSeek-V3) in the
+LM slot at its published widths, on one GPU, with the byte tokenizer (its
+tiktoken vocabulary is not in the repository); `--llava_size tiny` takes
+the tiny preset of either LM.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from spn4cir_tpu_torch.cli.common import (ATTN_KERNEL, CACHE_DTYPES,
 from spn4cir_tpu_torch.data.datasets import CIRDataset
 from spn4cir_tpu_torch.data.transforms import ImageTransform
 from spn4cir_tpu_torch.datagen.captioner import (
-    caption_images, caption_images_batched, caption_prompt,
+    LLAVA_LMS, MOONLIGHT_BATCH, caption_images, caption_images_batched,
+    caption_prompt,
     load_caption_checkpoint, load_cc_shard, make_blip_captioner,
     make_llava_captioner, stub_captioner, write_it_list)
 from spn4cir_tpu_torch.parallel.mesh import process_is_main
@@ -62,6 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tokenizer_path", default="",
                    help="LLaMA tokenizer dir (not yet ported)")
     p.add_argument("--llava_size", default="7b", choices=["7b", "tiny"])
+    p.add_argument("--llava_lm", default="llama-7b", choices=LLAVA_LMS,
+                   help="the LLaVA captioner's language model: LLaVA-v1's "
+                        "LLaMA-7B, or Moonlight-16B-A3B (DeepSeek-V3: latent "
+                        "attention, 64 routed + 2 shared experts)")
     p.add_argument("--max_new_tokens", type=int, default=64)
     p.add_argument("--mesh_model", type=int, default=0,
                    help="tensor-parallel LLaVA over this many ranks: one "
@@ -128,7 +137,7 @@ def _load_captioner(args, mesh=None):
             batch_size=args.batch_size,
             cache_dtype=CACHE_DTYPES.get(args.llm_cache),
             attn_kernel=ATTN_KERNEL[args.attn_kernel], device=args.device,
-            mesh=mesh)
+            mesh=mesh, llava_lm=args.llava_lm)
         return transform, batched_fn
     _, transform, batched_fn = make_blip_captioner(
         args.ckpt, blip_size=args.blip_size,
@@ -152,7 +161,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         # the llava_v1 caption prompt plus 64 new tokens fits the 448 bucket
         from spn4cir_tpu_torch.datagen.llm_rewrite import recommended_llm_batch
         args.batch_size = (32 if args.mllm == "blip" else
-                           recommended_llm_batch(
+                           MOONLIGHT_BATCH if (args.llava_lm != "llama-7b"
+                                               and args.llava_size != "tiny")
+                           else recommended_llm_batch(
                                448, CACHE_DTYPES.get(args.llm_cache)))
     out_folder, out_name = output_name(args)
     ckpt_path = sidecar_path(args, out_folder, out_name)

@@ -19,6 +19,8 @@ the model-free fallback.
 
 `make_llava_captioner(mesh=)` runs the tensor-parallel LLaVA: every rank
 of the mesh's model group holds its slice (`models.llava.LlavaCaptioner`).
+`make_llava_captioner(llava_lm="moonlight-16b-a3b")` puts Moonlight-16B-A3B
+(DeepSeek-V3, `models/deepseek_v3.py`) in LLaVA's LM slot, on one device.
 Not yet ported, and refused: an HF tokenizer (`tokenizer_path=`, it needs
 `transformers`).
 """
@@ -33,6 +35,12 @@ import numpy as np
 import torch
 
 CAPTION_PROMPT = "please briefly describe the {category} in {num_words} words"
+
+#: the language models of the LLaVA captioner (`make_llava_captioner`)
+LLAVA_LMS = ("llama-7b", "moonlight-16b-a3b")
+#: images a batch with Moonlight: 31.9 GB of bf16 weights leave the card
+#: room for 128 rows of prefill (the benchmark's caption cell)
+MOONLIGHT_BATCH = 128
 
 
 def caption_prompt(category: str, num_words: int = 10) -> str:
@@ -153,7 +161,7 @@ def make_llava_captioner(params=None, *, tokenizer=None,
                          dtype: Optional[torch.dtype] = None,
                          quantize_weights: bool = False, mesh=None,
                          cache_dtype=None, attn_kernel=None,
-                         device: str = "0"):
+                         llava_lm: str = "llama-7b", device: str = "0"):
     """The reference's canonical captioning path, LLaVA-v1
     (zscir/captioner_llava.py:147-205 captions every published dataset with
     it): the CLIP ViT-L/14 tower + LLaMA-7B of models/llava.py, on `device`.
@@ -168,8 +176,17 @@ def make_llava_captioner(params=None, *, tokenizer=None,
     still dequantize after the matmul (kernel #12 off, as in the JAX
     captioner). `batch_size=0` takes `recommended_llm_batch(448,
     cache_dtype)` at 7B (the llava_v1 prompt plus 64 new tokens fits the
-    448 bucket) and 2 at tiny. `mesh` (`parallel.tp.make_model_mesh`):
-    the tensor-parallel model; every rank makes the same calls.
+    448 bucket), MOONLIGHT_BATCH with Moonlight and 2 at tiny. `mesh`
+    (`parallel.tp.make_model_mesh`): the tensor-parallel model; every rank
+    makes the same calls.
+
+    `llava_lm`: "llama-7b" (LLaVA-v1's LM, the default) or
+    "moonlight-16b-a3b" (Moonlight-16B-A3B's DeepSeek-V3 decoder at its
+    published widths, bf16, one device; neither `quantize_weights` nor
+    `mesh`). Its published tiktoken vocabulary is not in the repository:
+    without `tokenizer` it runs the byte tokenizer, whose ids lie inside
+    Moonlight's 163,840. With `llava_size="tiny"` the LM is the tiny preset
+    of the chosen family.
 
     Returns (captioner, transform, batched_fn) like make_blip_captioner;
     `batched_fn(images, generator=None, prompt=None)` takes a prompt that
@@ -184,17 +201,24 @@ def make_llava_captioner(params=None, *, tokenizer=None,
     from spn4cir_tpu_torch.models.convert import load_llava_checkpoint
     from spn4cir_tpu_torch.models.llava import LlavaCaptioner, LlavaConfig
 
+    if llava_lm not in LLAVA_LMS:
+        raise ValueError(f"llava_lm must be one of {LLAVA_LMS}, not "
+                         f"{llava_lm!r}")
     tiny = llava_size == "tiny"
+    moonlight = llava_lm == "moonlight-16b-a3b"
     if tokenizer is None:
-        if not tiny:
+        if not (tiny or moonlight):
             raise ValueError("make_llava_captioner needs tokenizer= (the "
                              "LLaMA sentencepiece assets are not in the "
                              "repository)")
         from spn4cir_tpu_torch.tokenizer.bytelevel import ByteTokenizer
         tokenizer = ByteTokenizer()
-    cfg = (LlavaConfig.tiny(vocab_size=max(
-               int(getattr(tokenizer, "vocab_size", 128)), 128))
-           if tiny else LlavaConfig.v1_7b())
+    if tiny:
+        cfg = LlavaConfig.tiny(
+            vocab_size=max(int(getattr(tokenizer, "vocab_size", 128)), 128),
+            lm="deepseek" if moonlight else "llama")
+    else:
+        cfg = LlavaConfig.moonlight() if moonlight else LlavaConfig.v1_7b()
     if dtype is None:
         dtype = torch.float32 if tiny else torch.bfloat16
     dev = resolve_device(device) if isinstance(device, str) else device
@@ -208,9 +232,11 @@ def make_llava_captioner(params=None, *, tokenizer=None,
         cap.model.load_state_dict(params)
     if quantize_weights:
         cap.quantize()
-    if batch_size == 0:
+    if batch_size == 0 and (tiny or moonlight):
+        batch_size = 2 if tiny else MOONLIGHT_BATCH
+    elif batch_size == 0:
         from spn4cir_tpu_torch.datagen.llm_rewrite import recommended_llm_batch
-        batch_size = 2 if tiny else recommended_llm_batch(448, cache_dtype)
+        batch_size = recommended_llm_batch(448, cache_dtype)
 
     default_prompt = caption_prompt(category, word_num)
 

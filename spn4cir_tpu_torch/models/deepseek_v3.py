@@ -1,0 +1,599 @@
+"""DeepSeek-V3 decoder: latent attention (MLA) and a mixture of experts, the
+architecture of Moonlight-16B-A3B, the second language model of the LLaVA
+captioner (`models/llava.py`).
+
+Under the parameter names of HF `DeepseekV3ForCausalLM`, so a published
+state dict loads with `load_state_dict`: `model.embed_tokens`,
+`model.layers.{i}.self_attn.{q_proj, kv_a_proj_with_mqa, kv_a_layernorm,
+kv_b_proj, o_proj}`, `model.layers.{i}.{input,post_attention}_layernorm`,
+`mlp.{gate,up,down}_proj` on the first `first_k_dense_replace` layers,
+`mlp.gate.{weight, e_score_correction_bias}`,
+`mlp.experts.{e}.{gate,up,down}_proj` and `mlp.shared_experts.*` on the
+others, `model.norm`, `lm_head`. The equations are transformers'
+`DeepseekV3` (and HF's `modeling_deepseek.py`, which agree on these points):
+
+  - RMSNorm pre-norm, the variance in float32 (`models/llama.rms_norm`);
+  - attention: q = q_proj(h) per head [nope 128 | rope 64]; [c | k_pe] =
+    kv_a_proj_with_mqa(h), c (512) through kv_a_layernorm; per head [k_nope
+    | v] = kv_b_proj(c); RoPE on the 64 rope dimensions, pairs de-interleaved
+    then rotate_half, k_pe shared by the heads; scores over q·k of 192
+    dimensions at 192^-½; the causal mask; o_proj;
+  - the router: float32 logits of the hidden state, sigmoid scores, the
+    top-k chosen by score + e_score_correction_bias, weights the chosen
+    unbiased scores over their sum (+1e-20) times routed_scaling_factor;
+    the output is Σ w·E(x) (float32, then the hidden type) + shared(x).
+Only Moonlight's geometry: no q compression (`q_lora_rank` None), no
+group-limited routing (topk_group == n_group), no rope scaling.
+
+Generation splits prefill and decode as `models/llama.py` does, over a
+`DeepseekV3DecodeState`: one latent row a token and a layer, [c | k_pe]
+(512 + 64), after kv_a_layernorm and after RoPE, in the cache type. Prefill
+decompresses the latent per head; a decode step takes the absorbed form:
+the query's nope part through kv_b_proj's key half into the latent,
+q_lat = q_nope·W_k (512), scores [q_lat | q_pe]·[c | k_pe] against the
+cache, and the values read back through the value half, ctx·W_v, all 16
+heads on one latent row (float32 products over the bf16 cache). Both
+compute the same function (a test holds them to each other).
+
+Kernels: the routed experts of every MoE layer, prefill and decode, go
+through `ops.moe_grouped` (kernel #14 on a CUDA tensor; the routing
+permutation and the combine are tensor code, no host sync). The shared
+experts run as a plain SwiGLU (three products). Attention is tensor code.
+
+Precision: weights and the residual stream in the model's type (bf16 on
+the card), products in that type, attention scores and softmax in float32,
+router in float32, the routed sum in float32 and rounded once, the head in
+the model's type and its logits widened to float32 (HF's order).
+
+Spans (`utils.logging.span`, recorded only under a profiler): `mla.attend`
+around each layer's attention, `moe.route`, `moe.experts` (routed and
+shared), `moe.combine` per MoE layer. A `tap(kind, index, tensor)` callable
+given to the generation functions receives each MoE layer's choice,
+("route", layer, (B, S, k)), S = 1 at a decode step, before the experts
+run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from spn4cir_tpu_torch.models.generation import decode_loop, sample_logits
+from spn4cir_tpu_torch.models.llama import LlamaRMSNorm, _rotate_half
+from spn4cir_tpu_torch.ops.moe_grouped import (moe_combine, moe_grouped,
+                                               route_permutation)
+from spn4cir_tpu_torch.utils.logging import span
+
+Tap = Optional[Callable[[str, int, torch.Tensor], None]]
+
+#: the port's field -> the key of HF's config.json
+HF_KEYS = {
+    "vocab_size": "vocab_size", "hidden_size": "hidden_size",
+    "intermediate_size": "intermediate_size",
+    "moe_intermediate_size": "moe_intermediate_size",
+    "num_layers": "num_hidden_layers", "num_heads": "num_attention_heads",
+    "q_lora_rank": "q_lora_rank", "kv_lora_rank": "kv_lora_rank",
+    "qk_nope_head_dim": "qk_nope_head_dim",
+    "qk_rope_head_dim": "qk_rope_head_dim", "v_head_dim": "v_head_dim",
+    "n_routed_experts": "n_routed_experts",
+    "n_shared_experts": "n_shared_experts",
+    "num_experts_per_tok": "num_experts_per_tok",
+    "first_k_dense_replace": "first_k_dense_replace",
+    "moe_layer_freq": "moe_layer_freq",
+    "routed_scaling_factor": "routed_scaling_factor",
+    "norm_topk_prob": "norm_topk_prob", "n_group": "n_group",
+    "topk_group": "topk_group", "rope_theta": "rope_theta",
+    "rms_eps": "rms_norm_eps",
+    "max_position_embeddings": "max_position_embeddings",
+}
+#: settings of HF's config.json that the port reads only to refuse others
+HF_FIXED = {"model_type": "deepseek_v3", "hidden_act": "silu",
+            "scoring_func": "sigmoid", "topk_method": "noaux_tc",
+            "attention_bias": False, "tie_word_embeddings": False}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekV3Config:
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_layers: int = 27
+    num_heads: int = 16
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    n_group: int = 1
+    topk_group: int = 1
+    rope_theta: float = 50000.0
+    rms_eps: float = 1e-5
+    max_position_embeddings: int = 8192
+
+    def __post_init__(self):
+        if self.q_lora_rank is not None:
+            raise ValueError("the port's DeepSeek-V3 has no q compression "
+                             "(q_lora_rank must be None, as Moonlight's is)")
+        if self.topk_group != self.n_group or self.moe_layer_freq != 1:
+            raise ValueError("the port's DeepSeek-V3 routes over every "
+                             "expert (topk_group == n_group) with experts "
+                             "in every layer after the dense ones")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """A cached token a layer: [c | k_pe]."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    def is_moe(self, layer: int) -> bool:
+        return layer >= self.first_k_dense_replace
+
+    @classmethod
+    def moonlight_16b_a3b(cls) -> "DeepseekV3Config":
+        """moonshotai/Moonlight-16B-A3B's config.json."""
+        return cls()
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 128, **kw) -> "DeepseekV3Config":
+        base = dict(vocab_size=vocab_size, hidden_size=32,
+                    intermediate_size=64, moe_intermediate_size=16,
+                    num_layers=3, num_heads=4, kv_lora_rank=16,
+                    qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8,
+                    n_routed_experts=8, n_shared_experts=2,
+                    num_experts_per_tok=3, max_position_embeddings=512)
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def from_hf(cls, hf: Mapping[str, Any]) -> "DeepseekV3Config":
+        """The configuration of an HF config.json (a mapping); settings the
+        port does not run are refused."""
+        for key, want in HF_FIXED.items():
+            if key in hf and hf[key] != want:
+                raise ValueError(f"config.json has {key}={hf[key]!r}; the "
+                                 f"port runs {want!r}")
+        if hf.get("rope_scaling"):
+            raise ValueError("the port's DeepSeek-V3 runs no rope scaling")
+        return cls(**{f: hf[k] for f, k in HF_KEYS.items() if k in hf})
+
+    def to_hf(self) -> Dict[str, Any]:
+        """The keys of HF's config.json that the model reads."""
+        out = {k: getattr(self, f) for f, k in HF_KEYS.items()}
+        out.update(HF_FIXED)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the module tree (HF names)
+# ---------------------------------------------------------------------------
+
+class DeepseekV3Attention(nn.Module):
+    def __init__(self, cfg: DeepseekV3Config, **factory):
+        super().__init__()
+        d, h = cfg.hidden_size, cfg.num_heads
+        self.q_proj = nn.Linear(d, h * cfg.qk_head_dim, bias=False, **factory)
+        self.kv_a_proj_with_mqa = nn.Linear(d, cfg.latent_dim, bias=False,
+                                            **factory)
+        self.kv_a_layernorm = LlamaRMSNorm(cfg.kv_lora_rank, cfg.rms_eps,
+                                           **factory)
+        self.kv_b_proj = nn.Linear(
+            cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim),
+            bias=False, **factory)
+        self.o_proj = nn.Linear(h * cfg.v_head_dim, d, bias=False, **factory)
+
+
+class DeepseekV3MLP(nn.Module):
+    def __init__(self, hidden: int, width: int, **factory):
+        super().__init__()
+        self.gate_proj = nn.Linear(hidden, width, bias=False, **factory)
+        self.up_proj = nn.Linear(hidden, width, bias=False, **factory)
+        self.down_proj = nn.Linear(width, hidden, bias=False, **factory)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class DeepseekV3TopkRouter(nn.Module):
+    """`weight` (E, D) in the model's type; `e_score_correction_bias` (E,)
+    float32 whatever the model's type, as published checkpoints hold it."""
+
+    def __init__(self, cfg: DeepseekV3Config, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            cfg.n_routed_experts, cfg.hidden_size, device=device, dtype=dtype))
+        self.e_score_correction_bias = nn.Parameter(
+            torch.zeros(cfg.n_routed_experts, device=device,
+                        dtype=torch.float32), requires_grad=False)
+
+
+_STACKED = (("gate_proj", "w_gate"), ("up_proj", "w_up"),
+            ("down_proj", "w_down"))
+
+
+class DeepseekV3MoE(nn.Module):
+    """The router, the routed experts and the shared experts (one MLP of
+    n_shared_experts·moe_intermediate_size). Each routed expert keeps its
+    HF-named parameters, which are views of three stacked tensors `w_gate`,
+    `w_up` (E, I, D) and `w_down` (E, D, I) that kernel #14 reads; any
+    `_apply` (`to`, `to_empty`, ...) stacks them again."""
+
+    def __init__(self, cfg: DeepseekV3Config, **factory):
+        super().__init__()
+        d, width = cfg.hidden_size, cfg.moe_intermediate_size
+        self.gate = DeepseekV3TopkRouter(cfg, **factory)
+        self.experts = nn.ModuleList(DeepseekV3MLP(d, width, **factory)
+                                     for _ in range(cfg.n_routed_experts))
+        self.shared_experts = DeepseekV3MLP(d, width * cfg.n_shared_experts,
+                                            **factory)
+        self._stack()
+
+    @torch.no_grad()
+    def _stack(self) -> None:
+        for proj, attr in _STACKED:
+            ws = [getattr(e, proj).weight for e in self.experts]
+            stacked = torch.stack([w.data for w in ws])
+            for i, w in enumerate(ws):
+                w.data = stacked[i]
+            setattr(self, attr, stacked)
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self._stack()
+        return self
+
+
+class DeepseekV3DecoderLayer(nn.Module):
+    def __init__(self, cfg: DeepseekV3Config, index: int, **factory):
+        super().__init__()
+        self.self_attn = DeepseekV3Attention(cfg, **factory)
+        self.mlp = (DeepseekV3MoE(cfg, **factory) if cfg.is_moe(index) else
+                    DeepseekV3MLP(cfg.hidden_size, cfg.intermediate_size,
+                                  **factory))
+        self.input_layernorm = LlamaRMSNorm(cfg.hidden_size, cfg.rms_eps,
+                                            **factory)
+        self.post_attention_layernorm = LlamaRMSNorm(cfg.hidden_size,
+                                                     cfg.rms_eps, **factory)
+
+
+class DeepseekV3Model(nn.Module):
+    def __init__(self, cfg: DeepseekV3Config, **factory):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         **factory)
+        self.layers = nn.ModuleList(DeepseekV3DecoderLayer(cfg, i, **factory)
+                                    for i in range(cfg.num_layers))
+        self.norm = LlamaRMSNorm(cfg.hidden_size, cfg.rms_eps, **factory)
+
+
+@torch.no_grad()
+def init_deepseek_param(name: str, p: torch.Tensor,
+                        generator: torch.Generator) -> None:
+    """One LM weight drawn in place: ones for the norms, zeros for the
+    selection bias, normal 0.02 for the embedding and the head, fan_in^-½
+    for the matrices."""
+    if name.endswith("layernorm.weight") or name == "model.norm.weight":
+        p.fill_(1.0)
+    elif name.endswith("e_score_correction_bias"):
+        p.zero_()
+    elif name in ("model.embed_tokens.weight", "lm_head.weight"):
+        p.normal_(0.0, 0.02, generator=generator)
+    else:
+        p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+
+
+class DeepseekV3ForCausalLM(nn.Module):
+    """Teacher-forced causal LM: ids or embeddings -> (B, S, vocab) float32
+    logits over the decompressed attention, and the weights the generation
+    functions read.
+
+    `device="meta"` then `to_empty(device=...)` and `init_weights` builds the
+    16B model on the card without a first random pass."""
+
+    def __init__(self, cfg: DeepseekV3Config, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        factory = dict(device=device, dtype=dtype)
+        self.model = DeepseekV3Model(cfg, **factory)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                                 **factory)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        for name, p in self.named_parameters():
+            init_deepseek_param(name, p, generator)
+
+    def forward(self, input_ids: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if inputs_embeds is None:
+            inputs_embeds = self.model.embed_tokens.weight[input_ids]
+        x = inputs_embeds.to(self.lm_head.weight.dtype)
+        x = _prefill_layers(self, self.cfg, x, None, None)
+        return _head(self, x)
+
+
+# ---------------------------------------------------------------------------
+# the layers' arithmetic
+# ---------------------------------------------------------------------------
+
+def rope_tables(cfg: DeepseekV3Config, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 cos / sin of the rope dimensions at (…,) int positions ->
+    (…, qk_rope_head_dim), transformers' [freqs | freqs] layout."""
+    d = cfg.qk_rope_head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(
+        0, d, 2, dtype=torch.float32, device=positions.device) / d))
+    freqs = positions.to(torch.float32)[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope_interleave(x: torch.Tensor, cos: torch.Tensor,
+                          sin: torch.Tensor) -> torch.Tensor:
+    """transformers' `apply_rotary_pos_emb_interleave` on x (…, d): the
+    pairs (x0, x1), (x2, x3), … de-interleaved to [x0 x2 … | x1 x3 …], then
+    rotate_half; float32 out (promoted against the tables), in the
+    de-interleaved layout."""
+    d = x.shape[-1]
+    x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).reshape(x.shape)
+    return x * cos + _rotate_half(x) * sin
+
+
+def _mla_inputs(cfg: DeepseekV3Config, attn: DeepseekV3Attention,
+                h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """h (B, S, D) -> q_nope (B, S, H, nope) in h's type, q_pe (B, S, H,
+    rope) float32, and the latent row [c | k_pe] (B, S, r + rope) in h's
+    type, c after kv_a_layernorm and k_pe after RoPE."""
+    b, s, _ = h.shape
+    q = F.linear(h, attn.q_proj.weight).view(b, s, cfg.num_heads,
+                                             cfg.qk_head_dim)
+    q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], -1)
+    c, k_pe = F.linear(h, attn.kv_a_proj_with_mqa.weight).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_head_dim], -1)
+    q_pe = apply_rope_interleave(q_pe, cos[..., None, :], sin[..., None, :])
+    k_pe = apply_rope_interleave(k_pe, cos, sin).to(h.dtype)
+    return q_nope, q_pe, torch.cat([attn.kv_a_layernorm(c), k_pe], dim=-1)
+
+
+def _mla_decompressed(cfg: DeepseekV3Config, attn: DeepseekV3Attention,
+                      q_nope, q_pe, latent, mask) -> torch.Tensor:
+    """Every head's keys and values from the latent rows (B, S, r + rope):
+    [k_nope | v] = kv_b_proj(c), scores q_nope·k_nope + q_pe·k_pe in
+    float32 under the additive mask, the weights in v's type. Returns the
+    (B, S, D) output of o_proj."""
+    b, s = latent.shape[:2]
+    r, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    kv = F.linear(latent[..., :r], attn.kv_b_proj.weight).view(
+        b, s, cfg.num_heads, cfg.qk_nope_head_dim + vd)
+    k_nope, v = kv.split([cfg.qk_nope_head_dim, vd], -1)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+              + torch.einsum("bqhr,bkr->bhqk", q_pe,
+                             latent[..., r:].float())) * cfg.qk_head_dim ** -0.5
+    w = torch.softmax(logits + mask, dim=-1).to(v.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, q_nope.shape[1], -1)
+    return F.linear(ctx, attn.o_proj.weight)
+
+
+def absorbed_weights(cfg: DeepseekV3Config, attn: DeepseekV3Attention
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kv_b_proj's key and value halves per head, (H, nope, r) and (H, v,
+    r), float32."""
+    w = attn.kv_b_proj.weight.view(cfg.num_heads, -1, cfg.kv_lora_rank)
+    return (w[:, :cfg.qk_nope_head_dim].float(),
+            w[:, cfg.qk_nope_head_dim:].float())
+
+
+def _mla_absorbed(cfg: DeepseekV3Config, attn: DeepseekV3Attention,
+                  q_nope, q_pe, latent, w_k, w_v) -> torch.Tensor:
+    """One query a row (q_nope (B, 1, H, nope), q_pe (B, 1, H, rope))
+    against the latent rows it sees (B, L, r + rope), in the absorbed form:
+    [q_nope·W_k | q_pe]·[c | k_pe], softmax, (p·c)·W_v, float32 products.
+    Returns the (B, 1, D) output of o_proj."""
+    b = q_nope.shape[0]
+    lat = latent.float()
+    q_lat = torch.einsum("bhd,hdc->bhc", q_nope[:, 0].float(), w_k)
+    q = torch.cat([q_lat, q_pe[:, 0]], dim=-1)
+    logits = torch.einsum("bhc,blc->bhl", q, lat) * cfg.qk_head_dim ** -0.5
+    p = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhl,blc->bhc", p, lat[..., :cfg.kv_lora_rank])
+    out = torch.einsum("bhc,hdc->bhd", ctx, w_v).reshape(b, 1, -1)
+    return F.linear(out.to(attn.o_proj.weight.dtype), attn.o_proj.weight)
+
+
+def _swiglu(mlp: DeepseekV3MLP, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(F.silu(F.linear(x, mlp.gate_proj.weight))
+                    * F.linear(x, mlp.up_proj.weight), mlp.down_proj.weight)
+
+
+def route(cfg: DeepseekV3Config, gate: DeepseekV3TopkRouter, h: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(topk indices (N, k) int64, weights (N, k) float32) of h (N, D):
+    float32 logits, sigmoid scores, the top-k of score + bias, the chosen
+    unbiased scores normalised and scaled."""
+    scores = torch.sigmoid(F.linear(h.float(), gate.weight.float()))
+    choice = scores + gate.e_score_correction_bias.float()
+    idx = torch.topk(choice, cfg.num_experts_per_tok, dim=-1).indices
+    w = scores.gather(1, idx)
+    if cfg.norm_topk_prob:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return idx, w * cfg.routed_scaling_factor
+
+
+def _moe(cfg: DeepseekV3Config, moe: DeepseekV3MoE, h: torch.Tensor,
+         layer: int, tap: Tap) -> torch.Tensor:
+    lead = h.shape[:-1]
+    flat = h.reshape(-1, h.shape[-1])
+    with span("moe.route"):
+        idx, w = route(cfg, moe.gate, flat)
+        src, offsets, inv = route_permutation(idx, cfg.n_routed_experts)
+    if tap is not None:
+        tap("route", layer, idx.view(*lead, -1))
+    with span("moe.experts"):
+        y = moe_grouped(flat, src, offsets, moe.w_gate, moe.w_up, moe.w_down)
+        shared = _swiglu(moe.shared_experts, flat)
+    with span("moe.combine"):
+        out = moe_combine(y, inv, w).to(h.dtype) + shared
+    return out.view(h.shape)
+
+
+def _layer(cfg: DeepseekV3Config, layer: DeepseekV3DecoderLayer, index: int,
+           x: torch.Tensor, attend: Callable, tap: Tap) -> torch.Tensor:
+    """The pre-norm block: x + attention, then x + MLP or MoE."""
+    with span("mla.attend"):
+        x = x + attend(layer.self_attn, layer.input_layernorm(x))
+    h = layer.post_attention_layernorm(x)
+    if isinstance(layer.mlp, DeepseekV3MoE):
+        return x + _moe(cfg, layer.mlp, h, index, tap)
+    return x + _swiglu(layer.mlp, h)
+
+
+def _head(model: DeepseekV3ForCausalLM, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the head in the model's type; float32 logits."""
+    x = model.model.norm(x)
+    return F.linear(x, model.lm_head.weight).float()
+
+
+def _causal(s: int, device) -> torch.Tensor:
+    pos = torch.arange(s, device=device)
+    return torch.where(pos[None, :] <= pos[:, None], 0.0, float("-inf"))
+
+
+def _prefill_layers(model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
+                    x: torch.Tensor, state: Optional["DeepseekV3DecodeState"],
+                    tap: Tap) -> torch.Tensor:
+    """Every layer over all S positions of x (B, S, D) under the causal
+    mask, attending to the fresh latent rows; with `state`, cache rows
+    [0, S) are written (in the cache's type)."""
+    s = x.shape[1]
+    cos, sin = rope_tables(cfg, torch.arange(s, device=x.device))
+    mask = _causal(s, x.device)
+    for li, layer in enumerate(model.model.layers):
+        def attend(attn, h, li=li):
+            q_nope, q_pe, latent = _mla_inputs(cfg, attn, h, cos, sin)
+            if state is not None:
+                state.latent[li, :, :s] = latent
+            return _mla_decompressed(cfg, attn, q_nope, q_pe, latent, mask)
+        x = _layer(cfg, layer, li, x, attend, tap)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# latent-cached incremental decoding
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeepseekV3DecodeState:
+    """latent (n_layers, B, L, kv_lora_rank + qk_rope_head_dim): [c | k_pe]
+    a token, in the cache type; w_k / w_v: each layer's absorbed kv_b_proj
+    halves in float32, taken once a generation."""
+
+    latent: torch.Tensor
+    w_k: list
+    w_v: list
+
+
+def init_deepseek_state(model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
+                        batch: int, max_length: int, dtype=None, device=None
+                        ) -> DeepseekV3DecodeState:
+    """A zero latent cache (the model's type unless `dtype`, float32 or
+    bfloat16; on the model's device unless `device`) and the absorbed
+    weights."""
+    dtype = dtype or model.lm_head.weight.dtype
+    device = device or model.lm_head.weight.device
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the latent cache holds float32 or bfloat16, not "
+                         f"{dtype}")
+    latent = torch.zeros((cfg.num_layers, batch, max_length, cfg.latent_dim),
+                         dtype=dtype, device=device)
+    halves = [absorbed_weights(cfg, layer.self_attn)
+              for layer in model.model.layers]
+    return DeepseekV3DecodeState(latent, [k for k, _ in halves],
+                                 [v for _, v in halves])
+
+
+@torch.no_grad()
+def deepseek_v3_prefill(model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
+                        state: DeepseekV3DecodeState, x: torch.Tensor, *,
+                        tap: Tap = None
+                        ) -> Tuple[torch.Tensor, DeepseekV3DecodeState]:
+    """The whole prompt x (B, P, D) in one forward -> (last-position logits
+    (B, vocab) float32, the state with cache rows [0, P) written)."""
+    x = _prefill_layers(model, cfg, x.to(model.lm_head.weight.dtype), state,
+                        tap)
+    return _head(model, x[:, -1]), state
+
+
+@torch.no_grad()
+def deepseek_v3_decode_step(model: DeepseekV3ForCausalLM,
+                            cfg: DeepseekV3Config,
+                            state: DeepseekV3DecodeState, x: torch.Tensor,
+                            pos: int, *, tap: Tap = None
+                            ) -> Tuple[torch.Tensor, DeepseekV3DecodeState]:
+    """One step: x (B, D) input embedding at cache position `pos` ->
+    (logits (B, vocab) float32, the state with row `pos` written), the
+    attention absorbed over cache rows [0, pos]."""
+    x = x.to(model.lm_head.weight.dtype)[:, None]
+    cos, sin = rope_tables(cfg, torch.full((1,), pos, device=x.device))
+    for li, layer in enumerate(model.model.layers):
+        def attend(attn, h, li=li):
+            q_nope, q_pe, latent = _mla_inputs(cfg, attn, h, cos, sin)
+            state.latent[li, :, pos:pos + 1] = latent
+            return _mla_absorbed(cfg, attn, q_nope, q_pe,
+                                 state.latent[li, :, :pos + 1],
+                                 state.w_k[li], state.w_v[li])
+        x = _layer(cfg, layer, li, x, attend, tap)
+    return _head(model, x[:, 0]), state
+
+
+@torch.no_grad()
+def deepseek_v3_generate(model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
+                         inputs_embeds: torch.Tensor, *, eos_id: int,
+                         pad_id: int, max_new_tokens: int,
+                         do_sample: bool = False, temperature: float = 1.0,
+                         top_p: float = 1.0, cache_dtype=None,
+                         generator: Optional[torch.Generator] = None,
+                         tap: Tap = None) -> torch.Tensor:
+    """Continuations of an embedded prompt (B, P, D) -> (B, max_new_tokens)
+    ids, `pad_id` after EOS, through `generation.decode_loop` (the loop
+    `llama_generate` runs too): one prefill, then max_new_tokens - 1 decode
+    steps whatever EOS does. The cache holds P + max_new_tokens rows. `tap`
+    also receives each position's logits and token (`decode_loop`)."""
+    dev = inputs_embeds.device
+    batch, prompt_len, _ = inputs_embeds.shape
+    state = init_deepseek_state(model, cfg, batch,
+                                prompt_len + max_new_tokens,
+                                dtype=cache_dtype, device=dev)
+    if generator is None and do_sample:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    table = model.model.embed_tokens.weight
+
+    def prefill():
+        return deepseek_v3_prefill(model, cfg, state, inputs_embeds,
+                                   tap=tap)[0]
+
+    def step(x, i):
+        return deepseek_v3_decode_step(model, cfg, state, x,
+                                       prompt_len + i - 1, tap=tap)[0]
+
+    def sample(logits):
+        return sample_logits(logits, do_sample=do_sample,
+                             temperature=temperature, top_k=0, top_p=top_p,
+                             generator=generator)
+
+    return decode_loop(prefill, step, lambda tok: table[tok],
+                       max_new_tokens=max_new_tokens, eos_id=eos_id,
+                       pad_id=pad_id, sample=sample, tap=tap)

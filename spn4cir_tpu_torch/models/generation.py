@@ -2,7 +2,9 @@
 BLIP captioner.
 
 Counterpart of `spn4cir_tpu/models/generation.py`. The LLaMA rewriter and
-the LLaVA captioner use `NEG_INF`, `top_k_filter` and `top_p_filter`; the
+the LLaVA captioner use `NEG_INF`, `top_k_filter` and `top_p_filter`, and
+both decoder LMs (LLaMA, DeepSeek-V3) generate through `decode_loop` and
+`sample_logits`; the
 BLIP captioner decodes with the rest, HF `generate` semantics as LAVIS
 drives it (`blip_caption.py:136-205`, `med.py:1324-1376`): greedy or nucleus
 sampling (`generate`), beam search with `BeamSearchScorer` semantics
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from spn4cir_tpu_torch.eval.metrics import topk_lowest_index_first
 from spn4cir_tpu_torch.models.med import LN_EPS
+from spn4cir_tpu_torch.utils.logging import span
 
 NEG_INF = -1e9
 
@@ -64,6 +67,62 @@ def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     remove_sorted[..., -1] = False
     remove = torch.zeros_like(remove_sorted).scatter(-1, idx, remove_sorted)
     return logits.masked_fill(remove, NEG_INF)
+
+
+def sample_logits(logits: torch.Tensor, *, do_sample: bool,
+                  temperature: float, top_k: int, top_p: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One token a row: HF `generate`'s warper order (temperature -> top-k
+    -> top-p), then one draw with `torch.multinomial` from `generator`; the
+    argmax when not sampling."""
+    if do_sample:
+        filt = logits / max(temperature, 1e-6)
+        if top_k:
+            filt = top_k_filter(filt, top_k)
+        if top_p < 1.0:
+            filt = top_p_filter(filt, top_p)
+        return torch.multinomial(torch.softmax(filt, dim=-1), 1,
+                                 generator=generator)[:, 0]
+    return torch.argmax(logits, dim=-1)
+
+
+@torch.no_grad()
+def decode_loop(prefill, step, embed, *, max_new_tokens: int, eos_id: int,
+                pad_id: int, sample, tap=None) -> torch.Tensor:
+    """The decoder LMs' generation loop (`models.llama.llama_generate`,
+    `models.deepseek_v3.deepseek_v3_generate`): `prefill()` gives the
+    prompt's last logits (B, vocab), `step(x, i)` the logits of new token i
+    from the embedding x (B, D) of token i - 1, `embed(tok)` that
+    embedding, `sample(logits)` a token a row. max_new_tokens - 1 steps run
+    whatever EOS does (no host sync); a row's tokens after its EOS are
+    `pad_id`. Returns (B, max_new_tokens) int64.
+
+    Spans: `llm.prefill` (the prefill and its sampling) and one `llm.decode`
+    a step. `tap(kind, i, tensor)` receives ("logits", i, (B, vocab)) and
+    ("token", i, (B,)), the token fed to step i + 1."""
+    with span("llm.prefill"):
+        logits = prefill()
+        if tap is not None:
+            tap("logits", 0, logits)
+        tok = sample(logits)
+        out = torch.full((tok.shape[0], max_new_tokens), pad_id,
+                         dtype=torch.int64, device=tok.device)
+        out[:, 0] = tok
+        finished = tok == eos_id
+    if tap is not None:
+        tap("token", 0, tok)
+    for i in range(1, max_new_tokens):
+        with span("llm.decode"):
+            logits = step(embed(tok), i)
+            if tap is not None:
+                tap("logits", i, logits)
+            nxt = torch.where(finished, pad_id, sample(logits))
+            out[:, i] = nxt
+            finished = finished | (nxt == eos_id)
+            tok = nxt
+        if tap is not None:
+            tap("token", i, tok)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -44,8 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spn4cir_tpu_torch.models.generation import (NEG_INF, top_k_filter,
-                                                 top_p_filter)
+from spn4cir_tpu_torch.models.generation import (NEG_INF, decode_loop,
+                                                 sample_logits)
 from spn4cir_tpu_torch.ops.decode_attn import (decode_attention,
                                                decode_attention_reference,
                                                read_layer, repeat_kv)
@@ -671,7 +671,8 @@ def llama_generate(params, cfg: LlamaConfig, inputs_embeds: torch.Tensor, *,
     Sampling follows HF `generate`'s warper order (temperature -> top-k ->
     top-p), then one draw per row with `torch.multinomial` from `generator`
     (a generator of the device; seed 0 when none is given); greedy takes
-    the argmax. Ragged batches: LEFT-padded embeddings with
+    the argmax (`generation.sample_logits`, in `generation.decode_loop`, the
+    loop the DeepSeek-V3 decoder runs too). Ragged batches: LEFT-padded embeddings with
     `attention_mask` (B, P, 1 = real); per-row RoPE positions come from the
     mask's cumsum and pad keys stay masked through prefill and every decode
     step. The prompt goes through `llama_prefill` (or, with
@@ -707,38 +708,26 @@ def llama_generate(params, cfg: LlamaConfig, inputs_embeds: torch.Tensor, *,
     else:
         am = positions = lengths = valid = None
 
-    def sample_from(logits):
-        if do_sample:
-            filt = logits / max(temperature, 1e-6)
-            if top_k:
-                filt = top_k_filter(filt, top_k)
-            if top_p < 1.0:
-                filt = top_p_filter(filt, top_p)
-            return torch.multinomial(torch.softmax(filt, dim=-1), 1,
-                                     generator=generator)[:, 0]
-        return torch.argmax(logits, dim=-1)
+    def prefill():
+        if prefill_chunk and prefill_chunk < prompt_len:
+            return llama_prefill_chunked(
+                params, cfg, state, inputs_embeds, chunk=prefill_chunk,
+                positions=positions, pad_mask=am)[0]
+        return llama_prefill(params, cfg, state, inputs_embeds,
+                             positions=positions, pad_mask=am)[0]
 
-    if prefill_chunk and prefill_chunk < prompt_len:
-        logits0, state = llama_prefill_chunked(
-            params, cfg, state, inputs_embeds, chunk=prefill_chunk,
-            positions=positions, pad_mask=am)
-    else:
-        logits0, state = llama_prefill(params, cfg, state, inputs_embeds,
-                                       positions=positions, pad_mask=am)
-    tok = sample_from(logits0)
-    out = torch.full((batch, max_new_tokens), pad_id, dtype=torch.int64,
-                     device=dev)
-    out[:, 0] = tok
-    finished = tok == eos_id
-    for i in range(1, max_new_tokens):
-        x = _embed_rows(embed, tok)
-        logits, state = llama_decode_step(
+    def step(x, i):
+        return llama_decode_step(
             params, cfg, state, x, prompt_len + i - 1,
             rope_pos=None if lengths is None else lengths + i - 1,
             key_mask=valid, quant_kernel=quant_kernel,
-            attn_kernel=attn_kernel)
-        nxt = torch.where(finished, pad_id, sample_from(logits))
-        out[:, i] = nxt
-        finished = finished | (nxt == eos_id)
-        tok = nxt
-    return out
+            attn_kernel=attn_kernel)[0]
+
+    def sample(logits):
+        return sample_logits(logits, do_sample=do_sample,
+                             temperature=temperature, top_k=top_k,
+                             top_p=top_p, generator=generator)
+
+    return decode_loop(prefill, step, lambda tok: _embed_rows(embed, tok),
+                       max_new_tokens=max_new_tokens, eos_id=eos_id,
+                       pad_id=pad_id, sample=sample)

@@ -1,4 +1,6 @@
-"""LLaVA-v1: the CLIP ViT-L/14 vision tower, the linear projector and LLaMA.
+"""LLaVA-v1: the CLIP ViT-L/14 vision tower, the linear projector and a
+decoder LM: LLaMA (LLaVA-v1's own), or DeepSeek-V3 at Moonlight-16B-A3B's
+widths (`models/deepseek_v3.py`) in the same slot.
 
 Counterpart of `spn4cir_tpu/models/llava.py`, under the parameter names of
 HF's `LlavaLlamaForCausalLM`, so a LLaVA state dict loads with
@@ -10,7 +12,10 @@ HF's `LlavaLlamaForCausalLM`, so a LLaVA state dict loads with
     mlp.fc2}`), QuickGELU;
   * `model.mm_projector` (Linear vision width -> LM hidden);
   * the LLaMA under `model.embed_tokens`, `model.layers.*`, `model.norm` and
-    `lm_head`, read by `models/llama.py` as it reads the rewriter's.
+    `lm_head`, read by `models/llama.py` as it reads the rewriter's; or the
+    DeepSeek-V3 LM under HF `DeepseekV3ForCausalLM`'s names
+    (`LlavaDeepseekV3ForCausalLM`). `LlavaConfig.llama` holds the LM's
+    configuration, a `LlamaConfig` or a `DeepseekV3Config`, and picks it.
 
 The feature tap (`clip_encoder.py:29-37`) is hidden_states[-2] without the
 CLS token and before any final LayerNorm, so the tower holds only the
@@ -23,30 +28,40 @@ CLS token and before any final LayerNorm, so the tower holds only the
 `zscir/captioner_llava.py:32-62`: the llava_v1 template, the image token
 spliced in (`tokenizer_image_token`, `splice_image_embeds`), sampling at
 T=0.01 / top_p=0.01 through `models.llama.llama_generate` (decode steps
-through kernel #11, `attn_kernel=None` -> `DECODE_ATTN_DEFAULT`), stop at
-EOS ('</s>' = conv.sep2). Kernel #12 stays off unless the caller sets
-`quant_kernel`, as in the JAX captioner (`llava.py:238`).
+through kernel #11, `attn_kernel=None` -> `DECODE_ATTN_DEFAULT`) or
+`models.deepseek_v3.deepseek_v3_generate` (kernel #14 in every MoE layer),
+one loop for both (`generation.decode_loop`), stop at EOS ('</s>' =
+conv.sep2). Kernel #12 stays off unless the caller sets `quant_kernel`, as
+in the JAX captioner (`llava.py:238`). The DeepSeek-V3 LM takes neither
+`quantize()` nor `mesh=`. The tower and the projector run under the span
+`caption.vision`.
 
 Precision: the LM's weights take the model's `dtype` (bf16 on the card for
-the 7B); the tower and the projector keep float32 weights and compute in
-that dtype, LayerNorm in float32, as the JAX module does.
+the 7B); the tower and the projector keep float32 weights, cast at use to
+the activations' `dtype` (bf16 on the card), LayerNorm statistics in
+float32, as the JAX module does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spn4cir_tpu_torch.models.deepseek_v3 import (DeepseekV3Config,
+                                                  DeepseekV3ForCausalLM,
+                                                  deepseek_v3_generate,
+                                                  init_deepseek_param)
 from spn4cir_tpu_torch.models.layers import (LayerNorm, SelfAttention, linear,
                                              quick_gelu)
 from spn4cir_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                             _embed_rows, _flat,
                                             init_llama_param, llama_generate,
                                             quantize_llama_weights)
+from spn4cir_tpu_torch.utils.logging import span
 from spn4cir_tpu_torch.utils.tensors import as_tensor
 
 IMAGE_TOKEN_INDEX = -200  # zscir/llava/constants.py:8
@@ -99,17 +114,31 @@ class LlavaVisionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LlavaConfig:
-    llama: LlamaConfig
+    """`llama`: the language model's configuration, a `LlamaConfig` or a
+    `DeepseekV3Config`."""
+
+    llama: Union[LlamaConfig, DeepseekV3Config]
     vision: LlavaVisionConfig
+
+    @property
+    def deepseek(self) -> bool:
+        return isinstance(self.llama, DeepseekV3Config)
 
     @classmethod
     def v1_7b(cls) -> "LlavaConfig":
         return cls(llama=LlamaConfig.llama_7b(), vision=LlavaVisionConfig())
 
     @classmethod
-    def tiny(cls, vocab_size: int = 128) -> "LlavaConfig":
-        return cls(llama=LlamaConfig.tiny(vocab_size=vocab_size),
-                   vision=LlavaVisionConfig.tiny())
+    def moonlight(cls) -> "LlavaConfig":
+        """LLaVA-v1's tower and projector before Moonlight-16B-A3B."""
+        return cls(llama=DeepseekV3Config.moonlight_16b_a3b(),
+                   vision=LlavaVisionConfig())
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 128, lm: str = "llama") -> "LlavaConfig":
+        lm_cfg = (DeepseekV3Config.tiny(vocab_size=vocab_size)
+                  if lm == "deepseek" else LlamaConfig.tiny(vocab_size=vocab_size))
+        return cls(llama=lm_cfg, vision=LlavaVisionConfig.tiny())
 
 
 # ---------------------------------------------------------------------------
@@ -243,16 +272,13 @@ def init_vision_param(name: str, p: torch.Tensor,
         p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
 
 
-class LlavaLlamaForCausalLM(LlamaForCausalLM):
-    """vision tower + mm_projector + LLaMA (llava_arch.py:26-46). The
-    LLaMA keeps `LlamaForCausalLM`'s names and forward (`inputs_embeds`
-    takes the spliced embeddings); `encode_images` is the LLaVA side.
+class _LlavaVision:
+    """The LLaVA side of a multimodal LM: the tower and the projector
+    attached under `model.`, their initialisation and `encode_images`."""
 
-    `device="meta"` then `to_empty(device=...)` and `init_weights` builds a
-    7B on the card without a first random pass."""
+    init_lm_param = staticmethod(init_llama_param)
 
-    def __init__(self, cfg: LlavaConfig, device=None, dtype=None):
-        super().__init__(cfg.llama, device=device, dtype=dtype)
+    def _attach_vision(self, cfg: LlavaConfig, device, dtype) -> None:
         self.llava_cfg = cfg
         self.act_dtype = dtype or torch.float32
         self.model.vision_tower = CLIPVisionTower(cfg.vision, device=device)
@@ -267,7 +293,7 @@ class LlavaLlamaForCausalLM(LlamaForCausalLM):
             if name.startswith(VISION_PREFIXES):
                 init_vision_param(name, p, generator, width)
             else:
-                init_llama_param(name, p, generator)
+                self.init_lm_param(name, p, generator)
 
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) preprocessed -> (B, P, LM hidden) projected patch
@@ -275,6 +301,30 @@ class LlavaLlamaForCausalLM(LlamaForCausalLM):
         tower = self.model.vision_tower.vision_tower.vision_model
         return linear(tower(images.to(self.act_dtype)),
                       self.model.mm_projector)
+
+
+class LlavaLlamaForCausalLM(_LlavaVision, LlamaForCausalLM):
+    """vision tower + mm_projector + LLaMA (llava_arch.py:26-46). The
+    LLaMA keeps `LlamaForCausalLM`'s names and forward (`inputs_embeds`
+    takes the spliced embeddings); `encode_images` is the LLaVA side.
+
+    `device="meta"` then `to_empty(device=...)` and `init_weights` builds a
+    7B on the card without a first random pass."""
+
+    def __init__(self, cfg: LlavaConfig, device=None, dtype=None):
+        super().__init__(cfg.llama, device=device, dtype=dtype)
+        self._attach_vision(cfg, device, dtype)
+
+
+class LlavaDeepseekV3ForCausalLM(_LlavaVision, DeepseekV3ForCausalLM):
+    """vision tower + mm_projector + DeepSeek-V3 under HF
+    `DeepseekV3ForCausalLM`'s names."""
+
+    init_lm_param = staticmethod(init_deepseek_param)
+
+    def __init__(self, cfg: LlavaConfig, device=None, dtype=None):
+        super().__init__(cfg.llama, device=device, dtype=dtype)
+        self._attach_vision(cfg, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +407,9 @@ class LlavaCaptioner:
     this rank's tensor-parallel slice (`parallel.tp.shard_module_tp`), the
     projector stays whole, and the LM becomes this rank's slice and local
     geometry (`parallel.tp.shard_llama_params`); its full weights are
-    released."""
+    released. A DeepSeek-V3 LM (`cfg.deepseek`) refuses `mesh` and
+    `quantize()`: its int8 weights and tensor parallelism are not
+    ported."""
 
     def __init__(self, cfg: LlavaConfig, tokenizer,
                  dtype: torch.dtype = torch.float32, device="cpu",
@@ -367,12 +419,17 @@ class LlavaCaptioner:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise ValueError(f"mesh= takes a parallel.mesh.Mesh, not "
                              f"{type(mesh).__name__}")
+        if mesh is not None and cfg.deepseek:
+            raise ValueError("the DeepSeek-V3 LM runs on one device: tensor "
+                             "parallelism (mesh=) is not ported for it")
         self.mesh = mesh
         self.lm_cfg = cfg.llama
         self.cfg = cfg
         self.tok = tokenizer
         self.device = torch.device(device)
-        self.model = LlavaLlamaForCausalLM(cfg, device="meta", dtype=dtype)
+        model_cls = (LlavaDeepseekV3ForCausalLM if cfg.deepseek
+                     else LlavaLlamaForCausalLM)
+        self.model = model_cls(cfg, device="meta", dtype=dtype)
         self.model.to_empty(device=self.device)
         self.model.eval()
         self.lm_params = self.model
@@ -386,6 +443,9 @@ class LlavaCaptioner:
     def quantize(self) -> None:
         """Weight-only int8 LM (`quantize_llama_weights`); the dense LM
         tensors are released, the tower and the projector stay."""
+        if self.cfg.deepseek:
+            raise ValueError("int8 weights are not ported for the DeepSeek-V3 "
+                             "LM: quantize() takes the LLaMA LM only")
         dense = {k: v for k, v in self.model.named_parameters()
                  if not k.startswith(VISION_PREFIXES)}
         self.lm_params = quantize_llama_weights(dense)
@@ -419,11 +479,13 @@ class LlavaCaptioner:
                 max_new_tokens: int = 64, temperature: float = 0.01,
                 top_p: float = 0.01,
                 generator: Optional[torch.Generator] = None,
-                cache_dtype=None, attn_kernel=None) -> List[str]:
+                cache_dtype=None, attn_kernel=None, tap=None) -> List[str]:
         """images: (B, H, W, 3) preprocessed floats -> B caption strings.
 
         `cache_dtype` defaults to bfloat16 at LM widths >= 1024 and float32
-        below, as in the JAX package."""
+        below, as in the JAX package. `tap` (DeepSeek-V3 LM): a callable that
+        receives the routes, logits and tokens as they are produced
+        (`models.deepseek_v3.deepseek_v3_generate`)."""
         if cache_dtype is None:
             cache_dtype = (torch.bfloat16
                            if self.cfg.llama.hidden_size >= 1024
@@ -431,16 +493,25 @@ class LlavaCaptioner:
         self.shard()
         ids = self.prompt_ids(user_message)
         eos = self.tok.eos_token_id
-        images = as_tensor(images).to(self.device)
-        feats = self.model.encode_images(images)
-        embeds = splice_image_embeds(
-            _flat(self.lm_params)["model.embed_tokens.weight"], ids, feats)
-        out = llama_generate(
-            self.lm_params, self.lm_cfg, embeds, eos_id=eos, pad_id=eos,
-            max_new_tokens=max_new_tokens, do_sample=True,
-            temperature=temperature, top_p=top_p, generator=generator,
-            cache_dtype=cache_dtype, quant_kernel=self.quant_kernel,
-            attn_kernel=attn_kernel)
+        with span("caption.vision"):
+            images = as_tensor(images).to(self.device)
+            feats = self.model.encode_images(images)
+            table = (self.model.model.embed_tokens.weight if self.cfg.deepseek
+                     else _flat(self.lm_params)["model.embed_tokens.weight"])
+            embeds = splice_image_embeds(table, ids, feats)
+        if self.cfg.deepseek:
+            out = deepseek_v3_generate(
+                self.model, self.lm_cfg, embeds, eos_id=eos, pad_id=eos,
+                max_new_tokens=max_new_tokens, do_sample=True,
+                temperature=temperature, top_p=top_p, generator=generator,
+                cache_dtype=cache_dtype, tap=tap)
+        else:
+            out = llama_generate(
+                self.lm_params, self.lm_cfg, embeds, eos_id=eos, pad_id=eos,
+                max_new_tokens=max_new_tokens, do_sample=True,
+                temperature=temperature, top_p=top_p, generator=generator,
+                cache_dtype=cache_dtype, quant_kernel=self.quant_kernel,
+                attn_kernel=attn_kernel)
         captions = []
         for row in out.cpu().tolist():
             toks = []
