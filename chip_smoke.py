@@ -6489,11 +6489,15 @@ def drive_moonlight(card):
     """Phase 20: `make_llava_captioner(llava_lm="moonlight-16b-a3b")` at
     every published width (27 layers, bf16, seed-0 weights) captions 128
     images of noise at the caption cell's prompt, once to warm and once
-    timed; #14's launches over the timed batch must be one a MoE layer of
-    the prefill and of each of the 63 decode steps. The rows its first
-    MoE layer routed at the prefill and at the first decode step are kept
-    and #14 runs on them against its plain version, twice for the same
-    bits, timed a call and back to back beside the plain version, a
+    timed; #14's launches over the timed batch, read from its device sums
+    (`moe_stats`, which count under graph replay too), must be one a MoE
+    layer of the prefill and of each of the 63 decode steps, and the
+    wrapper's host calls one a MoE layer of the prefill alone (the steps
+    replay the decode graph captured in the warm batch). The rows its
+    first MoE layer routed at the warm batch's prefill and first decode
+    step (run as Python) are kept and #14 runs on them against its plain
+    version, twice for the same bits, timed a call and back to back
+    beside the plain version, a
     per-expert `F.linear` loop over host-known counts (the library
     yardstick, called nowhere in the port) and the bound. Returns the two
     records and the launches of the timed batch."""
@@ -6537,8 +6541,8 @@ def drive_moonlight(card):
         batched_fn(images)                      # builds #3, #13 and #14
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t1
-        seen.clear()
         torch.cuda.reset_peak_memory_stats()
+        mg.moe_stats(reset=True)
         before = mg.moe_grouped.launches
         t1 = time.perf_counter()
         caps = batched_fn(images)
@@ -6546,9 +6550,11 @@ def drive_moonlight(card):
         batch_s = time.perf_counter() - t1
     finally:
         dv.moe_grouped = real
-    launches = mg.moe_grouped.launches - before
+    host = mg.moe_grouped.launches - before
+    launches = sum(row[2] for row in mg.moe_stats().values())
     moe_layers = cfg.num_layers - cfg.first_k_dense_replace
     assert launches == moe_layers * MOONLIGHT_NEW, launches
+    assert host == moe_layers, host
     assert len(caps) == MOONLIGHT_BATCH and all(
         isinstance(c, str) for c in caps)
     phase(f"moonlight captioner (make_llava_captioner, llava_lm "
@@ -6559,7 +6565,8 @@ def drive_moonlight(card):
           f"{MOONLIGHT_NEW} new: {warm_s:.2f} s warm, {batch_s:.3f} s "
           f"timed ({MOONLIGHT_BATCH / batch_s:.2f} images/s); moe_grouped "
           f"launches {launches} ({moe_layers} MoE layers x (1 prefill + "
-          f"{MOONLIGHT_NEW - 1} decode steps)); memory peak "
+          f"{MOONLIGHT_NEW - 1} decode steps), {host} of them from the "
+          f"host, the rest in graph replays); memory peak "
           f"{torch.cuda.max_memory_allocated()} bytes [{card}]")
     d, inter, experts = (cfg.hidden_size, cfg.moe_intermediate_size,
                          cfg.n_routed_experts)

@@ -35,6 +35,13 @@ cache, and the values read back through the value half, ctx·W_v, all 16
 heads on one latent row (float32 products over the bf16 cache). Both
 compute the same function (a test holds them to each other).
 
+A decode step reads its position from a 0-d device tensor and attends to
+every cache row under an additive mask (0 up to the position, -inf above,
+so the rows above weigh exactly 0): its shapes are the batch's, and nothing
+in it waits for the host. On a CUDA device `deepseek_v3_generate` captures
+it once in a CUDA graph (`DecodeGraph`, one a model) and replays it for
+every new token; the CPU runs the same body eagerly.
+
 Kernels: the routed experts of every MoE layer, prefill and decode, go
 through `ops.moe_grouped` (kernel #14 on a CUDA tensor; the routing
 permutation and the combine are tensor code, no host sync). The shared
@@ -47,15 +54,24 @@ the model's type and its logits widened to float32 (HF's order).
 
 Spans (`utils.logging.span`, recorded only under a profiler): `mla.attend`
 around each layer's attention, `moe.route`, `moe.experts` (routed and
-shared), `moe.combine` per MoE layer. A `tap(kind, index, tensor)` callable
-given to the generation functions receives each MoE layer's choice,
-("route", layer, (B, S, k)), S = 1 at a decode step, before the experts
-run.
+shared), `moe.combine` per MoE layer; a replayed decode step records none
+of them (its host work is one `cudaGraphLaunch`). A `tap(kind, index,
+tensor)` callable given to the generation functions receives each MoE
+layer's choice, ("route", layer, (B, S, k)), S = 1 at a decode step, before
+the experts run (after the replay, from the graph's own index tensors, on a
+replayed step).
+
+Counters of `deepseek_v3_generate`'s steps:
+`deepseek_v3_decode_step.eager_steps` (run as Python), `.captures` (graphs
+captured) and `.replays`. `moe_grouped.launches` counts the wrapper's calls
+on the host (a capture's once, a replay's none); #14's launches under
+replay are in its device sums, `moe_stats()`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -230,7 +246,9 @@ class DeepseekV3MoE(nn.Module):
     n_shared_experts·moe_intermediate_size). Each routed expert keeps its
     HF-named parameters, which are views of three stacked tensors `w_gate`,
     `w_up` (E, I, D) and `w_down` (E, D, I) that kernel #14 reads; any
-    `_apply` (`to`, `to_empty`, ...) stacks them again."""
+    `_apply` (`to`, `to_empty`, ...) stacks them again, and so does a
+    `load_state_dict` that puts new tensors in place of the views
+    (`assign=True`)."""
 
     def __init__(self, cfg: DeepseekV3Config, **factory):
         super().__init__()
@@ -241,6 +259,7 @@ class DeepseekV3MoE(nn.Module):
         self.shared_experts = DeepseekV3MLP(d, width * cfg.n_shared_experts,
                                             **factory)
         self._stack()
+        self.register_load_state_dict_post_hook(_restack)
 
     @torch.no_grad()
     def _stack(self) -> None:
@@ -255,6 +274,13 @@ class DeepseekV3MoE(nn.Module):
         super()._apply(fn, recurse)
         self._stack()
         return self
+
+
+def _restack(moe: DeepseekV3MoE, incompatible_keys) -> None:
+    if any(getattr(e, proj).weight.data_ptr()
+           != getattr(moe, attr)[i].data_ptr()
+           for proj, attr in _STACKED for i, e in enumerate(moe.experts)):
+        moe._stack()
 
 
 class DeepseekV3DecoderLayer(nn.Module):
@@ -311,6 +337,13 @@ class DeepseekV3ForCausalLM(nn.Module):
         self.model = DeepseekV3Model(cfg, **factory)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                                  **factory)
+        self._decode_graph: Optional["DecodeGraph"] = None
+
+    def _apply(self, fn, recurse=True):
+        # a captured graph reads the weights at their addresses, which a
+        # move or a cast changes
+        self._decode_graph = None
+        return super()._apply(fn, recurse)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -398,16 +431,18 @@ def absorbed_weights(cfg: DeepseekV3Config, attn: DeepseekV3Attention
 
 
 def _mla_absorbed(cfg: DeepseekV3Config, attn: DeepseekV3Attention,
-                  q_nope, q_pe, latent, w_k, w_v) -> torch.Tensor:
+                  q_nope, q_pe, latent, w_k, w_v, mask=0.0) -> torch.Tensor:
     """One query a row (q_nope (B, 1, H, nope), q_pe (B, 1, H, rope))
-    against the latent rows it sees (B, L, r + rope), in the absorbed form:
+    against latent rows (B, L, r + rope) under the additive `mask` (L,) (0
+    on the rows the query sees, -inf on the others), in the absorbed form:
     [q_nope·W_k | q_pe]·[c | k_pe], softmax, (p·c)·W_v, float32 products.
     Returns the (B, 1, D) output of o_proj."""
     b = q_nope.shape[0]
     lat = latent.float()
     q_lat = torch.einsum("bhd,hdc->bhc", q_nope[:, 0].float(), w_k)
     q = torch.cat([q_lat, q_pe[:, 0]], dim=-1)
-    logits = torch.einsum("bhc,blc->bhl", q, lat) * cfg.qk_head_dim ** -0.5
+    logits = (torch.einsum("bhc,blc->bhl", q, lat) * cfg.qk_head_dim ** -0.5
+              + mask)
     p = torch.softmax(logits, dim=-1)
     ctx = torch.einsum("bhl,blc->bhc", p, lat[..., :cfg.kv_lora_rank])
     out = torch.einsum("bhc,hdc->bhd", ctx, w_v).reshape(b, 1, -1)
@@ -541,22 +576,136 @@ def deepseek_v3_prefill(model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
 def deepseek_v3_decode_step(model: DeepseekV3ForCausalLM,
                             cfg: DeepseekV3Config,
                             state: DeepseekV3DecodeState, x: torch.Tensor,
-                            pos: int, *, tap: Tap = None
+                            pos, *, tap: Tap = None
                             ) -> Tuple[torch.Tensor, DeepseekV3DecodeState]:
-    """One step: x (B, D) input embedding at cache position `pos` ->
-    (logits (B, vocab) float32, the state with row `pos` written), the
-    attention absorbed over cache rows [0, pos]."""
+    """One step: x (B, D) input embedding at cache position `pos` (a 0-d
+    int64 tensor on x's device, or an int) -> (logits (B, vocab) float32,
+    the state with row `pos` written), the attention absorbed over every
+    cache row with the rows above `pos` masked. Nothing reads `pos` on the
+    host, so one capture serves every position."""
+    if not torch.is_tensor(pos):
+        pos = torch.full((), pos, dtype=torch.int64, device=x.device)
+    at = pos.view(1)
     x = x.to(model.lm_head.weight.dtype)[:, None]
-    cos, sin = rope_tables(cfg, torch.full((1,), pos, device=x.device))
+    cos, sin = rope_tables(cfg, at)
+    rows = torch.arange(state.latent.shape[2], device=x.device)
+    mask = torch.where(rows <= pos, 0.0, float("-inf"))
     for li, layer in enumerate(model.model.layers):
         def attend(attn, h, li=li):
             q_nope, q_pe, latent = _mla_inputs(cfg, attn, h, cos, sin)
-            state.latent[li, :, pos:pos + 1] = latent
-            return _mla_absorbed(cfg, attn, q_nope, q_pe,
-                                 state.latent[li, :, :pos + 1],
-                                 state.w_k[li], state.w_v[li])
+            state.latent[li].index_copy_(1, at,
+                                         latent.to(state.latent.dtype))
+            return _mla_absorbed(cfg, attn, q_nope, q_pe, state.latent[li],
+                                 state.w_k[li], state.w_v[li], mask)
         x = _layer(cfg, layer, li, x, attend, tap)
     return _head(model, x[:, 0]), state
+
+
+deepseek_v3_decode_step.eager_steps = 0
+deepseek_v3_decode_step.captures = 0
+deepseek_v3_decode_step.replays = 0
+
+
+def _addresses(model: DeepseekV3ForCausalLM) -> Tuple[int, ...]:
+    """Where every tensor a captured step reads in place lies: the
+    parameters, the buffers and the stacked experts."""
+    out = []
+    for m in model.modules():
+        tensors = itertools.chain(m._parameters.values(), m._buffers.values())
+        if isinstance(m, DeepseekV3MoE):
+            tensors = itertools.chain(tensors, (getattr(m, attr)
+                                                for _, attr in _STACKED))
+        out.extend(t.data_ptr() for t in tensors if t is not None)
+    return tuple(out)
+
+
+class DecodeGraph:
+    """The decode step of one batch shape in a CUDA graph: static buffers
+    for the input embedding, the position and the decode state (latent
+    cache, absorbed weights), and the graph's own outputs, the logits and
+    each MoE layer's top-k indices. `key` is (batch, cache rows, cache
+    type, device).
+
+    `begin` refreshes the absorbed weights for a generate call, whose
+    prefill then writes cache rows [0, P); rows left by an earlier call lie
+    above the position and are masked. `step` runs the first step of the
+    graph's life eagerly (kernels loaded, the allocator and #14's
+    statistics allocated), captures at the second, and from then on copies
+    the embedding and the position in and replays. The weights are read at
+    their addresses: an in-place update is seen by the next replay, and a
+    call's first step drops the graph when a tensor has moved
+    (`load_state_dict(..., assign=True)`, `p.data = ...`, a new
+    `nn.Parameter`) and captures again."""
+
+    def __init__(self, key, model: DeepseekV3ForCausalLM,
+                 cfg: DeepseekV3Config):
+        batch, length, dtype, device = key
+        self.key = key
+        # normal tensors, written in place under inference mode or not
+        with torch.inference_mode(False):
+            self.state = init_deepseek_state(model, cfg, batch, length,
+                                             dtype=dtype, device=device)
+            self.x = torch.zeros((batch, cfg.hidden_size), device=device,
+                                 dtype=model.lm_head.weight.dtype)
+            self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.warm = False
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.routes: list = []         # (layer, (B, 1, k) indices)
+        self.addresses: Tuple[int, ...] = ()     # the model's, at capture
+        self.fresh = False             # a call whose first step is to come
+
+    def begin(self, model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config
+              ) -> DeepseekV3DecodeState:
+        for li, layer in enumerate(model.model.layers):
+            w_k, w_v = absorbed_weights(cfg, layer.self_attn)
+            self.state.w_k[li].copy_(w_k)
+            self.state.w_v[li].copy_(w_v)
+        self.fresh = True
+        return self.state
+
+    def drop_if_moved(self, model: DeepseekV3ForCausalLM) -> None:
+        """Drop the graph if a tensor it reads has moved since capture. A
+        call's first step runs it, not `begin`: the walk over Moonlight's
+        ~5,400 tensors (15-21 ms of the host of an H100 machine) then
+        overlaps the prefill's device work."""
+        if self.graph is not None and self.addresses != _addresses(model):
+            self.graph = None
+
+    def step(self, model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
+             x: torch.Tensor, pos: int, tap: Tap) -> torch.Tensor:
+        self.x.copy_(x)
+        self.pos.fill_(pos)
+        if not self.warm:
+            self.warm = True
+            deepseek_v3_decode_step.eager_steps += 1
+            return deepseek_v3_decode_step(model, cfg, self.state, self.x,
+                                           self.pos, tap=tap)[0]
+        if self.fresh:
+            self.fresh = False
+            self.drop_if_moved(model)
+        if self.graph is None:
+            self._capture(model, cfg)
+        self.graph.replay()
+        deepseek_v3_decode_step.replays += 1
+        if tap is not None:
+            for layer, idx in self.routes:
+                tap("route", layer, idx)
+        return self.logits
+
+    def _capture(self, model: DeepseekV3ForCausalLM,
+                 cfg: DeepseekV3Config) -> None:
+        """Record the step (which runs nothing) and where the model's
+        tensors lie."""
+        routes = []
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits = deepseek_v3_decode_step(
+                model, cfg, self.state, self.x, self.pos,
+                tap=lambda kind, layer, t: routes.append((layer, t)))[0]
+        deepseek_v3_decode_step.captures += 1
+        self.graph, self.logits, self.routes = graph, logits, routes
+        self.addresses = _addresses(model)
 
 
 @torch.no_grad()
@@ -570,13 +719,31 @@ def deepseek_v3_generate(model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
     """Continuations of an embedded prompt (B, P, D) -> (B, max_new_tokens)
     ids, `pad_id` after EOS, through `generation.decode_loop` (the loop
     `llama_generate` runs too): one prefill, then max_new_tokens - 1 decode
-    steps whatever EOS does. The cache holds P + max_new_tokens rows. `tap`
-    also receives each position's logits and token (`decode_loop`)."""
+    steps whatever EOS does. The cache holds P + max_new_tokens rows. On a
+    CUDA device the steps replay the model's `DecodeGraph`. `tap` also
+    receives each position's logits and token (`decode_loop`)."""
     dev = inputs_embeds.device
     batch, prompt_len, _ = inputs_embeds.shape
-    state = init_deepseek_state(model, cfg, batch,
-                                prompt_len + max_new_tokens,
-                                dtype=cache_dtype, device=dev)
+    length = prompt_len + max_new_tokens
+    dtype = cache_dtype or model.lm_head.weight.dtype
+    if dev.type == "cuda":
+        key = (batch, length, dtype, dev)
+        if model._decode_graph is None or model._decode_graph.key != key:
+            model._decode_graph = None      # its cache and pool freed first
+            model._decode_graph = DecodeGraph(key, model, cfg)
+        graph = model._decode_graph
+        state = graph.begin(model, cfg)
+
+        def run(x, pos):
+            return graph.step(model, cfg, x, pos, tap)
+    else:
+        state = init_deepseek_state(model, cfg, batch, length, dtype=dtype,
+                                    device=dev)
+
+        def run(x, pos):
+            deepseek_v3_decode_step.eager_steps += 1
+            return deepseek_v3_decode_step(model, cfg, state, x, pos,
+                                           tap=tap)[0]
     if generator is None and do_sample:
         generator = torch.Generator(device=dev).manual_seed(0)
     table = model.model.embed_tokens.weight
@@ -586,8 +753,7 @@ def deepseek_v3_generate(model: DeepseekV3ForCausalLM, cfg: DeepseekV3Config,
                                    tap=tap)[0]
 
     def step(x, i):
-        return deepseek_v3_decode_step(model, cfg, state, x,
-                                       prompt_len + i - 1, tap=tap)[0]
+        return run(x, prompt_len + i - 1)
 
     def sample(logits):
         return sample_logits(logits, do_sample=do_sample,

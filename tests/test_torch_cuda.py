@@ -1688,3 +1688,184 @@ def test_moonlight_absorbed_decode_matches_reference_on_card(cuda_device):
     # bf16 hidden states move near ties: the caption cell's program reads
     # 7.9-8.9% of routes flipped, and its limit is 20% (PERF.md)
     assert stats["flips"] <= 0.2 * stats["routes"]
+
+
+def _moonlight_generate(dv, model, cfg, emb, graphed, seed=3, new=8):
+    """(ids, taps) of one sampled generation from `emb`: through
+    `deepseek_v3_generate` (the decode graph on the card) when `graphed`,
+    else the same step body eagerly through `decode_loop`. `taps` holds the
+    logits, tokens and routes the tap received, in order, as copies."""
+    from spn4cir_tpu_torch.models.generation import decode_loop, sample_logits
+
+    taps = []
+
+    def tap(kind, index, t):
+        taps.append((kind, index, t.clone()))
+
+    gen = torch.Generator(device=emb.device).manual_seed(seed)
+
+    def sample(logits):
+        return sample_logits(logits, do_sample=True, temperature=1.0,
+                             top_k=0, top_p=0.9, generator=gen)
+
+    b, p, _ = emb.shape
+    with torch.inference_mode():
+        if graphed:
+            ids = dv.deepseek_v3_generate(
+                model, cfg, emb, eos_id=2, pad_id=0, max_new_tokens=new,
+                do_sample=True, top_p=0.9, cache_dtype=torch.bfloat16,
+                generator=gen, tap=tap)
+        else:
+            state = dv.init_deepseek_state(model, cfg, b, p + new,
+                                           dtype=torch.bfloat16)
+            ids = decode_loop(
+                lambda: dv.deepseek_v3_prefill(model, cfg, state, emb,
+                                               tap=tap)[0],
+                lambda x, i: dv.deepseek_v3_decode_step(
+                    model, cfg, state, x, p + i - 1, tap=tap)[0],
+                lambda tok: model.model.embed_tokens.weight[tok],
+                max_new_tokens=new, eos_id=2, pad_id=0, sample=sample,
+                tap=tap)
+    torch.cuda.synchronize()
+    return ids, taps
+
+
+def _same_bits(a, b):
+    ids_a, taps_a = a
+    ids_b, taps_b = b
+    assert torch.equal(ids_a, ids_b)
+    assert [(k, i, t.shape) for k, i, t in taps_a] == \
+        [(k, i, t.shape) for k, i, t in taps_b]
+    for (kind, index, x), (_, _, y) in zip(taps_a, taps_b):
+        assert torch.equal(x, y), (kind, index)
+
+
+@pytest.mark.cuda
+def test_moonlight_decode_graph_replays_the_eager_steps_bits_on_card(
+        cuda_device):
+    """A 2-layer model at published widths, 16 rows, 32 prompt tokens, 8
+    new tokens sampled at top-p 0.9: the graphed generation gives the
+    eager body's logits, routes and tokens to the bit, on its first call
+    (one eager step, a capture, 6 replays) and on a second call at the same
+    shape (7 replays, no capture). #14's device sums, which count its
+    launches under replay too, are the eager run's; the wrapper's host
+    counter sees the prefill, the eager step and the capture, then the
+    prefill alone."""
+    from spn4cir_tpu_torch.ops import moe_grouped as mg
+
+    dv, cfg, model = _moonlight_2layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    emb = torch.randn(2, 16, 32, cfg.hidden_size, generator=g,
+                      device=cuda_device).mul_(0.02).bfloat16()
+    step = dv.deepseek_v3_decode_step
+
+    def counted(fn):
+        mg.moe_stats(reset=True)
+        launches = mg.moe_grouped.launches
+        out = fn()
+        return out, mg.moe_grouped.launches - launches, mg.moe_stats()
+
+    eager, eager_n, eager_stats = counted(
+        lambda: _moonlight_generate(dv, model, cfg, emb[0], False))
+    assert eager_n == 8                      # one MoE layer, 8 forwards
+    before = (step.eager_steps, step.captures, step.replays)
+    graphed, graphed_n, graphed_stats = counted(
+        lambda: _moonlight_generate(dv, model, cfg, emb[0], True))
+    assert (step.eager_steps, step.captures, step.replays) == (
+        before[0] + 1, before[1] + 1, before[2] + 6)
+    _same_bits(graphed, eager)
+    assert (graphed_n, graphed_stats) == (3, eager_stats)
+
+    again, again_n, again_stats = counted(
+        lambda: _moonlight_generate(dv, model, cfg, emb[1], True, seed=5))
+    assert (step.eager_steps, step.captures, step.replays) == (
+        before[0] + 1, before[1] + 1, before[2] + 13)
+    ref, ref_n, ref_stats = counted(
+        lambda: _moonlight_generate(dv, model, cfg, emb[1], False, seed=5))
+    _same_bits(again, ref)
+    assert (again_n, again_stats) == (1, ref_stats)
+
+
+@pytest.mark.cuda
+def test_moonlight_decode_graph_recaptures_for_another_batch_on_card(
+        cuda_device):
+    dv, cfg, model = _moonlight_2layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    emb = torch.randn(16, 32, cfg.hidden_size, generator=g,
+                      device=cuda_device).mul_(0.02).bfloat16()
+    step = dv.deepseek_v3_decode_step
+    _moonlight_generate(dv, model, cfg, emb, True)
+    first = model._decode_graph
+    captures = step.captures
+    _same_bits(_moonlight_generate(dv, model, cfg, emb[:8], True),
+               _moonlight_generate(dv, model, cfg, emb[:8], False))
+    assert step.captures == captures + 1
+    assert model._decode_graph is not first
+    assert model._decode_graph.key[0] == 8
+
+
+@pytest.mark.cuda
+def test_moonlight_decode_graph_sees_weights_changed_in_place_on_card(
+        cuda_device):
+    """After a capture, new values copied into the head, an expert stack
+    and the latent up-projection (whose absorbed halves each call takes
+    again) reach the next replays: the graphed run equals the eager run
+    of the new weights and not the old."""
+    dv, cfg, model = _moonlight_2layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    emb = torch.randn(16, 32, cfg.hidden_size, generator=g,
+                      device=cuda_device).mul_(0.02).bfloat16()
+    old = _moonlight_generate(dv, model, cfg, emb, True)
+    layer = model.model.layers[1]
+    with torch.no_grad():
+        for w in (model.lm_head.weight, layer.self_attn.kv_b_proj.weight,
+                  layer.mlp.w_down):
+            w.copy_(w.flip(0))
+    new = _moonlight_generate(dv, model, cfg, emb, True)
+    _same_bits(new, _moonlight_generate(dv, model, cfg, emb, False))
+    assert not torch.equal(new[1][-2][2], old[1][-2][2])   # the last logits
+
+
+@pytest.mark.cuda
+def test_moonlight_decode_graph_follows_weights_loaded_by_assignment_on_card(
+        cuda_device):
+    """After a capture, `load_state_dict(..., assign=True)` of other
+    weights puts every parameter and expert stack at a new address: the
+    next call captures again and equals the eager run of the new weights,
+    not the old."""
+    dv, cfg, model = _moonlight_2layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    emb = torch.randn(16, 32, cfg.hidden_size, generator=g,
+                      device=cuda_device).mul_(0.02).bfloat16()
+    old = _moonlight_generate(dv, model, cfg, emb, True)
+    captures = dv.deepseek_v3_decode_step.captures
+    model.load_state_dict({k: v.flip(0).clone() for k, v in
+                           model.state_dict().items()}, assign=True)
+    new = _moonlight_generate(dv, model, cfg, emb, True)
+    assert dv.deepseek_v3_decode_step.captures == captures + 1
+    _same_bits(new, _moonlight_generate(dv, model, cfg, emb, False))
+    assert not torch.equal(new[1][-2][2], old[1][-2][2])   # the last logits
+
+
+@pytest.mark.cuda
+def test_moonlight_replayed_decode_steps_sync_nothing_on_card(cuda_device):
+    """Once captured, a step is two copies and a graph launch: nothing
+    waits for the host."""
+    dv, cfg, model = _moonlight_2layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    emb = torch.randn(16, 32, cfg.hidden_size, generator=g,
+                      device=cuda_device).mul_(0.02).bfloat16()
+    _moonlight_generate(dv, model, cfg, emb, True)
+    graph = model._decode_graph
+    replays = dv.deepseek_v3_decode_step.replays
+    x = emb[:, 0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            for pos in range(32, 40):
+                logits = graph.step(model, cfg, x, pos, None)
+                x = model.model.embed_tokens.weight[logits.argmax(-1)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert dv.deepseek_v3_decode_step.replays == replays + 8

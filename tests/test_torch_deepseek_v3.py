@@ -104,6 +104,97 @@ def test_absorbed_decode_equals_decompressed_attention():
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+def _slice_step(model, cfg, state, x, pos):
+    """The decode step with its position on the host: row `pos` written by
+    slice assignment, the attention over cache rows [0, pos] alone."""
+    x = x.to(model.lm_head.weight.dtype)[:, None]
+    cos, sin = dv.rope_tables(cfg, torch.full((1,), pos))
+    for li, layer in enumerate(model.model.layers):
+        def attend(attn, h, li=li):
+            q_nope, q_pe, latent = dv._mla_inputs(cfg, attn, h, cos, sin)
+            state.latent[li, :, pos:pos + 1] = latent
+            return dv._mla_absorbed(cfg, attn, q_nope, q_pe,
+                                    state.latent[li, :, :pos + 1],
+                                    state.w_k[li], state.w_v[li])
+        x = dv._layer(cfg, layer, li, x, attend, None)
+    return dv._head(model, x[:, 0])
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_masked_decode_step_equals_the_slice_form(cache):
+    """The step with its position in a tensor, attending to every row of a
+    12-row cache under the mask, against the slice form at every position
+    after a 4-token prefill. The rows above the position hold noise, as a
+    cache reused from an earlier call does: their weights are exactly 0, so
+    the logits and rows [0, pos] agree within 1e-6 (the sums over 12 rows
+    and over pos + 1 run in another order), the first layer's rows, which
+    no attention precedes, to the bit."""
+    cfg, model = _model(4)
+    g = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, 97, (3, 12), generator=g)
+    with torch.no_grad():
+        emb = model.model.embed_tokens.weight[ids]
+        masked = dv.init_deepseek_state(model, cfg, 3, 12, dtype=cache)
+        dv.deepseek_v3_prefill(model, cfg, masked, emb[:, :4])
+        sliced = dv.DeepseekV3DecodeState(masked.latent.clone(), masked.w_k,
+                                          masked.w_v)
+        masked.latent[:, :, 4:] = 10 * torch.randn(
+            masked.latent[:, :, 4:].shape, generator=g)
+        for pos in range(4, 12):
+            got = dv.deepseek_v3_decode_step(model, cfg, masked, emb[:, pos],
+                                             torch.tensor(pos))[0]
+            want = _slice_step(model, cfg, sliced, emb[:, pos], pos)
+            assert _gap(got, want) < 1e-6, pos
+            seen = slice(0, pos + 1)
+            assert _gap(masked.latent[:, :, seen].float(),
+                        sliced.latent[:, :, seen].float()) < 1e-6, pos
+            assert torch.equal(masked.latent[0, :, seen],
+                               sliced.latent[0, :, seen]), pos
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+def test_generate_on_the_cpu_taps_as_before_and_runs_no_graph(cache):
+    """`deepseek_v3_generate` on the CPU: the prefill's routes, then each
+    step's routes, logits and token, in that order and at those shapes; the
+    tokens of the slice form's loop; every step eager, no graph."""
+    from spn4cir_tpu_torch.models.generation import decode_loop
+
+    cfg, model = _model(5)
+    ids = torch.randint(0, 97, (2, 6), generator=torch.Generator().manual_seed(8))
+    emb = model.model.embed_tokens.weight[ids].detach()
+    seen = []
+
+    def tap(kind, index, t):
+        seen.append((kind, index, tuple(t.shape)))
+
+    step = dv.deepseek_v3_decode_step
+    before = (step.eager_steps, step.captures, step.replays)
+    got = dv.deepseek_v3_generate(model, cfg, emb, eos_id=3, pad_id=0,
+                                  max_new_tokens=5, cache_dtype=cache,
+                                  tap=tap)
+    moe = [li for li in range(cfg.num_layers) if cfg.is_moe(li)]
+    k = cfg.num_experts_per_tok
+    want = [("route", li, (2, 6, k)) for li in moe]
+    want += [("logits", 0, (2, 97)), ("token", 0, (2,))]
+    for i in range(1, 5):
+        want += [("route", li, (2, 1, k)) for li in moe]
+        want += [("logits", i, (2, 97)), ("token", i, (2,))]
+    assert seen == want
+    assert (step.eager_steps, step.captures, step.replays) == (
+        before[0] + 4, before[1], before[2])
+    assert model._decode_graph is None
+
+    with torch.no_grad():
+        state = dv.init_deepseek_state(model, cfg, 2, 11, dtype=cache)
+        slice_ids = decode_loop(
+            lambda: dv.deepseek_v3_prefill(model, cfg, state, emb)[0],
+            lambda x, i: _slice_step(model, cfg, state, x, 5 + i),
+            lambda tok: model.model.embed_tokens.weight[tok],
+            max_new_tokens=5, eos_id=3, pad_id=0,
+            sample=lambda logits: logits.argmax(-1))
+    assert torch.equal(got, slice_ids)
+
+
 def test_rope_deinterleaves_pairs_then_rotates_half():
     x = torch.arange(8, dtype=torch.float32).view(1, 8)
     cos, sin = torch.zeros(1, 8), torch.ones(1, 8)
@@ -227,6 +318,66 @@ def test_experts_are_views_of_the_stacked_weights_after_a_move():
     with torch.no_grad():
         assert torch.equal(fresh(input_ids=ids), model(input_ids=ids))
 
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_experts_are_stacked_again_after_an_assigning_load(device):
+    """`load_state_dict(..., assign=True)` puts new tensors in place of the
+    experts' views: the stacks #14 reads are built again from them."""
+    cfg, model = _model(4)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    fresh = dv.DeepseekV3ForCausalLM(cfg, device=device)
+    fresh.load_state_dict(sd, assign=True)
+    moe_ = fresh.model.layers[2].mlp
+    for e in (0, 7):
+        assert moe_.experts[e].gate_proj.weight.data_ptr() == \
+            moe_.w_gate[e].data_ptr()
+        assert torch.equal(moe_.w_down[e], sd[f"model.layers.2.mlp.experts.{e}."
+                                              "down_proj.weight"])
+    ids = torch.randint(0, 97, (1, 5))
+    with torch.no_grad():
+        assert torch.equal(fresh(input_ids=ids), model(input_ids=ids))
+
+
+def _replace(model, how):
+    layer = model.model.layers[2]
+    with torch.no_grad():
+        if how == "copy_":
+            layer.self_attn.kv_b_proj.weight.mul_(2.0)
+        elif how == "assign":
+            model.load_state_dict({k: v.clone() for k, v in
+                                   model.state_dict().items()}, assign=True)
+        elif how == "data":
+            w = layer.self_attn.kv_b_proj.weight
+            w.data = 2.0 * w.data
+        else:
+            model.lm_head.weight = torch.nn.Parameter(
+                model.lm_head.weight.detach().clone())
+
+
+@pytest.mark.parametrize("how,moved", [("copy_", False), ("assign", True),
+                                       ("data", True), ("parameter", True)])
+def test_decode_graph_is_dropped_when_a_tensor_it_reads_moves(how, moved):
+    """A captured step reads the weights where they lay at capture: a
+    call's check keeps the graph over an in-place update and drops it when
+    a parameter, a buffer or an expert stack has moved, so the step
+    captures again. Either way `begin` takes the absorbed halves of the new
+    weights."""
+    cfg, model = _model(3)
+    with torch.no_grad():                  # as `deepseek_v3_generate` runs
+        graph = dv.DecodeGraph((2, 8, torch.float32, torch.device("cpu")),
+                               model, cfg)
+        captured = object()             # what `_capture` leaves, on the CPU
+        graph.graph, graph.addresses = captured, dv._addresses(model)
+        graph.begin(model, cfg)
+        graph.drop_if_moved(model)
+        assert graph.graph is captured and graph.fresh
+        _replace(model, how)
+        state = graph.begin(model, cfg)
+        graph.drop_if_moved(model)
+    assert (graph.graph is None) == moved
+    w_k, w_v = dv.absorbed_weights(cfg, model.model.layers[2].self_attn)
+    assert torch.equal(state.w_k[2], w_k) and torch.equal(state.w_v[2], w_v)
 
 def test_config_round_trips_hf_keys_and_refuses_other_geometries():
     cfg = dv.DeepseekV3Config.moonlight_16b_a3b()
