@@ -62,7 +62,7 @@
 //     small terms first; each 32-deep block goes into a zeroed tile added
 //     in float32 (the tensor cores' accumulation rounds toward zero). Over
 //     bf16 and int8 banks the bf16 route is 6-11% faster than split TF32
-//     (`chip_probes/max_query_levers.py`);
+//     (PERF.md's kernel table, row 9);
 //   - epilogue, Q = 32: a warp's 32 columns are one m: the first argmax in
 //     registers and two xor shuffles (only a strictly greater sim moves it;
 //     a tie of values goes to the lower q); other Q: the tile's sims are

@@ -43,9 +43,10 @@ run on the CUDA cores.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
+
+from spn4cir_tpu_torch.ops.cuda_build import launch, load_library
 
 MAX_SEQ = 128
 MAX_HEAD_DIM = 128
@@ -152,21 +153,13 @@ def _tensor_route(*ts: torch.Tensor) -> str:
                        not any(t.data_ptr() % 16 for t in ts))
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("short_attention",
-                                        ["short_attention.cu"])))
-    fn = lib.short_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn = lib.short_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    return lib
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# q, k, v, (dout,) then the outputs; BH, S, D, dtype code, causal, tensor
+# cores; stream
+SHORT_ENTRY_POINTS = {
+    "short_attention_fwd": [_PTR] * 4 + [_I32] * 6 + [_PTR],
+    "short_attention_bwd": [_PTR] * 7 + [_I32] * 6 + [_PTR],
+}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,18 +188,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_fwd(q, k, v, causal: bool) -> torch.Tensor:
     bh, s, d = q.shape
     route = _tensor_route(q, k, v)
-    lib = _library()
+    lib = load_library("short_attention", SHORT_ENTRY_POINTS)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.short_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      out.data_ptr(), bh, s, d,
-                                      _DTYPE_CODES[q.dtype], int(causal),
-                                      int(route == "tensor_cores"), stream)
-    if err != 0:
-        raise RuntimeError(f"short_attention launch failed with CUDA error "
-                           f"{err} (BH={bh}, S={s}, D={d}, {q.dtype})")
-    short_attention.launches += 1
+    launch(short_attention, lib.short_attention_fwd, q.get_device(),
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
+           _DTYPE_CODES[q.dtype], int(causal), int(route == "tensor_cores"))
     return out
 
 
@@ -227,19 +213,12 @@ def short_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"short_attention_bwd launches a CUDA kernel; the "
                          f"tensors lie on {q.device}")
     bh, s, d = q.shape
-    lib = _library()
+    lib = load_library("short_attention", SHORT_ENTRY_POINTS)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.short_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
-            _DTYPE_CODES[q.dtype], int(causal), int(route == "tensor_cores"),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"short_attention_bwd launch failed with CUDA "
-                           f"error {err} (BH={bh}, S={s}, D={d}, {q.dtype})")
-    short_attention_bwd.launches += 1
+    launch(short_attention_bwd, lib.short_attention_bwd, q.get_device(),
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d,
+           _DTYPE_CODES[q.dtype], int(causal), int(route == "tensor_cores"))
     return dq, dk, dv
 
 
@@ -304,21 +283,12 @@ def long_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return short_attention_bwd_reference(q, k, v, dout, False)
 
 
-@functools.lru_cache(maxsize=None)
-def _long_library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("long_attention",
-                                        ["long_attention.cu"])))
-    fn = lib.long_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn = lib.long_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    return lib
+# forward: q, k, v, out, lse; backward: q, k, v, dout, out, lse, delta, dq,
+# dk, dv; then BH, S, D, dtype code; stream
+LONG_ENTRY_POINTS = {
+    "long_attention_fwd": [_PTR] * 5 + [_I32] * 4 + [_PTR],
+    "long_attention_bwd": [_PTR] * 10 + [_I32] * 4 + [_PTR],
+}
 
 
 def _check_aligned(*ts: torch.Tensor) -> None:
@@ -339,19 +309,13 @@ def long_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         raise ValueError(f"long_attention_fwd launches a CUDA kernel; the "
                          f"tensors lie on {q.device}")
     _check_aligned(q, k, v)
-    lib = _long_library()
+    lib = load_library("long_attention", LONG_ENTRY_POINTS)
     bh, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.long_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     out.data_ptr(), lse.data_ptr(), bh, s, d,
-                                     _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"long_attention launch failed with CUDA error "
-                           f"{err} (BH={bh}, S={s}, D={d}, {q.dtype})")
-    long_attention.launches += 1
+    launch(long_attention, lib.long_attention_fwd, q.get_device(),
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           lse.data_ptr(), bh, s, d, _DTYPE_CODES[q.dtype])
     return out, lse
 
 
@@ -376,20 +340,13 @@ def long_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("lse must be the forward's (BH, S) float32 tensor")
     _check_aligned(q, k, v, dout)
-    lib = _long_library()
+    lib = load_library("long_attention", LONG_ENTRY_POINTS)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     delta = torch.empty_like(lse)       # rowsum(dO∘O), written by the kernel
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.long_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), bh, s, d, _DTYPE_CODES[q.dtype],
-            stream)
-    if err != 0:
-        raise RuntimeError(f"long_attention_bwd launch failed with CUDA "
-                           f"error {err} (BH={bh}, S={s}, D={d}, {q.dtype})")
-    long_attention_bwd.launches += 1
+    launch(long_attention_bwd, lib.long_attention_bwd, q.get_device(),
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+           out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), bh, s, d, _DTYPE_CODES[q.dtype])
     return dq, dk, dv
 
 

@@ -61,10 +61,11 @@ int8` in training and `--gallery_dtype int8` in the retrieval service.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Tuple, Union
 
 import torch
+
+from spn4cir_tpu_torch.ops.cuda_build import launch, load_library, sm_count
 
 TILE_ROWS = 64     # query rows per CTA   (kTileR in csrc/bank_infonce.cu)
 TILE_COLS = 128    # bank rows per tile   (kTileC)
@@ -228,22 +229,16 @@ def dtau_from_stats(stats: Stats, tau: Tau) -> torch.Tensor:
 # The kernels
 # --------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("bank_infonce", ["bank_infonce.cu"])))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn, argtypes in (
-            (lib.bank_infonce_fwd, [ptr] * 3 + [f32] + [i32] * 7 + [ptr] * 7),
-            (lib.bank_infonce_bwd, [ptr] * 6 + [f32] + [i32] * 7 + [ptr] * 4),
-            (lib.bank_infonce_q8_fwd,
-             [ptr] * 4 + [f32] + [i32] * 6 + [ptr] * 7),
-            (lib.bank_infonce_q8_bwd,
-             [ptr] * 7 + [f32] + [i32] * 6 + [ptr] * 4)):
-        fn.restype = i32
-        fn.argtypes = argtypes
-    return lib
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# query, bank | values, scales, labels (bwd: mx, se, gout); tau; B, M, D
+# (dense: the dtype code), tiles_per_split, n_splits, tc_logits; the scratch
+# and the outputs; stream
+ENTRY_POINTS = {
+    "bank_infonce_fwd": [_PTR] * 3 + [_F32] + [_I32] * 7 + [_PTR] * 7,
+    "bank_infonce_bwd": [_PTR] * 6 + [_F32] + [_I32] * 7 + [_PTR] * 4,
+    "bank_infonce_q8_fwd": [_PTR] * 4 + [_F32] + [_I32] * 6 + [_PTR] * 7,
+    "bank_infonce_q8_bwd": [_PTR] * 7 + [_F32] + [_I32] * 6 + [_PTR] * 4,
+}
 
 
 def split_plan(m: int, b: int, sm_count: int, ctas_per_sm: int,
@@ -354,10 +349,6 @@ def _check(query: torch.Tensor, bank, labels: torch.Tensor) -> None:
         raise ValueError("query and bank must be 16-byte aligned")
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _bank_args(lib, bank, name: str):
     """(public wrapper that counts the launch, C entry point, leading bank
     pointers, trailing dtype code) of the dense or the int8 kernel `name`
@@ -377,28 +368,21 @@ def _launch_fwd(query: torch.Tensor, bank, labels: torch.Tensor, tau: float
     if query.device.type != "cuda":
         raise ValueError(f"the bank InfoNCE forward launches a CUDA kernel; "
                          f"the tensors lie on {query.device}")
-    lib = _library()
+    lib = load_library("bank_infonce", ENTRY_POINTS)
     b, d = query.shape
     m = bank.shape[0]
-    dev = query.device
-    plan = fwd_plan(b, m, d, _sm_count(dev))
+    dev, index = query.device, query.get_device()
+    plan = fwd_plan(b, m, d, sm_count(index))
     labels32 = labels.to(torch.int32).contiguous()
     part = torch.empty(plan.n_splits, b, 4, device=dev, dtype=torch.float32)
     stats = torch.empty(4, b, device=dev, dtype=torch.float32)
     out2 = torch.empty(2, device=dev, dtype=torch.float32)
     wrapper, fn, bank_ptrs, code = _bank_args(lib, bank, "fwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(query.data_ptr(), *bank_ptrs, labels32.data_ptr(),
-                 float(tau), b, m, d, *code, plan.tiles_per_split,
-                 plan.n_splits, int(plan.tc_logits), part.data_ptr(),
-                 stats[0].data_ptr(), stats[1].data_ptr(),
-                 stats[2].data_ptr(), stats[3].data_ptr(), out2.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{wrapper.__name__} launch failed with CUDA error "
-                           f"{err} (B={b}, M={m}, D={d}, {bank.dtype})")
-    wrapper.launches += 1
+    launch(wrapper, fn, index, query.data_ptr(), *bank_ptrs,
+           labels32.data_ptr(), float(tau), b, m, d, *code,
+           plan.tiles_per_split, plan.n_splits, int(plan.tc_logits),
+           part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+           stats[2].data_ptr(), stats[3].data_ptr(), out2.data_ptr())
     return out2[0], (stats[0], stats[1], stats[2], stats[3]), out2[1]
 
 
@@ -409,12 +393,12 @@ def _launch_bwd(query: torch.Tensor, bank, labels: torch.Tensor, tau: float,
     if query.device.type != "cuda":
         raise ValueError(f"the bank InfoNCE backward launches a CUDA kernel; "
                          f"the tensors lie on {query.device}")
-    lib = _library()
+    lib = load_library("bank_infonce", ENTRY_POINTS)
     b, d = query.shape
     m = bank.shape[0]
-    dev = query.device
+    dev, index = query.device, query.get_device()
     f32 = dict(device=dev, dtype=torch.float32)
-    plan = bwd_plan(b, m, d, _sm_count(dev))
+    plan = bwd_plan(b, m, d, sm_count(index))
     coef = torch.empty(plan.coef_shape, **f32)
     dq_part = torch.empty(plan.dq_part_shape, **f32)
     labels32 = labels.to(torch.int32).contiguous()
@@ -423,17 +407,11 @@ def _launch_bwd(query: torch.Tensor, bank, labels: torch.Tensor, tau: float,
     gout = gout.float().reshape(1).contiguous()
     dq = torch.empty(b, d, **f32)
     wrapper, fn, bank_ptrs, code = _bank_args(lib, bank, "bwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(query.data_ptr(), *bank_ptrs, labels32.data_ptr(),
-                 mx.data_ptr(), se.data_ptr(), gout.data_ptr(), float(tau), b,
-                 m, d, *code, plan.tiles_per_split, plan.n_splits,
-                 int(plan.tc_logits), coef.data_ptr(), dq_part.data_ptr(),
-                 dq.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{wrapper.__name__} launch failed with CUDA error "
-                           f"{err} (B={b}, M={m}, D={d}, {bank.dtype})")
-    wrapper.launches += 1
+    launch(wrapper, fn, index, query.data_ptr(), *bank_ptrs,
+           labels32.data_ptr(), mx.data_ptr(), se.data_ptr(), gout.data_ptr(),
+           float(tau), b, m, d, *code, plan.tiles_per_split, plan.n_splits,
+           int(plan.tc_logits), coef.data_ptr(), dq_part.data_ptr(),
+           dq.data_ptr())
     return dq
 
 
@@ -508,8 +486,8 @@ class _BankInfoNCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        # autograd's thread: the wrapper takes the current stream and
-        # device again
+        # autograd's thread, whose current device is the tensors': the
+        # launch takes its current stream again
         query, rows, scales, labels, mx, se, dtau_unit = ctx.saved_tensors
         dq = None
         if ctx.needs_input_grad[0]:

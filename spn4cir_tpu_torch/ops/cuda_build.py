@@ -1,23 +1,36 @@
-"""Build the package's CUDA sources into plain-C shared libraries.
+"""Build the package's CUDA sources into plain-C shared libraries, load
+them with `ctypes` and launch their entry points.
 
-Each library is compiled by `nvcc` for Hopper (`sm_90a`) at first use, for
-its wrapper to load with `ctypes`; nothing is built when a module is
-imported. Outputs go to `build/kernels/` at the root of the checkout, named
-by a hash of the sources, the shared `.cuh` headers and the flags, so an
-edited source rebuilds and an unchanged one loads the library already there.
-The `ptxas` report (registers, shared memory, spills) is kept beside each
-library as `<name>-<hash>.log`.
+Each library is compiled by `nvcc` for Hopper (`sm_90a`) at first use;
+nothing is built when a module is imported. Outputs go to `build/kernels/`
+at the root of the checkout, named by a hash of the sources, the shared
+`.cuh` headers and the flags, so an edited source rebuilds and an unchanged
+one loads the library already there. The `ptxas` report (registers, shared
+memory, spills) is kept beside each library as `<name>-<hash>.log`.
+
+This module is the one way Python reaches a kernel. A wrapper module
+declares each library's entry points as data (name -> argtypes; every entry
+returns a CUDA error code as `c_int`), and:
+  - `load_library` builds `csrc/<name>.cu` and opens it, once a process;
+  - `launch` calls an entry point on the current stream of the tensors'
+    device, raises on its error code and counts the launch in the public
+    wrapper's `.launches`;
+  - `sm_count` and `occupancy` read the device facts a plan needs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Dict, Mapping, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -58,3 +71,64 @@ def build_library(name: str, sources: Sequence[str], force: bool = False
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+#: entry point -> its argtypes, the current stream's handle last
+EntryPoints = Mapping[str, Sequence[type]]
+
+_LIBRARIES: Dict[str, ctypes.CDLL] = {}
+_SCALARS = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float)
+
+
+def load_library(name: str, entries: EntryPoints) -> ctypes.CDLL:
+    """The library built from `csrc/<name>.cu`, opened once a process, with
+    each entry point of `entries` given its argtypes and a `c_int` result."""
+    lib = _LIBRARIES.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_library(name, [f"{name}.cu"])))
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+        lib = _LIBRARIES.setdefault(name, lib)
+    return lib
+
+
+def launch(wrapper: Callable, fn, index: int, *args) -> None:
+    """`fn(*args, stream)` with the raw current stream of CUDA device
+    `index` (under `torch.cuda.graph` capture, the capture stream), under
+    that device's guard only when it is not the current one. A non-zero
+    code raises RuntimeError naming `wrapper`; a launch that succeeds adds
+    1 to `wrapper.launches`. Nothing else is paid a launch: the error text
+    is built only on failure."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:
+        scalars = [a for a, t in zip(args, fn.argtypes) if t in _SCALARS]
+        raise RuntimeError(f"{wrapper.__name__} launch failed with CUDA error "
+                           f"{err} on cuda:{index} (scalar arguments of "
+                           f"{fn.__name__}: {scalars})")
+    wrapper.launches += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def occupancy(fn, index: int, *args, least: int = 1) -> int:
+    """What the occupancy entry point `fn(*args, &count)` of a library
+    reports on CUDA device `index`, asked under its guard; RuntimeError on
+    a CUDA error or a count below `least`."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(*args, ctypes.byref(count))
+    if err != 0 or count.value < least:
+        raise RuntimeError(f"{fn.__name__}{args} failed with CUDA error {err} "
+                           f"({count.value}) on cuda:{index}")
+    return count.value

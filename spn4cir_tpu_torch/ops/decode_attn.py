@@ -35,6 +35,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from spn4cir_tpu_torch.ops.cuda_build import (launch, load_library, occupancy,
+                                              sm_count)
+
 MAX_HEAD_DIM = 128
 MAX_SPLITS = 8        # splits of L: one thread-block cluster (kMaxSplits)
 MIN_SPLIT_ROWS = 64   # splits of L: at most ceil(L / MIN_SPLIT_ROWS)
@@ -96,21 +99,17 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhk,bkhd->bhd", w, vh)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("decode_attention",
-                                       ["decode_attention.cu"])))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.decode_attention.restype = i32
-    lib.decode_attention.argtypes = (
-        [ptr, i32, ptr, ptr, i32, i64, i64, ptr, i64, ptr, ptr, i64]
-        + [i32] * 7 + [ctypes.c_float, ptr, ptr])
-    lib.decode_attention_occupancy.restype = i32
-    lib.decode_attention_occupancy.argtypes = [i32, i32,
-                                               ctypes.POINTER(i32)]
-    return lib
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# q, q is bf16, k, v, cache code, the caches' batch and row strides, bias,
+# its batch stride, k_scale, v_scale, their batch stride; B, H, KVH, hd, L,
+# rows a split, splits; hd^-1/2; out; stream. The occupancy query: cache
+# code, hd; the blocks an SM holds (out)
+ENTRY_POINTS = {
+    "decode_attention": ([_PTR, _I32, _PTR, _PTR, _I32, _I64, _I64, _PTR,
+                          _I64, _PTR, _PTR, _I64] + [_I32] * 7
+                         + [ctypes.c_float, _PTR, _PTR]),
+    "decode_attention_occupancy": [_I32, _I32, ctypes.POINTER(_I32)],
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,15 +120,9 @@ def device_plan_inputs(index: int, cache_code: int, head_dim: int
     the device's properties and the kernel's occupancy. `split_plan` takes
     the SMs; the blocks an SM holds are reported beside the kernel's
     times."""
-    sm = torch.cuda.get_device_properties(index).multi_processor_count
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        err = _library().decode_attention_occupancy(cache_code, head_dim,
-                                                    ctypes.byref(blocks))
-    if err != 0 or blocks.value < 1:
-        raise RuntimeError(f"decode_attention occupancy query failed with "
-                           f"CUDA error {err} ({blocks.value} blocks an SM)")
-    return sm, blocks.value
+    lib = load_library("decode_attention", ENTRY_POINTS)
+    return sm_count(index), occupancy(lib.decode_attention_occupancy, index,
+                                      cache_code, head_dim)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -224,28 +217,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty(batch, heads, hd, device=q.device,
                       dtype=torch.float32 if quant else k_cache.dtype)
     code = _CACHE_CODES[k_cache.dtype]
-    index = q.device.index if q.device.index is not None else \
-        torch.cuda.current_device()
+    index = q.get_device()
     rows, n_splits = split_plan(length, batch * heads,
                                 device_plan_inputs(index, code, hd)[0])
     k, v = k_cache[li], v_cache[li]   # views: nothing is copied
     ks = k_scale[li] if quant else None
     vs = v_scale[li] if quant else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().decode_attention(
-            q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-            v.data_ptr(), code, k.stride(0),
-            k.stride(1), bias.data_ptr(), bias.stride(0),
-            ks.data_ptr() if quant else None,
-            vs.data_ptr() if quant else None, ks.stride(0) if quant else 0,
-            batch, heads, width // hd, hd, length, rows, n_splits,
-            hd ** -0.5, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention launch failed with CUDA error "
-                           f"{err} (B={batch}, H={heads}, hd={hd}, L={length},"
-                           f" {k_cache.dtype}, {n_splits} splits of {rows})")
-    decode_attention.launches += 1
+    launch(decode_attention,
+           load_library("decode_attention", ENTRY_POINTS).decode_attention,
+           index, q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+           v.data_ptr(), code, k.stride(0), k.stride(1), bias.data_ptr(),
+           bias.stride(0), ks.data_ptr() if quant else None,
+           vs.data_ptr() if quant else None, ks.stride(0) if quant else 0,
+           batch, heads, width // hd, hd, length, rows, n_splits, hd ** -0.5,
+           out.data_ptr())
     return out
 
 

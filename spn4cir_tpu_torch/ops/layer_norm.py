@@ -38,6 +38,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from spn4cir_tpu_torch.ops.cuda_build import (launch, load_library, occupancy,
+                                              sm_count)
+
 WARPS = 8            # warps a block (kWarps)
 MAX_WIDTH = 4096     # the backward folds 2·W float32 in shared memory
 #: values a 16-byte vector holds, and the vectors a lane holds before a row
@@ -120,47 +123,27 @@ def ln_plan(width: int, dtype: torch.dtype, aligned: bool
     raise AssertionError(f"no plan for width {width}")  # MAX_WIDTH fits
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("layer_norm", ["layer_norm.cu"])))
-    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+_PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-    lib.ln_f32_fwd.restype = i32
-    lib.ln_f32_fwd.argtypes = [ptr, i32, ptr, ptr, ptr, i64] + [i32] * 4 + [
-        f32, ptr]
-    lib.ln_f32_bwd.restype = i32
-    lib.ln_f32_bwd.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i64] + [
-        i32] * 4 + [f32, ptr]
-    lib.ln_f32_bwd_occupancy.restype = i32
-    lib.ln_f32_bwd_occupancy.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
-    return lib
+# forward: x, dtype code, weight, bias, y; rows, W, vec, nv, row_warps; eps;
+# stream. backward: dy, x, dtype code, weight, dx, partials, grid; rows, W,
+# vec, nv, row_warps; eps; stream. The occupancy query: dtype code, vec, nv;
+# the blocks an SM holds (out)
+ENTRY_POINTS = {
+    "ln_f32_fwd": [_PTR, _I32, _PTR, _PTR, _PTR, _I64] + [_I32] * 4
+                  + [_F32, _PTR],
+    "ln_f32_bwd": [_PTR, _PTR, _I32, _PTR, _PTR, _PTR, _I32, _I64]
+                  + [_I32] * 4 + [_F32, _PTR],
+    "ln_f32_bwd_occupancy": [_I32, _I32, _I32, ctypes.POINTER(_I32)],
+}
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_grid_limit(index: int, code: int, vec: int, nv: int) -> int:
     """Blocks of the backward kernel that CUDA device `index` holds at once
     (its grid, and so its partial rows, at most): read once a device."""
-    with torch.cuda.device(index):
-        blocks = ctypes.c_int(0)
-        err = _library().ln_f32_bwd_occupancy(code, vec, nv,
-                                              ctypes.byref(blocks))
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-    if err != 0 or blocks.value < 1:
-        raise RuntimeError(f"LayerNorm backward occupancy query failed with "
-                           f"CUDA error {err} ({blocks.value} blocks)")
-    return blocks.value * sms
-
-
-def _launch(index: int, fn, *args) -> int:
-    """`fn(*args, stream)` on device `index`'s current stream, under its
-    device guard when it is not the current device; the CUDA error code."""
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(index):
-        return fn(*args, stream)
+    fn = load_library("layer_norm", ENTRY_POINTS).ln_f32_bwd_occupancy
+    return occupancy(fn, index, code, vec, nv) * sm_count(index)
 
 
 def layer_norm_f32_fwd(x: torch.Tensor, weight: torch.Tensor,
@@ -174,14 +157,9 @@ def layer_norm_f32_fwd(x: torch.Tensor, weight: torch.Tensor,
         return y
     px, pw, pb = x.data_ptr(), weight.data_ptr(), bias.data_ptr()
     vec, nv, rw = ln_plan(width, x.dtype, (px | pw | pb) % 16 == 0)
-    err = _launch(x.get_device(), _library().ln_f32_fwd, px,
-                  _DTYPE_CODES[x.dtype], pw, pb, y.data_ptr(), rows, width,
-                  vec, nv, rw, eps)
-    if err != 0:
-        raise RuntimeError(f"LayerNorm forward launch failed with CUDA error "
-                           f"{err} (rows={rows}, W={width}, {x.dtype}, "
-                           f"vec={vec}, nv={nv}, row_warps={rw})")
-    layer_norm_f32.launches += 1
+    launch(layer_norm_f32, load_library("layer_norm", ENTRY_POINTS).ln_f32_fwd,
+           x.get_device(), px, _DTYPE_CODES[x.dtype], pw, pb, y.data_ptr(),
+           rows, width, vec, nv, rw, eps)
     return y
 
 
@@ -213,15 +191,10 @@ def layer_norm_f32_bwd(dy: torch.Tensor, x: torch.Tensor,
     # the partial rows; the first becomes their column sums, [dw | db]
     part = (x.new_empty((grid, 2, width), dtype=torch.float32)
             if need_params else None)
-    err = _launch(index, _library().ln_f32_bwd, pg, px, code, pw,
-                  pdx or None, None if part is None else part.data_ptr(),
-                  grid, rows, width, vec, nv, rw, eps)
-    if err != 0:
-        raise RuntimeError(f"LayerNorm backward launch failed with CUDA error "
-                           f"{err} (rows={rows}, W={width}, {x.dtype}, "
-                           f"vec={vec}, nv={nv}, row_warps={rw}, "
-                           f"grid={grid})")
-    layer_norm_f32_bwd.launches += 1
+    launch(layer_norm_f32_bwd,
+           load_library("layer_norm", ENTRY_POINTS).ln_f32_bwd, index, pg, px,
+           code, pw, pdx or None, None if part is None else part.data_ptr(),
+           grid, rows, width, vec, nv, rw, eps)
     dw, db = part[0].unbind() if part is not None else (None, None)
     return dx, dw, db
 

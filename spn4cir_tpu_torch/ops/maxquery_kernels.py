@@ -51,13 +51,13 @@ there is no prepared layout here.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from spn4cir_tpu_torch.ops import bank_kernels
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank, Stats, Tau
+from spn4cir_tpu_torch.ops.cuda_build import launch, load_library, sm_count
 
 # the kernels' layout, as csrc/max_query_infonce.cu fixes it at compile time
 # (which also asserts that the widest D fits the shared memory)
@@ -165,21 +165,15 @@ def max_query_infonce_bwd_reference(feats: torch.Tensor, bank,
 # The kernels
 # --------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("max_query_infonce",
-                                       ["max_query_infonce.cu"])))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn, argtypes in (
-            (lib.max_query_infonce_fwd,
-             [ptr] * 4 + [f32] + [i32] * 7 + [ptr] * 9),
-            (lib.max_query_infonce_bwd,
-             [ptr] * 8 + [f32] + [i32] * 7 + [ptr] * 3)):
-        fn.restype = i32
-        fn.argtypes = argtypes
-    return lib
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# forward: feats, values, scales, labels; tau; B, M, Q, D, dtype code,
+# m_per_split, n_splits; part, mx, se, pos, el, out2, logits, route; stream.
+# backward: values, scales, labels, mx, se, gout, logits, route; tau; B, M,
+# Q, D, dtype code, m_per_split, splits; dq_part, dq; stream
+ENTRY_POINTS = {
+    "max_query_infonce_fwd": [_PTR] * 4 + [_F32] + [_I32] * 7 + [_PTR] * 9,
+    "max_query_infonce_bwd": [_PTR] * 8 + [_F32] + [_I32] * 7 + [_PTR] * 3,
+}
 
 
 class MqPlan(NamedTuple):
@@ -276,10 +270,6 @@ def _bank_args(bank):
     return (bank.data_ptr(), None, _DTYPE_CODES[bank.dtype], *bank.shape[:2])
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def max_query_infonce_fwd(feats: torch.Tensor, bank, labels: torch.Tensor,
                           tau: float, routing: bool = False
                           ) -> Tuple[torch.Tensor, Stats, torch.Tensor,
@@ -291,11 +281,11 @@ def max_query_infonce_fwd(feats: torch.Tensor, bank, labels: torch.Tensor,
     route), (B, M) views of the kernel's (M, B) float32 and int16 buffers
     (else None, and the kernel writes none)."""
     _check(feats, bank, labels)
-    lib = _library()
+    lib = load_library("max_query_infonce", ENTRY_POINTS)
     b, d = feats.shape
     values, scales, code, m, nq = _bank_args(bank)
-    dev = feats.device
-    plan = mq_plan(b, m, nq, _sm_count(dev))
+    dev, index = feats.device, feats.get_device()
+    plan = mq_plan(b, m, nq, sm_count(index))
     labels32 = labels.to(torch.int32).contiguous()
     part = torch.empty(plan.n_splits, b, 4, device=dev, dtype=torch.float32)
     stats = torch.empty(4, b, device=dev, dtype=torch.float32)
@@ -304,20 +294,13 @@ def max_query_infonce_fwd(feats: torch.Tensor, bank, labels: torch.Tensor,
     if routing:
         logits_t = torch.empty(m, b, device=dev, dtype=torch.float32)
         route_t = torch.empty(m, b, device=dev, dtype=torch.int16)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.max_query_infonce_fwd(
-            feats.data_ptr(), values, scales, labels32.data_ptr(), float(tau),
-            b, m, nq, d, code, plan.m_per_split, plan.n_splits,
-            part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            stats[2].data_ptr(), stats[3].data_ptr(), out2.data_ptr(),
-            None if logits_t is None else logits_t.data_ptr(),
-            None if route_t is None else route_t.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"max_query_infonce_fwd launch failed with CUDA "
-                           f"error {err} (B={b}, M={m}, Q={nq}, D={d}, "
-                           f"{bank.dtype})")
-    max_query_infonce_fwd.launches += 1
+    launch(max_query_infonce_fwd, lib.max_query_infonce_fwd, index,
+           feats.data_ptr(), values, scales, labels32.data_ptr(), float(tau),
+           b, m, nq, d, code, plan.m_per_split, plan.n_splits,
+           part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+           stats[2].data_ptr(), stats[3].data_ptr(), out2.data_ptr(),
+           None if logits_t is None else logits_t.data_ptr(),
+           None if route_t is None else route_t.data_ptr())
     residuals = None if logits_t is None else (logits_t.t(), route_t.t())
     return (out2[0], (stats[0], stats[1], stats[2], stats[3]), out2[1],
             residuals)
@@ -347,11 +330,11 @@ def max_query_infonce_bwd(bank, labels: torch.Tensor, tau: float,
     if not (labels.device == logits.device == route.device):
         raise ValueError("feats, bank and labels must lie on one device")
     _check_bank(bank, logits.device)
-    lib = _library()
+    lib = load_library("max_query_infonce", ENTRY_POINTS)
     values, scales, code, _, nq = _bank_args(bank)
     d = rows.shape[2]
-    dev = logits.device
-    plan = mq_plan(b, m, nq, _sm_count(dev))
+    dev, index = logits.device, logits.get_device()
+    plan = mq_plan(b, m, nq, sm_count(index))
     labels32 = labels.to(torch.int32).contiguous()
     # the kernel reads them (M, B): the forward's own are views of such
     logits_t = logits.t().contiguous()
@@ -362,18 +345,11 @@ def max_query_infonce_bwd(bank, labels: torch.Tensor, tau: float,
     dq_part = torch.empty(plan.bwd_splits, b, d, device=dev,
                           dtype=torch.float32)
     dq = torch.empty(b, d, device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.max_query_infonce_bwd(
-            values, scales, labels32.data_ptr(), mx.data_ptr(), se.data_ptr(),
-            gout.data_ptr(), logits_t.data_ptr(), route_t.data_ptr(),
-            float(tau), b, m, nq, d, code, plan.bwd_m_per_split,
-            plan.bwd_splits, dq_part.data_ptr(), dq.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"max_query_infonce_bwd launch failed with CUDA "
-                           f"error {err} (B={b}, M={m}, Q={nq}, D={d}, "
-                           f"{bank.dtype})")
-    max_query_infonce_bwd.launches += 1
+    launch(max_query_infonce_bwd, lib.max_query_infonce_bwd, index, values,
+           scales, labels32.data_ptr(), mx.data_ptr(), se.data_ptr(),
+           gout.data_ptr(), logits_t.data_ptr(), route_t.data_ptr(),
+           float(tau), b, m, nq, d, code, plan.bwd_m_per_split,
+           plan.bwd_splits, dq_part.data_ptr(), dq.data_ptr())
     return dq
 
 

@@ -31,11 +31,12 @@ experts.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from spn4cir_tpu_torch.ops.cuda_build import launch, load_library
 
 MAX_EXPERTS = 256
 #: tile rows of the two routes (csrc/moe_grouped.cu): small groups take 32,
@@ -93,16 +94,13 @@ def moe_grouped_reference(x: torch.Tensor, src: torch.Tensor,
     return y
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("moe_grouped", ["moe_grouped.cu"])))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.moe_grouped_swiglu.restype = i32
-    lib.moe_grouped_swiglu.argtypes = ([ptr, ptr, i32, ptr, ptr, ptr, ptr]
-                                       + [i32] * 4 + [ptr, ptr, i32, ptr, ptr])
-    return lib
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# x, src, x's row stride, w_gate, w_up, w_down, offsets; E, R, D, I; h, y,
+# route, the route's stats row; stream
+ENTRY_POINTS = {
+    "moe_grouped_swiglu": ([_PTR, _PTR, _I32, _PTR, _PTR, _PTR, _PTR]
+                           + [_I32] * 4 + [_PTR, _PTR, _I32, _PTR, _PTR]),
+}
 
 
 _STATS: Dict[int, torch.Tensor] = {}
@@ -166,17 +164,14 @@ def moe_grouped(x: torch.Tensor, src: torch.Tensor, offsets: torch.Tensor,
     index = x.get_device()
     route = moe_plan(rows, experts)
     stats = _stats(index)[route]
-    err = _library().moe_grouped_swiglu(
-        x.data_ptr(), src.contiguous().data_ptr(), x.stride(0),
-        w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        offsets.contiguous().data_ptr(), experts, rows, hidden, inter,
-        h.data_ptr(), y.data_ptr(), route, stats.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        raise RuntimeError(f"moe_grouped launch failed with CUDA error {err} "
-                           f"(R={rows}, E={experts}, D={hidden}, I={inter}, "
-                           f"route={route})")
-    moe_grouped.launches += 1
+    # held until the launch has read their pointers
+    src, offsets = src.contiguous(), offsets.contiguous()
+    launch(moe_grouped,
+           load_library("moe_grouped", ENTRY_POINTS).moe_grouped_swiglu, index,
+           x.data_ptr(), src.data_ptr(), x.stride(0), w_gate.data_ptr(),
+           w_up.data_ptr(), w_down.data_ptr(), offsets.data_ptr(), experts,
+           rows, hidden, inter, h.data_ptr(), y.data_ptr(), route,
+           stats.data_ptr())
     return y
 
 

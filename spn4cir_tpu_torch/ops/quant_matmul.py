@@ -27,6 +27,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from spn4cir_tpu_torch.ops.cuda_build import launch, load_library, occupancy
+
 COLS = 256         # columns of W a block (kCols)
 DEPTH = 64         # rows of W a ring stage (kDepth): splits are multiples
 MAX_SPLITS = 16    # splits of D: one thread-block cluster (kMaxSplits)
@@ -44,18 +46,14 @@ def quant_matmul_reference(x: torch.Tensor, values: torch.Tensor,
     return y.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from spn4cir_tpu_torch.ops.cuda_build import build_library
-
-    lib = ctypes.CDLL(str(build_library("quant_matmul", ["quant_matmul.cu"])))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.quant_matmul.restype = i32
-    lib.quant_matmul.argtypes = ([ptr, i32, ptr, ptr] + [i32] * 6
-                                 + [ptr, ptr])
-    lib.quant_matmul_clusters.restype = i32
-    lib.quant_matmul_clusters.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
-    return lib
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# x, x code, values, scales; rows, D, F, n_tiles, d_per_split, splits; y;
+# stream. The occupancy query: x code, n_tiles, cluster size; the clusters
+# the card holds (out)
+ENTRY_POINTS = {
+    "quant_matmul": [_PTR, _I32, _PTR, _PTR] + [_I32] * 6 + [_PTR, _PTR],
+    "quant_matmul_clusters": [_I32, _I32, _I32, ctypes.POINTER(_I32)],
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,17 +62,9 @@ def device_plan_inputs(index: int, x_code: int, n_tiles: int
     """For n = 1..MAX_SPLITS, the clusters of n blocks of the kernel (for
     an x type code and n8 tile count) that CUDA device `index` holds at
     once: read once a device, from the occupancy API."""
-    out = []
-    with torch.cuda.device(index):
-        for n in range(1, MAX_SPLITS + 1):
-            count = ctypes.c_int(0)
-            err = _library().quant_matmul_clusters(x_code, n_tiles, n,
-                                                   ctypes.byref(count))
-            if err != 0:
-                raise RuntimeError(f"quant_matmul cluster occupancy query "
-                                   f"failed with CUDA error {err} (n={n})")
-            out.append(count.value)
-    return tuple(out)
+    fn = load_library("quant_matmul", ENTRY_POINTS).quant_matmul_clusters
+    return tuple(occupancy(fn, index, x_code, n_tiles, n, least=0)
+                 for n in range(1, MAX_SPLITS + 1))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -145,20 +135,13 @@ def quant_matmul(x: torch.Tensor, values: torch.Tensor,
     if rows == 0:
         return y.reshape(*lead, f)
     code = _X_CODES[x.dtype]
-    index = x.device.index if x.device.index is not None else \
-        torch.cuda.current_device()
+    index = x.get_device()
     nt, per, n_splits = split_plan(
         rows, d, f, device_plan_inputs(index, code, n_tiles_for(rows)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().quant_matmul(
-            x2.data_ptr(), code, values.data_ptr(), scales.data_ptr(), rows,
-            d, f, nt, per, n_splits, y.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"quant_matmul launch failed with CUDA error {err}"
-                           f" (rows={rows}, D={d}, F={f}, {x.dtype}, "
-                           f"{n_splits} splits of {per})")
-    quant_matmul.launches += 1
+    lib = load_library("quant_matmul", ENTRY_POINTS)
+    launch(quant_matmul, lib.quant_matmul, index, x2.data_ptr(), code,
+           values.data_ptr(), scales.data_ptr(), rows, d, f, nt, per,
+           n_splits, y.data_ptr())
     return y.reshape(*lead, f)
 
 

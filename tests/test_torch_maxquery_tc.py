@@ -441,8 +441,9 @@ def test_entry_points_take_the_residuals(entry, monkeypatch):
                 setattr(self, name, type("Fn", (), {})())
 
     monkeypatch.setattr(cuda_build, "build_library", lambda *a: "unbuilt.so")
+    monkeypatch.setattr(cuda_build, "_LIBRARIES", {})
     monkeypatch.setattr(ctypes, "CDLL", Lib)
-    lib = mk._library.__wrapped__()
+    lib = cuda_build.load_library("max_query_infonce", mk.ENTRY_POINTS)
     assert getattr(lib, entry).argtypes == ENTRY_POINTS[entry]
 
 

@@ -516,8 +516,9 @@ def test_both_backward_entry_points_take_the_plans_scratch(entry,
                 setattr(self, name, type("Fn", (), {})())
 
     monkeypatch.setattr(cuda_build, "build_library", lambda *a: "unbuilt.so")
+    monkeypatch.setattr(cuda_build, "_LIBRARIES", {})
     monkeypatch.setattr(ctypes, "CDLL", Lib)
-    lib = bk._library.__wrapped__()
+    lib = cuda_build.load_library("bank_infonce", bk.ENTRY_POINTS)
     assert getattr(lib, entry).argtypes == ENTRY_POINTS[entry]
 
 
