@@ -25,6 +25,7 @@ refer entries are the fused query states of an (image, caption) pair: keyed
 by triplet (`refer_key="triplet"`), or under `--plus` by image, written for
 the refer and the target image of each triplet with that triplet's caption.
 Its target bank, (M, 32, 256) on the device, covers the refer images too.
+It ends by dropping the encoder's CUDA graphs (`models/frozen_graph.py`).
 
 Under `--device_preprocess` the image batches are `RawBatch` canvases: they
 go to the device as they are, and the caller's encoder, wrapped by
@@ -55,6 +56,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from spn4cir_tpu_torch.models.frozen_graph import drop_all
 from spn4cir_tpu_torch.ops.preprocess import batch_to_device
 from spn4cir_tpu_torch.utils.logging import span
 from spn4cir_tpu_torch.utils.tensors import to_host
@@ -182,33 +184,38 @@ def extract_fusion_banks(
     refer_buf = None
     target_buf = None
     refer_rows = num_images if by_image else num_triplets
-    for batch in triplet_batches:
-        text_ids = tokenize(batch["captions"])
-        with span("bank.to_device"):
-            text_ids = torch.from_numpy(text_ids).to(device)
-            refer_images = batch_to_device(batch["refer_images"], device)
-        refer, target = fusion_features_fn(refer_images, text_ids)
-        with span("bank.to_device"):
-            target_images = batch_to_device(batch["target_images"], device)
-        refer_t, target_t = fusion_features_fn(target_images, text_ids)
-        with span("bank.to_host"):
-            refer, target = to_host(refer), to_host(target)
-            target_t = to_host(target_t)
-            if refer_buf is None:
-                refer_buf = np.zeros((refer_rows, *refer.shape[1:]),
-                                     refer.dtype)
-                target_buf = np.zeros((num_images, *target.shape[1:]),
-                                      target.dtype)
-            valid = batch["triplet_idx"] >= 0
-            if by_image:
-                refer_buf[batch["refer_image_id"][valid]] = refer[valid]
-                refer_buf[batch["target_image_id"][valid]] = to_host(
-                    refer_t)[valid]
-            else:
-                refer_buf[batch["triplet_idx"][valid]] = refer[valid]
-            # the target bank covers the refer images too
-            target_buf[batch["refer_image_id"][valid]] = target[valid]
-            target_buf[batch["target_image_id"][valid]] = target_t[valid]
+    try:
+        for batch in triplet_batches:
+            text_ids = tokenize(batch["captions"])
+            with span("bank.to_device"):
+                text_ids = torch.from_numpy(text_ids).to(device)
+                refer_images = batch_to_device(batch["refer_images"], device)
+            refer, target = fusion_features_fn(refer_images, text_ids)
+            with span("bank.to_device"):
+                target_images = batch_to_device(batch["target_images"], device)
+            refer_t, target_t = fusion_features_fn(target_images, text_ids)
+            with span("bank.to_host"):
+                refer, target = to_host(refer), to_host(target)
+                target_t = to_host(target_t)
+                if refer_buf is None:
+                    refer_buf = np.zeros((refer_rows, *refer.shape[1:]),
+                                         refer.dtype)
+                    target_buf = np.zeros((num_images, *target.shape[1:]),
+                                          target.dtype)
+                valid = batch["triplet_idx"] >= 0
+                if by_image:
+                    refer_buf[batch["refer_image_id"][valid]] = refer[valid]
+                    refer_buf[batch["target_image_id"][valid]] = to_host(
+                        refer_t)[valid]
+                else:
+                    refer_buf[batch["triplet_idx"][valid]] = refer[valid]
+                # the target bank covers the refer images too
+                target_buf[batch["refer_image_id"][valid]] = target[valid]
+                target_buf[batch["target_image_id"][valid]] = target_t[valid]
+    finally:
+        # the encoder's CUDA graphs (`models/frozen_graph.py`), whether the
+        # pass ended or raised: stage 2, which comes next, gets their memory
+        drop_all()
     if refer_buf is None:
         raise ValueError("no batches supplied")
 

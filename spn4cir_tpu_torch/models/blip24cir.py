@@ -30,6 +30,7 @@ from torch import nn
 
 from spn4cir_tpu_torch.models.api import BankSpec, CIRBackbone, register_backbone
 from spn4cir_tpu_torch.models.eva_vit import EvaViT, EvaViTConfig
+from spn4cir_tpu_torch.models.frozen_graph import FrozenGraphs
 from spn4cir_tpu_torch.models.layers import LayerNorm, linear
 from spn4cir_tpu_torch.models.qformer import QFormer, QFormerConfig
 from spn4cir_tpu_torch.ops import infonce
@@ -186,6 +187,7 @@ class Blip2CIR(CIRBackbone):
                                         dtype=dtype, remat=remat)
         self.input_dim = vit_cfg.image_size
         self.embed_dim = EMBED_DIM
+        self._bank_graphs = FrozenGraphs(Blip2CIR.fusion_bank_features)
 
     # ---- construction ----
     def init_params(self, generator: torch.Generator) -> None:
@@ -238,15 +240,30 @@ class Blip2CIR(CIRBackbone):
     def fusion_bank_features(self, images: torch.Tensor,
                              text_ids: torch.Tensor):
         """(fusion hidden states (B, 32, 768), target query features (B, 32,
-        256)): the blip2 bank forms of one batch of (image, caption)."""
+        256)): the blip2 bank forms of one batch of (image, caption). On a
+        CUDA device, grad off and the model in eval mode, a batch shape's
+        second call captures the pass in a CUDA graph and later calls
+        replay it (`models/frozen_graph.py`); the `bank.encode.*` spans are
+        recorded by the eager calls only."""
         with span("bank.encode"):
-            with span("bank.encode.vision"):
-                embeds = self.encode_image(images)
-            with span("bank.encode.fusion"):
-                fused = self.model.fusion_hidden(embeds, text_ids[:, 0, :],
-                                                 text_ids[:, 1, :])
-            with span("bank.encode.query"):
-                return fused, self.model.target_query_feats(embeds)
+            return self._bank_graphs(self._bank_pass, self._bank_reads(),
+                                     images, text_ids)
+
+    def _bank_pass(self, images, text_ids):
+        with span("bank.encode.vision"):
+            embeds = self.encode_image(images)
+        with span("bank.encode.fusion"):
+            fused = self.model.fusion_hidden(embeds, text_ids[:, 0, :],
+                                             text_ids[:, 1, :])
+        with span("bank.encode.query"):
+            return fused, self.model.target_query_feats(embeds)
+
+    def _bank_reads(self):
+        """What the bank pass reads: the tower, `ln_vision`, the frozen
+        Q-Former, `vision_proj` and the query tokens."""
+        m = self.model
+        return (m.visual_encoder, m.ln_vision, m.Qformer, m.vision_proj,
+                m.query_tokens)
 
     # ---- losses ----
     def stage1_loss(self, images_refer, images_target, text_ids):
@@ -323,3 +340,8 @@ class Blip2CIR(CIRBackbone):
         if parts[0] == "model":
             parts = parts[1:]
         return bool(parts) and parts[0] in STAGE2_TRAINABLE
+
+
+Blip2CIR.fusion_bank_features.eager_calls = 0
+Blip2CIR.fusion_bank_features.captures = 0
+Blip2CIR.fusion_bank_features.replays = 0

@@ -63,9 +63,9 @@ replayed step).
 
 Counters of `deepseek_v3_generate`'s steps:
 `deepseek_v3_decode_step.eager_steps` (run as Python), `.captures` (graphs
-captured) and `.replays`. `moe_grouped.launches` counts the wrapper's calls
-on the host (a capture's once, a replay's none); #14's launches under
-replay are in its device sums, `moe_stats()`.
+captured) and `.replays`. `moe_grouped.launches` follows `ops/cuda_build`'s
+rule: a capture counts none and each replay counts the step's launches, so
+it equals the launches of #14's device sums, `moe_stats()`.
 """
 
 from __future__ import annotations
@@ -80,6 +80,7 @@ from torch import nn
 
 from spn4cir_tpu_torch.models.generation import decode_loop, sample_logits
 from spn4cir_tpu_torch.models.llama import LlamaRMSNorm, _rotate_half
+from spn4cir_tpu_torch.ops.cuda_build import capturing, replayed
 from spn4cir_tpu_torch.ops.moe_grouped import (moe_combine, moe_grouped,
                                                route_permutation)
 from spn4cir_tpu_torch.utils.logging import span
@@ -652,6 +653,7 @@ class DecodeGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits: Optional[torch.Tensor] = None
         self.routes: list = []         # (layer, (B, 1, k) indices)
+        self.launches: list = []       # the step's, counted at each replay
         self.addresses: Tuple[int, ...] = ()     # the model's, at capture
         self.fresh = False             # a call whose first step is to come
 
@@ -687,6 +689,7 @@ class DecodeGraph:
         if self.graph is None:
             self._capture(model, cfg)
         self.graph.replay()
+        replayed(self.launches)
         deepseek_v3_decode_step.replays += 1
         if tap is not None:
             for layer, idx in self.routes:
@@ -699,12 +702,13 @@ class DecodeGraph:
         tensors lie."""
         routes = []
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capturing() as launches, torch.cuda.graph(graph):
             logits = deepseek_v3_decode_step(
                 model, cfg, self.state, self.x, self.pos,
                 tap=lambda kind, layer, t: routes.append((layer, t)))[0]
         deepseek_v3_decode_step.captures += 1
         self.graph, self.logits, self.routes = graph, logits, routes
+        self.launches = launches
         self.addresses = _addresses(model)
 
 

@@ -46,7 +46,7 @@ import ctypes
 
 import torch
 
-from spn4cir_tpu_torch.ops.cuda_build import launch, load_library
+from spn4cir_tpu_torch.ops.cuda_build import counted, launch, load_library
 
 MAX_SEQ = 128
 MAX_HEAD_DIM = 128
@@ -222,7 +222,7 @@ def short_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-short_attention_bwd.launches = 0
+counted(short_attention_bwd)
 
 
 class _ShortAttention(torch.autograd.Function):
@@ -260,7 +260,7 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _ShortAttention.apply(q, k, v, bool(causal))
 
 
-short_attention.launches = 0
+counted(short_attention)
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +350,7 @@ def long_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-long_attention_bwd.launches = 0
+counted(long_attention_bwd)
 
 
 class _LongAttention(torch.autograd.Function):
@@ -387,4 +387,4 @@ def long_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _LongAttention.apply(q, k, v)
 
 
-long_attention.launches = 0
+counted(long_attention)

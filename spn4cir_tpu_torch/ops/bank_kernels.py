@@ -65,7 +65,8 @@ from typing import NamedTuple, Tuple, Union
 
 import torch
 
-from spn4cir_tpu_torch.ops.cuda_build import launch, load_library, sm_count
+from spn4cir_tpu_torch.ops.cuda_build import (counted, launch, load_library,
+                                              sm_count)
 
 TILE_ROWS = 64     # query rows per CTA   (kTileR in csrc/bank_infonce.cu)
 TILE_COLS = 128    # bank rows per tile   (kTileC)
@@ -459,9 +460,8 @@ def bank_infonce_q8_bwd(query: torch.Tensor, qbank: QuantBank,
     return _launch_bwd(query, qbank, labels, tau, mx, se, gout)
 
 
-for _wrapper in (bank_infonce_fwd, bank_infonce_bwd, bank_infonce_q8_fwd,
-                 bank_infonce_q8_bwd):
-    _wrapper.launches = 0
+counted(bank_infonce_fwd, bank_infonce_bwd, bank_infonce_q8_fwd,
+        bank_infonce_q8_bwd)
 
 
 class _BankInfoNCE(torch.autograd.Function):

@@ -16,10 +16,18 @@ returns a CUDA error code as `c_int`), and:
     device, raises on its error code and counts the launch in the public
     wrapper's `.launches`;
   - `sm_count` and `occupancy` read the device facts a plan needs.
+
+Launch counters. Each public wrapper is registered by `counted`, and its
+`.launches` counts the launches put on the device through it. `launch`
+adds 1 for each kernel it launches. A CUDA graph's capture runs nothing, so
+a graph helper captures inside `capturing()`, which takes back what the
+wrappers counted meanwhile and yields it, and adds it again on every replay
+with `replayed`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -28,7 +36,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Mapping, Sequence
+from typing import Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import torch
 
@@ -113,6 +121,46 @@ def launch(wrapper: Callable, fn, index: int, *args) -> None:
                            f"{err} on cuda:{index} (scalar arguments of "
                            f"{fn.__name__}: {scalars})")
     wrapper.launches += 1
+
+
+#: the wrappers that count their launches, in the order registered
+COUNTED: List[Callable] = []
+
+#: (wrapper, launches) pairs: what one run of a captured graph launches
+Launches = List[Tuple[Callable, int]]
+
+
+def counted(*wrappers: Callable) -> None:
+    """Register public wrappers whose launches `launch` counts, each
+    `.launches` from 0."""
+    for wrapper in wrappers:
+        wrapper.launches = 0
+        COUNTED.append(wrapper)
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Launches]:
+    """Around a CUDA graph's capture: yields a list that, on exit, holds
+    what each counted wrapper launched into the graph, and takes that back
+    from its `.launches` (the capture ran nothing). Give the list to
+    `replayed` at every replay of the graph."""
+    before = [w.launches for w in COUNTED]
+    launches: Launches = []
+    try:
+        yield launches
+    finally:
+        # a wrapper registered meanwhile (its module imported) counted from 0
+        for i, wrapper in enumerate(COUNTED):
+            n = wrapper.launches - (before[i] if i < len(before) else 0)
+            if n:
+                wrapper.launches -= n
+                launches.append((wrapper, n))
+
+
+def replayed(launches: Launches) -> None:
+    """Count one replay of a graph captured under `capturing()`."""
+    for wrapper, n in launches:
+        wrapper.launches += n
 
 
 @functools.lru_cache(maxsize=None)

@@ -35,8 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from spn4cir_tpu_torch.ops.cuda_build import (launch, load_library, occupancy,
-                                              sm_count)
+from spn4cir_tpu_torch.ops.cuda_build import (counted, launch, load_library,
+                                              occupancy, sm_count)
 
 MAX_HEAD_DIM = 128
 MAX_SPLITS = 8        # splits of L: one thread-block cluster (kMaxSplits)
@@ -234,4 +234,4 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
-decode_attention.launches = 0
+counted(decode_attention)

@@ -38,8 +38,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from spn4cir_tpu_torch.ops.cuda_build import (launch, load_library, occupancy,
-                                              sm_count)
+from spn4cir_tpu_torch.ops.cuda_build import (counted, launch, load_library,
+                                              occupancy, sm_count)
 
 WARPS = 8            # warps a block (kWarps)
 MAX_WIDTH = 4096     # the backward folds 2·W float32 in shared memory
@@ -250,5 +250,4 @@ def layer_norm_f32(x: torch.Tensor, normalized_shape: Sequence[int],
     return layer_norm_f32_fwd(x, weight, bias, eps)
 
 
-layer_norm_f32.launches = 0
-layer_norm_f32_bwd.launches = 0
+counted(layer_norm_f32, layer_norm_f32_bwd)

@@ -57,7 +57,8 @@ import torch
 
 from spn4cir_tpu_torch.ops import bank_kernels
 from spn4cir_tpu_torch.ops.bank_kernels import QuantBank, Stats, Tau
-from spn4cir_tpu_torch.ops.cuda_build import launch, load_library, sm_count
+from spn4cir_tpu_torch.ops.cuda_build import (counted, launch, load_library,
+                                              sm_count)
 
 # the kernels' layout, as csrc/max_query_infonce.cu fixes it at compile time
 # (which also asserts that the widest D fits the shared memory)
@@ -353,8 +354,7 @@ def max_query_infonce_bwd(bank, labels: torch.Tensor, tau: float,
     return dq
 
 
-max_query_infonce_fwd.launches = 0
-max_query_infonce_bwd.launches = 0
+counted(max_query_infonce_fwd, max_query_infonce_bwd)
 
 
 class _MaxQueryInfoNCE(torch.autograd.Function):

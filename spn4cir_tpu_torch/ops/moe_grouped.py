@@ -36,7 +36,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from spn4cir_tpu_torch.ops.cuda_build import launch, load_library
+from spn4cir_tpu_torch.ops.cuda_build import counted, launch, load_library
 
 MAX_EXPERTS = 256
 #: tile rows of the two routes (csrc/moe_grouped.cu): small groups take 32,
@@ -175,4 +175,4 @@ def moe_grouped(x: torch.Tensor, src: torch.Tensor, offsets: torch.Tensor,
     return y
 
 
-moe_grouped.launches = 0
+counted(moe_grouped)

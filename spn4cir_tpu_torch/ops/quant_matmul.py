@@ -27,7 +27,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from spn4cir_tpu_torch.ops.cuda_build import launch, load_library, occupancy
+from spn4cir_tpu_torch.ops.cuda_build import (counted, launch, load_library,
+                                              occupancy)
 
 COLS = 256         # columns of W a block (kCols)
 DEPTH = 64         # rows of W a ring stage (kDepth): splits are multiples
@@ -145,4 +146,4 @@ def quant_matmul(x: torch.Tensor, values: torch.Tensor,
     return y.reshape(*lead, f)
 
 
-quant_matmul.launches = 0
+counted(quant_matmul)

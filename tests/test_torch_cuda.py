@@ -1748,9 +1748,9 @@ def test_moonlight_decode_graph_replays_the_eager_steps_bits_on_card(
     eager body's logits, routes and tokens to the bit, on its first call
     (one eager step, a capture, 6 replays) and on a second call at the same
     shape (7 replays, no capture). #14's device sums, which count its
-    launches under replay too, are the eager run's; the wrapper's host
-    counter sees the prefill, the eager step and the capture, then the
-    prefill alone."""
+    launches under replay too, are the eager run's, and so is the
+    wrapper's `.launches` (`ops/cuda_build`'s rule: a capture counts none,
+    a replay its launches)."""
     from spn4cir_tpu_torch.ops import moe_grouped as mg
 
     dv, cfg, model = _moonlight_2layer(cuda_device)
@@ -1774,7 +1774,7 @@ def test_moonlight_decode_graph_replays_the_eager_steps_bits_on_card(
     assert (step.eager_steps, step.captures, step.replays) == (
         before[0] + 1, before[1] + 1, before[2] + 6)
     _same_bits(graphed, eager)
-    assert (graphed_n, graphed_stats) == (3, eager_stats)
+    assert (graphed_n, graphed_stats) == (eager_n, eager_stats)
 
     again, again_n, again_stats = counted(
         lambda: _moonlight_generate(dv, model, cfg, emb[1], True, seed=5))
@@ -1783,7 +1783,7 @@ def test_moonlight_decode_graph_replays_the_eager_steps_bits_on_card(
     ref, ref_n, ref_stats = counted(
         lambda: _moonlight_generate(dv, model, cfg, emb[1], False, seed=5))
     _same_bits(again, ref)
-    assert (again_n, again_stats) == (1, ref_stats)
+    assert (again_n, again_stats) == (ref_n, ref_stats)
 
 
 @pytest.mark.cuda
@@ -1869,3 +1869,197 @@ def test_moonlight_replayed_decode_steps_sync_nothing_on_card(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert dv.deepseek_v3_decode_step.replays == replays + 8
+
+
+# blip24cir's bank encode in one CUDA graph a batch shape
+# (`models/frozen_graph.py`), at EVA-g's and the Q-Former's published widths
+
+BANK_WORDS = ("red", "blue", "shirt", "dress", "with", "long", "sleeves",
+              "and", "a", "dog", "print", "shorter", "darker", "is", "has")
+
+
+@pytest.fixture(scope="module")
+def evag_bank():
+    """The cell's model (39 x 1408 EVA-g, 12 x 768 Q-Former, bf16) on the
+    card with seeded weights, 3 seeded pixel batches of 32 and a batch of
+    ids of 3-20 words; the tokenizer's vocabulary is the tiny test one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA graph has no CPU mode)")
+    import numpy as np
+
+    from spn4cir_tpu_torch.models.blip24cir import Blip2CIR
+    from spn4cir_tpu_torch.tokenizer.wordpiece import (BertTokenizer,
+                                                       tiny_test_vocab)
+
+    dev = torch.device("cuda:0")
+    backbone = Blip2CIR("pretrain", dtype=torch.bfloat16, device=dev,
+                        tokenizer=BertTokenizer(vocab=tiny_test_vocab()))
+    backbone.init_params(torch.Generator().manual_seed(0))
+    backbone.eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    pixels = torch.randn(3, 32, 224, 224, 3, generator=g, device=dev)
+    rng = np.random.default_rng(2)
+    caps = [" ".join(rng.choice(BANK_WORDS, rng.integers(3, 21)))
+            for _ in range(32)]
+    ids = torch.from_numpy(backbone.tokenize(caps)).to(dev)
+    yield backbone, pixels, ids
+
+
+@pytest.fixture
+def bank_graph(evag_bank):
+    evag_bank[0]._bank_graphs.drop()               # no graph yet
+    return evag_bank
+
+
+def _bank_encode(backbone, images, ids):
+    with torch.no_grad():
+        out = backbone.fusion_bank_features(images, ids)
+    torch.cuda.synchronize()
+    return out
+
+
+def _bank_eager(backbone, images, ids):
+    with torch.no_grad():
+        out = backbone._bank_pass(images, ids)
+    torch.cuda.synchronize()
+    return out
+
+
+def _bank_counts():
+    from spn4cir_tpu_torch.models.blip24cir import Blip2CIR
+
+    fn = Blip2CIR.fusion_bank_features
+    return fn.eager_calls, fn.captures, fn.replays
+
+
+def _same_outputs(got, want):
+    assert [t.shape for t in got] == [t.shape for t in want]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_bank_graph_replays_the_eager_bits_on_card(bank_graph):
+    """Eager, then captured, then replayed: the replays give the eager
+    pass's fused states and query features to the bit."""
+    backbone, pixels, ids = bank_graph
+    eager, captures, replays = _bank_counts()
+    first = _bank_encode(backbone, pixels[0], ids)
+    second = _bank_encode(backbone, pixels[1], ids)
+    third = _bank_encode(backbone, pixels[0], ids)
+    assert _bank_counts() == (eager + 1, captures + 1, replays + 2)
+    assert [tuple(t.shape) for t in first] == [(32, 32, 768), (32, 32, 256)]
+    _same_outputs(third, first)
+    _same_outputs(second, _bank_eager(backbone, pixels[1], ids))
+
+
+@pytest.mark.cuda
+def test_bank_graph_replays_return_fresh_outputs_on_card(bank_graph):
+    """Two replays on other pixels: their outputs share no memory, and the
+    first keeps its values after the second."""
+    backbone, pixels, ids = bank_graph
+    for k in range(2):
+        _bank_encode(backbone, pixels[k], ids)
+    a = _bank_encode(backbone, pixels[0], ids)
+    kept = [t.clone() for t in a]
+    b = _bank_encode(backbone, pixels[1], ids)
+    (entry,) = backbone._bank_graphs.graphs.values()
+    ptrs = [t.data_ptr() for t in (*a, *b, *entry.outputs)]
+    assert len(set(ptrs)) == len(ptrs)
+    _same_outputs(a, kept)
+    assert not torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_bank_graph_sees_weights_changed_in_place_on_card(bank_graph):
+    backbone, pixels, ids = bank_graph
+    for k in range(2):
+        _bank_encode(backbone, pixels[k], ids)
+    old = _bank_encode(backbone, pixels[0], ids)
+    captures = _bank_counts()[1]
+    w = backbone.model.visual_encoder.blocks[20].mlp.fc1.weight
+    with torch.no_grad():
+        w.copy_(w.flip(0))
+    try:
+        new = _bank_encode(backbone, pixels[0], ids)
+        want = _bank_eager(backbone, pixels[0], ids)
+    finally:
+        with torch.no_grad():
+            w.copy_(w.flip(0))
+    assert _bank_counts()[1] == captures              # replayed, no capture
+    _same_outputs(new, want)
+    assert not torch.equal(new[1], old[1])
+
+
+@pytest.mark.cuda
+def test_bank_graph_follows_weights_loaded_by_assignment_on_card(bank_graph):
+    """`load_state_dict(..., assign=True)` puts a block's weights at new
+    addresses: the next call captures again and gives the eager pass of
+    the new weights."""
+    backbone, pixels, ids = bank_graph
+    for k in range(2):
+        _bank_encode(backbone, pixels[k], ids)
+    old = _bank_encode(backbone, pixels[0], ids)
+    captures = _bank_counts()[1]
+    block = {k: v for k, v in backbone.model.state_dict().items()
+             if k.startswith("visual_encoder.blocks.20.")}
+    backbone.model.load_state_dict({k: v.flip(0).clone() for k, v in
+                                    block.items()}, strict=False, assign=True)
+    try:
+        new = _bank_encode(backbone, pixels[0], ids)
+        want = _bank_eager(backbone, pixels[0], ids)
+    finally:
+        backbone.model.load_state_dict(block, strict=False, assign=True)
+    assert _bank_counts()[1] == captures + 1
+    _same_outputs(new, want)
+    assert not torch.equal(new[1], old[1])
+
+
+@pytest.mark.cuda
+def test_bank_graph_starts_a_new_batch_shape_eagerly_on_card(bank_graph):
+    backbone, pixels, ids = bank_graph
+    for k in range(2):
+        _bank_encode(backbone, pixels[k], ids)
+    eager, captures, replays = _bank_counts()
+    half = _bank_encode(backbone, pixels[2][:16], ids[:16])
+    assert _bank_counts() == (eager + 1, captures, replays)
+    other = _bank_encode(backbone, pixels[2][16:], ids[16:])
+    assert _bank_counts() == (eager + 1, captures + 1, replays + 1)
+    assert len(backbone._bank_graphs.graphs) == 2
+    _same_outputs(half, _bank_eager(backbone, pixels[2][:16], ids[:16]))
+    _same_outputs(other, _bank_eager(backbone, pixels[2][16:], ids[16:]))
+
+
+@pytest.mark.cuda
+def test_bank_graph_counts_each_replays_launches_on_card(bank_graph):
+    """`long_attention.launches` and `layer_norm_f32.launches` grow by the
+    39 EVA-g layers and the 79 LayerNorms (2 a block and `ln_vision`) of a
+    batch on every call: eager, captured and replayed alike."""
+    from spn4cir_tpu_torch.ops.attention_kernels import long_attention
+
+    backbone, pixels, ids = bank_graph
+    for k in range(5):
+        la, ln = long_attention.launches, lnk.layer_norm_f32.launches
+        _bank_encode(backbone, pixels[k % 3], ids)
+        assert (long_attention.launches - la,
+                lnk.layer_norm_f32.launches - ln) == (39, 79), k
+
+
+@pytest.mark.cuda
+def test_bank_graph_replays_sync_nothing_on_card(bank_graph):
+    """A replayed call is two device copies, the address check on the
+    host, a graph launch and two copies out: nothing waits for the
+    device."""
+    backbone, pixels, ids = bank_graph
+    for k in range(2):
+        _bank_encode(backbone, pixels[k], ids)
+    replays = _bank_counts()[2]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for k in range(3):
+                backbone.fusion_bank_features(pixels[k], ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _bank_counts()[2] == replays + 3

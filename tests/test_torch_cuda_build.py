@@ -2,7 +2,9 @@
 CPU with the CUDA calls stubbed: `launch` passes the raw current stream of
 the tensors' device last, takes that device's guard only when it is not
 the current one, raises naming the wrapper on a non-zero code and counts a
-launch only when it succeeds; `occupancy` and `sm_count` read the device
+launch only when it succeeds; every wrapper that launches is registered,
+and a graph's capture counts nothing while each replay counts its launches
+(`capturing`, `replayed`); `occupancy` and `sm_count` read the device
 facts; `load_library` applies each library's entry table, and every table
 is its `csrc/<name>.cu`'s C declaration. The kernels themselves run on the
 card (`tests/test_torch_cuda.py`)."""
@@ -122,6 +124,73 @@ def test_launch_counts_each_success_once(cuda):
         cuda_build.launch(wrapper, fn, 0, 0xbeef, 3, 0.5)
         assert wrapper.launches == n
     assert len(fn.calls) == 3
+
+
+def test_every_launching_wrapper_is_counted():
+    """The registry holds each public wrapper that a module hands to
+    `launch`, once, and nothing else."""
+    modules = (ak, bk, da, lnk, mk, moe, qm)
+    launched = set()
+    for module in modules:
+        with open(module.__file__) as f:
+            launched |= set(re.findall(r"\blaunch\((\w+),", f.read()))
+    # the bank module hands `launch` the wrapper `_bank_args` picks
+    launched = launched - {"wrapper"} | {
+        "bank_infonce_fwd", "bank_infonce_bwd", "bank_infonce_q8_fwd",
+        "bank_infonce_q8_bwd"}
+    names = [w.__name__ for w in cuda_build.COUNTED]
+    assert len(names) == len(set(names)) == 15
+    assert set(names) == launched
+    for w in cuda_build.COUNTED:
+        assert getattr(__import__(w.__module__, fromlist=["_"]),
+                       w.__name__) is w
+
+
+def _counted(monkeypatch, *names):
+    monkeypatch.setattr(cuda_build, "COUNTED", [])
+    wrappers = []
+    for name in names:
+        wrapper = _wrapper()
+        wrapper.__name__ = name
+        cuda_build.counted(wrapper)
+        wrappers.append(wrapper)
+    return wrappers
+
+
+def test_a_capture_counts_nothing_and_each_replay_its_launches(cuda,
+                                                                monkeypatch):
+    """What the wrappers counted inside `capturing()` is taken back and
+    yielded, a wrapper registered meanwhile from 0; `replayed` adds it on
+    each replay, and launches outside the graph count as before."""
+    a, b = _counted(monkeypatch, "a", "b")
+    fn = _Entry(cuda)
+    cuda_build.launch(a, fn, 0, 0xbeef, 3, 0.5)
+    with cuda_build.capturing() as launches:
+        for _ in range(39):
+            cuda_build.launch(a, fn, 0, 0xbeef, 3, 0.5)
+        (c,) = (_wrapper(),)
+        c.__name__ = "c"
+        cuda_build.counted(c)
+        for _ in range(79):
+            cuda_build.launch(c, fn, 0, 0xbeef, 3, 0.5)
+    assert [(w.__name__, n) for w, n in launches] == [("a", 39), ("c", 79)]
+    assert (a.launches, b.launches, c.launches) == (1, 0, 0)
+    for replay in (1, 2, 3):
+        cuda_build.replayed(launches)
+        assert (a.launches, b.launches, c.launches) == (1 + 39 * replay, 0,
+                                                        79 * replay)
+    cuda_build.launch(b, fn, 0, 0xbeef, 3, 0.5)
+    assert (a.launches, b.launches) == (118, 1)
+
+
+def test_a_capture_that_raises_counts_nothing(cuda, monkeypatch):
+    (a,) = _counted(monkeypatch, "a")
+    fn = _Entry(cuda)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with cuda_build.capturing():
+            cuda_build.launch(a, fn, 0, 0xbeef, 3, 0.5)
+            raise RuntimeError("capture failed")
+    assert a.launches == 0
 
 
 class _Occupancy:

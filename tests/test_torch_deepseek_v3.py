@@ -379,6 +379,48 @@ def test_decode_graph_is_dropped_when_a_tensor_it_reads_moves(how, moved):
     w_k, w_v = dv.absorbed_weights(cfg, model.model.layers[2].self_attn)
     assert torch.equal(state.w_k[2], w_k) and torch.equal(state.w_v[2], w_v)
 
+class _FakeGraph:
+    """`torch.cuda.CUDAGraph`'s stand-in: a replay runs no Python."""
+
+    def replay(self):
+        pass
+
+
+def test_decode_graph_counts_each_replays_launches(monkeypatch):
+    """`ops/cuda_build`'s rule under the decode graph: the eager step's
+    launches count, the capture's none, and each replay the step's."""
+    import contextlib
+
+    from spn4cir_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "COUNTED", [])
+
+    def kernel():
+        kernel.launches += 1
+    cuda_build.counted(kernel)
+
+    def step(model, cfg, state, x, pos, tap=None):
+        for _ in range(3):
+            kernel()
+        return (x.sum(-1),)
+    step.eager_steps = step.captures = step.replays = 0
+    monkeypatch.setattr(dv, "deepseek_v3_decode_step", step)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph: contextlib.nullcontext())
+    cfg, model = _model(3)
+    with torch.no_grad():
+        graph = dv.DecodeGraph((2, 8, torch.float32, torch.device("cpu")),
+                               model, cfg)
+        x = torch.ones(2, cfg.hidden_size)
+        graph.step(model, cfg, x, 0, None)           # eager
+        assert kernel.launches == 3
+        for replays in (1, 2, 3):
+            graph.step(model, cfg, x, replays, None)
+            assert kernel.launches == 3 + 3 * replays
+    assert (step.eager_steps, step.captures, step.replays) == (1, 1, 3)
+
+
 def test_config_round_trips_hf_keys_and_refuses_other_geometries():
     cfg = dv.DeepseekV3Config.moonlight_16b_a3b()
     assert dv.DeepseekV3Config.from_hf(cfg.to_hf()) == cfg
