@@ -241,13 +241,22 @@ chain and `F.layer_norm`. Phase 11 prints each
 decode step's device busy, #11's and #12's ms a step and the idle share.
 Phases 9-13 run between
 phases 7 and 8, phase 14 after 11, phases 15, 16 and 17 after 13, phase 18
-after 17. Phase 20 comes last: `make_llava_captioner` with
+after 17. Phases 20 and 21 come last. Phase 20: `make_llava_captioner` with
 Moonlight-16B-A3B as its LM at every published width (27 layers, bf16)
 captions a batch of 128 at the caption cell's prompt, #14 counted at one
 launch a MoE layer of the prefill and of each decode step, then #14 on the
 rows that batch routed (the prefill's and a decode step's) against its
 plain version, timed beside it, a per-expert `F.linear` loop and the bound
-(no TPU counterpart: the kernels JSON's thirteenth entry). The last three
+(no TPU counterpart: the kernels JSON's thirteenth entry). Phase 21:
+`make_llava_captioner` with Kimi-Linear-48B-A3B as its LM at
+every published width (20 KDA and 7 MLA layers, 64 of each MoE layer's 256
+experts held) captions a batch of 256 at the same prompt, #15 counted at
+one prefill launch a KDA layer and one decode launch a KDA layer and step,
+#14 at one launch a MoE layer and step, then #15's two entries on what
+that batch's first KDA layer handed them (256 x 316 prompt tokens; a
+decode step over (256, 32, 128, 128) states) against `kda_reference`,
+timed beside it and the bound (no TPU counterpart: the kernels JSON's
+fourteenth entry). The last three
 lines are the kernels JSON, the card's name and power limit (nvidia-smi),
 and {"ok": true, "device": {...}}.
 
@@ -463,6 +472,15 @@ MOONLIGHT_PROMPT_LEN = 316
 MOONLIGHT_NEW = 64
 MOE_TOL = 2e-2
 MOE_REL_L2 = 1e-2
+# phase 21: Kimi-Linear-48B-A3B (64 of 256 experts held) as the LLaVA
+# captioner's LM at every published width, one caption batch of 256 at the
+# same prompt and 64 new tokens, then kernel #15 on what the batch's first
+# KDA layer handed it, at the prefill (256 x 316 tokens) and at a decode
+# step ((256, 32, 128, 128) states). #15 and its plain version sum in
+# another order in float32: outputs and states within KDA_TOL (atol = rtol,
+# tests/test_torch_cuda.py's tolerance)
+KIMI_NEW = 64
+KDA_TOL = 1e-4
 # phase 15: BLIP caption base through cli.captioner (64 images, batch 32,
 # beam 3) and cli.serve_mllm (16 concurrent requests)
 BLIP_CAPTION_IMAGES = 64
@@ -604,7 +622,7 @@ def build_kernels(cuda_build) -> None:
     t0 = time.perf_counter()
     names = ("short_attention", "bank_infonce", "long_attention",
              "max_query_infonce", "decode_attention", "quant_matmul",
-             "layer_norm", "moe_grouped")
+             "layer_norm", "moe_grouped", "kda")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futs = [pool.submit(cuda_build.build_library, n, [f"{n}.cu"], True)
                 for n in names]
@@ -6506,12 +6524,13 @@ def drive_moonlight(card):
     import torch.nn.functional as F
 
     from cirbench.wordtok import WordTokenizer
-    from spn4cir_tpu_torch.datagen.captioner import (MOONLIGHT_BATCH,
+    from spn4cir_tpu_torch.datagen.captioner import (LLAVA_LMS,
                                                      caption_prompt,
                                                      make_llava_captioner)
     from spn4cir_tpu_torch.models import deepseek_v3 as dv
     from spn4cir_tpu_torch.ops import moe_grouped as mg
 
+    MOONLIGHT_BATCH = LLAVA_LMS["moonlight-16b-a3b"][2]
     t0 = time.perf_counter()
     lm = dv.DeepseekV3Config.moonlight_16b_a3b()
     cap, _, batched_fn = make_llava_captioner(
@@ -6629,6 +6648,168 @@ def drive_moonlight(card):
               f"{bound:.4f} by {by}); plain {rec['plain_ms']:.4f}; library "
               f"(per-expert F.linear) {rec['library_ms']:.4f} a call, "
               f"{rec['library_device_ms']:.4f} back to back [{card}]")
+    del cap, batched_fn, seen
+    torch.cuda.empty_cache()
+    return records, launches
+
+
+def kda_bound(rows: int, tokens: int, heads: int, d: int,
+              state_read: bool) -> tuple:
+    """#15's least time: the float32 state read once (a decode step; a
+    prefill starts from zero) and written once, q, k, v, g and β read and o
+    written, float32; 7 operations a state element and token (the decay,
+    Sᵀk, the rank-1 update, Sᵀq), at the bf16 peak whatever the kernel
+    runs them on."""
+    n_bytes = 4 * (rows * heads * d * d * (2 if state_read else 1)
+                   + rows * tokens * heads * (5 * d + 1))
+    return bound_ms(n_bytes, 7 * rows * tokens * heads * d * d,
+                    torch.bfloat16)
+
+
+def drive_kimi(card):
+    """Phase 21: `make_llava_captioner(llava_lm="kimi-linear-48b-a3b")` at
+    every published width (27 layers: 20 KDA and 7 unrotated MLA; 64 of
+    each MoE layer's 256 experts held, bf16, seed-0 weights with the
+    published decay initialisation) captions 256 images of noise at the
+    caption cell's prompt, once to warm and once timed. Over the timed
+    batch #15 must count one prefill launch a KDA layer and one decode
+    launch a KDA layer and decode step, and #14 one launch a MoE layer and
+    step, by its device sums and by its wrapper (the steps replay the
+    decode graph captured in the warm batch; each replay counts its
+    launches). What the warm batch's first KDA layer handed #15 at the
+    prefill and at the first decode step (run as Python), with the state
+    that step started from, is kept; both entries run on it against
+    `kda_reference`, twice for the same bits, timed a call and back to back
+    beside the plain version and the bound (no library computes the
+    recurrence: no library time). Returns the two records and the
+    launches of the timed batch by wrapper."""
+    import numpy as np
+
+    from cirbench.wordtok import WordTokenizer
+    from spn4cir_tpu_torch.datagen.captioner import (LLAVA_LMS,
+                                                     caption_prompt,
+                                                     make_llava_captioner)
+    from spn4cir_tpu_torch.models import deepseek_v3 as dv
+    from spn4cir_tpu_torch.ops import kda as kk
+    from spn4cir_tpu_torch.ops import moe_grouped as mg
+
+    batch = LLAVA_LMS["kimi-linear-48b-a3b"][2]
+    t0 = time.perf_counter()
+    lm = dv.DeepseekV3Config.kimi_linear_48b_a3b(experts_held=64)
+    cap, _, batched_fn = make_llava_captioner(
+        tokenizer=WordTokenizer(lm.vocab_size),
+        llava_lm="kimi-linear-48b-a3b", max_new_tokens=KIMI_NEW)
+    cfg = cap.lm_cfg
+    assert cfg == lm, cfg
+    built_s = time.perf_counter() - t0
+    prompt_len = (len(cap.prompt_ids(caption_prompt("image", 10))) - 1
+                  + cap.cfg.vision.num_patches)
+    assert prompt_len == MOONLIGHT_PROMPT_LEN, prompt_len
+    side = cap.cfg.vision.image_size
+    rng = np.random.default_rng(21)
+    images = [rng.standard_normal((side, side, 3), dtype=np.float32)
+              for _ in range(batch)]
+    seen = {}
+    real = {"prefill": dv.kda_prefill, "decode": dv.kda_decode}
+
+    def recording(kind):
+        def call(q, k, v, g, beta, state):
+            if kind not in seen:              # the first KDA layer's inputs
+                seen[kind] = ([x.clone() for x in (q, k, v, g, beta)],
+                              state.clone())
+            return real[kind](q, k, v, g, beta, state)
+        return call
+
+    dv.kda_prefill, dv.kda_decode = recording("prefill"), recording("decode")
+    try:
+        t1 = time.perf_counter()
+        batched_fn(images)                  # builds #3, #13, #14 and #15
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+    finally:
+        dv.kda_prefill, dv.kda_decode = real["prefill"], real["decode"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mg.moe_stats(reset=True)
+    wrappers = {"kda_prefill": kk.kda_prefill, "kda_decode": kk.kda_decode,
+                "moe_grouped": mg.moe_grouped}
+    before = {n: w.launches for n, w in wrappers.items()}
+    t1 = time.perf_counter()
+    caps = batched_fn(images)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    kept = sum(x.nbytes for inputs, start in seen.values()
+               for x in (*inputs, start))
+    launches = {n: w.launches - before[n] for n, w in wrappers.items()}
+    kda_layers = len(cfg.kda_layers)
+    moe_layers = cfg.num_layers - cfg.first_k_dense_replace
+    steps = KIMI_NEW - 1
+    assert kda_layers == 20 and moe_layers == 26, (kda_layers, moe_layers)
+    assert launches["kda_prefill"] == kda_layers, launches
+    assert launches["kda_decode"] == kda_layers * steps, launches
+    moe_device = sum(row[2] for row in mg.moe_stats().values())
+    assert launches["moe_grouped"] == moe_device == moe_layers * KIMI_NEW, (
+        launches, moe_device)
+    assert len(caps) == batch and all(isinstance(c, str) for c in caps)
+    phase(f"kimi-linear captioner (make_llava_captioner, llava_lm "
+          f"kimi-linear-48b-a3b: {cfg.num_layers} layers, {kda_layers} KDA "
+          f"of {cfg.kda_num_heads} x {cfg.kda_head_dim}, hidden "
+          f"{cfg.hidden_size}, {cfg.held_experts} of {cfg.n_routed_experts} "
+          f"experts of {cfg.moe_intermediate_size} held, bf16) built in "
+          f"{built_s:.1f} s; a batch of {batch} at {prompt_len} prompt "
+          f"tokens and {KIMI_NEW} new: {warm_s:.2f} s warm, {batch_s:.3f} s "
+          f"timed ({batch / batch_s:.2f} images/s); launches {launches} "
+          f"({kda_layers} KDA layers x 1 prefill, x {steps} decode steps; "
+          f"{moe_layers} MoE layers x {KIMI_NEW}; {moe_device} by #14's "
+          f"device sums; graph replays included); memory peak {peak} bytes, "
+          f"{kept} of them the warm batch's #15 inputs kept for the checks "
+          f"below [{card}]")
+    heads, d = cfg.kda_num_heads, cfg.kda_head_dim
+    records = []
+    for kind in ("decode", "prefill"):
+        inputs, start = seen[kind]
+        rows, tokens = inputs[0].shape[:2]
+        entry = kk.kda_decode if kind == "decode" else kk.kda_prefill
+        fresh = kind == "prefill"
+        work = start.clone()
+
+        def kernel():
+            return entry(*inputs, work)
+
+        def plain():
+            return kk.kda_reference(*inputs, start.clone(), fresh)
+
+        with torch.inference_mode():
+            got_state, again_state, want_state = (start.clone()
+                                                  for _ in range(3))
+            got = entry(*inputs, got_state)
+            again = entry(*inputs, again_state)
+            want = kk.kda_reference(*inputs, want_state, fresh)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again) and torch.equal(
+                got_state, again_state), kind
+            torch.testing.assert_close(got, want, atol=KDA_TOL, rtol=KDA_TOL)
+            torch.testing.assert_close(got_state, want_state, atol=KDA_TOL,
+                                       rtol=KDA_TOL)
+            err = max((got - want).abs().max().item(),
+                      (got_state - want_state).abs().max().item())
+            bound, by = kda_bound(rows, tokens, heads, d, not fresh)
+            rec = dict(shape=f"{kind}: ({rows}, {heads}, {d}, {d}) states, "
+                             f"{tokens} token{'s' if tokens > 1 else ''}",
+                       max_abs_err=err, bound_ms=bound, bound_by=by,
+                       ms=median_ms(kernel, 10 if fresh else 20),
+                       device_ms=device_ms(kernel, 5 if fresh else 50),
+                       plain_ms=device_ms(plain, 1 if fresh else 3),
+                       library_ms=None)
+            del work, got_state, again_state, want_state
+        rec["bound_share"] = bound / rec["device_ms"]
+        records.append(rec)
+        phase(f"kernel kda {rec['shape']}: max_abs_err {err:.2e} against "
+              f"kda_reference (o and the state after), the same bits a "
+              f"relaunch; {rec['ms']:.4f} ms a call, {rec['device_ms']:.4f} "
+              f"back to back ({100 * rec['bound_share']:.1f}% of the bound "
+              f"{bound:.4f} by {by}); plain {rec['plain_ms']:.4f} [{card}]")
     del cap, batched_fn, seen
     torch.cuda.empty_cache()
     return records, launches
@@ -6883,6 +7064,10 @@ def main() -> int:
         moe_records, moe_launches = drive_moonlight(card)
 
         lap("20")
+        # phase 21: Kimi-Linear-48B-A3B as the LLaVA captioner's LM, and #15
+        kda_records, kda_launches = drive_kimi(card)
+
+        lap("21")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "spn4cir_tpu"))
         assert not bad, f"JAX or the JAX package was imported: {bad}"
@@ -7036,16 +7221,29 @@ def main() -> int:
             return {"ms_at": rec["shape"], **{k: rec[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
+        moe_by_path = {"moonlight": moe_launches,
+                       "kimi": kda_launches["moe_grouped"]}
         entries.append({
             "name": "moe_grouped", "route": "cuda",
             "source": csrc + "moe_grouped.cu", "replaces": None,
-            "launches": moe_launches,
-            "launches_by_path": {"moonlight": moe_launches},
+            "launches": sum(moe_by_path.values()),
+            "launches_by_path": moe_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in moe_records),
             **moe_timing(moe_records[0]),
             "also_at": [moe_timing(r) for r in moe_records[1:]],
             "checks": moe_records})
-        assert len(entries) == 13, len(entries)
+        kda_total = kda_launches["kda_prefill"] + kda_launches["kda_decode"]
+        entries.append({
+            "name": "kda", "route": "cuda", "source": csrc + "kda.cu",
+            "replaces": None, "launches": kda_total,
+            "launches_by_path": {"kimi": kda_total},
+            "launches_by_entry": {k: kda_launches[k] for k in
+                                  ("kda_prefill", "kda_decode")},
+            "max_abs_err": max(r["max_abs_err"] for r in kda_records),
+            **moe_timing(kda_records[0]),
+            "also_at": [moe_timing(r) for r in kda_records[1:]],
+            "checks": kda_records})
+        assert len(entries) == 14, len(entries)
         phase(f"every phase passed in {time.perf_counter() - t_start:.1f} s; "
               f"seconds since the start at the end of each phase: {laps}")
         print(json.dumps({"kernels": entries}), flush=True)

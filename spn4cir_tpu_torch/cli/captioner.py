@@ -25,8 +25,11 @@ and refused: `--tokenizer_path` (an HF LLaMA tokenizer needs
 `--mllm llava` runs `--llava_size tiny` (the byte tokenizer) today.
 `--llava_lm moonlight-16b-a3b` puts Moonlight-16B-A3B (DeepSeek-V3) in the
 LM slot at its published widths, on one GPU, with the byte tokenizer (its
-tiktoken vocabulary is not in the repository); `--llava_size tiny` takes
-the tiny preset of either LM.
+tiktoken vocabulary is not in the repository); `--llava_lm
+kimi-linear-48b-a3b` puts Kimi-Linear-48B-A3B there (KDA and MLA layers,
+64 of each layer's 256 experts: one GPU's share of a four-way
+expert-parallel deployment); `--llava_size tiny` takes the tiny preset of
+each LM.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from spn4cir_tpu_torch.cli.common import (ATTN_KERNEL, CACHE_DTYPES,
 from spn4cir_tpu_torch.data.datasets import CIRDataset
 from spn4cir_tpu_torch.data.transforms import ImageTransform
 from spn4cir_tpu_torch.datagen.captioner import (
-    LLAVA_LMS, MOONLIGHT_BATCH, caption_images, caption_images_batched,
+    LLAVA_LMS, caption_images, caption_images_batched,
     caption_prompt,
     load_caption_checkpoint, load_cc_shard, make_blip_captioner,
     make_llava_captioner, stub_captioner, write_it_list)
@@ -67,10 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tokenizer_path", default="",
                    help="LLaMA tokenizer dir (not yet ported)")
     p.add_argument("--llava_size", default="7b", choices=["7b", "tiny"])
-    p.add_argument("--llava_lm", default="llama-7b", choices=LLAVA_LMS,
+    p.add_argument("--llava_lm", default="llama-7b", choices=tuple(LLAVA_LMS),
                    help="the LLaVA captioner's language model: LLaVA-v1's "
-                        "LLaMA-7B, or Moonlight-16B-A3B (DeepSeek-V3: latent "
-                        "attention, 64 routed + 2 shared experts)")
+                        "LLaMA-7B, Moonlight-16B-A3B (DeepSeek-V3: latent "
+                        "attention, 64 routed + 2 shared experts), or "
+                        "Kimi-Linear-48B-A3B (3 KDA : 1 latent-attention "
+                        "layers; 64 of 256 experts held on this GPU)")
     p.add_argument("--max_new_tokens", type=int, default=64)
     p.add_argument("--mesh_model", type=int, default=0,
                    help="tensor-parallel LLaVA over this many ranks: one "
@@ -160,10 +165,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if args.batch_size == 0:
         # the llava_v1 caption prompt plus 64 new tokens fits the 448 bucket
         from spn4cir_tpu_torch.datagen.llm_rewrite import recommended_llm_batch
-        args.batch_size = (32 if args.mllm == "blip" else
-                           MOONLIGHT_BATCH if (args.llava_lm != "llama-7b"
-                                               and args.llava_size != "tiny")
-                           else recommended_llm_batch(
+        full = (0 if args.llava_size == "tiny"
+                else LLAVA_LMS[args.llava_lm][2])
+        args.batch_size = (32 if args.mllm == "blip" else full
+                           or recommended_llm_batch(
                                448, CACHE_DTYPES.get(args.llm_cache)))
     out_folder, out_name = output_name(args)
     ckpt_path = sidecar_path(args, out_folder, out_name)

@@ -20,7 +20,9 @@ the model-free fallback.
 `make_llava_captioner(mesh=)` runs the tensor-parallel LLaVA: every rank
 of the mesh's model group holds its slice (`models.llava.LlavaCaptioner`).
 `make_llava_captioner(llava_lm="moonlight-16b-a3b")` puts Moonlight-16B-A3B
-(DeepSeek-V3, `models/deepseek_v3.py`) in LLaVA's LM slot, on one device.
+(DeepSeek-V3, `models/deepseek_v3.py`) in LLaVA's LM slot, on one device;
+`llava_lm="kimi-linear-48b-a3b"` puts Kimi-Linear-48B-A3B there, with one
+device's share of its experts (`LlavaConfig.kimi_linear`).
 Not yet ported, and refused: an HF tokenizer (`tokenizer_path=`, it needs
 `transformers`).
 """
@@ -36,11 +38,17 @@ import torch
 
 CAPTION_PROMPT = "please briefly describe the {category} in {num_words} words"
 
-#: the language models of the LLaVA captioner (`make_llava_captioner`)
-LLAVA_LMS = ("llama-7b", "moonlight-16b-a3b")
-#: images a batch with Moonlight: 31.9 GB of bf16 weights leave the card
-#: room for 128 rows of prefill (the benchmark's caption cell)
-MOONLIGHT_BATCH = 128
+#: the language models of the LLaVA captioner (`make_llava_captioner`):
+#: name -> (its `LlavaConfig` constructor at full width, the family of its
+#: tiny preset, images a batch at full width, 0 for `recommended_llm_batch`).
+#: Moonlight's 31.9 GB of bf16 weights leave the card room for 128 rows of
+#: prefill (the benchmark's caption cell); with 64 of Kimi-Linear's 256
+#: experts a layer (28.8 GB of bf16 weights), 256 rows hold 10.7 GB of KDA
+#: state and leave room for their prefill (the benchmark's
+#: `llava-kimi-linear-48b-a3b.caption-b256` cell)
+LLAVA_LMS = {"llama-7b": ("v1_7b", "llama", 0),
+             "moonlight-16b-a3b": ("moonlight", "deepseek", 128),
+             "kimi-linear-48b-a3b": ("kimi_linear", "kimi", 256)}
 
 
 def caption_prompt(category: str, num_words: int = 10) -> str:
@@ -176,17 +184,20 @@ def make_llava_captioner(params=None, *, tokenizer=None,
     still dequantize after the matmul (kernel #12 off, as in the JAX
     captioner). `batch_size=0` takes `recommended_llm_batch(448,
     cache_dtype)` at 7B (the llava_v1 prompt plus 64 new tokens fits the
-    448 bucket), MOONLIGHT_BATCH with Moonlight and 2 at tiny. `mesh`
+    448 bucket), LLAVA_LMS's batch with Moonlight or Kimi-Linear and 2 at
+    tiny. `mesh`
     (`parallel.tp.make_model_mesh`): the tensor-parallel model; every rank
     makes the same calls.
 
-    `llava_lm`: "llama-7b" (LLaVA-v1's LM, the default) or
+    `llava_lm`: "llama-7b" (LLaVA-v1's LM, the default),
     "moonlight-16b-a3b" (Moonlight-16B-A3B's DeepSeek-V3 decoder at its
     published widths, bf16, one device; neither `quantize_weights` nor
-    `mesh`). Its published tiktoken vocabulary is not in the repository:
-    without `tokenizer` it runs the byte tokenizer, whose ids lie inside
-    Moonlight's 163,840. With `llava_size="tiny"` the LM is the tiny preset
-    of the chosen family.
+    `mesh`) or "kimi-linear-48b-a3b" (Kimi-Linear-48B-A3B at its published
+    widths with 64 of each layer's 256 experts, one device's share of a
+    four-way expert-parallel deployment; likewise). Their published
+    tiktoken vocabulary is not in the repository: without `tokenizer` they
+    run the byte tokenizer, whose ids lie inside their 163,840. With
+    `llava_size="tiny"` the LM is the tiny preset of the chosen family.
 
     Returns (captioner, transform, batched_fn) like make_blip_captioner;
     `batched_fn(images, generator=None, prompt=None)` takes a prompt that
@@ -202,12 +213,12 @@ def make_llava_captioner(params=None, *, tokenizer=None,
     from spn4cir_tpu_torch.models.llava import LlavaCaptioner, LlavaConfig
 
     if llava_lm not in LLAVA_LMS:
-        raise ValueError(f"llava_lm must be one of {LLAVA_LMS}, not "
+        raise ValueError(f"llava_lm must be one of {tuple(LLAVA_LMS)}, not "
                          f"{llava_lm!r}")
+    full, family, full_batch = LLAVA_LMS[llava_lm]
     tiny = llava_size == "tiny"
-    moonlight = llava_lm == "moonlight-16b-a3b"
     if tokenizer is None:
-        if not (tiny or moonlight):
+        if not tiny and family == "llama":
             raise ValueError("make_llava_captioner needs tokenizer= (the "
                              "LLaMA sentencepiece assets are not in the "
                              "repository)")
@@ -216,9 +227,9 @@ def make_llava_captioner(params=None, *, tokenizer=None,
     if tiny:
         cfg = LlavaConfig.tiny(
             vocab_size=max(int(getattr(tokenizer, "vocab_size", 128)), 128),
-            lm="deepseek" if moonlight else "llama")
+            lm=family)
     else:
-        cfg = LlavaConfig.moonlight() if moonlight else LlavaConfig.v1_7b()
+        cfg = getattr(LlavaConfig, full)()
     if dtype is None:
         dtype = torch.float32 if tiny else torch.bfloat16
     dev = resolve_device(device) if isinstance(device, str) else device
@@ -232,9 +243,9 @@ def make_llava_captioner(params=None, *, tokenizer=None,
         cap.model.load_state_dict(params)
     if quantize_weights:
         cap.quantize()
-    if batch_size == 0 and (tiny or moonlight):
-        batch_size = 2 if tiny else MOONLIGHT_BATCH
-    elif batch_size == 0:
+    if batch_size == 0:
+        batch_size = 2 if tiny else full_batch
+    if batch_size == 0:
         from spn4cir_tpu_torch.datagen.llm_rewrite import recommended_llm_batch
         batch_size = recommended_llm_batch(448, cache_dtype)
 

@@ -1,6 +1,6 @@
 """LLaVA-v1: the CLIP ViT-L/14 vision tower, the linear projector and a
 decoder LM: LLaMA (LLaVA-v1's own), or DeepSeek-V3 at Moonlight-16B-A3B's
-widths (`models/deepseek_v3.py`) in the same slot.
+widths or Kimi-Linear-48B-A3B's (`models/deepseek_v3.py`) in the same slot.
 
 Counterpart of `spn4cir_tpu/models/llava.py`, under the parameter names of
 HF's `LlavaLlamaForCausalLM`, so a LLaVA state dict loads with
@@ -135,9 +135,22 @@ class LlavaConfig:
                    vision=LlavaVisionConfig())
 
     @classmethod
+    def kimi_linear(cls, experts_held: int = 64,
+                    first_expert: int = 0) -> "LlavaConfig":
+        """LLaVA-v1's tower and projector before Kimi-Linear-48B-A3B, with
+        `experts_held` of each layer's 256 experts from `first_expert` on:
+        by default one device's share of a four-way expert-parallel
+        deployment (the whole model, 98 GB in bf16, fits no one card)."""
+        return cls(llama=DeepseekV3Config.kimi_linear_48b_a3b(
+            experts_held=experts_held, first_expert=first_expert),
+                   vision=LlavaVisionConfig())
+
+    @classmethod
     def tiny(cls, vocab_size: int = 128, lm: str = "llama") -> "LlavaConfig":
-        lm_cfg = (DeepseekV3Config.tiny(vocab_size=vocab_size)
-                  if lm == "deepseek" else LlamaConfig.tiny(vocab_size=vocab_size))
+        """`lm`: "llama", "deepseek" (Moonlight's kind) or "kimi"."""
+        lm_cfg = {"deepseek": DeepseekV3Config.tiny,
+                  "kimi": DeepseekV3Config.tiny_kimi}.get(
+                      lm, LlamaConfig.tiny)(vocab_size=vocab_size)
         return cls(llama=lm_cfg, vision=LlavaVisionConfig.tiny())
 
 

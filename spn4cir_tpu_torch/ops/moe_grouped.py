@@ -22,7 +22,10 @@ The wrapper counts its launches in `moe_grouped.launches` and, on the
 device, the rows and the experts hit of each launch by route (`moe_stats`,
 read once after a window). `moe_combine` gathers each (token, slot) row back
 and sums the slots in a fixed order, in float32: no `index_add_`, no
-atomics, the same bits from launch to launch.
+atomics, the same bits from launch to launch. A layer that holds a share of
+the experts (`models/deepseek_v3.py`) sorts the routes to the others past
+`offsets[-1]`, where #14 computes nothing, and `moe_combine`'s `held` mask
+leaves them out of the sum.
 
 There is no Pallas kernel behind it: the JAX package has no mixture of
 experts.
@@ -31,7 +34,7 @@ experts.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,12 +69,17 @@ def route_permutation(topk_idx: torch.Tensor, experts: int
     return torch.div(order, k, rounding_mode="floor").to(torch.int32), offsets, inv
 
 
-def moe_combine(y: torch.Tensor, inv: torch.Tensor, weights: torch.Tensor
-                ) -> torch.Tensor:
-    """Σ_slot weights[t, slot] · y[inv[t·k + slot]] in float32: (T, D)."""
+def moe_combine(y: torch.Tensor, inv: torch.Tensor, weights: torch.Tensor,
+                held: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ_slot weights[t, slot] · y[inv[t·k + slot]] in float32: (T, D).
+    `held` (T, k) marks the routes that count: the others add nothing
+    (their rows of y were never written)."""
     t, k = weights.shape
     rows = y[inv].view(t, k, -1).float()
-    return (rows * weights[..., None]).sum(dim=1)
+    rows.mul_(weights[..., None])
+    if held is not None:
+        rows.masked_fill_(~held[..., None], 0.0)
+    return rows.sum(dim=1)
 
 
 def moe_grouped_reference(x: torch.Tensor, src: torch.Tensor,

@@ -2063,3 +2063,211 @@ def test_bank_graph_replays_sync_nothing_on_card(bank_graph):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert _bank_counts()[2] == replays + 3
+
+
+# Kimi-Linear-48B-A3B: kernel #15 (`ops/kda.py`, the gated delta rule) and
+# the decoder's KDA layers and expert share at published widths. #15 and
+# its plain version sum in another order in float32: outputs and states
+# within 1e-4 of each other (values O(1), sums of 128 products a step)
+
+def _kda_inputs(device, b, t, h, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h, 128, generator=g, device=device)
+               for _ in range(3))
+    # decays as the published initialisation gives them: most channels
+    # keep their memory over tens of tokens, some over hundreds
+    decay = -torch.exp(torch.rand(b, t, h, 128, generator=g, device=device)
+                       * 7.0 - 6.0)
+    beta = torch.rand(b, t, h, generator=g, device=device)
+    return q, k, v, decay, beta
+
+
+@pytest.mark.cuda
+def test_kda_decode_matches_plain_version_on_card(cuda_device):
+    """The decode entry at the caption cell's shape, (256, 32, 128, 128):
+    one launch reads each state once and writes it back in place."""
+    from spn4cir_tpu_torch.ops import kda as kk
+
+    q, k, v, g, beta = _kda_inputs(cuda_device, 256, 1, 32)
+    state = torch.randn(256, 32, 128, 128, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(1))
+    want_state = state.clone()
+    before = kk.kda_decode.launches
+    with torch.inference_mode():
+        got = kk.kda_decode(q, k, v, g, beta, state)
+        again_state = want_state.clone()
+        again = kk.kda_decode(q, k, v, g, beta, again_state)
+        torch.cuda.synchronize()
+        want = kk.kda_reference(q, k, v, g, beta, want_state, fresh=False)
+    assert kk.kda_decode.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(state, again_state)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(4, 32), (3, 5)])
+def test_kda_prefill_matches_plain_version_on_card(cuda_device, b, h):
+    """The prefill entry over the caption cell's 316 prompt tokens from a
+    zero state (what the state held before is ignored), the final state
+    written, then decode steps from it."""
+    from spn4cir_tpu_torch.ops import kda as kk
+
+    q, k, v, g, beta = _kda_inputs(cuda_device, b, 320, h, seed=b)
+    state = torch.full((b, h, 128, 128), 3.0, device=cuda_device)
+    want_state = torch.empty_like(state)
+    before = kk.kda_prefill.launches
+    with torch.inference_mode():
+        got = kk.kda_prefill(q[:, :316].contiguous(), k[:, :316].contiguous(),
+                             v[:, :316].contiguous(), g[:, :316].contiguous(),
+                             beta[:, :316].contiguous(), state)
+        want = kk.kda_reference(q[:, :316], k[:, :316], v[:, :316],
+                                g[:, :316], beta[:, :316], want_state,
+                                fresh=True)
+        torch.cuda.synchronize()
+        assert kk.kda_prefill.launches == before + 1
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+        for t in range(316, 320):
+            sl = slice(t, t + 1)
+            args = [x[:, sl].contiguous() for x in (q, k, v, g, beta)]
+            o = kk.kda_decode(*args, state)
+            o_want = kk.kda_reference(*args, want_state, fresh=False)
+            torch.testing.assert_close(o, o_want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kda_refuses_what_it_cannot_take(cuda_device):
+    from spn4cir_tpu_torch.ops import kda as kk
+
+    q, k, v, g, beta = _kda_inputs(cuda_device, 2, 1, 4)
+    state = torch.zeros(2, 4, 128, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        kk.kda_decode(q.bfloat16(), k, v, g, beta, state)
+    with pytest.raises(ValueError, match="T = 1"):
+        kk.kda_decode(*(torch.cat([x, x], 1) for x in (q, k, v, g, beta)),
+                      state)
+    with pytest.raises(ValueError, match="kda takes"):
+        kk.kda_prefill(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                       v[..., :64].contiguous(), g[..., :64].contiguous(),
+                       beta, state[..., :64, :64].contiguous())
+
+
+def _kimi_4layer(device):
+    """Kimi-Linear at published widths, 4 layers: KDA, KDA, KDA, MLA (one
+    period), layer 0 dense, 64 of 256 experts held in layers 1-3."""
+    from spn4cir_tpu_torch.models import deepseek_v3 as dv
+
+    cfg = dataclasses.replace(
+        dv.DeepseekV3Config.kimi_linear_48b_a3b(experts_held=64),
+        num_layers=4, kda_layers=(0, 1, 2))
+    model = dv.DeepseekV3ForCausalLM(cfg, device="meta",
+                                     dtype=torch.bfloat16)
+    model.to_empty(device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    with torch.no_grad():     # a selection bias that reorders the choice
+        for layer in model.model.layers[1:]:
+            layer.mlp.gate.e_score_correction_bias.normal_(0.0, 0.1)
+    return dv, cfg, model
+
+
+@pytest.mark.cuda
+def test_kimi_prefill_and_decode_match_reference_on_card(cuda_device):
+    """Prefill then decode through the bf16 latent cache and the float32
+    KDA states, every KDA layer on #15, against the float32 reference's
+    full forward (cirbench/reference/kimi_linear.py) of the same weights at
+    the held share, the reference following the program's experts where a
+    near tie routes them otherwise."""
+    from cirbench.reference.common import Precision, strict_float32
+    from cirbench.reference.kimi_linear import decoder
+    from spn4cir_tpu_torch.ops import kda as kk
+
+    dv, cfg, model = _kimi_4layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (4, 40), generator=g,
+                        device=cuda_device)
+    emb = model.model.embed_tokens.weight[ids]
+    routes = []
+    launches = kk.kda_prefill.launches, kk.kda_decode.launches
+    with torch.inference_mode():
+        state = dv.init_deepseek_state(model, cfg, 4, 40)
+        logits = [dv.deepseek_v3_prefill(
+            model, cfg, state, emb[:, :32],
+            tap=lambda kind, layer, idx: routes.append(idx))[0]]
+        for pos in range(32, 40):
+            logits.append(dv.deepseek_v3_decode_step(
+                model, cfg, state, emb[:, pos], pos,
+                tap=lambda kind, layer, idx: routes.append(idx))[0])
+        got = torch.stack(logits[:-1], 1)                 # positions 31..38
+        params = dict(model.named_parameters())
+        chosen = [torch.cat(routes[li::3], dim=1) for li in range(3)]
+        with strict_float32():
+            ref, stats = decoder(params.__getitem__, emb.float(), cfg.to_hf(),
+                                 range(31, 39), Precision(), chosen=chosen)
+    assert (kk.kda_prefill.launches - launches[0],
+            kk.kda_decode.launches - launches[1]) == (3, 3 * 8)
+    err = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
+    assert float(err.max()) < 3e-2
+    assert stats["routes"] == 3 * 4 * 40
+    assert stats["flips"] <= 0.2 * stats["routes"]
+
+
+def _kimi_generate(dv, model, cfg, emb, graphed, seed=3, new=8):
+    """As `_moonlight_generate`, with the launches of #14 and #15 counted:
+    (ids, taps, launches by wrapper)."""
+    from spn4cir_tpu_torch.ops import kda as kk
+    from spn4cir_tpu_torch.ops import moe_grouped as mg
+
+    wrappers = (kk.kda_prefill, kk.kda_decode, mg.moe_grouped)
+    before = [w.launches for w in wrappers]
+    ids, taps = _moonlight_generate(dv, model, cfg, emb, graphed, seed, new)
+    return ids, taps, [w.launches - n for w, n in zip(wrappers, before)]
+
+
+@pytest.mark.cuda
+def test_kimi_decode_graph_replays_the_eager_steps_bits_on_card(cuda_device):
+    """The 4-layer model at published widths, 16 rows, 32 prompt tokens, 8
+    new tokens: the graphed generation (one eager step, a capture, 6
+    replays) gives the eager body's logits, routes and tokens to the bit,
+    both kinds of state carried by the graph's own buffers; #15's and
+    #14's launches are counted the same under replay as eagerly (3
+    prefill launches, 3 decode launches a step, 3 #14 launches a step)."""
+    dv, cfg, model = _kimi_4layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    emb = torch.randn(16, 32, cfg.hidden_size, generator=g,
+                      device=cuda_device).mul_(0.02).bfloat16()
+    step = dv.deepseek_v3_decode_step
+    *eager, eager_n = _kimi_generate(dv, model, cfg, emb, False)
+    before = (step.eager_steps, step.captures, step.replays)
+    *graphed, graphed_n = _kimi_generate(dv, model, cfg, emb, True)
+    assert (step.eager_steps, step.captures, step.replays) == (
+        before[0] + 1, before[1] + 1, before[2] + 6)
+    _same_bits(graphed, eager)
+    assert graphed_n == eager_n == [3, 3 * 7, 3 * 8]
+    *again, again_n = _kimi_generate(dv, model, cfg, emb, True, seed=5)
+    *ref, ref_n = _kimi_generate(dv, model, cfg, emb, False, seed=5)
+    _same_bits(again, ref)
+    assert again_n == ref_n
+
+
+@pytest.mark.cuda
+def test_kimi_replayed_decode_steps_sync_nothing_on_card(cuda_device):
+    """Once captured, a step of both kinds of layer is two copies and a
+    graph launch: nothing waits for the host."""
+    dv, cfg, model = _kimi_4layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    emb = torch.randn(16, 32, cfg.hidden_size, generator=g,
+                      device=cuda_device).mul_(0.02).bfloat16()
+    _moonlight_generate(dv, model, cfg, emb, True)
+    graph = model._decode_graph
+    x = emb[:, 0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            for pos in range(32, 40):
+                logits = graph.step(model, cfg, x, pos, None)
+                x = model.model.embed_tokens.weight[logits.argmax(-1)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

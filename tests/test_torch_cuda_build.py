@@ -20,6 +20,7 @@ from spn4cir_tpu_torch.ops import attention_kernels as ak
 from spn4cir_tpu_torch.ops import bank_kernels as bk
 from spn4cir_tpu_torch.ops import cuda_build
 from spn4cir_tpu_torch.ops import decode_attn as da
+from spn4cir_tpu_torch.ops import kda as kk
 from spn4cir_tpu_torch.ops import layer_norm as lnk
 from spn4cir_tpu_torch.ops import maxquery_kernels as mk
 from spn4cir_tpu_torch.ops import moe_grouped as moe
@@ -36,6 +37,7 @@ LIBRARIES = {
     "quant_matmul": qm.ENTRY_POINTS,
     "layer_norm": lnk.ENTRY_POINTS,
     "moe_grouped": moe.ENTRY_POINTS,
+    "kda": kk.ENTRY_POINTS,
 }
 
 
@@ -129,7 +131,7 @@ def test_launch_counts_each_success_once(cuda):
 def test_every_launching_wrapper_is_counted():
     """The registry holds each public wrapper that a module hands to
     `launch`, once, and nothing else."""
-    modules = (ak, bk, da, lnk, mk, moe, qm)
+    modules = (ak, bk, da, kk, lnk, mk, moe, qm)
     launched = set()
     for module in modules:
         with open(module.__file__) as f:
@@ -139,7 +141,7 @@ def test_every_launching_wrapper_is_counted():
         "bank_infonce_fwd", "bank_infonce_bwd", "bank_infonce_q8_fwd",
         "bank_infonce_q8_bwd"}
     names = [w.__name__ for w in cuda_build.COUNTED]
-    assert len(names) == len(set(names)) == 15
+    assert len(names) == len(set(names)) == 17
     assert set(names) == launched
     for w in cuda_build.COUNTED:
         assert getattr(__import__(w.__module__, fromlist=["_"]),
